@@ -5,16 +5,27 @@
 
 Phases (any failure propagates and the script exits non-zero):
   1. require a CUDA device; print the card's name and power limit;
-  2. build the CUDA kernels from ``sduss_tpu_torch/csrc`` (timed);
+  2. build the CUDA kernels from ``sduss_tpu_torch/csrc`` (one nvcc per
+     source, run together; timed);
   3. hold each kernel against its plain PyTorch version on the card at the
-     shapes the serving path gives it, and time both with CUDA events;
-     hold one full-width SDXL transformer block on the card (bf16, through
-     the kernel) against the same block on the CPU (float32, plain path);
-  4. serve three SDXL requests at full width (random weights from a seed)
-     through ``DiffusionPipeline.generate`` and check the images, that no
-     request aborted and that the serving path launched the kernel; read
-     the denoise step time of the two-request 1024^2 batch;
-  5. print the kernels' JSON line, then the result line
+     shapes the serving paths give it, and time the kernel, the plain
+     version and, where one PyTorch call computes the same function, that
+     call (``scaled_dot_product_attention``) with CUDA events: K1
+     (flash_mha_fused), the masked flash attention K2b/K3a
+     (flash_mha_masked, including batch rows with no valid key) and K4
+     (gn_silu_halo); hold one full-width SDXL transformer block on the card
+     (bf16, through K1) against the same block on the CPU (float32);
+  4. hold one full-width SDXL UNet forward on a 768^2 + 1024^2 patch batch
+     against the dense forward of each image (bf16, on the card);
+  5. dense serving: three SDXL requests at full width (random weights from a
+     seed) through ``DiffusionPipeline.generate`` with mixed batches off;
+     check the images and that the path launched K1; read the step time of
+     the two-request 1024^2 batch;
+  6. mixed serving: [768, 1024, 1024, 1024] with the default configuration
+     (one patched UNet step per iteration); check the mixed batch in the
+     schedule log, the images and that the path launched K4 and the masked
+     kernel; read the mixed step time;
+  7. print the kernels' JSON line, then the result line
      ``{"ok": true, "device": {...}}`` last.
 """
 
@@ -27,11 +38,19 @@ import time
 import numpy as np
 import torch
 
+import torch.nn.functional as F
+
 from sduss_tpu_torch import configure_numerics
 from sduss_tpu_torch.entrypoints.offline import DiffusionPipeline, default_config
+from sduss_tpu_torch.models.registry import ModelBundle
 from sduss_tpu_torch.models.unet import BasicTransformerBlock
-from sduss_tpu_torch.ops import _build
-from sduss_tpu_torch.ops.flash import flash_mha_fused, flash_mha_fused_reference
+from sduss_tpu_torch.ops import _build, patching
+from sduss_tpu_torch.ops.flash import (flash_mha_fused, flash_mha_fused_reference,
+                                       flash_mha_masked,
+                                       flash_mha_masked_reference)
+from sduss_tpu_torch.ops.gn_halo import (gn_silu_halo, gn_silu_halo_reference,
+                                         moments)
+from sduss_tpu_torch.ops.patch_ctx import PatchContext
 
 # K1 against its plain version (float32 softmax(q k^T) v, rounded to bf16
 # once), on N(0, 1) bf16 inputs, relative to the output's scale:
@@ -43,14 +62,35 @@ from sduss_tpu_torch.ops.flash import flash_mha_fused, flash_mha_fused_reference
 K1_MAX_REL = 2.0 ** -6
 K1_RMS_REL = 5e-3
 BLOCK_BOUND = 5e-2   # bf16 card block vs fp32 CPU block, max error / max |ref|
+# patched vs dense full-width UNet, both bf16 on the card, max error /
+# max |dense|: the per-image statistics and attention sum in another order
+PATCH_BOUND = 5e-2
+# K4 against its plain version: both compute in float32 and round to bf16
+# once, so they differ by at most one bf16 ulp at the output's scale
+K4_MAX_REL = 2.0 ** -7
 K1_SHAPES = [        # (B, Lq, Lk, D, H)
     (2, 4096, 4096, 640, 10),   # SDXL level 1 at 1024^2
     (2, 1024, 1024, 1280, 20),  # SDXL level 2 at 1024^2
     (3, 1000, 1000, 640, 10),   # ragged query and key tiles
     (3, 1000, 65, 640, 10),     # last key tile 1 real key + 63 padded
 ]
+# The mixed serving phase's class groups (768^2 + 3 x 1024^2, CFG-doubled:
+# the 1024^2 class has 6 real of 8 image slots): (B, L, D, H, dead rows),
+# plus one random-mask case with ragged tiles (dead rows None).
+MASKED_SHAPES = [
+    (8, 4096, 640, 10, 2),    # 1024^2 class, level 1
+    (2, 2304, 640, 10, 0),    # 768^2 class, level 1
+    (8, 1024, 1280, 20, 2),   # 1024^2 class, level 2
+    (2, 576, 1280, 20, 0),    # 768^2 class, level 2
+    (3, 1000, 640, 10, None),  # random mask, ragged
+]
+K4_SHAPES = [(32, 320), (16, 640), (8, 1280)]  # (s, C) at SDXL levels 0-2
 REQUESTS = [1024, 1024, 768]
+MIXED_REQUESTS = [768, 1024, 1024, 1024]
 STEPS = 8
+# H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores, HBM3
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_S = 3.35e12
 
 
 def card_line() -> str:
@@ -72,6 +112,28 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(flops: float, nbytes: float) -> tuple:
+    """(least ms the card could take, what bounds it): the larger of the
+    operations at the bf16 tensor-core peak and the bytes at the memory
+    rate."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def sdpa(q, k, v, h, scale, mask=None):
+    """The one PyTorch call computing the same attention (timed only)."""
+    b, lq, d = q.shape
+
+    def heads(x):
+        return x.view(b, x.shape[1], h, d // h).transpose(1, 2)
+
+    return F.scaled_dot_product_attention(
+        heads(q), heads(k), heads(v),
+        attn_mask=None if mask is None else mask[:, None, None, :],
+        scale=scale)
 
 
 def k1_errors(out, ref) -> tuple:
@@ -111,12 +173,142 @@ def check_k1(card: str) -> dict:
             k1 = cuda_ms(lambda: flash_mha_fused(q, k, v, h, scale), 20)
             k2 = cuda_ms(lambda: flash_mha_fused(q, k, v, h, scale), 20)
             p2 = cuda_ms(lambda: flash_mha_fused_reference(q, k, v, h, scale), 5)
+            lib = cuda_ms(lambda: sdpa(q, k, v, h, scale), 20)
             kms, pms = (k1 + k2) / 2, (p1 + p2) / 2
             flops = 4.0 * b * h * lq * lk * (d // h)
+            bms, by = bound(flops, 2.0 * (q.numel() + k.numel() + v.numel()
+                                          + q.numel()))
             print(f"K1 time {shape}: kernel {kms:.4f} ms "
-                  f"({flops / kms / 1e9:.1f} TFLOP/s), plain {pms:.4f} ms "
-                  f"[{card}]")
-            times[shape] = (kms, pms)
+                  f"({flops / kms / 1e9:.1f} TFLOP/s), plain {pms:.4f} ms, "
+                  f"sdpa {lib:.4f} ms, bound {bms:.4f} ms ({by}) [{card}]")
+            times[shape] = {"ms": kms, "plain_ms": pms, "library_ms": lib,
+                            "bound_ms": bms, "bound_by": by}
+    return {"max_abs_err": worst, "times": times}
+
+
+def masked_inputs(gen, shape):
+    """bf16 N(0, 1) q, k, v and the (B, L) key mask of one masked case."""
+    b, length, d, h, dead = shape
+    dev = gen.device
+    q, k, v = (torch.randn(b, length, d, generator=gen, device=dev,
+                           dtype=torch.bfloat16) for _ in range(3))
+    if dead is None:
+        mask = torch.rand(b, length, generator=gen, device=dev) > 0.3
+        mask[:, :64] = False   # a whole key tile masked
+        mask[:, -1] = True
+    else:
+        mask = torch.ones(b, length, dtype=torch.bool, device=dev)
+        mask[b - dead:] = False  # padded image slots: no valid key
+    return q, k, v, mask
+
+
+def check_masked(card: str) -> dict:
+    """The masked flash kernel against its plain version at the mixed
+    path's class-group shapes, over rows with a valid key (same bounds as
+    K1); rows with none must be exactly 0 (finite).  Timed beside the plain
+    version and SDPA with the same boolean mask."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    worst, times = 0.0, {}
+    for shape in MASKED_SHAPES:
+        b, length, d, h, dead = shape
+        q, k, v, mask = masked_inputs(gen, shape)
+        scale = 1.0 / np.sqrt(d // h)
+        out = flash_mha_masked(q, k, v, mask, h, scale)
+        ref = flash_mha_masked_reference(q, k, v, mask, h, scale)
+        torch.cuda.synchronize()
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"masked flash non-finite at {shape}")
+        live = mask.any(dim=1)
+        if not (out[~live] == 0).all():
+            raise AssertionError(f"masked flash: rows with no valid key are "
+                                 f"not zero at {shape}")
+        err, max_rel, rms_rel = k1_errors(out[live], ref[live])
+        print(f"masked flash_mha_masked {shape}: {int((~live).sum())} rows "
+              f"with no valid key (zeros); max_abs_err {err:.3e}, / max|plain| "
+              f"{max_rel:.3e} (bound {K1_MAX_REL:.3e}), rel RMS {rms_rel:.3e} "
+              f"(bound {K1_RMS_REL:.0e})")
+        if not (max_rel <= K1_MAX_REL and rms_rel <= K1_RMS_REL):
+            raise AssertionError(f"masked flash disagrees with its plain "
+                                 f"version at {shape}: {max_rel}, {rms_rel}")
+        worst = max(worst, err)
+        if dead is not None:
+            p1 = cuda_ms(lambda: flash_mha_masked_reference(q, k, v, mask, h,
+                                                            scale), 3)
+            k1 = cuda_ms(lambda: flash_mha_masked(q, k, v, mask, h, scale), 10)
+            k2 = cuda_ms(lambda: flash_mha_masked(q, k, v, mask, h, scale), 10)
+            p2 = cuda_ms(lambda: flash_mha_masked_reference(q, k, v, mask, h,
+                                                            scale), 3)
+            lib = cuda_ms(lambda: sdpa(q, k, v, h, scale, mask), 10)
+            kms, pms = (k1 + k2) / 2, (p1 + p2) / 2
+            # the work these inputs need: every query row of a batch row
+            # against that row's valid keys
+            flops = 4.0 * h * (d // h) * length * mask.sum().item()
+            bms, by = bound(flops, 2.0 * 4 * q.numel() + mask.numel())
+            print(f"masked time {shape}: kernel {kms:.4f} ms "
+                  f"({flops / kms / 1e9:.1f} TFLOP/s), plain {pms:.4f} ms, "
+                  f"sdpa {lib:.4f} ms, bound {bms:.4f} ms ({by}) [{card}]")
+            times[shape] = {"ms": kms, "plain_ms": pms, "library_ms": lib,
+                            "bound_ms": bms, "bound_by": by}
+    return {"max_abs_err": worst, "times": times}
+
+
+def mixed_meta():
+    """The CFG-doubled patch metadata of the mixed serving phase."""
+    sc = default_config("sdxl").scheduler
+    grids = tuple(r // 8 // (sc.patch_size // 8) for r in MIXED_REQUESTS)
+    return patching.double_meta(grids, sc.patch_size // 8,
+                                tuple(sc.patch_buckets), tuple(sc.batch_buckets))
+
+
+def check_k4(card: str) -> dict:
+    """K4 against its plain version on the mixed phase's doubled patch batch
+    (128 patches of 8 image slots, real border patches and a dummy image)
+    at SDXL's three (s, C); halo cells of -1 neighbours must be exactly 0."""
+    meta = mixed_meta()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    image_id = torch.from_numpy(meta.image_id).cuda()
+    nb = neighbors = torch.from_numpy(meta.neighbors).cuda()
+    worst, times = 0.0, {}
+    for s, c in K4_SHAPES:
+        shape = (meta.p_pad, s, c)
+        x = (1.5 * torch.randn(meta.p_pad, c, s, s, generator=gen,
+                               device="cuda") + 0.2).to(torch.bfloat16)
+        w = torch.randn(c, generator=gen, device="cuda")
+        bias = torch.randn(c, generator=gen, device="cuda")
+        mean, var = moments(x, image_id, meta.i_pad, 32)
+        rstd = torch.rsqrt(var + 1e-5)
+        out = gn_silu_halo(x, image_id, neighbors, mean, rstd, w, bias)
+        ref = gn_silu_halo_reference(x, image_id, neighbors, mean, rstd, w,
+                                     bias)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        max_rel = err / ref.float().abs().max().item()
+        borders = [out[nb[:, 0] < 0][:, :, 0, :], out[nb[:, 1] < 0][:, :, -1, :],
+                   out[nb[:, 2] < 0][:, :, :, 0], out[nb[:, 3] < 0][:, :, :, -1]]
+        if not all((t == 0).all() for t in borders):
+            raise AssertionError(f"K4 halo of an image border not zero at "
+                                 f"{shape}")
+        print(f"K4 gn_silu_halo (P, s, C) {shape}: max_abs_err {err:.3e}, "
+              f"/ max|plain| {max_rel:.3e} (bound {K4_MAX_REL:.3e})")
+        if not max_rel <= K4_MAX_REL:
+            raise AssertionError(f"K4 disagrees with its plain version at "
+                                 f"{shape}: {max_rel}")
+        worst = max(worst, err)
+        args = (x, image_id, neighbors, mean, rstd, w, bias)
+        p1 = cuda_ms(lambda: gn_silu_halo_reference(*args), 5)
+        k1 = cuda_ms(lambda: gn_silu_halo(*args), 20)
+        k2 = cuda_ms(lambda: gn_silu_halo(*args), 20)
+        p2 = cuda_ms(lambda: gn_silu_halo_reference(*args), 5)
+        kms, pms = (k1 + k2) / 2, (p1 + p2) / 2
+        # bf16 in and out, the folded float32 A/B tables, the index arrays
+        nbytes = (2.0 * (x.numel() + out.numel()) + 2 * 4 * meta.i_pad * c
+                  + 4 * 9 * meta.p_pad)
+        bms, by = bound(2.0 * out.numel(), nbytes)
+        print(f"K4 time {shape}: kernel {kms:.4f} ms "
+              f"({nbytes / kms / 1e6:.1f} GB/s), plain {pms:.4f} ms, bound "
+              f"{bms:.4f} ms ({by}) [{card}]")
+        times[shape] = {"ms": kms, "plain_ms": pms, "library_ms": None,
+                        "bound_ms": bms, "bound_by": by}
     return {"max_abs_err": worst, "times": times}
 
 
@@ -146,15 +338,101 @@ def check_block() -> None:
         raise AssertionError(f"transformer block disagrees with CPU: {rel}")
 
 
-def serve(card: str) -> int:
-    torch.cuda.reset_peak_memory_stats()
+def build_bundle() -> ModelBundle:
     t0 = time.perf_counter()
-    config = default_config("sdxl", dtype="bfloat16", seed=0)
-    config.engine.collect_data = True  # per-iteration schedule log
-    pipe = DiffusionPipeline(config=config, device="cuda")
+    bundle = ModelBundle("sdxl", dtype=torch.bfloat16, device="cuda")
+    bundle.init_random(seed=0)
     torch.cuda.synchronize()
     print(f"SDXL bundle built (random bf16 weights, fp32 VAE) in "
           f"{time.perf_counter() - t0:.1f} s")
+    return bundle
+
+
+def check_patched(bundle: ModelBundle) -> None:
+    """One full-width UNet forward on a 768^2 + 1024^2 patch batch (bf16)
+    against the dense forward of each image."""
+    unet = bundle.denoiser
+    sc = default_config("sdxl").scheduler
+    cells = sc.patch_size // 8
+    res = [768, 1024]
+    grids = tuple(r // 8 // cells for r in res)
+    meta = patching.build_meta(grids, cells, tuple(sc.patch_buckets),
+                               tuple(sc.batch_buckets))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    images = [rand(1, r // 8, r // 8, 4) for r in res]
+    t = torch.tensor([700.0, 300.0], device="cuda")
+    ehs, pooled = rand(2, 77, 2048), rand(2, 1280)
+    time_ids = torch.tensor([[r, r, 0, 0, r, r] for r in res],
+                            dtype=torch.float32, device="cuda")
+
+    def pad(x, rows):
+        return torch.cat([x, x.new_zeros((rows - x.shape[0],) + x.shape[1:])])
+
+    x = pad(torch.cat([patching.split_latent(im, cells) for im in images]),
+            meta.p_pad)
+    with torch.inference_mode():
+        out = unet(x, pad(t, meta.i_pad), pad(ehs, meta.i_pad),
+                   added_cond={"text_embeds": pad(pooled, meta.i_pad),
+                               "time_ids": pad(time_ids, meta.i_pad)},
+                   ctx=PatchContext(meta, "cuda"))
+        off = 0
+        for i, g in enumerate(grids):
+            dense = unet(images[i], t[i:i + 1], ehs[i:i + 1],
+                         added_cond={"text_embeds": pooled[i:i + 1],
+                                     "time_ids": time_ids[i:i + 1]})
+            got = patching.merge_patches(out[off:off + g * g], g)
+            off += g * g
+            rel = ((got.float() - dense.float()).abs().max()
+                   / dense.float().abs().max()).item()
+            print(f"SDXL UNet {res[i]}^2 patched (in a {res} patch batch) vs "
+                  f"dense, bf16 on the card: max err / max |dense| {rel:.3e} "
+                  f"(bound {PATCH_BOUND:.0e})")
+            if not (np.isfinite(rel) and rel <= PATCH_BOUND):
+                raise AssertionError(f"patched UNet disagrees with dense at "
+                                     f"{res[i]}: {rel}")
+
+
+def check_outputs(outs, resolutions, card: str) -> None:
+    if len(outs) != len(resolutions):
+        raise AssertionError(f"{len(outs)} outputs for {len(resolutions)} "
+                             f"requests")
+    for o, res in zip(outs, resolutions):
+        if o.aborted or not o.finished:
+            raise AssertionError(f"request {o.request_id} aborted/unfinished")
+        img = o.image
+        if img.dtype != np.uint8 or img.shape != (res, res, 3):
+            raise AssertionError(f"bad image {img.dtype} {img.shape}")
+        if img.std() == 0:
+            raise AssertionError("constant image")
+        print(f"request {o.request_id} {res}x{res}: latency "
+              f"{o.e2e_latency_s:.3f} s, image mean {img.mean():.2f} "
+              f"std {img.std():.2f} [{card}]")
+
+
+def step_gaps(log, resolutions: str, label: str, card: str) -> float:
+    """Device step time of one batch: the gaps between its consecutive
+    DENOISING iterations in the schedule log.  With the worker's bounded
+    runahead each iteration waits for an earlier step, so past the first
+    two the gap is the device step time."""
+    starts = [e["time"] for e in log
+              if e["stage"] == "denoising" and e["resolutions"] == resolutions]
+    gaps = np.diff(starts)[2:] * 1e3
+    print(f"denoise step, {label}: mean {gaps.mean():.2f} ms over {len(gaps)} "
+          f"steps (min {gaps.min():.2f}, max {gaps.max():.2f}) [{card}]")
+    return float(gaps.mean())
+
+
+def serve(card: str, bundle: ModelBundle) -> int:
+    torch.cuda.reset_peak_memory_stats()
+    config = default_config("sdxl", dtype="bfloat16", seed=0)
+    config.scheduler.use_mixed_resolution = False  # the dense path
+    config.engine.collect_data = True  # per-iteration schedule log
+    pipe = DiffusionPipeline(config=config, device="cuda", bundle=bundle)
     unet = pipe.engine.worker.pipeline.bundle.denoiser
     n_self = sum(isinstance(m, BasicTransformerBlock) for m in unet.modules())
     prompts = ["a lighthouse on a cliff at dusk", "a bowl of ramen, studio photo",
@@ -168,19 +446,7 @@ def serve(card: str) -> int:
     wall = time.perf_counter() - t0
     launches = flash_mha_fused.launches
 
-    if len(outs) != len(prompts):
-        raise AssertionError(f"{len(outs)} outputs for {len(prompts)} requests")
-    for o, res in zip(outs, REQUESTS):
-        if o.aborted or not o.finished:
-            raise AssertionError(f"request {o.request_id} aborted/unfinished")
-        img = o.image
-        if img.dtype != np.uint8 or img.shape != (res, res, 3):
-            raise AssertionError(f"bad image {img.dtype} {img.shape}")
-        if img.std() == 0:
-            raise AssertionError("constant image")
-        print(f"request {o.request_id} {res}x{res}: latency "
-              f"{o.e2e_latency_s:.3f} s, image mean {img.mean():.2f} "
-              f"std {img.std():.2f} [{card}]")
+    check_outputs(outs, REQUESTS, card)
     # two single-resolution groups (1024 pair, then 768), STEPS steps each
     expected = n_self * STEPS * len(set(REQUESTS))
     print(f"serving: {len(outs)} requests in {wall:.3f} s, K1 launches "
@@ -195,20 +461,74 @@ def serve(card: str) -> int:
     if lat.shape != (96, 96, 4) or not np.isfinite(lat).all():
         raise AssertionError(f"bad latents {lat.shape}")
 
-    # denoise step time of the 1024^2 pair (4 UNet rows with CFG): gaps
-    # between its consecutive DENOISING iterations in the schedule log.
-    # With the worker's bounded runahead each iteration waits for an
-    # earlier step, so past the first two the gap is the device step time.
-    log = pipe.engine.worker.schedule_log
-    starts = [e["time"] for e in log
-              if e["stage"] == "denoising" and e["resolutions"] == "1024x2"]
-    gaps = np.diff(starts)[2:] * 1e3
-    print(f"denoise step, batch 2 x 1024^2 (CFG 4 rows): mean "
-          f"{gaps.mean():.2f} ms over {len(gaps)} steps "
-          f"(min {gaps.min():.2f}, max {gaps.max():.2f}) [{card}]")
+    # the 1024^2 pair (4 UNet rows with CFG)
+    step_gaps(pipe.engine.worker.schedule_log, "1024x2",
+              "batch 2 x 1024^2 (CFG 4 rows)", card)
     print(f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} "
           f"GiB [{card}]")
     return launches
+
+
+def serve_mixed(card: str, bundle: ModelBundle) -> tuple:
+    """The default configuration: one mixed 768^2 + 3 x 1024^2 DENOISING
+    batch per iteration, one patched UNet forward each."""
+    torch.cuda.reset_peak_memory_stats()
+    config = default_config("sdxl", dtype="bfloat16", seed=0)
+    config.engine.collect_data = True
+    pipe = DiffusionPipeline(config=config, device="cuda", bundle=bundle)
+    if not (config.scheduler.use_mixed_resolution
+            and config.scheduler.policy == "fcfs_mixed"):
+        raise AssertionError("the default configuration is not the mixed path")
+    unet = pipe.engine.worker.pipeline.bundle.denoiser
+    n_self = sum(isinstance(m, BasicTransformerBlock) for m in unet.modules())
+    n_k4 = 2 * len([m for m in unet.modules()
+                    if type(m).__name__ == "ResnetBlock2D"]) + 1
+    prompts = ["a red fox in snow", "a harbor at night, long exposure",
+               "a watercolor of a mountain lake", "a robot reading a book"]
+
+    flash_mha_masked.launches = gn_silu_halo.launches = 0
+    flash_mha_fused.launches = 0
+    t0 = time.perf_counter()
+    outs = pipe.generate(prompts, resolution=MIXED_REQUESTS,
+                         num_inference_steps=STEPS, seed=99)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    masked, k4 = flash_mha_masked.launches, gn_silu_halo.launches
+    dense_k1 = flash_mha_fused.launches
+
+    check_outputs(outs, MIXED_REQUESTS, card)
+    log = pipe.engine.worker.schedule_log
+    key = ";".join(f"{r}x{MIXED_REQUESTS.count(r)}"
+                   for r in sorted(set(MIXED_REQUESTS)))
+    batches = [e["resolutions"] for e in log if e["stage"] == "denoising"]
+    if batches != [key] * STEPS:
+        raise AssertionError(f"expected {STEPS} mixed DENOISING batches "
+                             f"{key}, got {batches}")
+    classes = len(set(MIXED_REQUESTS))
+    want_masked = n_self * classes * STEPS
+    want_k4 = n_k4 * STEPS
+    print(f"mixed serving: {len(outs)} requests in {wall:.3f} s; DENOISING "
+          f"batches {batches[0]} x {len(batches)}; masked flash launches "
+          f"{masked} (expected >= {want_masked}: {n_self} self-attentions x "
+          f"{classes} classes x {STEPS} steps), K4 launches {k4} (expected "
+          f">= {want_k4}: {n_k4} per forward x {STEPS} steps), K1 launches "
+          f"{dense_k1}")
+    if masked < want_masked or k4 < want_k4:
+        raise AssertionError("the mixed path did not go through its kernels")
+
+    meta = mixed_meta()
+    step_gaps(log, key, f"mixed {key} patch batch (CFG: {meta.p_pad} "
+              f"patches of {meta.patch_cells}^2, {meta.n_patches} real)", card)
+    peak = torch.cuda.max_memory_allocated()
+
+    # final latents are finite (the uint8 cast would hide NaN)
+    lat = pipe.generate(prompts, resolution=MIXED_REQUESTS,
+                        num_inference_steps=2, seed=7, output_type="latent")
+    for o, r in zip(lat, MIXED_REQUESTS):
+        if o.image.shape != (r // 8, r // 8, 4) or not np.isfinite(o.image).all():
+            raise AssertionError(f"bad mixed latents {o.image.shape}")
+    print(f"max_memory_allocated {peak / 2**30:.2f} GiB [{card}]")
+    return masked, k4
 
 
 def main() -> None:
@@ -228,17 +548,30 @@ def main() -> None:
             print(line.strip())
 
     k1 = check_k1(card)
+    masked = check_masked(card)
+    k4 = check_k4(card)
     check_block()
-    launches = serve(card)
+    bundle = build_bundle()
+    check_patched(bundle)
+    k1_launches = serve(card, bundle)
+    masked_launches, k4_launches = serve_mixed(card, bundle)
 
-    kms, pms = k1["times"][K1_SHAPES[0]]
+    kernels = [
+        ("flash_mha_fused", "sduss_tpu_torch/csrc/flash_fused.cu",
+         "sduss_tpu/ops/flash.py:373", k1_launches, k1, K1_SHAPES[0]),
+        ("flash_mha_masked", "sduss_tpu_torch/csrc/flash_fused.cu",
+         "sduss_tpu/ops/flash.py:579", masked_launches, masked,
+         MASKED_SHAPES[0]),
+        ("gn_silu_halo", "sduss_tpu_torch/csrc/gn_halo.cu",
+         "sduss_tpu/ops/gn_halo.py:196", k4_launches, k4,
+         (mixed_meta().p_pad,) + K4_SHAPES[0]),
+    ]
     print(card)
-    print(json.dumps({"kernels": [{
-        "name": "flash_mha_fused", "route": "cuda",
-        "source": "sduss_tpu_torch/csrc/flash_fused.cu",
-        "replaces": "sduss_tpu/ops/flash.py:373",
-        "launches": launches, "max_abs_err": k1["max_abs_err"],
-        "ms": kms, "plain_ms": pms}]}))
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": n, "max_abs_err": res["max_abs_err"],
+         **res["times"][shape]}
+        for name, src, rep, n, res, shape in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

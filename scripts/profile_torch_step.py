@@ -16,7 +16,11 @@ and measures, printing one line each:
      kernel K1 and through its plain PyTorch version, alternated K1, plain,
      plain, K1.  For the plain phase only, this script rebinds the
      dispatcher's kernel entry (``ops.attention.flash_mha_fused``) to
-     ``flash_mha_fused_reference``; the package itself has no such switch.
+     ``flash_mha_fused_reference``; the package itself has no such switch;
+  4. the mixed step of 768^2 + 3 x 1024^2 (one patched UNet forward,
+     ``denoise_step_mixed``) under the profiler as in 1, and its wall ms
+     against the same four requests as two dense per-resolution forwards
+     (``denoise_step``), alternated mixed, dense, dense, mixed.
 
 The last line is a JSON object with every number; ``--out`` also writes it
 to a file.
@@ -35,7 +39,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from sduss_tpu.request import Request, SamplingParams  # noqa: E402
+from sduss_tpu_torch.request import Request, SamplingParams  # noqa: E402
 from sduss_tpu_torch import configure_numerics  # noqa: E402
 from sduss_tpu_torch.entrypoints.offline import default_config  # noqa: E402
 from sduss_tpu_torch.ops import attention as attn_ops  # noqa: E402
@@ -47,7 +51,9 @@ STEPS_PER_REQUEST = 50  # sampler table long enough for every timed step
 
 # op classes by kernel name, first match wins
 OP_CLASSES = [
+    ("masked flash attention", ("mha_fused_kernel<true>",)),
     ("K1 self-attention", ("mha_fused",)),
+    ("K4 gn+silu+halo", ("gn_halo",)),
     ("convolution", ("conv", "fprop", "dgrad", "wgrad", "implicit")),
     ("matmul", ("gemm", "xmma", "cutlass", "cublas", "nvjet")),
     ("reduction / softmax / cat", ("reduce", "softmax", "cat", "norm")),
@@ -95,7 +101,12 @@ def op_class(name: str) -> str:
 
 def profile_step(pipe, steps: int) -> dict:
     reqs = prepared(pipe, 2, tag="prof")
-    step = lambda: pipe.denoise_step({RES: reqs})  # noqa: E731
+    return profile(lambda: pipe.denoise_step({RES: reqs}), steps)
+
+
+def profile(step, steps: int) -> dict:
+    """Wall ms per step, device-busy ms per step and device ms by op class
+    of ``steps`` calls of ``step``."""
     wall = cuda_ms(step, steps)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -160,6 +171,32 @@ def k1_vs_plain(pipe, steps: int) -> dict:
     return out
 
 
+MIXED = [768, 1024, 1024, 1024]
+
+
+def mixed_vs_dense(pipe, steps: int) -> dict:
+    """The mixed step's profile, and its wall ms against two dense
+    per-resolution forwards of the same requests, alternated."""
+    by_res: dict = {}
+    for res in sorted(set(MIXED)):
+        by_res[res] = prepared(pipe, MIXED.count(res), res=res, tag=f"mx{res}_")
+    prof = profile(lambda: pipe.denoise_step_mixed(by_res), steps)
+    row = {"mixed": [], "dense": []}
+    for variant in ("mixed", "dense", "dense", "mixed"):
+        fn = (pipe.denoise_step_mixed if variant == "mixed"
+              else pipe.denoise_step)
+        row[variant].append(cuda_ms(lambda: fn(by_res), steps))
+    return {"profile": prof, "mixed_vs_dense": row}
+
+
+def print_profile(prof: dict) -> None:
+    for cls, v in prof["classes"].items():
+        print(f"  {cls:28s} {v['ms']:8.2f} ms/step  {v['calls']:5d} kernels "
+              f"{v['ms'] / prof['busy_ms']:6.1%}")
+    for k in prof["top_kernels"]:
+        print(f"    {k['ms']:8.2f} ms/step  {k['name']}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=3,
@@ -181,11 +218,7 @@ def main() -> None:
     print(f"step 1024^2 batch 2: wall {prof['wall_ms']:.2f} ms, device busy "
           f"{prof['busy_ms']:.2f} ms ({prof['busy_ms'] / prof['wall_ms']:.1%}) "
           f"[{card}]")
-    for cls, v in prof["classes"].items():
-        print(f"  {cls:28s} {v['ms']:8.2f} ms/step  {v['calls']:5d} kernels "
-              f"{v['ms'] / prof['busy_ms']:6.1%}")
-    for k in prof["top_kernels"]:
-        print(f"    {k['ms']:8.2f} ms/step  {k['name']}")
+    print_profile(prof)
     stages = stage_times(pipe)
     print("stages: " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
           + f" [{card}]")
@@ -194,8 +227,19 @@ def main() -> None:
         print(f"step 1024^2 {batch}: K1 "
               + "/".join(f"{x:.2f}" for x in row["k1"]) + " ms, plain "
               + "/".join(f"{x:.2f}" for x in row["plain"]) + f" ms [{card}]")
+    mixed = mixed_vs_dense(pipe, args.steps)
+    mp = mixed["profile"]
+    key = ";".join(f"{r}x{MIXED.count(r)}" for r in sorted(set(MIXED)))
+    print(f"mixed step {key}: wall {mp['wall_ms']:.2f} ms, device busy "
+          f"{mp['busy_ms']:.2f} ms ({mp['busy_ms'] / mp['wall_ms']:.1%}) "
+          f"[{card}]")
+    print_profile(mp)
+    row = mixed["mixed_vs_dense"]
+    print(f"mixed {key}: patched " + "/".join(f"{x:.2f}" for x in row["mixed"])
+          + " ms, two dense forwards "
+          + "/".join(f"{x:.2f}" for x in row["dense"]) + f" ms [{card}]")
     result = {"card": card, "profile": prof, "stages": stages,
-              "k1_vs_plain": ab}
+              "k1_vs_plain": ab, "mixed": mixed}
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(result, indent=1))

@@ -1,7 +1,14 @@
 // Model-layout flash self-attention for Hopper (sm_90a), bf16 in/out.
 //
-// Replaces sduss_tpu/ops/flash.py::_mha_fused_kernel (the Pallas TPU kernel
-// behind flash_mha_fused): softmax(Q K^T * scale) V over (B, L, D) tensors
+// Two kernels from one template:
+//   K1, MASKED = false: replaces sduss_tpu/ops/flash.py::_mha_fused_kernel
+//       (the Pallas TPU kernel behind flash_mha_fused);
+//   K2b/K3a, MASKED = true: replaces sduss_tpu/ops/flash.py::_mha_kernel_2pass
+//       and ::_mha_kernel_masked (flash_mha with kv_mask), which compute the
+//       same function, the first by a two-pass and the second by an online
+//       softmax.  The mask is one byte per (batch row, key); masked keys get
+//       -inf before the row max.
+// Both compute softmax(Q K^T * scale) V over (B, L, D) tensors
 // whose heads are column slices of D (head h at columns [h*64, h*64+64)),
 // so no head transposes are ever materialized.  Computes what the TPU
 // kernel computes, not its tiling: the TPU kernel holds whole K/V rows in
@@ -28,6 +35,17 @@
 // writes bf16 probabilities and round-trips the f32 output accumulator.  The fast
 // version keeps S/P/O in registers (mma.sync or wgmma layouts) and
 // pipelines K/V loads with cp.async/TMA.
+//
+// Masked variant: every row of a block belongs to one batch row, so the
+// mask of a key tile is the same for all of the block's rows.  The block
+// reads the tile's 64 mask bytes first and skips the tile entirely (no K/V
+// load, no math) when none is set; a processed tile has >= 1 valid key, so
+// every row's running max stays finite and exp2(-inf - m) is 0 for masked
+// keys.  A batch row whose keys are all masked (a padded image slot of the
+// patch path) processes no tile: l stays 0 and its output is written as
+// zeros, a defined finite value.  Skipped tiles also cost nothing, so the
+// work follows the real keys.  The bound is as above: the same FLOPs per
+// valid key tile, plus 64 bytes of mask per tile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,11 +91,14 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
   }
 }
 
+template <bool MASKED>
 __global__ void __launch_bounds__(THREADS)
 mha_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o,
+                 const uint8_t* __restrict__ kv_mask,
                  int Lq, int Lk, int D, float scale_log2) {
   extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ uint8_t sMask[BK];  // MASKED: this key tile's validity
   bf16* sQ = reinterpret_cast<bf16*>(smem);
   bf16* sK = sQ + SQ_ELEMS;
   bf16* sV = sK + SKV_ELEMS;
@@ -116,6 +137,16 @@ mha_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float l = 0.f;
 
   for (int kv0 = 0; kv0 < Lk; kv0 += BK) {
+    if constexpr (MASKED) {
+      // Block-uniform: skip a tile with no valid key (see the header).
+      uint8_t valid_key = 0;
+      if (tid < BK) {
+        valid_key = (kv0 + tid < Lk) ? kv_mask[(size_t)b * Lk + kv0 + tid]
+                                     : (uint8_t)0;
+        sMask[tid] = valid_key;
+      }
+      if (!__syncthreads_or(valid_key != 0)) continue;
+    }
     load_tile(sK, kb, kv0, Lk, D, col0, tid);
     load_tile(sV, vb, kv0, Lk, D, col0, tid);
     __syncthreads();
@@ -141,12 +172,14 @@ mha_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float mx = -INFINITY;
 #pragma unroll 8
     for (int j = 0; j < 32; ++j) {
-      const float s = (half * 32 + j < valid) ? srow[j] * scale_log2 : -INFINITY;
+      bool keep = half * 32 + j < valid;
+      if constexpr (MASKED) keep = keep && sMask[half * 32 + j] != 0;
+      const float s = keep ? srow[j] * scale_log2 : -INFINITY;
       srow[j] = s;
       mx = fmaxf(mx, s);
     }
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m, mx);       // finite: every tile has a key
+    const float m_new = fmaxf(m, mx);  // finite: every processed tile has a key
     const float alpha = exp2f(m - m_new);   // 0 on the first tile
     bf16* prow = wP + row * BF_LD + half * 32;
     float sum = 0.f;
@@ -184,6 +217,7 @@ mha_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int gq = q0 + warp * 16 + row;
   if (gq < Lq) {
+    // l == 0 only for a fully masked row, whose accumulator is still 0
     const float inv = 1.f / fmaxf(l, 1e-30f);
     const float* orow = wO + row * F_LD + half * 32;
     bf16* dst = o + ((size_t)b * Lq + gq) * D + col0 + half * 32;
@@ -197,6 +231,23 @@ mha_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+template <bool MASKED>
+int launch(const void* q, const void* k, const void* v, const void* kv_mask,
+           void* o, int B, int Lq, int Lk, int D, int H, float scale_log2,
+           void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      mha_fused_kernel<MASKED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((Lq + BQ - 1) / BQ, H, B);
+  mha_fused_kernel<MASKED><<<grid, THREADS, SMEM_BYTES,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+      static_cast<const uint8_t*>(kv_mask), Lq, Lk, D, scale_log2);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q, k, v, o: contiguous bf16 (B, Lq|Lk, D) with D = H * 64 on one device.
@@ -206,17 +257,18 @@ extern "C" int sduss_flash_mha_fused(const void* q, const void* k,
                                      const void* v, void* o, int B, int Lq,
                                      int Lk, int D, int H, float scale_log2,
                                      void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      mha_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Lq + BQ - 1) / BQ, H, B);
-  mha_fused_kernel<<<grid, THREADS, SMEM_BYTES,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), Lq, Lk, D,
-      scale_log2);
-  return (int)cudaGetLastError();
+  return launch<false>(q, k, v, nullptr, o, B, Lq, Lk, D, H, scale_log2,
+                       stream);
+}
+
+// As sduss_flash_mha_fused, plus kv_mask: contiguous (B, Lk) bytes, nonzero
+// = the key takes part.  Rows of a batch row with no valid key are zeros.
+extern "C" int sduss_flash_mha_masked(const void* q, const void* k,
+                                      const void* v, const void* kv_mask,
+                                      void* o, int B, int Lq, int Lk, int D,
+                                      int H, float scale_log2, void* stream) {
+  return launch<true>(q, k, v, kv_mask, o, B, Lq, Lk, D, H, scale_log2,
+                      stream);
 }
 
 extern "C" const char* sduss_cuda_error_string(int err) {

@@ -17,9 +17,9 @@ from typing import List, Optional, Sequence, Set
 
 import torch
 
-from sduss_tpu.config import Config
-from sduss_tpu.metrics import EngineStats
-from sduss_tpu.request import Request, RequestOutput, SamplingParams, Stage
+from sduss_tpu_torch.config import Config
+from sduss_tpu_torch.metrics import EngineStats
+from sduss_tpu_torch.request import Request, RequestOutput, SamplingParams, Stage
 from sduss_tpu_torch import configure_numerics
 from sduss_tpu_torch.engine.worker import Worker
 from sduss_tpu_torch.models.registry import ModelBundle
@@ -35,10 +35,6 @@ def check_supported(config: Config) -> None:
     if cc.enabled:
         raise NotImplementedError("the block/deep caches are not ported "
                                   "(cache.enabled=False)")
-    if sc.use_mixed_resolution or config.model.use_patched:
-        raise NotImplementedError("the mixed-resolution patch path is not "
-                                  "ported (use_patched=False, "
-                                  "use_mixed_resolution=False)")
     if sc.steps_per_dispatch != 1:
         raise NotImplementedError("fused multi-step dispatch is not ported "
                                   "(steps_per_dispatch=1)")

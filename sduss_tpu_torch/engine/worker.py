@@ -1,8 +1,12 @@
 """Per-replica worker (counterpart of sduss_tpu/engine/worker.py).
 
 One engine iteration = one scheduled stage execution: PREPARE, one
-DENOISING step, or POSTPROCESSING, chosen by the reused jax-free
-``sduss_tpu.scheduler``.  PyTorch launches CUDA work asynchronously, so, as
+DENOISING step, or POSTPROCESSING, chosen by the port's copy of the
+scheduler (``sduss_tpu_torch.scheduler``).  A DENOISING batch that mixes
+resolutions runs as one patched UNet forward (``denoise_step_mixed``)
+when ``scheduler.use_mixed_resolution`` is on.
+
+PyTorch launches CUDA work asynchronously, so, as
 in the JAX worker, the host's lead over the device is bounded: after each
 denoise iteration the worker keeps a 1-element probe of the step output and
 past ``engine.max_inflight_steps`` probes reads the oldest with ``.item()``,
@@ -19,10 +23,10 @@ import collections
 import time
 from typing import Dict, List
 
-from sduss_tpu.config import Config
-from sduss_tpu.request import Request, Stage
-from sduss_tpu.scheduler import WorkerScheduler
-from sduss_tpu.scheduler.policies import ScheduledBatch
+from sduss_tpu_torch.config import Config
+from sduss_tpu_torch.request import Request, Stage
+from sduss_tpu_torch.scheduler import WorkerScheduler
+from sduss_tpu_torch.scheduler.policies import ScheduledBatch
 from sduss_tpu_torch.pipelines.base import BasePipeline
 
 _ASYNC_TODO = ("ROADMAP 'Queue 1' item 8: async prepare/postprocess with the "
@@ -108,12 +112,11 @@ class Worker:
         if batch.stage is Stage.PREPARE:
             pipe.prepare(batch.requests)
         elif batch.stage is Stage.DENOISING:
-            if batch.mixed:
-                raise NotImplementedError(
-                    "mixed-resolution patch batches are not ported; set "
-                    "scheduler.use_mixed_resolution=False")
             t0 = time.perf_counter()
-            pipe.denoise_step(by_res)
+            if batch.mixed and self.config.scheduler.use_mixed_resolution:
+                pipe.denoise_step_mixed(by_res)
+            else:
+                pipe.denoise_step(by_res)
             for r in batch.requests:
                 if r.start_denoising_time is None:
                     r.start_denoising_time = time.time()

@@ -7,19 +7,17 @@ from typing import List, Optional, Sequence, Union
 
 import torch
 
-from sduss_tpu.config import Config, ModelConfig
-from sduss_tpu.request import RequestOutput, SamplingParams
+from sduss_tpu_torch.config import Config, ModelConfig
+from sduss_tpu_torch.request import RequestOutput, SamplingParams
 from sduss_tpu_torch.engine.engine import Engine
 from sduss_tpu_torch.models.registry import ModelBundle
 
 
 def default_config(model: str = "sdxl", **model_kwargs) -> Config:
-    """The port's defaults: the JAX ``Config`` with the dense path selected
-    (no patch path, single-resolution denoise batches)."""
+    """The JAX package's defaults: the ``fcfs_mixed`` policy with
+    mixed-resolution denoise batches on the patch path."""
     config = Config()
-    model_kwargs.setdefault("use_patched", False)
     config.model = ModelConfig(model=model, **model_kwargs)
-    config.scheduler.use_mixed_resolution = False
     return config
 
 
@@ -41,7 +39,7 @@ class DiffusionPipeline:
                                "explicitly to run on the CPU")
         if config is None:
             # the JAX entry point's keywords; what the port cannot serve
-            # (model_path, use_patched=True, dp > 1) raises in Engine
+            # (model_path, dp > 1) raises in Engine
             config = default_config(model, **{
                 k: v for k, v in kwargs.items()
                 if k in ("model_path", "dtype", "seed", "test_tiny",

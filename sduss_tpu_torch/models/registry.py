@@ -101,11 +101,14 @@ class ModelBundle:
 
     def __init__(self, family: str, tiny: bool = False,
                  dtype: torch.dtype = torch.bfloat16,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         self.family = family
         self.spec = SPECS[family]
         self.dtype = dtype
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device found; pass device='cpu' "
+                               "explicitly to run on the CPU")
         if tiny:
             te1 = dataclasses.replace(clip_mod.TINY_CLIP, projection_dim=None,
                                       hidden_size=16, intermediate_size=32)

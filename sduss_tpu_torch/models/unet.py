@@ -1,8 +1,12 @@
-"""UNet2DConditionModel, dense path (counterpart of sduss_tpu/models/unet.py).
+"""UNet2DConditionModel (counterpart of sduss_tpu/models/unet.py).
 
-The port carries the JAX ``apply``'s dense path (``ctx=None``, no block
-cache, no ``deep_mode``) for configs with linear transformer projections
-(SDXL).  Module names follow diffusers', so ``state_dict()`` keys are the
+The port carries the JAX ``apply``'s dense path (``ctx=None``) and its
+mixed-resolution patch path (``ctx`` a ``PatchContext``, ops/patch_ctx.py),
+without the block cache or ``deep_mode``, for configs with linear
+transformer projections (SDXL).  With a ``ctx`` every convolution, group
+norm, self/cross-attention and upsample goes through the context, as the
+JAX ``_gn`` / ``_gn_silu_conv`` / ``_conv`` / ``_self_attention`` /
+``_cross_attention`` / ``_upsample_2x`` seam does.  Module names follow diffusers', so ``state_dict()`` keys are the
 diffusers keys and ``models/convert.py`` maps them to and from the JAX
 parameter tree.  The public forward takes and returns NHWC latents; inside,
 activations are NCHW.
@@ -93,10 +97,16 @@ class ResnetBlock2D(nn.Module):
         self.conv_shortcut = (nn.Conv2d(in_ch, out_ch, 1)
                               if in_ch != out_ch else None)
 
-    def forward(self, x, temb):
-        h = self.conv1(self.norm1(x, act="silu"))
+    def forward(self, x, temb, ctx=None):
+        if ctx is None:
+            h = self.conv1(self.norm1(x, act="silu"))
+        else:
+            h = ctx.gn_silu_conv(self.norm1, self.conv1, x)
         h = h + self.time_emb_proj(_silu(temb))[:, :, None, None].to(h.dtype)
-        h = self.conv2(self.norm2(h, act="silu"))
+        if ctx is None:
+            h = self.conv2(self.norm2(h, act="silu"))
+        else:
+            h = ctx.gn_silu_conv(self.norm2, self.conv2, h)
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -114,10 +124,14 @@ class Attention(nn.Module):
         self.to_out = nn.ModuleList([nn.Linear(query_dim, query_dim),
                                      nn.Identity()])
 
-    def forward(self, h, context=None):
-        ctx = h if context is None else context
+    def forward(self, h, context=None, ctx=None):
+        if ctx is not None:  # patch batch: grouped self / gathered cross
+            out = (ctx.self_attention(self, h) if context is None
+                   else ctx.cross_attention(self, h, context))
+            return self.to_out[0](out)
+        kv = h if context is None else context
         # self-attention routes to kernel K1, 77-token cross stays plain
-        out = masked_attention(self.to_q(h), self.to_k(ctx), self.to_v(ctx),
+        out = masked_attention(self.to_q(h), self.to_k(kv), self.to_v(kv),
                                self.heads)
         return self.to_out[0](out)
 
@@ -151,10 +165,11 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = L.LayerNorm(dim)
         self.ff = FeedForward(dim)
 
-    def forward(self, h, ehs):
-        """h: (N, S, C) tokens; ehs: (N, 77, context_dim) text context."""
-        h = h + self.attn1(self.norm1(h))
-        h = h + self.attn2(self.norm2(h), ehs)
+    def forward(self, h, ehs, ctx=None):
+        """h: (N, S, C) tokens; ehs: (N, 77, context_dim) text context (per
+        image, ``(I_pad, 77, D)``, with a patch ``ctx``)."""
+        h = h + self.attn1(self.norm1(h), ctx=ctx)
+        h = h + self.attn2(self.norm2(h), ehs, ctx=ctx)
         return h + self.ff(self.norm3(h))
 
 
@@ -171,12 +186,13 @@ class Transformer2DModel(nn.Module):
              for _ in range(depth)])
         self.proj_out = nn.Linear(channels, channels)
 
-    def forward(self, x, ehs):
+    def forward(self, x, ehs, ctx=None):
         n, c, hh, ww = x.shape
-        h = self.norm(x).permute(0, 2, 3, 1).reshape(n, hh * ww, c)
+        h = self.norm(x) if ctx is None else ctx.group_norm(self.norm, x)
+        h = h.permute(0, 2, 3, 1).reshape(n, hh * ww, c)
         h = self.proj_in(h)
         for blk in self.transformer_blocks:
-            h = blk(h, ehs)
+            h = blk(h, ehs, ctx=ctx)
         h = self.proj_out(h)
         return h.reshape(n, hh, ww, c).permute(0, 3, 1, 2) + x
 
@@ -186,8 +202,8 @@ class Downsample2D(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(ch, ch, 3, stride=2, padding=1)
 
-    def forward(self, x):
-        return self.conv(x)
+    def forward(self, x, ctx=None):
+        return self.conv(x) if ctx is None else ctx.conv(self.conv, x, stride=2)
 
 
 class Upsample2D(nn.Module):
@@ -195,8 +211,10 @@ class Upsample2D(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(ch, ch, 3, padding=1)
 
-    def forward(self, x):
-        return self.conv(L.nearest_upsample_2x(x))
+    def forward(self, x, ctx=None):
+        if ctx is None:
+            return self.conv(L.nearest_upsample_2x(x))
+        return ctx.conv(self.conv, ctx.upsample_2x(x))
 
 
 class UNetBlock(nn.Module):
@@ -298,34 +316,43 @@ class UNet2DConditionModel(nn.Module):
         return emb
 
     def forward(self, sample, timesteps, encoder_hidden_states,
-                added_cond=None):
+                added_cond=None, ctx=None):
         """sample: (B, H, W, C) NHWC; timesteps: (B,); ehs: (B, 77, D).
 
-        Returns the (B, H, W, C) model output, like the JAX dense apply.
+        With a patch ``ctx``: sample is the ``(P, s, s, C)`` patch batch and
+        timesteps / ehs / added_cond are per image (``I_pad`` rows), spread
+        to the patches through the context.  Returns the model output in
+        the sample's layout, like the JAX apply.
         """
         temb = self.time_embed(timesteps, added_cond, dtype=sample.dtype)
+        if ctx is not None:
+            temb = ctx.broadcast_to_patches(temb)
         ehs = encoder_hidden_states
-        h = self.conv_in(sample.permute(0, 3, 1, 2).contiguous())
+        x = sample.permute(0, 3, 1, 2).contiguous()
+        h = self.conv_in(x) if ctx is None else ctx.conv(self.conv_in, x)
         skips = [h]
         for blk in self.down_blocks:
             for j, res in enumerate(blk.resnets):
-                h = res(h, temb)
+                h = res(h, temb, ctx=ctx)
                 if len(blk.attentions):
-                    h = blk.attentions[j](h, ehs)
+                    h = blk.attentions[j](h, ehs, ctx=ctx)
                 skips.append(h)
             if hasattr(blk, "downsamplers"):
-                h = blk.downsamplers[0](h)
+                h = blk.downsamplers[0](h, ctx=ctx)
                 skips.append(h)
         mid = self.mid_block
-        h = mid.resnets[0](h, temb)
-        h = mid.attentions[0](h, ehs)
-        h = mid.resnets[1](h, temb)
+        h = mid.resnets[0](h, temb, ctx=ctx)
+        h = mid.attentions[0](h, ehs, ctx=ctx)
+        h = mid.resnets[1](h, temb, ctx=ctx)
         for blk in self.up_blocks:
             for j, res in enumerate(blk.resnets):
-                h = res(torch.cat([h, skips.pop()], dim=1), temb)
+                h = res(torch.cat([h, skips.pop()], dim=1), temb, ctx=ctx)
                 if len(blk.attentions):
-                    h = blk.attentions[j](h, ehs)
+                    h = blk.attentions[j](h, ehs, ctx=ctx)
             if hasattr(blk, "upsamplers"):
-                h = blk.upsamplers[0](h)
-        h = self.conv_out(self.conv_norm_out(h, act="silu"))
+                h = blk.upsamplers[0](h, ctx=ctx)
+        if ctx is None:
+            h = self.conv_out(self.conv_norm_out(h, act="silu"))
+        else:
+            h = ctx.gn_silu_conv(self.conv_norm_out, self.conv_out, h)
         return h.permute(0, 2, 3, 1).contiguous()

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (``sduss_tpu_torch/csrc/*.cu``).
 
-Route: ``nvcc`` compiles every source in ``csrc/`` into one shared library
-with a plain C interface for ``sm_90a``, loaded with ctypes — no PyTorch
-headers, so a build takes seconds.  The library lands in
+Route: ``nvcc`` compiles every source in ``csrc/`` for ``sm_90a`` — one
+``nvcc`` process per source, all started together — and links the objects
+into one shared library with a plain C interface, loaded with ctypes.  No
+PyTorch headers, so a build takes seconds.  The library lands in
 ``build/sduss_tpu_torch/`` at the repository root, named by a hash of the
 sources and flags: a changed source rebuilds, an unchanged one reuses the
 file.  Nothing is built or loaded until a kernel is first launched on a
@@ -26,7 +27,8 @@ _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "sduss_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-lineinfo", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
+              "-lineinfo", "-Xptxas", "-v", "-Xcompiler", "-fPIC"]
+_TIMEOUT_S = 900
 
 
 def _sources():
@@ -60,6 +62,28 @@ class Build(NamedTuple):
     log: str        # nvcc output, including ptxas register/smem usage
 
 
+def _run_all(cmds) -> str:
+    """Run the commands concurrently; raise on the first that fails."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs, failed = [], []
+    try:
+        for cmd, proc in zip(cmds, procs):
+            out, _ = proc.communicate(timeout=_TIMEOUT_S)
+            logs.append(out)
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)} -> {proc.returncode}:\n{out}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return "".join(logs)
+
+
 def build() -> Build:
     """Compile the sources unless a library for them already exists."""
     path = library_path()
@@ -67,20 +91,15 @@ def build() -> Build:
         return Build(path, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=900)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        nvcc = _nvcc()
+        objs = [os.path.join(tmpdir, src.stem + ".o") for src in _sources()]
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                        for src, obj in zip(_sources(), objs)])
+        tmp = os.path.join(tmpdir, path.name)
+        log += _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
         os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return Build(path, time.perf_counter() - t0, proc.stdout + proc.stderr)
+    return Build(path, time.perf_counter() - t0, log)
 
 
 @functools.lru_cache(maxsize=1)
@@ -91,6 +110,11 @@ def load_library() -> ctypes.CDLL:
     lib.sduss_flash_mha_fused.argtypes = [p, p, p, p, i, i, i, i, i,
                                           ctypes.c_float, p]
     lib.sduss_flash_mha_fused.restype = ctypes.c_int
+    lib.sduss_flash_mha_masked.argtypes = [p, p, p, p, p, i, i, i, i, i,
+                                           ctypes.c_float, p]
+    lib.sduss_flash_mha_masked.restype = ctypes.c_int
+    lib.sduss_gn_silu_halo.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+    lib.sduss_gn_silu_halo.restype = ctypes.c_int
     lib.sduss_cuda_error_string.argtypes = [ctypes.c_int]
     lib.sduss_cuda_error_string.restype = ctypes.c_char_p
     return lib

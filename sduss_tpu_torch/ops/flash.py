@@ -1,11 +1,17 @@
-"""Model-layout flash self-attention (counterpart of sduss_tpu/ops/flash.py
-``flash_mha_fused``).
+"""Model-layout flash attention (counterpart of sduss_tpu/ops/flash.py
+``flash_mha_fused`` and ``flash_mha`` with ``kv_mask``).
 
-``flash_mha_fused`` is the wrapper of the hand-written CUDA kernel
-``csrc/flash_fused.cu`` (kernel K1: it replaces the Pallas kernel
-``_mha_fused_kernel``).  ``flash_mha_fused_reference`` is its plain PyTorch
-version.  The wrapper takes the plain version only for tensors on the CPU;
-a CUDA tensor launches the kernel or raises — there is no fallback.
+Two wrappers of the hand-written CUDA kernel ``csrc/flash_fused.cu``:
+
+* ``flash_mha_fused`` — kernel K1, replacing the Pallas kernel
+  ``_mha_fused_kernel`` (unmasked self-attention);
+* ``flash_mha_masked`` — kernel K2b/K3a, replacing ``_mha_kernel_2pass`` and
+  ``_mha_kernel_masked`` (attention under a per-key validity mask, the
+  mixed-resolution patch path's grouped self-attention).
+
+Each has a plain PyTorch version beside it (``*_reference``).  A wrapper
+takes the plain version only for tensors on the CPU; a CUDA tensor launches
+the kernel or raises — there is no fallback.
 """
 
 from __future__ import annotations
@@ -34,6 +40,34 @@ def flash_mha_fused_reference(q, k, v, num_heads: int, scale: float):
 
     logits = torch.matmul(heads(q), heads(k).transpose(-1, -2)) * scale
     out = torch.matmul(torch.softmax(logits, dim=-1), heads(v))
+    return out.transpose(1, 2).reshape(b, lq, d).to(q.dtype)
+
+
+def flash_mha_masked_reference(q, k, v, kv_mask, num_heads: int,
+                               scale: float):
+    """Plain version of the masked kernel: per-head float32 attention over
+    the keys where ``kv_mask`` (``(B, Lk)`` bool) is set.
+
+    A batch row with no valid key has no softmax; its output is defined as
+    zeros (the kernel's value).  The JAX kernels return a uniform average
+    there, and such rows (padded image slots) are discarded downstream.
+    Returns q's dtype.
+    """
+    b, lq, d = q.shape
+    hd = d // num_heads
+
+    def heads(x):
+        return x.reshape(b, x.shape[1], num_heads, hd).transpose(1, 2).float()
+
+    valid = kv_mask.bool()[:, None, None, :]
+    logits = torch.matmul(heads(q), heads(k).transpose(-1, -2)) * scale
+    logits = logits.masked_fill(~valid, float("-inf"))
+    m = logits.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(logits - m)  # masked keys: exp(-inf) = 0
+    denom = p.sum(dim=-1, keepdim=True)
+    out = torch.matmul(p, heads(v)) / torch.where(denom > 0, denom,
+                                                  torch.ones_like(denom))
     return out.transpose(1, 2).reshape(b, lq, d).to(q.dtype)
 
 
@@ -88,3 +122,46 @@ def flash_mha_fused(q, k, v, num_heads: int, scale: float):
 
 
 flash_mha_fused.launches = 0
+
+
+def check_mask(kv_mask, k) -> None:
+    """Raise ``ValueError`` for a key mask the masked kernel does not take."""
+    if kv_mask.dtype not in (torch.bool, torch.uint8):
+        raise ValueError(f"kv_mask is {kv_mask.dtype}; the kernel takes "
+                         f"torch.bool or torch.uint8")
+    if tuple(kv_mask.shape) != (k.shape[0], k.shape[1]):
+        raise ValueError(f"kv_mask shape {tuple(kv_mask.shape)} != (B, Lk) "
+                         f"{(k.shape[0], k.shape[1])}")
+    if not kv_mask.is_contiguous():
+        raise ValueError("kv_mask is not contiguous")
+    if kv_mask.device != k.device:
+        raise ValueError(f"kv_mask on {kv_mask.device}, keys on {k.device}")
+
+
+def flash_mha_masked(q, k, v, kv_mask, num_heads: int, scale: float):
+    """Attention over ``(B, L, D)`` under a ``(B, Lk)`` key mask (True =
+    the key takes part); rows of a batch row with no valid key are zeros.
+
+    CPU tensors: :func:`flash_mha_masked_reference`.  Anything else goes to
+    the CUDA kernel: inputs it does not take raise ``ValueError``, a failed
+    launch raises ``RuntimeError``.  Each launch adds one to
+    ``flash_mha_masked.launches``.
+    """
+    if q.device.type == "cpu":
+        return flash_mha_masked_reference(q, k, v, kv_mask, num_heads, scale)
+    check_inputs(q, k, v, num_heads)
+    check_mask(kv_mask, k)
+    lib = _build.load_library()
+    b, lq, d = q.shape
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.sduss_flash_mha_masked(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(),
+        out.data_ptr(), b, lq, k.shape[1], d, num_heads,
+        float(scale) * _LOG2E, stream)
+    _build.check(lib, err, "flash_mha_masked launch")
+    flash_mha_masked.launches += 1
+    return out
+
+
+flash_mha_masked.launches = 0

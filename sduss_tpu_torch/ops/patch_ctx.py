@@ -1,0 +1,157 @@
+"""PatchContext: the patch-batch versions of the UNet's spatial ops
+(counterpart of sduss_tpu/ops/patch_ctx.py).
+
+The UNet (models/unet.py) hands every convolution, group norm, attention
+and upsample to a ``PatchContext`` when its input is a mixed-resolution
+patch batch (``ctx`` argument).  Activations are NCHW ``(P, C, s, s)``,
+the port's layout; token runs are ``(P, s*s, C)``.
+
+  conv            3x3 on the haloed patch at padding 0 (stride 1 or 2)
+  group_norm      per-image statistics across the image's patches
+  gn_silu_conv    GroupNorm + SiLU written into the conv's haloed input by
+                  kernel K4 (ops/gn_halo.py), then the conv at padding 0
+  self_attention  patches gathered into per-image groups per resolution
+                  class, one masked attention per class (kernel K2b/K3a)
+  cross_attention per-image text K/V gathered to the patches
+
+Patched equals dense per image to float tolerance
+(tests/test_torch_patch_unet.py).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from sduss_tpu_torch.ops.attention import masked_attention
+from sduss_tpu_torch.ops.gn_halo import gn_silu_haloed, group_sums
+from sduss_tpu_torch.ops.patching import PatchMeta, haloed
+
+
+class PatchContext:
+    """Bound to one PatchMeta; its index arrays live on ``device`` (int64
+    for indexing, int32 copies for the kernels, bool masks).
+
+    Gathers clip the -1 slots of ``group_gather`` / ``class_gather`` to
+    patch 0, as the JAX context does: a padded slot carries patch 0's data,
+    and the key mask keeps it out of every softmax.
+    """
+
+    def __init__(self, meta: PatchMeta, device):
+        def dev(a, dtype):
+            return torch.from_numpy(a).to(device=device, dtype=dtype)
+
+        self.meta = meta
+        self.image_id = dev(meta.image_id, torch.long)
+        self.image_id32 = dev(meta.image_id, torch.int32)
+        self.neighbors32 = dev(meta.neighbors, torch.int32)
+        self.group_gather = dev(meta.group_gather.clip(0), torch.long)
+        self.patch_pos = dev(meta.patch_pos, torch.long)
+        self.kv_mask = dev(meta.kv_mask, torch.bool)
+        self.class_gather = [dev(a.clip(0), torch.long)
+                             for a in meta.class_gather]
+        self.class_pos = [dev(a, torch.long) for a in meta.class_pos]
+        self.class_member = [dev(a, torch.bool) for a in meta.class_member]
+        self.class_kv = [dev(a, torch.bool) for a in meta.class_kv]
+
+    # -- time embedding -----------------------------------------------------
+
+    def broadcast_to_patches(self, img_rows: torch.Tensor) -> torch.Tensor:
+        """(I_pad, ...) per-image rows -> (P_pad, ...) per-patch rows."""
+        return img_rows[self.image_id]
+
+    per_patch = broadcast_to_patches  # the JAX name for per-image scalars
+
+    # -- convs --------------------------------------------------------------
+
+    def conv(self, conv, x, stride: int = 1) -> torch.Tensor:
+        """``conv`` (an ``nn.Conv2d``) on the patch batch: 1x1 as is, 3x3 on
+        the haloed patch at padding 0."""
+        k = conv.weight.shape[-1]
+        if k == 1:
+            return conv(x)
+        if k != 3:
+            raise NotImplementedError(f"patch conv kernel {k}")
+        return F.conv2d(haloed(x, self.neighbors32), conv.weight, conv.bias,
+                        stride=stride)
+
+    def upsample_2x(self, x) -> torch.Tensor:
+        return F.interpolate(x, scale_factor=2.0, mode="nearest")
+
+    def gn_silu_halo(self, norm, x) -> torch.Tensor:
+        """(P, C, s, s) -> (P, C, s+2, s+2): per-image GroupNorm + SiLU + the
+        1-cell halo ring, by kernel K4 on the card."""
+        return gn_silu_haloed(x, norm.weight, norm.bias, self.image_id32,
+                              self.neighbors32, self.meta.i_pad,
+                              norm.num_groups, norm.eps, "silu")
+
+    def gn_silu_conv(self, norm, conv, x) -> torch.Tensor:
+        """GroupNorm + SiLU written into the conv's haloed input."""
+        if conv.weight.shape[-1] == 1:
+            return conv(self.group_norm(norm, x, act="silu"))
+        return F.conv2d(self.gn_silu_halo(norm, x), conv.weight, conv.bias)
+
+    # -- group norm ---------------------------------------------------------
+
+    def group_norm(self, norm, x, act=None) -> torch.Tensor:
+        """Per-image statistics across the image's patches, float32.
+
+        The variance is NOT clamped at 0 here, as in the JAX context's
+        group_norm (unlike the fused op's moments)."""
+        pp, c, s, _ = x.shape
+        g = norm.num_groups
+        mean, mean_sq = group_sums(x, self.image_id, self.meta.i_pad, g)
+        var = mean_sq - mean * mean
+        xf = x.float().reshape(pp, g, -1)
+        m = mean[self.image_id][:, :, None]
+        r = torch.rsqrt(var + norm.eps)[self.image_id][:, :, None]
+        y = ((xf - m) * r).reshape(pp, c, s, s)
+        y = y * norm.weight.float().reshape(1, c, 1, 1) \
+            + norm.bias.float().reshape(1, c, 1, 1)
+        if act == "silu":
+            y = F.silu(y)
+        elif act is not None:
+            raise ValueError(act)
+        return y.to(x.dtype)
+
+    # -- attention ----------------------------------------------------------
+
+    def self_attention(self, attn, h) -> torch.Tensor:
+        """h: (P, s^2, C) patch token runs -> full-image attention.
+
+        Patches are gathered into per-resolution-class image groups
+        ``(I_c, g^2 s^2, C)`` — one masked attention per class — and the
+        token runs scattered back.  A single class uses the one-group
+        layout (``group_gather`` / ``kv_mask``)."""
+        q, k, v = attn.to_q(h), attn.to_k(h), attn.to_v(h)
+        pp, s2, c = q.shape
+        m = self.meta
+
+        if len(m.class_info) <= 1:
+            def group(x):
+                return x[self.group_gather].reshape(m.i_pad, m.max_pp * s2, c)
+
+            mask = self.kv_mask.repeat_interleave(s2, dim=1)
+            out = masked_attention(group(q), group(k), group(v), attn.heads,
+                                   mask)
+            return out.reshape(m.i_pad * m.max_pp, s2, c)[self.patch_pos]
+
+        out = torch.zeros_like(q)
+        for ci, (g, ipc) in enumerate(m.class_info):
+            gather = self.class_gather[ci]
+
+            def group(x, gather=gather, ipc=ipc, g=g):
+                return x[gather].reshape(ipc, g * g * s2, c)
+
+            mask = self.class_kv[ci].repeat_interleave(s2, dim=1)
+            o = masked_attention(group(q), group(k), group(v), attn.heads,
+                                 mask)
+            rows = o.reshape(ipc * g * g, s2, c)[self.class_pos[ci]]
+            out = torch.where(self.class_member[ci][:, None, None], rows, out)
+        return out
+
+    def cross_attention(self, attn, h, ehs) -> torch.Tensor:
+        """h: (P, s^2, C); ehs: (I_pad, L, D) per-image text context."""
+        k = attn.to_k(ehs)[self.image_id]
+        v = attn.to_v(ehs)[self.image_id]
+        return masked_attention(attn.to_q(h), k, v, attn.heads)

@@ -6,7 +6,7 @@ from typing import Optional
 
 import torch
 
-from sduss_tpu.config import Config
+from sduss_tpu_torch.config import Config
 from sduss_tpu_torch.models.registry import ModelBundle
 from sduss_tpu_torch.pipelines.base import BasePipeline
 from sduss_tpu_torch.pipelines.sdxl import StableDiffusionXLPipeline

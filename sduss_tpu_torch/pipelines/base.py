@@ -1,18 +1,22 @@
-"""Staged diffusion pipeline, dense path (counterpart of
-sduss_tpu/pipelines/base.py).
+"""Staged diffusion pipeline (counterpart of sduss_tpu/pipelines/base.py).
 
-* ``prepare``      — tokenize + text-encode + per-request latent init +
-                     sampler table.
-* ``denoise_step`` — ONE scheduled denoiser step for a batch of requests
-                     grouped by resolution: CFG pairing, input scaling,
-                     model forward, guidance combine and sampler update.
-* ``postprocess``  — VAE decode to uint8 images (or the final latents).
+* ``prepare``            — tokenize + text-encode + per-request latent init
+                           + sampler table.
+* ``denoise_step``       — ONE scheduled denoiser step for a batch of
+                           requests grouped by resolution: CFG pairing,
+                           input scaling, model forward, guidance combine
+                           and sampler update, one forward per resolution.
+* ``denoise_step_mixed`` — ONE step for a mixed-resolution batch as a single
+                           patched UNet forward (the mixed patch path).
+* ``postprocess``        — VAE decode to uint8 images (or the final latents).
 
-Eager PyTorch has no compile cache, so batches run at their real size:
-nothing is padded to the JAX package's batch buckets.  Requests at
-different timesteps batch through per-request sampler coefficient rows.
-The block caches, the mixed-resolution patch path and the fused multi-step
-dispatch are not ported yet.
+The dense path runs batches at their real size: eager PyTorch has no
+compile cache to key.  The patch path pads the patch and image counts to
+the configured buckets like the JAX package, so both form the same patch
+batch and the padded image slots reach the masked attention kernel.
+Requests at different timesteps batch through per-request sampler
+coefficient rows.  The block caches, stateful samplers on patches and the
+fused multi-step dispatch are not ported yet.
 """
 
 from __future__ import annotations
@@ -22,9 +26,11 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
-from sduss_tpu.config import Config
-from sduss_tpu.request import Request
+from sduss_tpu_torch.config import Config
+from sduss_tpu_torch.request import Request
 from sduss_tpu_torch.models.registry import ModelBundle
+from sduss_tpu_torch.ops import patching
+from sduss_tpu_torch.ops.patch_ctx import PatchContext
 from sduss_tpu_torch.samplers import gather_coeffs, gather_timesteps, get_sampler
 
 
@@ -50,8 +56,14 @@ class BasePipeline:
         """Run the text encoders; return one conditioning dict per request."""
         raise NotImplementedError
 
-    def denoiser_forward(self, latents_in, t, cond):
-        """Model forward on a CFG-paired ``(2B, h, w, C)`` batch."""
+    def denoiser_forward(self, latents_in, t, cond, ctx=None):
+        """Model forward on a CFG-paired batch.
+
+        Dense: latents_in ``(2B, h, w, C)``, cond arrays ``(B, ...)``
+        CFG-concatenated by the implementation.  Patched: latents_in is the
+        doubled patch batch, t is per image (already doubled), cond per
+        image, and ctx the doubled batch's ``PatchContext``.
+        """
         raise NotImplementedError
 
     # -- stage 1: prepare ----------------------------------------------------
@@ -119,6 +131,89 @@ class BasePipeline:
         uncond, text = self.denoiser_forward(lat_in, t2, cond).chunk(2, dim=0)
         g = guidance.reshape(-1, *([1] * (latents.dim() - 1)))
         return uncond + g * (text - uncond), c0, c1
+
+    # -- stage 2b: one denoising step on the mixed patch path ---------------
+
+    @torch.inference_mode()
+    def denoise_step_mixed(self, reqs_by_res: Dict[int, List[Request]]) -> None:
+        """ONE denoiser step over a mixed-resolution patch batch.
+
+        All requests share one UNet forward: latents are cut into
+        ``patch_size`` patches, concatenated patch-major (requests sorted by
+        resolution) and padded to the patch bucket, and the patch context
+        provides halo convs, per-image group norm and grouped attention.
+        A resolution that does not divide into patches falls back to the
+        dense step.  The JAX package routes a composition whose compiled
+        program is not warm yet to the dense step for a while; eager
+        PyTorch compiles nothing, so the port always runs patched.
+        """
+        ordered: List[Request] = []
+        for res in sorted(reqs_by_res):
+            ordered.extend(reqs_by_res[res])
+        sc = self.config.scheduler
+        cells = sc.patch_size // self.vae_scale
+        grids = []
+        for r in ordered:
+            hw = r.latent_hw(self.vae_scale)
+            if hw % cells != 0:
+                return self.denoise_step(reqs_by_res)
+            grids.append(hw // cells)
+        grids = tuple(grids)
+        meta = patching.build_meta(grids, cells, tuple(sc.patch_buckets),
+                                   tuple(sc.batch_buckets))
+        meta2 = patching.double_meta(grids, cells, tuple(sc.patch_buckets),
+                                     tuple(sc.batch_buckets))
+        dev = self.device
+
+        x = torch.cat([patching.split_latent(r.latents, cells)
+                       for r in ordered], dim=0)
+        if x.shape[0] < meta.p_pad:
+            x = torch.cat([x, x.new_zeros((meta.p_pad - x.shape[0],)
+                                          + x.shape[1:])], dim=0)
+
+        # per-image rows padded to i_pad (coefficients with 1.0, so the pad
+        # slots' sampler math stays finite)
+        def pad_i(arr, fill=0.0):
+            out = np.full((meta.i_pad,) + arr.shape[1:], fill, arr.dtype)
+            out[: arr.shape[0]] = arr
+            return torch.from_numpy(out).to(dev)
+
+        tables = [r.sampler_table for r in ordered]
+        t = pad_i(gather_timesteps(tables))
+        coeffs = pad_i(gather_coeffs(tables), fill=1.0)
+        guidance = pad_i(np.asarray(
+            [r.params.guidance_scale if r.params.guidance_scale is not None
+             else self.spec.default_guidance for r in ordered], np.float32))
+        cond = {}
+        for key in ordered[0].conditioning:
+            arr = torch.cat([r.conditioning[key] for r in ordered], dim=0)
+            cond[key] = torch.cat([arr, arr.new_zeros(
+                (meta.i_pad - arr.shape[0],) + arr.shape[1:])], dim=0)
+
+        new_x = self._mixed_fn(x, t, coeffs, guidance, cond,
+                               PatchContext(meta, dev),
+                               PatchContext(meta2, dev))
+        off = 0
+        for r, g in zip(ordered, grids):
+            n = g * g
+            r.latents = patching.merge_patches(new_x[off:off + n], g)
+            off += n
+            r.sampler_table.advance()
+            r.remain_steps -= 1
+
+    def _mixed_fn(self, x, t, coeffs, guidance, cond, ctx1, ctx2):
+        """CFG duplicate -> scale -> patched model -> combine -> sampler
+        step, per patch with its image's coefficients (rows go uncond
+        block first, then cond, as in the JAX ``_make_mixed_fn``)."""
+        c0, c1 = coeffs[:, 0], coeffs[:, 1]  # per image (i_pad,)
+        x2 = torch.cat([x, x], dim=0)
+        t2 = torch.cat([t, t], dim=0)
+        x2 = self.sampler.scale_model_input(x2, torch.cat([c0, c0])[ctx2.image_id])
+        uncond, text = self.denoiser_forward(x2, t2, cond, ctx=ctx2).chunk(2, dim=0)
+        g = guidance[ctx1.image_id].reshape(-1, 1, 1, 1)
+        noise_pred = uncond + g * (text - uncond)
+        return self.sampler.step(x, noise_pred, c0[ctx1.image_id],
+                                 c1[ctx1.image_id])
 
     # -- stage 3: postprocess ------------------------------------------------
 

@@ -11,7 +11,11 @@ inputs, relative to the output's scale: the max error within 2^-6 of
 max |plain| (two bf16 ulps at the largest output: the output rounding plus
 the kernel's bf16 P), and the relative RMS error within 5e-3 (bf16 rounding
 gives ~2.4e-3 on an H100; a fault that scales rows by ~0.5% or more, such
-as an unmasked padded key tile, adds its own size on top).
+as an unmasked padded key tile, adds its own size on top).  The masked
+kernel is held to the same bounds over the rows with a valid key, and must
+write zeros (finite) where a batch row has none.  K4 (gn_silu_halo) within
+2^-7 of max |plain| (one bf16 ulp at the output scale: both compute in
+float32 and round once), with exact zeros at image borders.
 """
 
 from __future__ import annotations
@@ -21,9 +25,12 @@ import torch
 
 from sduss_tpu_torch.ops import attention as tattn
 from sduss_tpu_torch.ops import flash as tflash
+from sduss_tpu_torch.ops import gn_halo as tgn
+from sduss_tpu_torch.ops import patching as tpatching
 
 K1_MAX_REL = 2.0 ** -6
 K1_RMS_REL = 5e-3
+K4_MAX_REL = 2.0 ** -7
 
 
 @pytest.fixture
@@ -76,7 +83,70 @@ def test_cuda_routing_never_falls_back(cuda):
         tattn.masked_attention(q, q, q, 8)            # hd 80 (SD1.5)
     with pytest.raises(ValueError, match="bfloat16"):
         tattn.masked_attention(q.float(), q.float(), q.float(), 10)
-    with pytest.raises(NotImplementedError):
+    m = tflash.flash_mha_masked.launches
+    tattn.masked_attention(q, q, q, 10, kv_token_mask=torch.ones(
+        2, 256, dtype=torch.bool, device=cuda))
+    assert tflash.flash_mha_masked.launches == m + 1
+    with pytest.raises(ValueError, match="kv_mask"):
         tattn.masked_attention(q, q, q, 10, kv_token_mask=torch.ones(
-            2, 256, dtype=torch.bool, device=cuda))
+            2, 255, dtype=torch.bool, device=cuda))
     assert tflash.flash_mha_fused.launches == n + 1
+    assert tflash.flash_mha_masked.launches == m + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,lq,lk,d,heads,dead_rows", [
+    (4, 1024, 1024, 640, 10, (1, 3)),  # patch groups with padded slots
+    (2, 576, 576, 1280, 20, ()),       # 768^2 class at level 2
+    (3, 1000, 777, 640, 10, (2,)),     # ragged Lq and Lk
+    (2, 300, 65, 64, 1, ()),           # last key tile 1 real key
+])
+def test_masked_matches_plain(cuda, b, lq, lk, d, heads, dead_rows):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q = _randn(gen, b, lq, d, device=cuda)
+    k, v = (_randn(gen, b, lk, d, device=cuda) for _ in range(2))
+    mask = torch.rand(b, lk, generator=gen, device=cuda) > 0.3
+    mask[:, :64] = False  # a whole key tile masked: skipped by the kernel
+    mask[:, -1] = True
+    for r in dead_rows:
+        mask[r] = False
+    before = tflash.flash_mha_masked.launches
+    out = tflash.flash_mha_masked(q, k, v, mask, heads, 0.125)
+    ref = tflash.flash_mha_masked_reference(q, k, v, mask, heads, 0.125)
+    torch.cuda.synchronize()
+    assert tflash.flash_mha_masked.launches == before + 1
+    assert torch.isfinite(out).all()
+    live = mask.any(dim=1)
+    assert (out[~live] == 0).all()
+    diff, ref = (out[live].float() - ref[live].float()), ref[live].float()
+    assert diff.abs().max().item() <= K1_MAX_REL * ref.abs().max().item()
+    assert (diff.norm() / ref.norm()).item() <= K1_RMS_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grids,s,c", [
+    ((3, 4), 32, 320), ((3, 4), 16, 640), ((3, 4), 8, 1280),
+    ((2, 1), 6, 64),   # a side with no specialised kernel
+])
+def test_k4_matches_plain(cuda, grids, s, c):
+    meta = tpatching.build_meta(grids, s, (4, 8, 16, 32), (2, 4))
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = (1.5 * torch.randn(meta.p_pad, c, s, s, generator=gen, device=cuda)
+         + 0.2).to(torch.bfloat16)
+    image_id = torch.from_numpy(meta.image_id).to(cuda)
+    neighbors = torch.from_numpy(meta.neighbors).to(cuda)
+    mean, var = tgn.moments(x, image_id, meta.i_pad, 32)
+    rstd = torch.rsqrt(var + 1e-5)
+    w = torch.randn(c, generator=gen, device=cuda)
+    bias = torch.randn(c, generator=gen, device=cuda)
+    before = tgn.gn_silu_halo.launches
+    out = tgn.gn_silu_halo(x, image_id, neighbors, mean, rstd, w, bias)
+    ref = tgn.gn_silu_halo_reference(x, image_id, neighbors, mean, rstd, w,
+                                     bias)
+    torch.cuda.synchronize()
+    assert tgn.gn_silu_halo.launches == before + 1
+    assert out.shape == (meta.p_pad, c, s + 2, s + 2)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= K4_MAX_REL * ref.float().abs().max().item()
+    border = torch.from_numpy(meta.neighbors[:, 0] < 0).to(cuda)
+    assert (out[border][:, :, 0, :] == 0).all()  # top image border

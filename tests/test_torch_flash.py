@@ -1,10 +1,15 @@
-"""Kernel K1 (flash_mha_fused) and the attention dispatch of the port.
+"""Kernels K1 (flash_mha_fused) and K2b/K3a (flash_mha_masked) and the
+attention dispatch of the port.
 
-On the CPU the wrapper runs its plain PyTorch version, which is held here
-against the JAX Pallas kernel in interpret mode and against the JAX dense
-path, at the hd-64 cases of tests/test_flash.py.  The CUDA kernel itself is
-held against the plain version by tests/test_torch_cuda.py (on a card) and
-by chip_smoke.py.  float32 tolerance: RTOL 2e-4, ATOL 5e-4.
+On the CPU each wrapper runs its plain PyTorch version, which is held here
+against the JAX Pallas kernels in interpret mode and against the JAX dense
+path, at hd-64 cases like tests/test_flash.py's.  The masked version is
+held against both JAX kernels it replaces: the two-pass kernel (K2b) and
+the online-softmax kernel (``force_online=True``, K3a), on rows with at
+least one valid key; a batch row with no valid key must be finite (zeros
+in the port, a uniform average in JAX).  The CUDA kernels themselves are
+held against the plain versions by tests/test_torch_cuda.py (on a card)
+and by chip_smoke.py.  float32 tolerance: RTOL 2e-4, ATOL 5e-4.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import pytest
 import torch
 
 from sduss_tpu.ops.attention import _dense_masked as jax_dense_masked
+from sduss_tpu.ops.flash import flash_mha as jax_flash_mha
 from sduss_tpu.ops.flash import flash_mha_fused as jax_flash_mha_fused
 from sduss_tpu_torch.ops import _build
 from sduss_tpu_torch.ops import attention as tattn
@@ -62,26 +68,74 @@ def test_dense_masked_matches_jax(masked):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("online", [False, True])
+@pytest.mark.parametrize("b,lq,lk,heads,dead_row", [
+    (3, 256, 256, 2, False),   # random mask, every row has a valid key
+    (2, 200, 333, 2, False),   # Lk ragged against 128, Lq != Lk
+    (3, 130, 260, 1, True),    # batch row 1 has no valid key at all
+])
+def test_masked_plain_matches_jax_kernels(b, lq, lk, heads, dead_row, online):
+    q, k, v = _mk(b, lq, lk, heads * 64, seed=lk)
+    mask = np.random.default_rng(lq).random((b, lk)) > 0.4
+    mask[:, 0] = True
+    if dead_row:
+        mask[1] = False
+    scale = 1.0 / math.sqrt(64)
+    out = tflash.flash_mha_masked(torch.from_numpy(q), torch.from_numpy(k),
+                                  torch.from_numpy(v), torch.from_numpy(mask),
+                                  heads, scale).numpy()
+    kernel = np.asarray(jax_flash_mha(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), heads, scale,
+        kv_mask=jnp.asarray(mask), block_q=128, block_kv=128, interpret=True,
+        force_online=online))
+    live = mask.any(axis=1)
+    assert np.isfinite(out).all()
+    np.testing.assert_allclose(out[live], kernel[live], rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(out[~live], 0.0)
+    dense = jax_dense_masked(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             heads, jnp.asarray(mask), scale)
+    np.testing.assert_allclose(out[live], np.asarray(dense)[live], rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_masked_plain_all_valid_equals_unmasked():
+    q, k, v = (torch.from_numpy(a) for a in _mk(2, 100, 150, 128, seed=4))
+    mask = torch.ones(2, 150, dtype=torch.bool)
+    np.testing.assert_allclose(
+        tflash.flash_mha_masked_reference(q, k, v, mask, 2, 0.125).numpy(),
+        tflash.flash_mha_fused_reference(q, k, v, 2, 0.125).numpy(),
+        rtol=RTOL, atol=ATOL)
+
+
 @pytest.mark.parametrize("lk,masked,to_k1", [
     (256, False, True),     # SDXL self-attention (shortest, 512^2 level 2)
     (4096, False, True),    # SDXL 1024^2 level 1 self-attention
     (77, False, False),     # text cross-attention stays plain
-    (256, True, False),     # key mask (patch path): plain on the CPU
+    (256, True, False),     # key mask (patch path): the masked kernel
+    (77, True, False),      # a key mask at any key length: masked kernel
 ])
 def test_masked_attention_routing(monkeypatch, lk, masked, to_k1):
-    calls = []
+    calls, masked_calls = [], []
 
     def spy(q, k, v, num_heads, scale):
         calls.append((tuple(q.shape), tuple(k.shape), num_heads, scale))
         return tflash.flash_mha_fused_reference(q, k, v, num_heads, scale)
 
+    def masked_spy(q, k, v, kv_mask, num_heads, scale):
+        masked_calls.append((tuple(kv_mask.shape), num_heads, scale))
+        return tflash.flash_mha_masked_reference(q, k, v, kv_mask, num_heads,
+                                                 scale)
+
     monkeypatch.setattr(tattn, "flash_mha_fused", spy)
+    monkeypatch.setattr(tattn, "flash_mha_masked", masked_spy)
     q = torch.randn(1, 8, 128)
     k = v = torch.randn(1, lk, 128)
     mask = torch.ones(1, lk, dtype=torch.bool) if masked else None
     out = tattn.masked_attention(q, k, v, 2, kv_token_mask=mask)
     assert out.shape == q.shape
     assert bool(calls) == to_k1
+    assert masked_calls == ([((1, lk), 2, 1.0 / math.sqrt(64))] if masked
+                            else [])
     if to_k1:
         assert calls[0][2:] == (2, 1.0 / math.sqrt(64))
 
@@ -91,11 +145,15 @@ def test_cpu_wrapper_never_loads_kernel_library(monkeypatch):
         raise AssertionError("kernel library loaded for a CPU tensor")
 
     monkeypatch.setattr(_build, "load_library", refuse)
-    before = tflash.flash_mha_fused.launches
+    before = (tflash.flash_mha_fused.launches, tflash.flash_mha_masked.launches)
     q = torch.randn(1, 256, 128, dtype=torch.bfloat16)
     out = tflash.flash_mha_fused(q, q, q, 2, 0.125)
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
-    assert tflash.flash_mha_fused.launches == before
+    out = tflash.flash_mha_masked(q, q, q, torch.ones(1, 256, dtype=torch.bool),
+                                  2, 0.125)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert (tflash.flash_mha_fused.launches,
+            tflash.flash_mha_masked.launches) == before
 
 
 def _bf16(*shape):
@@ -115,3 +173,13 @@ def _bf16(*shape):
 def test_check_inputs_rejects(args, match):
     with pytest.raises(ValueError, match=match):
         tflash.check_inputs(*args)
+
+
+@pytest.mark.parametrize("mask,match", [
+    (torch.ones(1, 64, dtype=torch.int32), "torch.bool"),
+    (torch.ones(1, 32, dtype=torch.bool), "shape"),
+    (torch.ones(1, 128, dtype=torch.bool)[:, ::2], "contiguous"),
+])
+def test_check_mask_rejects(mask, match):
+    with pytest.raises(ValueError, match=match):
+        tflash.check_mask(mask, _bf16(1, 64, 128))

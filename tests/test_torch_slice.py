@@ -6,10 +6,18 @@ same weights (the JAX bundle's, drawn with numpy, carried over by
 CLIP-L/G encode, Euler denoising with CFG and VAE decode.  Bounds: final latents within 1e-3 relative to their
 scale (float32 sums taken in another order over three denoise steps), and
 decoded images within one uint8 level (rounding at the .5 boundary).
+
+The mixed-resolution slice (128 px + 256 px requests at 128 px patches:
+latents of 16 and 32 cells, patch grids 1 and 2) runs the port through
+its engine, whose scheduler forms one mixed DENOISING batch, and the JAX
+pipeline's ``denoise_step_mixed`` directly (its serving worker would route
+a composition whose program is not compiled yet to the dense step), under
+the same bounds.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import subprocess
 import sys
 import textwrap
@@ -22,7 +30,9 @@ import torch
 
 from sduss_tpu.entrypoints.offline import DiffusionPipeline as JaxPipeline
 from sduss_tpu.models.registry import ModelBundle as JaxBundle
-from sduss_tpu.request import SamplingParams
+from sduss_tpu.request import Request as JaxRequest
+from sduss_tpu.request import SamplingParams as JaxSamplingParams
+from sduss_tpu_torch.request import SamplingParams
 from sduss_tpu_torch.entrypoints.offline import DiffusionPipeline, default_config
 from sduss_tpu_torch.models.convert import jax_to_torch_state_dict
 from sduss_tpu_torch.models.registry import ModelBundle
@@ -64,6 +74,68 @@ def both():
     tpipe = DiffusionPipeline("sdxl", device="cpu", dtype="float32",
                               test_tiny=True, bundle=bundle)
     return jpipe, tpipe
+
+
+MIXED_RES = [128, 256, 256]
+MIXED_STEPS = 2
+
+
+def _mixed_config(config):
+    config.scheduler.use_mixed_resolution = True
+    config.scheduler.patch_size = 128
+    config.engine.collect_data = True
+    return config
+
+
+@pytest.fixture(scope="module")
+def mixed_jax(both):
+    """JAX: prepare, MIXED_STEPS patched steps, then the final latents and
+    the decoded images of the MIXED_RES requests."""
+    jpipe = both[0].engine.workers[0].pipeline
+    saved = jpipe.config.scheduler
+    jpipe.config.scheduler = dataclasses.replace(
+        saved, use_mixed_resolution=True, patch_size=128)
+    try:
+        reqs = [JaxRequest(f"m{i}", JaxSamplingParams(
+            prompt=PROMPTS[i % 2], negative_prompt="blurry", resolution=res,
+            num_inference_steps=MIXED_STEPS, seed=11 + i))
+            for i, res in enumerate(MIXED_RES)]
+        jpipe.prepare(reqs)
+        by_res = {}
+        for r in reqs:
+            by_res.setdefault(r.resolution, []).append(r)
+        for _ in range(MIXED_STEPS):
+            jpipe.denoise_step_mixed(by_res)
+        latents = [np.asarray(r.latents[0], np.float32) for r in reqs]
+        jpipe.postprocess(by_res)
+        return latents, [r.output for r in reqs]
+    finally:
+        jpipe.config.scheduler = saved
+
+
+@pytest.mark.parametrize("output_type", ["latent", "np"])
+def test_mixed_slice_matches_jax(both, mixed_jax, output_type):
+    tpipe = both[1]
+    config = _mixed_config(default_config("sdxl", dtype="float32",
+                                          test_tiny=True))
+    port = DiffusionPipeline(config=config, device="cpu",
+                             bundle=tpipe.engine.worker.pipeline.bundle)
+    outs = port.generate([PROMPTS[i % 2] for i in range(len(MIXED_RES))],
+                         negative_prompt="blurry", resolution=MIXED_RES,
+                         num_inference_steps=MIXED_STEPS, seed=11,
+                         output_type=output_type)
+    denoise = [e["resolutions"] for e in port.engine.worker.schedule_log
+               if e["stage"] == "denoising"]
+    assert denoise == ["128x1;256x2"] * MIXED_STEPS
+    want = mixed_jax[0] if output_type == "latent" else mixed_jax[1]
+    for o, j in zip(outs, want):
+        assert o.finished and o.image.shape == j.shape
+        if output_type == "latent":
+            err = np.abs(o.image - j).max()
+            assert err <= LATENT_RTOL * np.abs(j).max(), err
+        else:
+            assert o.image.dtype == np.uint8
+            assert np.abs(o.image.astype(int) - j.astype(int)).max() <= 1
 
 
 @pytest.mark.parametrize("output_type", ["latent", "np"])
@@ -124,7 +196,7 @@ def test_async_stages_not_ported(section, field, value):
 @pytest.mark.parametrize("section,field,value", [
     ("cache", "enabled", True),
     ("parallel", "dp", 2),
-    ("scheduler", "use_mixed_resolution", True),
+    ("parallel", "sp", 2),
     ("scheduler", "steps_per_dispatch", 4),
 ])
 def test_unported_configs_raise(section, field, value):
@@ -136,8 +208,8 @@ def test_unported_configs_raise(section, field, value):
 
 @pytest.mark.parametrize("kwargs", [
     dict(model_path="/nonexistent/sdxl-snapshot"),
-    dict(use_patched=True),
     dict(dp=2),
+    dict(dp=4),
 ])
 def test_unported_entry_kwargs_raise(kwargs):
     """The JAX entry point's keywords reach the config, so what the port
@@ -147,8 +219,28 @@ def test_unported_entry_kwargs_raise(kwargs):
                           test_tiny=True, **kwargs)
 
 
+def test_default_config_is_the_mixed_patch_path():
+    """The port's defaults are the JAX package's: fcfs_mixed with mixed
+    denoise batches on the patch path."""
+    config = default_config("sdxl", dtype="float32", test_tiny=True)
+    assert config.scheduler.policy == "fcfs_mixed"
+    assert config.scheduler.use_mixed_resolution
+    assert config.model.use_patched
+    assert DiffusionPipeline("sdxl", device="cpu", dtype="float32",
+                             test_tiny=True, use_patched=True).config \
+        .model.use_patched
+
+
+def test_model_bundle_defaults_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ModelBundle("sdxl", tiny=True)
+
+
 def test_abort_and_single_resolution_batches():
     config = default_config("sdxl", dtype="float32", test_tiny=True)
+    config.scheduler.use_mixed_resolution = False
     config.engine.collect_data = True
     eng = DiffusionPipeline(config=config, device="cpu").engine
     for i, res in enumerate((64, 128, 64, 128)):
