@@ -11,26 +11,38 @@ Phases (any failure propagates and the script exits non-zero):
      shapes the serving paths give it, and time the kernel, the plain
      version and, where one PyTorch call computes the same function, that
      call (``scaled_dot_product_attention``) with CUDA events: K1
-     (flash_mha_fused), the masked flash attention K2b/K3a
-     (flash_mha_masked, including batch rows with no valid key) and K4
-     (gn_silu_halo); hold one full-width SDXL transformer block on the card
-     (bf16, through K1) against the same block on the CPU (float32);
+     (flash_mha_fused), K2a/K3b (flash_mha, at SD3.5-medium's joint and
+     dual shapes, ragged and with kv_len < Lk), the masked flash attention
+     K2b/K3a (flash_mha_masked, SDXL patch groups and the SD3 token batch,
+     including batch rows with no valid key) and K4 (gn_silu_halo); hold
+     one full-width SDXL transformer block (through K1) and SD3.5-medium's
+     dual block 0 (through flash_mha) on the card in bf16 against the same
+     block on the CPU in float32;
   4. hold one full-width SDXL UNet forward on a 768^2 + 1024^2 patch batch
      against the dense forward of each image (bf16, on the card);
-  5. dense serving: three SDXL requests at full width (random weights from a
-     seed) through ``DiffusionPipeline.generate`` with mixed batches off;
+  5. SDXL dense serving: three requests at full width (random weights from
+     a seed) through ``DiffusionPipeline.generate`` with mixed batches off;
      check the images and that the path launched K1; read the step time of
      the two-request 1024^2 batch;
-  6. mixed serving: [768, 1024, 1024, 1024] with the default configuration
-     (one patched UNet step per iteration); check the mixed batch in the
-     schedule log, the images and that the path launched K4 and the masked
-     kernel; read the mixed step time;
-  7. print the kernels' JSON line, then the result line
+  6. SDXL mixed serving: [768, 1024, 1024, 1024] with the default
+     configuration (one patched UNet step per iteration); check the mixed
+     batch in the schedule log, the images and that the path launched K4
+     and the masked kernel; read the mixed step time;
+  7. free the SDXL bundle; SD3.5-medium dense serving (MMDiT, CLIP-L/G,
+     T5-XXL, 16-channel tiled VAE; random bf16 weights): [1024, 1024, 768]
+     with mixed batches off; check the images, the latents and that every
+     attention launched flash_mha; read the 1024^2 pair's step time, the
+     prepare and tiled-decode times and the peak memory;
+  8. SD3.5-medium mixed serving: [512, 1024, 1024] with the default
+     configuration (one padded-token MMDiT step per iteration); check the
+     mixed batches, the images and the masked launches; read the step time;
+  9. print the kernels' JSON line, then the result line
      ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import time
@@ -42,15 +54,19 @@ import torch.nn.functional as F
 
 from sduss_tpu_torch import configure_numerics
 from sduss_tpu_torch.entrypoints.offline import DiffusionPipeline, default_config
+from sduss_tpu_torch.models import mmdit
 from sduss_tpu_torch.models.registry import ModelBundle
 from sduss_tpu_torch.models.unet import BasicTransformerBlock
 from sduss_tpu_torch.ops import _build, patching
-from sduss_tpu_torch.ops.flash import (flash_mha_fused, flash_mha_fused_reference,
+from sduss_tpu_torch.ops.flash import (flash_mha, flash_mha_fused,
+                                       flash_mha_fused_reference,
                                        flash_mha_masked,
-                                       flash_mha_masked_reference)
+                                       flash_mha_masked_reference,
+                                       flash_mha_reference)
 from sduss_tpu_torch.ops.gn_halo import (gn_silu_halo, gn_silu_halo_reference,
                                          moments)
 from sduss_tpu_torch.ops.patch_ctx import PatchContext
+from sduss_tpu_torch.request import Request, SamplingParams
 
 # K1 against its plain version (float32 softmax(q k^T) v, rounded to bf16
 # once), on N(0, 1) bf16 inputs, relative to the output's scale:
@@ -74,19 +90,35 @@ K1_SHAPES = [        # (B, Lq, Lk, D, H)
     (3, 1000, 1000, 640, 10),   # ragged query and key tiles
     (3, 1000, 65, 640, 10),     # last key tile 1 real key + 63 padded
 ]
+# K2a/K3b (flash_mha) at SD3.5-medium's width, CFG pair at 1024^2:
+# (B, Lq, Lk, D, H, kv_len); kv_len None = Lk.  Same bounds as K1.
+K2A_SHAPES = [
+    (2, 4096, 4096, 1536, 24, None),  # dual self-attention (latent tokens)
+    (2, 4429, 4429, 1536, 24, None),  # joint attention (4096 + 77 + 256)
+    (3, 1000, 777, 1536, 24, None),   # ragged query and key tiles
+    (2, 2637, 2760, 1536, 24, 2637),  # kv_len < Lk: keys past it hold 1e4
+]
 # The mixed serving phase's class groups (768^2 + 3 x 1024^2, CFG-doubled:
 # the 1024^2 class has 6 real of 8 image slots): (B, L, D, H, dead rows),
-# plus one random-mask case with ragged tiles (dead rows None).
+# plus one random-mask case with ragged tiles (dead rows None), plus the SD3
+# mixed phase's padded-token batch (512^2 + 2 x 1024^2 padded to 4096
+# latent tokens and a batch of 4, CFG-doubled): its joint and dual
+# attention masks ("joint" / "dual": built by MMDiTMaskCtx).
 MASKED_SHAPES = [
     (8, 4096, 640, 10, 2),    # 1024^2 class, level 1
     (2, 2304, 640, 10, 0),    # 768^2 class, level 1
     (8, 1024, 1280, 20, 2),   # 1024^2 class, level 2
     (2, 576, 1280, 20, 0),    # 768^2 class, level 2
     (3, 1000, 640, 10, None),  # random mask, ragged
+    (8, 4429, 1536, 24, "joint"),  # SD3 joint: latent + 333 text keys
+    (8, 4096, 1536, 24, "dual"),   # SD3 dual: latent keys only
 ]
 K4_SHAPES = [(32, 320), (16, 640), (8, 1280)]  # (s, C) at SDXL levels 0-2
 REQUESTS = [1024, 1024, 768]
 MIXED_REQUESTS = [768, 1024, 1024, 1024]
+SD3_REQUESTS = [1024, 1024, 768]
+SD3_MIXED_REQUESTS = [512, 1024, 1024]
+SD3_CTX = 77 + 256  # CLIP + T5 tokens
 STEPS = 8
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
@@ -186,13 +218,78 @@ def check_k1(card: str) -> dict:
     return {"max_abs_err": worst, "times": times}
 
 
+def check_k2a(card: str) -> dict:
+    """K2a/K3b (flash_mha) against its plain version at SD3's joint and dual
+    shapes, a ragged case and a kv_len < Lk case whose excluded keys and
+    values are large (a kernel that reads past kv_len fails the bounds)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    worst, times = 0.0, {}
+    for shape in K2A_SHAPES:
+        b, lq, lk, d, h, kv_len = shape
+        q = torch.randn(b, lq, d, generator=gen, device=dev, dtype=torch.bfloat16)
+        k, v = (torch.randn(b, lk, d, generator=gen, device=dev,
+                            dtype=torch.bfloat16) for _ in range(2))
+        n = lk if kv_len is None else kv_len
+        k[:, n:], v[:, n:] = 1e4, 1e4
+        scale = 1.0 / np.sqrt(d // h)
+        out = flash_mha(q, k, v, h, scale, kv_len=kv_len)
+        ref = flash_mha_reference(q, k, v, h, scale, kv_len=kv_len)
+        torch.cuda.synchronize()
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"flash_mha non-finite at {shape}")
+        err, max_rel, rms_rel = k1_errors(out, ref)
+        print(f"K2a flash_mha {shape}: max_abs_err {err:.3e}, / max|plain| "
+              f"{max_rel:.3e} (bound {K1_MAX_REL:.3e}), rel RMS {rms_rel:.3e} "
+              f"(bound {K1_RMS_REL:.0e})")
+        if not (max_rel <= K1_MAX_REL and rms_rel <= K1_RMS_REL):
+            raise AssertionError(f"flash_mha disagrees with its plain version "
+                                 f"at {shape}: {max_rel}, {rms_rel}")
+        worst = max(worst, err)
+        if shape in K2A_SHAPES[:2]:  # the two SD3 1024^2 shapes
+            p1 = cuda_ms(lambda: flash_mha_reference(q, k, v, h, scale), 3)
+            k1 = cuda_ms(lambda: flash_mha(q, k, v, h, scale), 10)
+            k2 = cuda_ms(lambda: flash_mha(q, k, v, h, scale), 10)
+            p2 = cuda_ms(lambda: flash_mha_reference(q, k, v, h, scale), 3)
+            lib = cuda_ms(lambda: sdpa(q, k, v, h, scale), 10)
+            kms, pms = (k1 + k2) / 2, (p1 + p2) / 2
+            flops = 4.0 * b * h * lq * n * (d // h)
+            bms, by = bound(flops, 2.0 * (2 * q.numel() + 2 * b * n * d))
+            print(f"K2a time {shape}: kernel {kms:.4f} ms "
+                  f"({flops / kms / 1e9:.1f} TFLOP/s), plain {pms:.4f} ms, "
+                  f"sdpa {lib:.4f} ms, bound {bms:.4f} ms ({by}) [{card}]")
+            times[shape] = {"ms": kms, "plain_ms": pms, "library_ms": lib,
+                            "bound_ms": bms, "bound_by": by}
+    return {"max_abs_err": worst, "times": times}
+
+
+def sd3_mixed_ctx(device="cuda") -> "mmdit.MMDiTMaskCtx":
+    """The attention masks of the SD3 mixed phase's CFG-doubled token batch
+    (pipelines/sd3.py denoise_step_mixed with the default configuration)."""
+    sc, mc = default_config("sd3").scheduler, default_config("sd3").model
+    lens = [(r // 16) ** 2 for r in SD3_MIXED_REQUESTS]
+    s_pad = min(b for b in sorted((r // 16) ** 2 for r in mc.resolutions)
+                if b >= max(lens))
+    bb = min(b for b in sc.batch_buckets if b >= len(lens))
+    mask = torch.zeros(bb, s_pad, dtype=torch.bool, device=device)
+    for i, n in enumerate(lens):
+        mask[i, :n] = True
+    return mmdit.MMDiTMaskCtx(torch.cat([mask, mask]), SD3_CTX)
+
+
 def masked_inputs(gen, shape):
     """bf16 N(0, 1) q, k, v and the (B, L) key mask of one masked case."""
     b, length, d, h, dead = shape
     dev = gen.device
     q, k, v = (torch.randn(b, length, d, generator=gen, device=dev,
                            dtype=torch.bfloat16) for _ in range(3))
-    if dead is None:
+    if dead in ("joint", "dual"):
+        ctx = sd3_mixed_ctx()
+        mask = ctx.joint_mask if dead == "joint" else ctx.token_mask
+        if tuple(mask.shape) != (b, length):
+            raise AssertionError(f"SD3 token mask {tuple(mask.shape)} != "
+                                 f"{(b, length)}")
+    elif dead is None:
         mask = torch.rand(b, length, generator=gen, device=dev) > 0.3
         mask[:, :64] = False   # a whole key tile masked
         mask[:, -1] = True
@@ -336,6 +433,44 @@ def check_block() -> None:
           f"max err / max |ref| {rel:.3e} (bound {BLOCK_BOUND:.0e})")
     if not rel <= BLOCK_BOUND:
         raise AssertionError(f"transformer block disagrees with CPU: {rel}")
+
+
+def check_sd3_block() -> None:
+    """SD3.5-medium's block 0 (dual attention, 24 heads x 64) over 48^2
+    latent tokens + 333 context tokens, CFG pair: card bf16 vs CPU float32.
+    Its joint (2637 keys) and dual (2304 keys) K rows exceed 6 MiB, so both
+    attentions launch flash_mha (K2a)."""
+    torch.manual_seed(0)
+    cfg = mmdit.SD35_MEDIUM
+    blk = mmdit.JointTransformerBlock(cfg, last=False, dual=True).eval()
+    with torch.no_grad():
+        for name, p in blk.named_parameters():
+            if "norm_" in name:
+                p.copy_(1.0 + 0.1 * torch.randn_like(p))
+            else:
+                p.normal_(0.0, 0.02)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((2, 48 * 48, cfg.dim),
+                                             dtype=np.float32))
+    c = torch.from_numpy(rng.standard_normal((2, SD3_CTX, cfg.dim),
+                                             dtype=np.float32))
+    temb = torch.from_numpy(rng.standard_normal((2, cfg.dim), dtype=np.float32))
+    with torch.inference_mode():
+        ref_x, ref_c = blk(x, c, temb)
+        gpu = blk.to("cuda", torch.bfloat16)
+        before = flash_mha.launches
+        out_x, out_c = gpu(*(t.to("cuda", torch.bfloat16) for t in (x, c, temb)))
+        torch.cuda.synchronize()
+    if flash_mha.launches != before + 2:
+        raise AssertionError(f"the SD3 block launched flash_mha "
+                             f"{flash_mha.launches - before} times, not 2")
+    for name, out, ref in (("x", out_x, ref_x), ("context", out_c, ref_c)):
+        rel = ((out.float().cpu() - ref).abs().max() / ref.abs().max()).item()
+        print(f"SD3 dual block 0 {name} (2, {ref.shape[1]}, {cfg.dim}) card "
+              f"bf16 vs CPU fp32: max err / max |ref| {rel:.3e} (bound "
+              f"{BLOCK_BOUND:.0e})")
+        if not rel <= BLOCK_BOUND:
+            raise AssertionError(f"SD3 block {name} disagrees with CPU: {rel}")
 
 
 def build_bundle() -> ModelBundle:
@@ -531,6 +666,161 @@ def serve_mixed(card: str, bundle: ModelBundle) -> tuple:
     return masked, k4
 
 
+def build_sd3_bundle() -> ModelBundle:
+    t0 = time.perf_counter()
+    bundle = ModelBundle("sd3", dtype=torch.bfloat16, device="cuda")
+    bundle.init_random(seed=0)
+    torch.cuda.synchronize()
+    n = {k: sum(p.numel() for p in m.parameters())
+         for k, m in bundle.models.items()}
+    print(f"SD3.5-medium bundle built (random bf16 weights) in "
+          f"{time.perf_counter() - t0:.1f} s: " + ", ".join(
+              f"{k} {v / 1e9:.3f} B" for k, v in sorted(n.items())))
+    return bundle
+
+
+def sd3_attentions(bundle: ModelBundle) -> int:
+    """Attention calls per MMDiT forward: one joint per block, one more per
+    dual block (24 + 13 for SD3.5-medium)."""
+    return sum(1 + blk.dual for blk in bundle.denoiser.transformer_blocks)
+
+
+def time_sd3_stages(pipe, card: str) -> None:
+    """PREPARE of two 1024^2 requests (the three text encoders, cold, then
+    again through the T5 row cache) and the tiled VAE decode of one
+    1024^2 latent, host clock around work that ends in a synchronise."""
+    p = pipe.engine.worker.pipeline
+
+    def reqs():
+        return [Request(f"t{i}", SamplingParams(
+            prompt=f"a stage timing prompt {i}", resolution=1024,
+            num_inference_steps=STEPS, seed=i)) for i in range(2)]
+
+    times = []
+    for _ in range(2):
+        rs = reqs()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p.prepare(rs)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    with torch.inference_mode():
+        p._decode_fn(rs[0].latents)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = p._decode_fn(rs[0].latents)
+        torch.cuda.synchronize()
+    dec = (time.perf_counter() - t0) * 1e3
+    print(f"SD3 prepare (2 x 1024^2, CLIP-L + CLIP-G + T5-XXL): "
+          f"{times[0]:.2f} ms cold, {times[1]:.2f} ms through the T5 row "
+          f"cache; tiled VAE decode 1024^2 ({p.bundle.param_dtype('vae')}, "
+          f"{tuple(img.shape)}): {dec:.2f} ms [{card}]")
+
+
+def serve_sd3(card: str, bundle: ModelBundle) -> int:
+    """SD3 dense serving: [1024, 1024, 768] with mixed batches off, one
+    MMDiT forward per resolution group; every attention launches
+    flash_mha (K2a)."""
+    torch.cuda.reset_peak_memory_stats()
+    config = default_config("sd3", dtype="bfloat16", seed=0)
+    config.scheduler.use_mixed_resolution = False
+    config.engine.collect_data = True
+    pipe = DiffusionPipeline(config=config, device="cuda", bundle=bundle)
+    prompts = ["a lighthouse on a cliff at dusk", "a bowl of ramen, studio photo",
+               "an astronaut riding a horse"]
+    n_attn = sd3_attentions(bundle)
+
+    flash_mha.launches = flash_mha_fused.launches = 0
+    flash_mha_masked.launches = 0
+    t0 = time.perf_counter()
+    outs = pipe.generate(prompts, resolution=SD3_REQUESTS,
+                         num_inference_steps=STEPS, seed=1234)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = flash_mha.launches
+    others = (flash_mha_fused.launches, flash_mha_masked.launches)
+
+    check_outputs(outs, SD3_REQUESTS, card)
+    groups = len(set(SD3_REQUESTS))
+    expected = n_attn * STEPS * groups
+    print(f"SD3 dense serving: {len(outs)} requests in {wall:.3f} s, "
+          f"flash_mha launches {launches} (expected >= {expected}: {n_attn} "
+          f"attentions x {STEPS} steps x {groups} groups), K1 / masked "
+          f"launches {others}")
+    if launches < expected:
+        raise AssertionError("the SD3 dense path did not go through flash_mha")
+    res, n = SD3_REQUESTS[0], SD3_REQUESTS.count(SD3_REQUESTS[0])
+    step_gaps(pipe.engine.worker.schedule_log, f"{res}x{n}",
+              f"SD3 batch {n} x {res}^2 (CFG {2 * n} rows)", card)
+    peak = torch.cuda.max_memory_allocated()
+
+    r = SD3_REQUESTS[-1]
+    lat = pipe.generate(prompts[:1], resolution=r, num_inference_steps=2,
+                        seed=7, output_type="latent")[0].image
+    if lat.shape != (r // 8, r // 8, bundle.latent_channels) \
+            or not np.isfinite(lat).all():
+        raise AssertionError(f"bad SD3 latents {lat.shape}")
+    time_sd3_stages(pipe, card)
+    print(f"max_memory_allocated {peak / 2**30:.2f} GiB (SD3 dense) [{card}]")
+    return launches
+
+
+def serve_sd3_mixed(card: str, bundle: ModelBundle) -> int:
+    """SD3 with the default configuration: one padded-token MMDiT forward
+    per step for [512, 1024, 1024]; every attention launches the masked
+    kernel."""
+    torch.cuda.reset_peak_memory_stats()
+    config = default_config("sd3", dtype="bfloat16", seed=0)
+    config.engine.collect_data = True
+    pipe = DiffusionPipeline(config=config, device="cuda", bundle=bundle)
+    if not (config.scheduler.use_mixed_resolution
+            and config.scheduler.policy == "fcfs_mixed"):
+        raise AssertionError("the default configuration is not the mixed path")
+    prompts = ["a red fox in snow", "a harbor at night, long exposure",
+               "a watercolor of a mountain lake"]
+    n_attn = sd3_attentions(bundle)
+
+    flash_mha.launches = flash_mha_fused.launches = 0
+    flash_mha_masked.launches = 0
+    t0 = time.perf_counter()
+    outs = pipe.generate(prompts, resolution=SD3_MIXED_REQUESTS,
+                         num_inference_steps=STEPS, seed=99)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    masked = flash_mha_masked.launches
+    others = (flash_mha_fused.launches, flash_mha.launches)
+
+    check_outputs(outs, SD3_MIXED_REQUESTS, card)
+    log = pipe.engine.worker.schedule_log
+    key = ";".join(f"{r}x{SD3_MIXED_REQUESTS.count(r)}"
+                   for r in sorted(set(SD3_MIXED_REQUESTS)))
+    batches = [e["resolutions"] for e in log if e["stage"] == "denoising"]
+    if batches != [key] * STEPS:
+        raise AssertionError(f"expected {STEPS} mixed DENOISING batches "
+                             f"{key}, got {batches}")
+    want = n_attn * STEPS
+    print(f"SD3 mixed serving: {len(outs)} requests in {wall:.3f} s; "
+          f"DENOISING batches {batches[0]} x {len(batches)}; masked flash "
+          f"launches {masked} (expected >= {want}: {n_attn} attentions x "
+          f"{STEPS} steps), K1 / flash_mha launches {others}")
+    if masked < want:
+        raise AssertionError("the SD3 mixed path did not go through the "
+                             "masked kernel")
+    ctx = sd3_mixed_ctx(pipe.engine.worker.pipeline.device)
+    step_gaps(log, key, f"SD3 mixed {key} token batch (CFG {ctx.token_mask.shape[0]} "
+              f"rows of {ctx.token_mask.shape[1]} + {SD3_CTX} tokens)", card)
+    peak = torch.cuda.max_memory_allocated()
+
+    lat = pipe.generate(prompts, resolution=SD3_MIXED_REQUESTS,
+                        num_inference_steps=2, seed=7, output_type="latent")
+    for o, r in zip(lat, SD3_MIXED_REQUESTS):
+        if o.image.shape != (r // 8, r // 8, bundle.latent_channels) \
+                or not np.isfinite(o.image).all():
+            raise AssertionError(f"bad SD3 mixed latents {o.image.shape}")
+    print(f"max_memory_allocated {peak / 2**30:.2f} GiB (SD3 mixed) [{card}]")
+    return masked
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -548,17 +838,29 @@ def main() -> None:
             print(line.strip())
 
     k1 = check_k1(card)
+    k2a = check_k2a(card)
     masked = check_masked(card)
     k4 = check_k4(card)
     check_block()
+    check_sd3_block()
     bundle = build_bundle()
     check_patched(bundle)
     k1_launches = serve(card, bundle)
     masked_launches, k4_launches = serve_mixed(card, bundle)
+    # free the SDXL bundle so each family's peak memory reads alone
+    del bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    sd3 = build_sd3_bundle()
+    k2a_launches = serve_sd3(card, sd3)
+    masked_launches += serve_sd3_mixed(card, sd3)
 
+    # launches: the sum over the serving paths, each read just after its run
     kernels = [
         ("flash_mha_fused", "sduss_tpu_torch/csrc/flash_fused.cu",
          "sduss_tpu/ops/flash.py:373", k1_launches, k1, K1_SHAPES[0]),
+        ("flash_mha", "sduss_tpu_torch/csrc/flash_fused.cu",
+         "sduss_tpu/ops/flash.py:570", k2a_launches, k2a, K2A_SHAPES[1]),
         ("flash_mha_masked", "sduss_tpu_torch/csrc/flash_fused.cu",
          "sduss_tpu/ops/flash.py:579", masked_launches, masked,
          MASKED_SHAPES[0]),

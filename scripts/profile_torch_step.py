@@ -1,25 +1,31 @@
 #!/usr/bin/env python3
-"""Where the time of an SDXL denoise step goes in the PyTorch/CUDA port.
+"""Where the time of a denoise step goes in the PyTorch/CUDA port.
 
-    python3 scripts/profile_torch_step.py [--steps 3] [--out FILE.json]
+    python3 scripts/profile_torch_step.py [--family sdxl|sd3] [--steps 3]
+                                          [--out FILE.json]
 
-Needs one CUDA card.  Builds the full-width SDXL pipeline of
-``sduss_tpu_torch`` (random bf16 weights from seed 0, fp32 VAE, TF32 off)
-and measures, printing one line each:
+Needs one CUDA card.  Builds the full-width pipeline of ``sduss_tpu_torch``
+for the family (random bf16 weights from seed 0, TF32 off; SDXL: fp32
+VAE; SD3.5-medium: bf16 tiled VAE) and measures, printing one line each:
 
-  1. ``--steps`` denoise steps at 1024^2, batch 2 (4 UNet rows with CFG)
-     under ``torch.profiler``: wall ms per step (CUDA events), device-busy ms
-     per step (the union of kernel intervals) and device ms per op class;
-  2. prepare (CLIP-L + CLIP-G over 2 prompts and 2 negatives, latent init)
-     and the fp32 VAE decode of one image at 1024^2 and at 768^2;
-  3. the 1024^2 step at batch 1, 2 and 4 with every self-attention through
-     kernel K1 and through its plain PyTorch version, alternated K1, plain,
-     plain, K1.  For the plain phase only, this script rebinds the
-     dispatcher's kernel entry (``ops.attention.flash_mha_fused``) to
-     ``flash_mha_fused_reference``; the package itself has no such switch;
-  4. the mixed step of 768^2 + 3 x 1024^2 (one patched UNet forward,
+  1. ``--steps`` denoise steps at 1024^2, batch 2 (4 denoiser rows with
+     CFG) under ``torch.profiler``: wall ms per step (CUDA events),
+     device-busy ms per step (the union of kernel intervals) and device ms
+     per op class;
+  2. prepare (the family's text encoders over 2 prompts and 2 negatives,
+     latent init) and the VAE decode of one image at 1024^2 and at 768^2;
+  3. the 1024^2 step at batch 1, 2 and 4 (SD3: 1 and 2, since the plain
+     version's float32 scores of batch 4 take 15 GB a copy) with every
+     long unmasked attention through its kernel (SDXL: K1; SD3: flash_mha)
+     and through
+     its plain PyTorch version, alternated kernel, plain, plain, kernel.
+     For the plain phase only, this script rebinds the dispatcher's kernel
+     entry (``ops.attention.flash_mha_fused`` / ``flash_mha``) to the
+     plain version; the package itself has no such switch;
+  4. the mixed step (SDXL: 768^2 + 3 x 1024^2, one patched UNet forward;
+     SD3: 512^2 + 2 x 1024^2, one padded-token MMDiT forward;
      ``denoise_step_mixed``) under the profiler as in 1, and its wall ms
-     against the same four requests as two dense per-resolution forwards
+     against the same requests as dense per-resolution forwards
      (``denoise_step``), alternated mixed, dense, dense, mixed.
 
 The last line is a JSON object with every number; ``--out`` also writes it
@@ -52,7 +58,7 @@ STEPS_PER_REQUEST = 50  # sampler table long enough for every timed step
 # op classes by kernel name, first match wins
 OP_CLASSES = [
     ("masked flash attention", ("mha_fused_kernel<true>",)),
-    ("K1 self-attention", ("mha_fused",)),
+    ("unmasked flash (K1, flash_mha)", ("mha_fused",)),
     ("K4 gn+silu+halo", ("gn_halo",)),
     ("convolution", ("conv", "fprop", "dgrad", "wgrad", "implicit")),
     ("matmul", ("gemm", "xmma", "cutlass", "cublas", "nvjet")),
@@ -152,34 +158,40 @@ def stage_times(pipe) -> dict:
     return out
 
 
-def k1_vs_plain(pipe, steps: int) -> dict:
-    """Step ms with K1 and with the plain version, alternated on one card."""
+# the dispatcher entry of each family's 1024^2 unmasked attention, and the
+# mixed batch of its serving phase
+KERNEL_ENTRY = {"sdxl": ("flash_mha_fused", flash.flash_mha_fused_reference),
+                "sd3": ("flash_mha", flash.flash_mha_reference)}
+MIXED = {"sdxl": [768, 1024, 1024, 1024], "sd3": [512, 1024, 1024]}
+AB_BATCHES = {"sdxl": (1, 2, 4), "sd3": (1, 2)}
+
+
+def kernel_vs_plain(pipe, family: str, steps: int) -> dict:
+    """Step ms with the kernel and with its plain version, alternated on
+    one card."""
+    name, plain = KERNEL_ENTRY[family]
+    kernel = getattr(attn_ops, name)
     out = {}
-    for batch in (1, 2, 4):
+    for batch in AB_BATCHES[family]:
         reqs = prepared(pipe, batch, tag=f"ab{batch}")
         step = lambda: pipe.denoise_step({RES: reqs})  # noqa: E731
-        row = {"k1": [], "plain": []}
-        for variant in ("k1", "plain", "plain", "k1"):
-            attn_ops.flash_mha_fused = (flash.flash_mha_fused_reference
-                                        if variant == "plain"
-                                        else flash.flash_mha_fused)
+        row = {"kernel": [], "plain": []}
+        for variant in ("kernel", "plain", "plain", "kernel"):
+            setattr(attn_ops, name, plain if variant == "plain" else kernel)
             try:
                 row[variant].append(cuda_ms(step, steps))
             finally:
-                attn_ops.flash_mha_fused = flash.flash_mha_fused
+                setattr(attn_ops, name, kernel)
         out[f"batch{batch}"] = row
     return out
 
 
-MIXED = [768, 1024, 1024, 1024]
-
-
-def mixed_vs_dense(pipe, steps: int) -> dict:
+def mixed_vs_dense(pipe, mixed: list, steps: int) -> dict:
     """The mixed step's profile, and its wall ms against two dense
     per-resolution forwards of the same requests, alternated."""
     by_res: dict = {}
-    for res in sorted(set(MIXED)):
-        by_res[res] = prepared(pipe, MIXED.count(res), res=res, tag=f"mx{res}_")
+    for res in sorted(set(mixed)):
+        by_res[res] = prepared(pipe, mixed.count(res), res=res, tag=f"mx{res}_")
     prof = profile(lambda: pipe.denoise_step_mixed(by_res), steps)
     row = {"mixed": [], "dense": []}
     for variant in ("mixed", "dense", "dense", "mixed"):
@@ -199,6 +211,7 @@ def print_profile(prof: dict) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--family", choices=sorted(KERNEL_ENTRY), default="sdxl")
     ap.add_argument("--steps", type=int, default=3,
                     help="timed denoise steps per measurement")
     ap.add_argument("--out", type=Path, help="also write the JSON here")
@@ -209,10 +222,11 @@ def main() -> None:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    pipe = build_pipeline(default_config("sdxl", dtype="bfloat16", seed=0),
+    fam = args.family
+    pipe = build_pipeline(default_config(fam, dtype="bfloat16", seed=0),
                           torch.device("cuda"))
     torch.cuda.synchronize()
-    print(f"SDXL pipeline built in {time.perf_counter() - t0:.1f} s")
+    print(f"{fam} pipeline built in {time.perf_counter() - t0:.1f} s")
 
     prof = profile_step(pipe, args.steps)
     print(f"step 1024^2 batch 2: wall {prof['wall_ms']:.2f} ms, device busy "
@@ -222,24 +236,25 @@ def main() -> None:
     stages = stage_times(pipe)
     print("stages: " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
           + f" [{card}]")
-    ab = k1_vs_plain(pipe, args.steps)
+    ab = kernel_vs_plain(pipe, fam, args.steps)
     for batch, row in ab.items():
-        print(f"step 1024^2 {batch}: K1 "
-              + "/".join(f"{x:.2f}" for x in row["k1"]) + " ms, plain "
+        print(f"step 1024^2 {batch}: {KERNEL_ENTRY[fam][0]} "
+              + "/".join(f"{x:.2f}" for x in row["kernel"]) + " ms, plain "
               + "/".join(f"{x:.2f}" for x in row["plain"]) + f" ms [{card}]")
-    mixed = mixed_vs_dense(pipe, args.steps)
+    mix = MIXED[fam]
+    mixed = mixed_vs_dense(pipe, mix, args.steps)
     mp = mixed["profile"]
-    key = ";".join(f"{r}x{MIXED.count(r)}" for r in sorted(set(MIXED)))
+    key = ";".join(f"{r}x{mix.count(r)}" for r in sorted(set(mix)))
     print(f"mixed step {key}: wall {mp['wall_ms']:.2f} ms, device busy "
           f"{mp['busy_ms']:.2f} ms ({mp['busy_ms'] / mp['wall_ms']:.1%}) "
           f"[{card}]")
     print_profile(mp)
     row = mixed["mixed_vs_dense"]
-    print(f"mixed {key}: patched " + "/".join(f"{x:.2f}" for x in row["mixed"])
-          + " ms, two dense forwards "
+    print(f"mixed {key}: one forward " + "/".join(f"{x:.2f}" for x in row["mixed"])
+          + " ms, dense per-resolution forwards "
           + "/".join(f"{x:.2f}" for x in row["dense"]) + f" ms [{card}]")
-    result = {"card": card, "profile": prof, "stages": stages,
-              "k1_vs_plain": ab, "mixed": mixed}
+    result = {"card": card, "family": fam, "profile": prof, "stages": stages,
+              "kernel_vs_plain": ab, "mixed": mixed}
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(result, indent=1))

@@ -1,14 +1,24 @@
 // Model-layout flash self-attention for Hopper (sm_90a), bf16 in/out.
 //
-// Two kernels from one template:
-//   K1, MASKED = false: replaces sduss_tpu/ops/flash.py::_mha_fused_kernel
-//       (the Pallas TPU kernel behind flash_mha_fused);
+// Three entries over one template:
+//   K1, MASKED = false (sduss_flash_mha_fused): replaces
+//       sduss_tpu/ops/flash.py::_mha_fused_kernel (the Pallas TPU kernel
+//       behind flash_mha_fused);
+//   K2a/K3b, MASKED = false with kv_len <= Lk (sduss_flash_mha): replaces
+//       sduss_tpu/ops/flash.py::_mha_kernel_2pass_nobias, ::_mha_kernel and
+//       the kv_len form of ::_mha_kernel_2pass (flash_mha without kv_mask),
+//       which compute one function -- softmax over the first kv_len keys --
+//       by a two-pass softmax over head-major copies (the first two) or an
+//       online one (the third).  The TPU kernels need head-major layouts and
+//       128-aligned key axes for VMEM and the MXU; here the key loop simply
+//       stops at kv_len while Lk stays the batch stride of K/V, so the SD3
+//       widths (D = 1536, H = 24) run on the same code as SDXL's;
 //   K2b/K3a, MASKED = true: replaces sduss_tpu/ops/flash.py::_mha_kernel_2pass
 //       and ::_mha_kernel_masked (flash_mha with kv_mask), which compute the
 //       same function, the first by a two-pass and the second by an online
 //       softmax.  The mask is one byte per (batch row, key); masked keys get
 //       -inf before the row max.
-// Both compute softmax(Q K^T * scale) V over (B, L, D) tensors
+// All compute softmax(Q K^T * scale) V over (B, L, D) tensors
 // whose heads are column slices of D (head h at columns [h*64, h*64+64)),
 // so no head transposes are ever materialized.  Computes what the TPU
 // kernel computes, not its tiling: the TPU kernel holds whole K/V rows in
@@ -24,8 +34,9 @@
 //   Softmax statistics (running max m, running sum l) are float32, kept in
 //   registers by the two lanes that share a row.  The output accumulator is
 //   float32 in shared memory so each tile can rescale it by exp2(m_old -
-//   m_new) row by row (wmma accumulator layouts are opaque).  Ragged Lq/Lk
-//   tiles are zero-filled on load; key columns past Lk get -inf scores.
+//   m_new) row by row (wmma accumulator layouts are opaque).  Ragged Lq and
+//   kv_len tiles are zero-filled on load; key columns at or past kv_len get
+//   -inf scores, and no key past kv_len is ever read.
 //
 // What bounds it on this card: attention at SDXL shapes is compute-bound
 // in principle (L=4096, hd=64: ~64 FLOP per byte of K/V per query tile,
@@ -96,7 +107,7 @@ __global__ void __launch_bounds__(THREADS)
 mha_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o,
                  const uint8_t* __restrict__ kv_mask,
-                 int Lq, int Lk, int D, float scale_log2) {
+                 int Lq, int Lk, int kv_len, int D, float scale_log2) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ uint8_t sMask[BK];  // MASKED: this key tile's validity
   bf16* sQ = reinterpret_cast<bf16*>(smem);
@@ -136,19 +147,21 @@ mha_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float m = -INFINITY;
   float l = 0.f;
 
-  for (int kv0 = 0; kv0 < Lk; kv0 += BK) {
+  // Lk is the batch stride of K/V; keys at or past kv_len take no part
+  // (kv_len == Lk except for the sduss_flash_mha entry).
+  for (int kv0 = 0; kv0 < kv_len; kv0 += BK) {
     if constexpr (MASKED) {
       // Block-uniform: skip a tile with no valid key (see the header).
       uint8_t valid_key = 0;
       if (tid < BK) {
-        valid_key = (kv0 + tid < Lk) ? kv_mask[(size_t)b * Lk + kv0 + tid]
-                                     : (uint8_t)0;
+        valid_key = (kv0 + tid < kv_len) ? kv_mask[(size_t)b * Lk + kv0 + tid]
+                                         : (uint8_t)0;
         sMask[tid] = valid_key;
       }
       if (!__syncthreads_or(valid_key != 0)) continue;
     }
-    load_tile(sK, kb, kv0, Lk, D, col0, tid);
-    load_tile(sV, vb, kv0, Lk, D, col0, tid);
+    load_tile(sK, kb, kv0, kv_len, D, col0, tid);
+    load_tile(sV, vb, kv0, kv_len, D, col0, tid);
     __syncthreads();
 
     // S = Q K^T: K is (kv, hd) row-major in smem, i.e. K^T col-major.
@@ -167,7 +180,7 @@ mha_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncwarp();
 
     // Online softmax on this lane's half row (base-2 exponent, f32).
-    const int valid = min(BK, Lk - kv0);
+    const int valid = min(BK, kv_len - kv0);
     float* srow = wS + row * F_LD + half * 32;
     float mx = -INFINITY;
 #pragma unroll 8
@@ -233,8 +246,8 @@ mha_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <bool MASKED>
 int launch(const void* q, const void* k, const void* v, const void* kv_mask,
-           void* o, int B, int Lq, int Lk, int D, int H, float scale_log2,
-           void* stream) {
+           void* o, int B, int Lq, int Lk, int kv_len, int D, int H,
+           float scale_log2, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
       mha_fused_kernel<MASKED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)SMEM_BYTES);
@@ -244,7 +257,7 @@ int launch(const void* q, const void* k, const void* v, const void* kv_mask,
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<const uint8_t*>(kv_mask), Lq, Lk, D, scale_log2);
+      static_cast<const uint8_t*>(kv_mask), Lq, Lk, kv_len, D, scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -257,8 +270,18 @@ extern "C" int sduss_flash_mha_fused(const void* q, const void* k,
                                      const void* v, void* o, int B, int Lq,
                                      int Lk, int D, int H, float scale_log2,
                                      void* stream) {
-  return launch<false>(q, k, v, nullptr, o, B, Lq, Lk, D, H, scale_log2,
+  return launch<false>(q, k, v, nullptr, o, B, Lq, Lk, Lk, D, H, scale_log2,
                        stream);
+}
+
+// As sduss_flash_mha_fused, over the first kv_len keys of each batch row
+// (1 <= kv_len <= Lk; Lk stays the batch stride of K/V).  Keys at or past
+// kv_len are never read.
+extern "C" int sduss_flash_mha(const void* q, const void* k, const void* v,
+                               void* o, int B, int Lq, int Lk, int kv_len,
+                               int D, int H, float scale_log2, void* stream) {
+  return launch<false>(q, k, v, nullptr, o, B, Lq, Lk, kv_len, D, H,
+                       scale_log2, stream);
 }
 
 // As sduss_flash_mha_fused, plus kv_mask: contiguous (B, Lk) bytes, nonzero
@@ -267,7 +290,7 @@ extern "C" int sduss_flash_mha_masked(const void* q, const void* k,
                                       const void* v, const void* kv_mask,
                                       void* o, int B, int Lq, int Lk, int D,
                                       int H, float scale_log2, void* stream) {
-  return launch<true>(q, k, v, kv_mask, o, B, Lq, Lk, D, H, scale_log2,
+  return launch<true>(q, k, v, kv_mask, o, B, Lq, Lk, Lk, D, H, scale_log2,
                       stream);
 }
 

@@ -3,14 +3,20 @@
 One engine iteration = one scheduled stage execution: PREPARE, one
 DENOISING step, or POSTPROCESSING, chosen by the port's copy of the
 scheduler (``sduss_tpu_torch.scheduler``).  A DENOISING batch that mixes
-resolutions runs as one patched UNet forward (``denoise_step_mixed``)
-when ``scheduler.use_mixed_resolution`` is on.
+resolutions runs as one forward (``denoise_step_mixed``: a patched UNet
+for SDXL, a padded-token MMDiT for SD3) when
+``scheduler.use_mixed_resolution`` is on.
 
 PyTorch launches CUDA work asynchronously, so, as
 in the JAX worker, the host's lead over the device is bounded: after each
 denoise iteration the worker keeps a 1-element probe of the step output and
 past ``engine.max_inflight_steps`` probes reads the oldest with ``.item()``,
 which waits for that step.
+
+Every model of the bundle, the three SD3 text encoders included, stays on
+the card: the JAX package's ``encoders_on_host`` is a memory policy for a
+16 GB TPU chip that an 80 GB card does not need, so PREPARE runs on the
+device like the other stages.
 
 Prepare and postprocess run synchronously in this port.  The JAX worker's
 background prepare/decode threads (with the decode-overlap memory bound and

@@ -15,7 +15,8 @@ from sduss_tpu_torch.models.registry import ModelBundle
 
 def default_config(model: str = "sdxl", **model_kwargs) -> Config:
     """The JAX package's defaults: the ``fcfs_mixed`` policy with
-    mixed-resolution denoise batches on the patch path."""
+    mixed-resolution denoise batches (SDXL: the patch path; SD3: the
+    padded-token path), and for full-size SD3 the tiled VAE decode."""
     config = Config()
     config.model = ModelConfig(model=model, **model_kwargs)
     return config

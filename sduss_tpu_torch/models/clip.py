@@ -2,8 +2,8 @@
 
 Module names follow transformers' ``CLIPTextModel`` /
 ``CLIPTextModelWithProjection``, so ``state_dict()`` keys are the
-checkpoint's keys.  Serves SDXL's CLIP-L (quick_gelu) and OpenCLIP bigG
-(exact gelu, projection head).
+checkpoint's keys.  Serves SDXL's and SD3's CLIP-L (quick_gelu; SD3's with
+a 768 projection head) and OpenCLIP bigG (exact gelu, projection head).
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ CLIP_G = CLIPTextConfig(
     hidden_size=1280, num_layers=32, num_heads=20, intermediate_size=5120,
     hidden_act="gelu", projection_dim=1280,
 )
+CLIP_L_PROJ = dataclasses.replace(CLIP_L, projection_dim=768)  # SD3 text_encoder
 TINY_CLIP = CLIPTextConfig(vocab_size=1000, hidden_size=64, num_layers=2, num_heads=4,
                            intermediate_size=128, projection_dim=64)
 

@@ -1,7 +1,8 @@
 """JAX parameter tree -> diffusers/transformers state dict (pure numpy).
 
 The exact inverse of sduss_tpu/models/convert.py's ``convert_unet``,
-``convert_clip`` and ``convert_vae``: matmul kernels ``(in, out)`` go back
+``convert_clip``, ``convert_vae``, ``convert_mmdit`` and ``convert_t5``:
+matmul kernels ``(in, out)`` go back
 to torch's ``(out, in)``, conv kernels HWIO back to OIHW, and every tensor
 gets its diffusers name again.  This is how the JAX package's parameters
 are carried into the port (``ModelBundle.load_state_dicts``).
@@ -135,20 +136,88 @@ def vae_state_dict(p) -> StateDict:
     return sd
 
 
+def _scale(sd: StateDict, prefix: str, p) -> None:
+    """An RMS norm: ``scale`` only."""
+    sd[f"{prefix}.weight"] = np.asarray(p["scale"])
+
+
+def _mmdit_attn(sd: StateDict, prefix: str, p) -> None:
+    _attn(sd, prefix, p)
+    for name in ("norm_q", "norm_k", "norm_added_q", "norm_added_k"):
+        if name in p:
+            _scale(sd, f"{prefix}.{name}", p[name])
+    for name in ("add_q_proj", "add_k_proj", "add_v_proj", "to_add_out"):
+        if name in p:
+            _dense(sd, f"{prefix}.{name}", p[name])
+
+
+def mmdit_state_dict(p) -> StateDict:
+    """Inverse of ``convert_mmdit`` (convert.py:305-337)."""
+    sd: StateDict = {}
+    _dense(sd, "pos_embed.proj", p["patch_embed"])
+    for emb in ("timestep_embedder", "text_embedder"):
+        for lin in ("linear_1", "linear_2"):
+            _dense(sd, f"time_text_embed.{emb}.{lin}", p[emb][lin])
+    _dense(sd, "context_embedder", p["context_embedder"])
+    _dense(sd, "norm_out.linear", p["norm_out_proj"])
+    _dense(sd, "proj_out", p["proj_out"])
+    for i, blk in enumerate(p["blocks"]):
+        pre = f"transformer_blocks.{i}"
+        _dense(sd, f"{pre}.norm1.linear", blk["norm1_proj"])
+        _dense(sd, f"{pre}.norm1_context.linear", blk["norm1_context_proj"])
+        _mmdit_attn(sd, f"{pre}.attn", blk["attn"])
+        _dense(sd, f"{pre}.ff.net.0.proj", blk["ff1"])
+        _dense(sd, f"{pre}.ff.net.2", blk["ff2"])
+        if "ff_context1" in blk:
+            _dense(sd, f"{pre}.ff_context.net.0.proj", blk["ff_context1"])
+            _dense(sd, f"{pre}.ff_context.net.2", blk["ff_context2"])
+        if "attn2" in blk:
+            _mmdit_attn(sd, f"{pre}.attn2", blk["attn2"])
+    return sd
+
+
+def t5_state_dict(p) -> StateDict:
+    """Inverse of ``convert_t5`` (convert.py:96-118)."""
+    sd: StateDict = {
+        "shared.weight": np.asarray(p["token_embedding"]),
+        "encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight":
+            np.asarray(p["relative_attention_bias"]),
+    }
+    _scale(sd, "encoder.final_layer_norm", p["final_layer_norm"])
+    for i, lyr in enumerate(p["layers"]):
+        b = f"encoder.block.{i}.layer."
+        _scale(sd, b + "0.layer_norm", lyr["ln_attn"])
+        for name in ("q", "k", "v", "o"):
+            _dense(sd, f"{b}0.SelfAttention.{name}", lyr[name])
+        _scale(sd, b + "1.layer_norm", lyr["ln_ff"])
+        for name in ("wi_0", "wi_1", "wo"):
+            _dense(sd, f"{b}1.DenseReluDense.{name}", lyr[name])
+    return sd
+
+
 _BY_ROLE = {"unet": unet_state_dict, "clip": clip_state_dict,
-            "vae": vae_state_dict}
+            "vae": vae_state_dict, "transformer": mmdit_state_dict,
+            "t5": t5_state_dict}
 
 
 def jax_to_torch_state_dict(family_role: str, params) -> StateDict:
     """Convert one component's JAX parameter tree (numpy leaves).
 
-    ``family_role`` is ``"unet"``, ``"vae"`` or a text encoder role
-    (``"clip"``, ``"text_encoder"``, ``"text_encoder_2"``).
+    ``family_role`` is ``"unet"``, ``"transformer"`` (the SD3 MMDiT),
+    ``"vae"``, ``"t5"``/``"text_encoder_3"`` or a CLIP role (``"clip"``,
+    ``"text_encoder"``, ``"text_encoder_2"``).
     """
-    role = "clip" if family_role.startswith("text_encoder") else family_role
+    # text_encoder_3 (T5) first: every other text_encoder* role is CLIP
+    if family_role == "text_encoder_3":
+        role = "t5"
+    elif family_role.startswith("text_encoder"):
+        role = "clip"
+    else:
+        role = family_role
     try:
         fn = _BY_ROLE[role]
     except KeyError:
-        raise ValueError(f"no converter for {family_role!r}; "
-                         f"roles: unet, clip/text_encoder*, vae") from None
+        raise ValueError(f"no converter for {family_role!r}; roles: unet, "
+                         f"transformer, vae, t5/text_encoder_3, "
+                         f"clip/text_encoder*") from None
     return fn(params)

@@ -71,9 +71,22 @@ def layer_norm(x, weight, bias, eps: float = 1e-5):
     return y.to(x.dtype)
 
 
+def rms_norm(x, weight, eps: float = 1e-6):
+    """RMS norm over the last axis in float32, cast back (layers.py:136)."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
+
+
 def gelu(x):
-    """Exact (erf) GELU in float32, cast back."""
+    """Exact (erf) GELU in float32, cast back (CLIP-G, GEGLU)."""
     return F.gelu(x.float()).to(x.dtype)
+
+
+def gelu_tanh(x):
+    """tanh-approximate GELU in float32, cast back (the MMDiT and T5
+    feed-forwards: ``jax.nn.gelu(approximate=True)``)."""
+    return F.gelu(x.float(), approximate="tanh").to(x.dtype)
 
 
 def quick_gelu(x):
@@ -122,18 +135,22 @@ def _merge_heads(x):
 
 
 def attention(q, k, v, num_heads: int, mask=None,
-              scale: Optional[float] = None):
+              scale: Optional[float] = None, bias=None):
     """Plain multi-head attention over ``(B, L, D)`` tensors.
 
     float32 logits and softmax; the weights are cast to q's dtype before
-    the PV product, as in the JAX function (layers.py:147-170).  ``mask``
-    is boolean, True = attend, broadcastable to ``(B, H, Lq, Lk)``.
+    the PV product, as in the JAX function (layers.py:147-170).  ``bias``
+    is added to the float32 logits (T5's relative position bias);
+    ``mask`` is boolean, True = attend; both broadcast to
+    ``(B, H, Lq, Lk)``.
     """
     hd = q.shape[-1] // num_heads
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
     qh, kh, vh = (_heads(t, num_heads) for t in (q, k, v))
     logits = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        logits = logits + bias.float()
     if mask is not None:
         logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
     w = torch.softmax(logits, dim=-1).to(q.dtype)

@@ -1,0 +1,400 @@
+"""SD3 MMDiT, ``SD3Transformer2DModel`` (counterpart of
+sduss_tpu/models/mmdit.py), for SD-3.5-medium.
+
+Joint latent + text attention blocks with AdaLayerNorm-Zero modulation, a
+2x2 patch embedding with a center-cropped 2D sin-cos position grid,
+per-head qk RMS norm and dual self-attention in the first 13 layers.  Two
+forwards, as in the JAX model: ``forward`` (dense, one resolution per
+call) and ``apply_tokens`` (the mixed-resolution path: per-request latent
+tokens right-padded to a shared length and masked in attention through
+``MMDiTMaskCtx``).  The JAX model's token caches (block, compact, fine
+stale-KV) and the span-skip deep cache are not ported.
+
+Every attention goes through ``ops.attention.masked_attention``: at
+SD-3.5-medium's width (D = 1536) the unmasked joint and dual attention of
+768^2 and 1024^2 images reach ``flash_mha`` (K2a/K3b), those of 512^2 K1,
+and the token path's masked attention the masked kernel.  Module names
+follow diffusers', so ``state_dict()`` keys are the checkpoint's and
+``models/convert.py`` maps them to and from the JAX parameter tree.
+Latents are NHWC at the public seams.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from sduss_tpu_torch.models import layers as L
+from sduss_tpu_torch.ops.attention import masked_attention
+
+
+@dataclasses.dataclass(frozen=True)
+class MMDiTConfig:
+    in_channels: int = 16
+    out_channels: int = 16
+    patch_size: int = 2
+    num_layers: int = 24
+    num_heads: int = 24
+    head_dim: int = 64
+    joint_attention_dim: int = 4096  # T5 feature width
+    pooled_projection_dim: int = 2048  # CLIP-L + CLIP-G pooled concat
+    pos_embed_max_size: int = 384
+    qk_norm: bool = True
+    dual_attention_layers: Tuple[int, ...] = tuple(range(13))
+    sample_size: int = 128
+    pos_embed_base_size: int = 64
+
+    @property
+    def dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+
+SD35_MEDIUM = MMDiTConfig()
+TINY_MMDIT = MMDiTConfig(
+    in_channels=4, out_channels=4, num_layers=2, num_heads=2, head_dim=16,
+    joint_attention_dim=32, pooled_projection_dim=32, pos_embed_max_size=32,
+    dual_attention_layers=(0,), sample_size=8, pos_embed_base_size=8,
+)
+
+
+def sincos_2d_pos_embed(dim: int, grid_size: int, base_size: int) -> np.ndarray:
+    """2D sin-cos position embedding, (grid_size*grid_size, dim), float32.
+
+    The JAX package's function (mmdit.py:56-73): diffusers'
+    get_2d_sincos_pos_embed with interpolation_scale=1, grid coordinates
+    scaled by base_size/grid_size, computed in float64.
+    """
+    pos = np.arange(grid_size, dtype=np.float64) / (grid_size / base_size)
+    grid = np.meshgrid(pos, pos)  # [x(w), y(h)] each (H, W)
+
+    def _1d(d, p):
+        omega = np.arange(d // 2, dtype=np.float64) / (d / 2.0)
+        omega = 1.0 / 10000**omega
+        out = np.einsum("m,d->md", p.reshape(-1), omega)
+        return np.concatenate([np.sin(out), np.cos(out)], axis=1)
+
+    emb_h = _1d(dim // 2, grid[1])
+    emb_w = _1d(dim // 2, grid[0])
+    return np.concatenate([emb_h, emb_w], axis=1).astype(np.float32)
+
+
+def _silu_f32(x):
+    return F.silu(x.float()).to(x.dtype)
+
+
+def _layer_norm(x, eps: float = 1e-6):
+    """LayerNorm without affine, in float32, cast back."""
+    return F.layer_norm(x.float(), (x.shape[-1],), eps=eps).to(x.dtype)
+
+
+def _modulate(xn, shift, scale):
+    return xn * (1 + scale[:, None]) + shift[:, None]
+
+
+class RMSNorm(nn.Module):
+    """Per-head qk RMS norm (eps 1e-6); state-dict key ``weight``."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x):
+        return L.rms_norm(x, self.weight, 1e-6)
+
+
+class AdaLayerNormProj(nn.Module):
+    """``norm1``/``norm1_context``/``norm_out``: only the modulation
+    projection has weights (diffusers' ``.linear``)."""
+
+    def __init__(self, dim: int, out: int):
+        super().__init__()
+        self.linear = nn.Linear(dim, out)
+
+
+class JointAttention(nn.Module):
+    def __init__(self, cfg: MMDiTConfig, joint: bool, last_block: bool = False):
+        super().__init__()
+        d = cfg.dim
+        self.cfg = cfg
+        self.to_q = nn.Linear(d, d)
+        self.to_k = nn.Linear(d, d)
+        self.to_v = nn.Linear(d, d)
+        self.to_out = nn.ModuleList([nn.Linear(d, d), nn.Identity()])
+        if cfg.qk_norm:
+            self.norm_q = RMSNorm(cfg.head_dim)
+            self.norm_k = RMSNorm(cfg.head_dim)
+        if joint:
+            self.add_q_proj = nn.Linear(d, d)
+            self.add_k_proj = nn.Linear(d, d)
+            self.add_v_proj = nn.Linear(d, d)
+            if cfg.qk_norm:
+                self.norm_added_q = RMSNorm(cfg.head_dim)
+                self.norm_added_k = RMSNorm(cfg.head_dim)
+            if not last_block:
+                self.to_add_out = nn.Linear(d, d)
+
+    def _heads(self, x):
+        b, s, _ = x.shape
+        return x.reshape(b, s, self.cfg.num_heads, self.cfg.head_dim)
+
+    def qkv(self, x, prefix: str = ""):
+        """Projected, per-head qk-normed ``(B, S, H, hd)`` q, k, v."""
+        if prefix:
+            pq, pk, pv = self.add_q_proj, self.add_k_proj, self.add_v_proj
+        else:
+            pq, pk, pv = self.to_q, self.to_k, self.to_v
+        q, k, v = self._heads(pq(x)), self._heads(pk(x)), self._heads(pv(x))
+        if self.cfg.qk_norm:
+            q = getattr(self, f"norm_{prefix}q")(q)
+            k = getattr(self, f"norm_{prefix}k")(k)
+        return q, k, v
+
+
+class GELUProj(nn.Module):
+    def __init__(self, dim: int, inner: int):
+        super().__init__()
+        self.proj = nn.Linear(dim, inner)
+
+    def forward(self, x):
+        return L.gelu_tanh(self.proj(x))
+
+
+class FeedForward(nn.Module):
+    """tanh-GELU MLP; diffusers' ``ff.net.0.proj`` / ``ff.net.2`` names."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.net = nn.ModuleList([GELUProj(dim, 4 * dim), nn.Identity(),
+                                  nn.Linear(4 * dim, dim)])
+
+    def forward(self, x):
+        return self.net[2](self.net[0](x))
+
+
+class JointTransformerBlock(nn.Module):
+    def __init__(self, cfg: MMDiTConfig, last: bool, dual: bool):
+        super().__init__()
+        d = cfg.dim
+        self.cfg, self.last, self.dual = cfg, last, dual
+        self.norm1 = AdaLayerNormProj(d, (9 if dual else 6) * d)
+        self.norm1_context = AdaLayerNormProj(d, 2 * d if last else 6 * d)
+        self.attn = JointAttention(cfg, joint=True, last_block=last)
+        self.ff = FeedForward(d)
+        if not last:
+            self.ff_context = FeedForward(d)
+        if dual:
+            self.attn2 = JointAttention(cfg, joint=False)
+
+    def forward(self, x, c, temb, ctx=None):
+        """One joint block (mmdit.py:214-370 without the cache arguments):
+        ``x`` (B, S, D) latent tokens, ``c`` (B, Lc, D) context tokens.
+        Returns ``(x, c)``; the last block returns ``(x, None)``."""
+        silu_t = _silu_f32(temb)
+        mods = self.norm1.linear(silu_t).chunk(9 if self.dual else 6, dim=-1)
+        shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mods[:6]
+        xn = _layer_norm(x)
+        x_mod = _modulate(xn, shift_msa, scale_msa)
+
+        cmods = self.norm1_context.linear(silu_t)
+        cn = _layer_norm(c)
+        if self.last:
+            # AdaLayerNormContinuous: [scale, shift] chunks
+            c_scale, c_shift = cmods.chunk(2, dim=-1)
+            c_mod = _modulate(cn, c_shift, c_scale)
+        else:
+            (c_shift_msa, c_scale_msa, c_gate_msa,
+             c_shift_mlp, c_scale_mlp, c_gate_mlp) = cmods.chunk(6, dim=-1)
+            c_mod = _modulate(cn, c_shift_msa, c_scale_msa)
+
+        q, k, v = self.attn.qkv(x_mod)
+        cq, ck, cv = self.attn.qkv(c_mod, "added_")
+        s_q = q.shape[1]
+        # joint sequence [latent ; context], split back at s_q
+        attn_out = _attention(torch.cat([q, cq], dim=1),
+                              torch.cat([k, ck], dim=1),
+                              torch.cat([v, cv], dim=1), ctx)
+        x_attn, c_attn = attn_out[:, :s_q], attn_out[:, s_q:]
+        x = x + gate_msa[:, None] * self.attn.to_out[0](x_attn)
+
+        if self.dual:
+            shift2, scale2, gate2 = mods[6:]
+            q2, k2, v2 = self.attn2.qkv(_modulate(xn, shift2, scale2))
+            out2 = _attention(q2, k2, v2, ctx)
+            x = x + gate2[:, None] * self.attn2.to_out[0](out2)
+
+        x_ff = _modulate(_layer_norm(x), shift_mlp, scale_mlp)
+        x = x + gate_mlp[:, None] * self.ff(x_ff)
+        if self.last:
+            return x, None
+        c = c + c_gate_msa[:, None] * self.attn.to_add_out(c_attn)
+        c_ff = _modulate(_layer_norm(c), c_shift_mlp, c_scale_mlp)
+        return x, c + c_gate_mlp[:, None] * self.ff_context(c_ff)
+
+
+def _attention(q, k, v, ctx=None):
+    """``(B, S, H, hd)`` heads -> ``(B, S, D)``; masked when ctx is given."""
+    b, s, nh, hd = q.shape
+    q, k, v = (t.reshape(b, t.shape[1], nh * hd) for t in (q, k, v))
+    if ctx is not None:
+        return ctx.mmdit_attention(q, k, v, nh)
+    return masked_attention(q, k, v, nh)
+
+
+class TimestepEmbedder(nn.Module):
+    def __init__(self, in_dim: int, dim: int):
+        super().__init__()
+        self.linear_1 = nn.Linear(in_dim, dim)
+        self.linear_2 = nn.Linear(dim, dim)
+
+    def forward(self, x):
+        return self.linear_2(_silu_f32(self.linear_1(x)))
+
+
+class CombinedTimestepTextProjEmbeddings(nn.Module):
+    def __init__(self, cfg: MMDiTConfig):
+        super().__init__()
+        self.timestep_embedder = TimestepEmbedder(256, cfg.dim)
+        self.text_embedder = TimestepEmbedder(cfg.pooled_projection_dim, cfg.dim)
+
+
+class PatchEmbed(nn.Module):
+    def __init__(self, cfg: MMDiTConfig):
+        super().__init__()
+        self.proj = nn.Conv2d(cfg.in_channels, cfg.dim, cfg.patch_size,
+                              stride=cfg.patch_size)
+
+
+class SD3Transformer2DModel(nn.Module):
+    def __init__(self, cfg: MMDiTConfig):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.dim
+        self.pos_embed = PatchEmbed(cfg)
+        self.time_text_embed = CombinedTimestepTextProjEmbeddings(cfg)
+        self.context_embedder = nn.Linear(cfg.joint_attention_dim, d)
+        self.transformer_blocks = nn.ModuleList(
+            [JointTransformerBlock(cfg, i == cfg.num_layers - 1,
+                                   i in cfg.dual_attention_layers)
+             for i in range(cfg.num_layers)])
+        self.norm_out = AdaLayerNormProj(d, 2 * d)
+        self.proj_out = nn.Linear(d, cfg.patch_size**2 * cfg.out_channels)
+        self._pos_full = None   # host table, built at first use
+        self._pos_dev: Dict[tuple, torch.Tensor] = {}
+
+    # -- embedding front -----------------------------------------------------
+
+    def pos_grid(self, h_patches: int, w_patches: int) -> np.ndarray:
+        """Center-cropped position grid (h*w, dim), float32 numpy
+        (mmdit.py:149-155)."""
+        cfg = self.cfg
+        m = cfg.pos_embed_max_size
+        if self._pos_full is None:
+            self._pos_full = sincos_2d_pos_embed(
+                cfg.dim, m, cfg.pos_embed_base_size).reshape(m, m, cfg.dim)
+        top, left = (m - h_patches) // 2, (m - w_patches) // 2
+        crop = self._pos_full[top:top + h_patches, left:left + w_patches]
+        return crop.reshape(h_patches * w_patches, cfg.dim)
+
+    def _pos(self, hp: int, wp: int, device, dtype):
+        key = (hp, wp, str(device), dtype)
+        if key not in self._pos_dev:
+            self._pos_dev[key] = torch.from_numpy(
+                np.ascontiguousarray(self.pos_grid(hp, wp))).to(device, dtype)
+        return self._pos_dev[key]
+
+    def embed_latents(self, latents):
+        """``(B, H, W, C)`` latents -> ``(B, h*w, dim)`` tokens with the
+        position grid added."""
+        x = self.pos_embed.proj(latents.permute(0, 3, 1, 2))
+        b, d, hp, wp = x.shape
+        x = x.permute(0, 2, 3, 1).reshape(b, hp * wp, d)
+        return x + self._pos(hp, wp, x.device, x.dtype)[None]
+
+    def time_text_embed_fn(self, timesteps, pooled, dtype):
+        tte = self.time_text_embed
+        te = L.timestep_embedding(timesteps, 256).to(dtype)
+        return (tte.timestep_embedder(te)
+                + tte.text_embedder(pooled.to(dtype)))
+
+    # -- trunk and head ------------------------------------------------------
+
+    def trunk(self, x, c, temb, ctx=None):
+        for blk in self.transformer_blocks:
+            x, c2 = blk(x, c, temb, ctx=ctx)
+            c = c2 if c2 is not None else c
+        return self.head(x, temb)
+
+    def head(self, x, temb):
+        """Final AdaLN modulation ([scale, shift]) + projection."""
+        scale, shift = self.norm_out.linear(_silu_f32(temb)).chunk(2, dim=-1)
+        return self.proj_out(_modulate(_layer_norm(x), shift, scale))
+
+    def unpatchify(self, x, hp: int, wp: int):
+        """``(B, hp*wp, ps*ps*C)`` -> ``(B, H, W, C)``."""
+        cfg = self.cfg
+        ps = cfg.patch_size
+        b = x.shape[0]
+        x = x[:, :hp * wp].reshape(b, hp, wp, ps, ps, cfg.out_channels)
+        return x.permute(0, 1, 3, 2, 4, 5).reshape(b, hp * ps, wp * ps,
+                                                   cfg.out_channels)
+
+    def forward(self, latents, timesteps, encoder_hidden_states,
+                pooled_projections):
+        """Dense forward: ``(B, H, W, C)`` latents -> velocity ``(B, H, W, C)``.
+
+        ``timesteps`` ``(B,)``; ``encoder_hidden_states`` ``(B, L,
+        joint_attention_dim)`` CLIP+T5 features; ``pooled_projections``
+        ``(B, pooled_projection_dim)``.
+        """
+        ps = self.cfg.patch_size
+        hp, wp = latents.shape[1] // ps, latents.shape[2] // ps
+        x = self.embed_latents(latents)
+        temb = self.time_text_embed_fn(timesteps, pooled_projections,
+                                       latents.dtype)
+        c = self.context_embedder(encoder_hidden_states.to(latents.dtype))
+        return self.unpatchify(self.trunk(x, c, temb), hp, wp)
+
+    def apply_tokens(self, tokens, token_mask, timesteps,
+                     encoder_hidden_states, pooled_projections):
+        """Mixed-resolution forward over padded token rows
+        (mmdit.py:625-653 without caches).
+
+        tokens: ``(B, S_pad, dim)`` embedded latent tokens, right-padded per
+        request; token_mask: ``(B, S_pad)`` bool, True at real tokens.
+        Returns ``(B, S_pad, ps*ps*C)``; rows past a request's tokens are
+        garbage that the caller slices off.
+        """
+        temb = self.time_text_embed_fn(timesteps, pooled_projections,
+                                       tokens.dtype)
+        c = self.context_embedder(encoder_hidden_states.to(tokens.dtype))
+        return self.trunk(tokens, c, temb,
+                          ctx=MMDiTMaskCtx(token_mask, c.shape[1]))
+
+
+class MMDiTMaskCtx:
+    """Masked attention for padded mixed-resolution token rows
+    (mmdit.py:656-686).
+
+    Joint attention (latent + text keys) masks the padded latent keys;
+    dual self-attention (latent keys only) masks the same rows.  Padded
+    query rows give garbage that never reaches a real token (they are
+    masked as keys) and is sliced off before unpatchify.
+    """
+
+    def __init__(self, token_mask, ctx_len: int):
+        self.token_mask = token_mask.bool().contiguous()
+        self.ctx_len = ctx_len
+        b = token_mask.shape[0]
+        self.joint_mask = torch.cat(
+            [self.token_mask, self.token_mask.new_ones((b, ctx_len))], dim=1)
+
+    def mmdit_attention(self, q, k, v, num_heads: int):
+        s_lat = self.token_mask.shape[1]
+        kv_mask = (self.joint_mask if k.shape[1] == s_lat + self.ctx_len
+                   else self.token_mask)
+        return masked_attention(q, k, v, num_heads, kv_token_mask=kv_mask)

@@ -2,7 +2,12 @@
 sduss_tpu/models/registry.py, loader.py and utils.random_params).
 
 A ``ModelBundle`` holds one family's ``nn.Module``s on one device, in one
-serving dtype (the SDXL VAE stays float32), and its tokenizers.  Weights
+serving dtype (the VAE follows the JAX ``_vae_dtype`` rule: bf16 on the
+card, float32 on the CPU, and float32 always for SDXL's force_upcast VAE),
+and its tokenizers.  Every component stays on the device: the JAX
+package's ``encoders_on_host`` is a memory policy for a 16 GB TPU chip,
+and the full SD3 bundle (~16 GB bf16, T5-XXL ~9.5 GB of it) fits an 80 GB
+card next to its activations.  Weights
 come from :meth:`ModelBundle.init_random` (seeded, generated on the device)
 or :meth:`ModelBundle.load_state_dicts` (diffusers-named arrays, e.g. the
 JAX package's parameters through ``models/convert.py``).
@@ -20,6 +25,8 @@ import torch
 import torch.nn as nn
 
 from sduss_tpu_torch.models import clip as clip_mod
+from sduss_tpu_torch.models import mmdit as mmdit_mod
+from sduss_tpu_torch.models import t5 as t5_mod
 from sduss_tpu_torch.models import unet as unet_mod
 from sduss_tpu_torch.models import vae as vae_mod
 
@@ -44,6 +51,12 @@ SPECS: Dict[str, FamilySpec] = {
         default_sampler="euler", sampler_kwargs={}, default_steps=50,
         default_guidance=5.0, resolutions=(512, 768, 1024),
         text_encoders=("clip_l", "clip_g"),
+    ),
+    "sd3": FamilySpec(
+        family="sd3", latent_channels=16, vae_scale=8,
+        default_sampler="flow_match", sampler_kwargs={"shift": 3.0},
+        default_steps=40, default_guidance=4.5, resolutions=(512, 768, 1024),
+        text_encoders=("clip_l", "clip_g", "t5"),
     ),
 }
 
@@ -109,42 +122,81 @@ class ModelBundle:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device found; pass device='cpu' "
                                "explicitly to run on the CPU")
+        # built on the meta device: no memory, no default init, until the
+        # weights are materialized on the target device
+        with torch.device("meta"):
+            self.models: Dict[str, nn.Module] = (
+                self._sd3_models(tiny) if family == "sd3"
+                else self._sdxl_models(tiny))
+        self.tokenizers = {
+            "tokenizer": StubTokenizer(self.models["text_encoder"].cfg.vocab_size),
+            "tokenizer_2": StubTokenizer(
+                self.models["text_encoder_2"].cfg.vocab_size),
+        }
+        if "text_encoder_3" in self.models:
+            # the JAX T5 stub (loader.py:100): no BOS, EOS 1, pad 0, 256 ids
+            self.tokenizers["tokenizer_3"] = StubTokenizer(
+                self.models["text_encoder_3"].cfg.vocab_size,
+                model_max_length=256, bos=None, eos=1, pad=0)
+
+    @staticmethod
+    def _sdxl_models(tiny: bool) -> Dict[str, nn.Module]:
         if tiny:
             te1 = dataclasses.replace(clip_mod.TINY_CLIP, projection_dim=None,
                                       hidden_size=16, intermediate_size=32)
             te2 = dataclasses.replace(clip_mod.TINY_CLIP, projection_dim=48,
                                       hidden_size=16, intermediate_size=32)
-            cfgs = {"unet": unet_mod.TINY_SDXL_UNET, "vae": vae_mod.TINY_VAE}
+            unet, vae = unet_mod.TINY_SDXL_UNET, vae_mod.TINY_VAE
         else:
             te1 = dataclasses.replace(clip_mod.CLIP_L, projection_dim=None)
             te2 = clip_mod.CLIP_G
-            cfgs = {"unet": unet_mod.SDXL_UNET, "vae": vae_mod.SDXL_VAE}
-        # built on the meta device: no memory, no default init, until the
-        # weights are materialized on the target device
-        with torch.device("meta"):
-            self.models: Dict[str, nn.Module] = {
-                "unet": unet_mod.UNet2DConditionModel(cfgs["unet"]),
+            unet, vae = unet_mod.SDXL_UNET, vae_mod.SDXL_VAE
+        return {"unet": unet_mod.UNet2DConditionModel(unet),
                 "text_encoder": clip_mod.CLIPTextModel(te1),
                 "text_encoder_2": clip_mod.CLIPTextModel(te2),
-                "vae": vae_mod.AutoencoderKL(cfgs["vae"]),
-            }
-        self.tokenizers = {
-            "tokenizer": StubTokenizer(te1.vocab_size),
-            "tokenizer_2": StubTokenizer(te2.vocab_size),
-        }
+                "vae": vae_mod.AutoencoderKL(vae)}
+
+    @staticmethod
+    def _sd3_models(tiny: bool) -> Dict[str, nn.Module]:
+        """The JAX registry's SD3 bundle (registry.py:97-118)."""
+        if tiny:
+            te1 = te2 = dataclasses.replace(
+                clip_mod.TINY_CLIP, hidden_size=16, intermediate_size=32,
+                projection_dim=16)
+            # the T5 width equals the tiny MMDiT's joint_attention_dim (32)
+            te3 = dataclasses.replace(t5_mod.TINY_T5, d_model=32, d_kv=8,
+                                      num_heads=4)
+            tr = mmdit_mod.TINY_MMDIT
+            vae = dataclasses.replace(vae_mod.TINY_VAE, latent_channels=4,
+                                      scaling_factor=1.5305,
+                                      shift_factor=0.0609)
+        else:
+            te1, te2, te3 = clip_mod.CLIP_L_PROJ, clip_mod.CLIP_G, t5_mod.T5_XXL
+            tr, vae = mmdit_mod.SD35_MEDIUM, vae_mod.SD3_VAE
+        return {"transformer": mmdit_mod.SD3Transformer2DModel(tr),
+                "text_encoder": clip_mod.CLIPTextModel(te1),
+                "text_encoder_2": clip_mod.CLIPTextModel(te2),
+                "text_encoder_3": t5_mod.T5EncoderModel(te3),
+                "vae": vae_mod.AutoencoderKL(vae)}
 
     @property
     def denoiser(self):
-        return self.models["unet"]
+        return self.models["transformer" if self.family == "sd3" else "unet"]
 
     @property
     def latent_channels(self) -> int:
-        return self.models["unet"].cfg.in_channels
+        return self.denoiser.cfg.in_channels
 
     def param_dtype(self, name: str) -> torch.dtype:
-        """Serving dtype of a component: float32 for a force_upcast VAE."""
-        if name == "vae" and self.models["vae"].cfg.force_upcast:
-            return torch.float32
+        """Serving dtype of a component.  The VAE follows the JAX
+        ``_vae_dtype`` rule (base.py:2813-2821) with the card in the TPU's
+        place: bf16 on the card, float32 on the CPU; a force_upcast VAE
+        (SDXL) stays float32 everywhere."""
+        if name == "vae":
+            if (self.models["vae"].cfg.force_upcast
+                    or self.device.type == "cpu"):
+                return torch.float32
+            return torch.bfloat16
         return self.dtype
 
     def _materialize(self, name: str) -> nn.Module:
@@ -157,16 +209,17 @@ class ModelBundle:
     def init_random(self, seed: int = 0) -> None:
         """Random weights, generated on the device in the serving dtype.
 
-        Every tensor of the UNet and text encoders is N(0, 0.02), as
-        ``sduss_tpu.utils.random_params`` makes them; the force_upcast VAE
-        keeps float32 with the fan-in init of the JAX ``init``.  The numbers
+        Every tensor of the denoiser and text encoders is N(0, 0.02), as
+        ``sduss_tpu.utils.random_params`` makes them; the VAE takes the
+        fan-in init of the JAX ``init`` (which the JAX package uses for the
+        SDXL VAE), so random-weight images have contrast.  The numbers
         differ from JAX's (another generator); tests that compare the two
         packages load JAX's weights with :meth:`load_state_dicts` instead.
         """
         for i, name in enumerate(sorted(self.models)):
             m = self._materialize(name)
             gen = torch.Generator(device=self.device).manual_seed(seed + i)
-            if name == "vae" and m.cfg.force_upcast:
+            if name == "vae":
                 _fan_in_init(m, gen)
             else:
                 for p in m.parameters():

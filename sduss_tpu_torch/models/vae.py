@@ -1,10 +1,13 @@
-"""AutoencoderKL decoder (counterpart of sduss_tpu/models/vae.py ``decode``).
+"""AutoencoderKL decoder (counterpart of sduss_tpu/models/vae.py ``decode``
+and ``decode_tiled``).
 
 Only the decode half is ported: serving runs text-to-image, and the
-encoder (img2img) and ``decode_tiled`` (needed by SD3's 16-channel VAE)
-come with later slices.  Module names follow diffusers' AutoencoderKL, so
-``state_dict()`` keys are the checkpoint's ``decoder.*`` and
-``post_quant_conv.*`` keys.  Takes NHWC latents, returns NHWC images.
+encoder (img2img) comes with a later slice.  ``decode_tiled`` is the SD3
+serving decode (the JAX pipeline tiles every SD3 decode past 64 latent
+cells), so the port runs the same tiles and blends them the same way.
+Module names follow diffusers' AutoencoderKL, so ``state_dict()`` keys are
+the checkpoint's ``decoder.*`` and ``post_quant_conv.*`` keys.  Takes NHWC
+latents, returns NHWC images.
 """
 
 from __future__ import annotations
@@ -12,6 +15,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
+import numpy as np
+import torch
 import torch.nn as nn
 
 from sduss_tpu_torch.models import layers as L
@@ -33,6 +38,9 @@ class VAEConfig:
 
 
 SDXL_VAE = VAEConfig(scaling_factor=0.13025, force_upcast=True)
+# SD3's 16-channel VAE ships without the 1x1 (post_)quant convs
+SD3_VAE = VAEConfig(latent_channels=16, scaling_factor=1.5305,
+                    shift_factor=0.0609, use_quant_conv=False)
 TINY_VAE = VAEConfig(block_out_channels=(32, 64), layers_per_block=1, norm_num_groups=8)
 
 
@@ -144,16 +152,78 @@ class AutoencoderKL(nn.Module):
             self.post_quant_conv = nn.Conv2d(cfg.latent_channels,
                                              cfg.latent_channels, 1)
 
+    def _scale_in(self, latents):
+        """Unscale NHWC latents into the module's parameter dtype."""
+        cfg = self.cfg
+        z = latents.float() / cfg.scaling_factor + cfg.shift_factor
+        return z.to(self.decoder.conv_in.weight.dtype)
+
+    def _decode_core(self, z):
+        """Unscaled NHWC latents -> NHWC images."""
+        z = z.permute(0, 3, 1, 2).contiguous()
+        if self.cfg.use_quant_conv:
+            z = self.post_quant_conv(z)
+        return self.decoder(z).permute(0, 2, 3, 1)
+
     def decode(self, latents):
         """Scaled NHWC latents ``(B, h, w, C)`` -> NHWC images in [-1, 1].
 
         Computes in the module's parameter dtype (float32 for SDXL's
-        force_upcast VAE).
+        force_upcast VAE and on the CPU, bf16 otherwise).
         """
-        cfg = self.cfg
-        dtype = self.decoder.conv_in.weight.dtype
-        z = latents.float() / cfg.scaling_factor + cfg.shift_factor
-        z = z.to(dtype).permute(0, 3, 1, 2).contiguous()
-        if cfg.use_quant_conv:
-            z = self.post_quant_conv(z)
-        return self.decoder(z).permute(0, 2, 3, 1)
+        return self._decode_core(self._scale_in(latents))
+
+    def decode_tiled(self, latents, tile: int = 64, overlap: int = 16,
+                     strips=None):
+        """Spatially tiled decode, the contract of :meth:`decode`
+        (vae.py:234-308): overlapping latent tiles, each decoded alone and
+        blended with a linear ramp over the overlap, normalized by the
+        summed weight.  Full-width row strips when a strip of ``tile^2``
+        cells spans the width (every SD3 serving size), square 2D tiles
+        otherwise.  Returns float32 images.
+        """
+        b, h, w, _ = latents.shape
+        if h <= tile and w <= tile:
+            return self.decode(latents)
+        z = self._scale_in(latents)
+        s = 2 ** (len(self.cfg.block_out_channels) - 1)  # pixels per cell
+        if strips is None:
+            strips = w <= (tile * tile) // 8 and (tile * tile) // w < h
+        if strips:
+            if w > (tile * tile) // 8:
+                raise ValueError(
+                    f"strips=True needs latent width <= tile^2/8 "
+                    f"({(tile * tile) // 8} cells at tile={tile}); got w={w}")
+            tile_h, tile_w = max(8, min((tile * tile) // w, h)), w
+            ov_h, ov_w = min(overlap, tile_h // 4), 0
+        else:
+            tile_h = tile_w = min(tile, h, w)
+            ov_h = ov_w = min(overlap, tile_h // 2)
+
+        def positions(extent, t, ov):
+            if extent <= t:
+                return [0]
+            n = -(-(extent - ov) // (t - ov))  # ceil
+            return [int(round(p)) for p in np.linspace(0, extent - t, n)]
+
+        def ramp1d(t, ov):
+            ramp_len = max(ov * s, 1)
+            axis = np.arange(t * s, dtype=np.float32)
+            return np.minimum(1.0, np.minimum((axis + 1) / ramp_len,
+                                              (t * s - axis) / ramp_len))
+
+        dev = latents.device
+        wgt = torch.from_numpy(np.outer(ramp1d(tile_h, ov_h), ramp1d(
+            tile_w, ov_w))[None, :, :, None].astype(np.float32)).to(dev)
+        out_sum = torch.zeros((b, h * s, w * s, self.cfg.out_channels),
+                              dtype=torch.float32, device=dev)
+        wgt_sum = torch.zeros((1, h * s, w * s, 1), dtype=torch.float32,
+                              device=dev)
+        for py in positions(h, tile_h, ov_h):
+            for px in positions(w, tile_w, ov_w):
+                img = self._decode_core(z[:, py:py + tile_h, px:px + tile_w])
+                oy, ox = py * s, px * s
+                oy2, ox2 = oy + tile_h * s, ox + tile_w * s
+                out_sum[:, oy:oy2, ox:ox2] += img.float() * wgt
+                wgt_sum[:, oy:oy2, ox:ox2] += wgt
+        return out_sum / wgt_sum

@@ -110,6 +110,9 @@ def load_library() -> ctypes.CDLL:
     lib.sduss_flash_mha_fused.argtypes = [p, p, p, p, i, i, i, i, i,
                                           ctypes.c_float, p]
     lib.sduss_flash_mha_fused.restype = ctypes.c_int
+    lib.sduss_flash_mha.argtypes = [p, p, p, p, i, i, i, i, i, i,
+                                    ctypes.c_float, p]
+    lib.sduss_flash_mha.restype = ctypes.c_int
     lib.sduss_flash_mha_masked.argtypes = [p, p, p, p, p, i, i, i, i, i,
                                            ctypes.c_float, p]
     lib.sduss_flash_mha_masked.restype = ctypes.c_int

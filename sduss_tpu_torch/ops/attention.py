@@ -1,15 +1,25 @@
 """Attention dispatch (counterpart of sduss_tpu/ops/attention.py).
 
-``masked_attention`` routes every attention with a key mask — the patch
-path's grouped self-attention — to the masked flash kernel
-(:func:`sduss_tpu_torch.ops.flash.flash_mha_masked`, K2b/K3a), each
-unmasked attention with a long key axis — every dense SDXL self-attention
-— to the flash kernel K1 (:func:`sduss_tpu_torch.ops.flash.flash_mha_fused`),
-and keeps short-KV cross-attention over the 77 text tokens on the plain
-path, as the JAX dispatcher does (attention.py:135-140).  The JAX gates (``Lq >= 1024``,
-``Lk >= 512``, a 6 MiB K row) are TPU VMEM and grid-overhead choices: the
-CUDA kernel streams K/V tiles and takes any length, so the only gate is
-the key length that separates self- from cross-attention.
+``masked_attention`` routes each attention as the JAX dispatcher
+(attention.py:116-140) picks among its TPU kernels:
+
+* a key mask (the patch path's grouped self-attention, the SD3 token
+  path's padded tokens) -> the masked flash kernel
+  (:func:`sduss_tpu_torch.ops.flash.flash_mha_masked`, K2b/K3a);
+* unmasked, a long key axis and a K row of at most 6 MiB (every SDXL
+  self-attention; SD3 at 512^2) -> K1
+  (:func:`sduss_tpu_torch.ops.flash.flash_mha_fused`);
+* unmasked, a long key axis and a wider K row (SD3's joint and dual
+  attention at 768^2 and 1024^2: D = 1536) -> K2a/K3b
+  (:func:`sduss_tpu_torch.ops.flash.flash_mha`);
+* short-KV cross-attention over the 77 text tokens -> the plain path.
+
+The 6 MiB K-row gate is a routing choice kept from the reference (on the
+TPU it bounds K1's whole-row VMEM residency), not a limit of the CUDA
+kernels, which stream K/V tiles and take any length: it keeps each port
+kernel running where its TPU kernel runs.  The JAX length gates
+(``Lq >= 1024``, ``Lk >= 512``) are TPU grid-overhead choices; the port
+sends every attention with at least ``FLASH_MIN_KV`` keys to a kernel.
 """
 
 from __future__ import annotations
@@ -20,11 +30,15 @@ from typing import Optional
 import torch
 
 from sduss_tpu_torch.models import layers as L
-from sduss_tpu_torch.ops.flash import flash_mha_fused, flash_mha_masked
+from sduss_tpu_torch.ops.flash import (flash_mha, flash_mha_fused,
+                                       flash_mha_masked)
 
-# Keys at least this long go to K1.  Text conditioning has 77 tokens; the
-# shortest SDXL self-attention (512^2, level 2) has 256.
+# Keys at least this long go to a flash kernel.  Text conditioning has 77
+# tokens; the shortest SDXL self-attention (512^2, level 2) has 256.
 FLASH_MIN_KV = 128
+# Unmasked attention whose K row (Lk x D bf16 values) is wider than this
+# goes to flash_mha instead of K1 (the JAX gate, attention.py:128-130).
+K1_MAX_K_ROW_BYTES = 6 * 2**20
 
 
 def _dense_masked(q, k, v, num_heads: int, kv_token_mask, scale: float):
@@ -39,12 +53,15 @@ def masked_attention(q, k, v, num_heads: int, kv_token_mask=None,
 
     Masked calls go to the masked flash kernel at any key length (the CUDA
     kernel streams key tiles and skips masked ones); a batch row with no
-    valid key gives zeros.
+    valid key gives zeros.  Unmasked calls route as the module docstring
+    says.
     """
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1] // num_heads)
     if kv_token_mask is not None:
         return flash_mha_masked(q, k, v, kv_token_mask, num_heads, scale)
     if k.shape[1] >= FLASH_MIN_KV:
-        return flash_mha_fused(q, k, v, num_heads, scale)
+        if k.shape[1] * q.shape[-1] * 2 <= K1_MAX_K_ROW_BYTES:
+            return flash_mha_fused(q, k, v, num_heads, scale)
+        return flash_mha(q, k, v, num_heads, scale)
     return _dense_masked(q, k, v, num_heads, None, scale)

@@ -1,13 +1,18 @@
 """Model-layout flash attention (counterpart of sduss_tpu/ops/flash.py
-``flash_mha_fused`` and ``flash_mha`` with ``kv_mask``).
+``flash_mha_fused`` and ``flash_mha``).
 
-Two wrappers of the hand-written CUDA kernel ``csrc/flash_fused.cu``:
+Three wrappers of the hand-written CUDA kernel ``csrc/flash_fused.cu``:
 
 * ``flash_mha_fused`` — kernel K1, replacing the Pallas kernel
   ``_mha_fused_kernel`` (unmasked self-attention);
+* ``flash_mha`` — kernel K2a/K3b, replacing ``_mha_kernel_2pass_nobias``,
+  ``_mha_kernel`` and the ``kv_len`` form of ``_mha_kernel_2pass``
+  (unmasked attention over the first ``kv_len`` keys: SD3's joint and dual
+  attention, whose K rows are too wide for K1's gate); with ``kv_mask`` it
+  hands over to ``flash_mha_masked``, as the JAX function does;
 * ``flash_mha_masked`` — kernel K2b/K3a, replacing ``_mha_kernel_2pass`` and
   ``_mha_kernel_masked`` (attention under a per-key validity mask, the
-  mixed-resolution patch path's grouped self-attention).
+  mixed-resolution paths' grouped and padded-token attention).
 
 Each has a plain PyTorch version beside it (``*_reference``).  A wrapper
 takes the plain version only for tensors on the CPU; a CUDA tensor launches
@@ -22,7 +27,7 @@ import torch
 
 from sduss_tpu_torch.ops import _build
 
-HEAD_DIM = 64  # the kernel's only head dim (SDXL's); 40/80/160 are queued
+HEAD_DIM = 64  # the kernel's only head dim (SDXL's and SD3's); 40/80/160 are queued
 _LOG2E = 1.0 / math.log(2.0)
 
 
@@ -41,6 +46,17 @@ def flash_mha_fused_reference(q, k, v, num_heads: int, scale: float):
     logits = torch.matmul(heads(q), heads(k).transpose(-1, -2)) * scale
     out = torch.matmul(torch.softmax(logits, dim=-1), heads(v))
     return out.transpose(1, 2).reshape(b, lq, d).to(q.dtype)
+
+
+def flash_mha_reference(q, k, v, num_heads: int, scale: float,
+                        kv_mask=None, kv_len=None):
+    """Plain version of :func:`flash_mha`: per-head float32 attention over
+    the first ``kv_len`` keys (all by default), or under ``kv_mask`` (see
+    :func:`flash_mha_masked_reference`).  Returns q's dtype."""
+    if kv_mask is not None:
+        return flash_mha_masked_reference(q, k, v, kv_mask, num_heads, scale)
+    n = _kv_len(k, kv_mask, kv_len)
+    return flash_mha_fused_reference(q, k[:, :n], v[:, :n], num_heads, scale)
 
 
 def flash_mha_masked_reference(q, k, v, kv_mask, num_heads: int,
@@ -122,6 +138,52 @@ def flash_mha_fused(q, k, v, num_heads: int, scale: float):
 
 
 flash_mha_fused.launches = 0
+
+
+def _kv_len(k, kv_mask, kv_len) -> int:
+    """The static count of real keys (``Lk`` when not given)."""
+    if kv_len is None:
+        return k.shape[1]
+    if kv_mask is not None:
+        raise ValueError("kv_mask and kv_len are mutually exclusive")
+    kv_len = int(kv_len)
+    if not 1 <= kv_len <= k.shape[1]:
+        raise ValueError(f"kv_len {kv_len} outside [1, Lk = {k.shape[1]}]")
+    return kv_len
+
+
+def flash_mha(q, k, v, num_heads: int, scale: float, kv_mask=None,
+              kv_len=None):
+    """Attention over ``(B, L, D)``: the JAX ``flash_mha`` contract without
+    its TPU tiling knobs.
+
+    ``kv_len`` (static, default ``Lk``): only the first ``kv_len`` keys take
+    part; the rest may hold anything.  ``kv_mask`` (``(B, Lk)`` bool): the
+    per-key form, served by :func:`flash_mha_masked` (and counted there).
+    CPU tensors: :func:`flash_mha_reference`.  Anything else goes to the
+    CUDA kernel: inputs it does not take raise ``ValueError``, a failed
+    launch raises ``RuntimeError``.  Each unmasked launch adds one to
+    ``flash_mha.launches``.
+    """
+    n = _kv_len(k, kv_mask, kv_len)
+    if kv_mask is not None:
+        return flash_mha_masked(q, k, v, kv_mask, num_heads, scale)
+    if q.device.type == "cpu":
+        return flash_mha_reference(q, k, v, num_heads, scale, kv_len=n)
+    check_inputs(q, k, v, num_heads)
+    lib = _build.load_library()
+    b, lq, d = q.shape
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.sduss_flash_mha(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, lq, k.shape[1], n, d, num_heads, float(scale) * _LOG2E, stream)
+    _build.check(lib, err, "flash_mha launch")
+    flash_mha.launches += 1
+    return out
+
+
+flash_mha.launches = 0
 
 
 def check_mask(kv_mask, k) -> None:

@@ -7,8 +7,10 @@
                            input scaling, model forward, guidance combine
                            and sampler update, one forward per resolution.
 * ``denoise_step_mixed`` — ONE step for a mixed-resolution batch as a single
-                           patched UNet forward (the mixed patch path).
-* ``postprocess``        — VAE decode to uint8 images (or the final latents).
+                           patched UNet forward (the mixed patch path; the
+                           SD3 pipeline's padded-token step overrides it).
+* ``postprocess``        — VAE decode to uint8 images (or the final latents),
+                           tiled for SD3 as in the JAX pipeline.
 
 The dense path runs batches at their real size: eager PyTorch has no
 compile cache to key.  The patch path pads the patch and image counts to
@@ -228,6 +230,10 @@ class BasePipeline:
             reqs = [r for r in all_reqs if r.params.output_type != "latent"]
             # full-res decode activations are the pipeline's memory peak
             chunk = max(self.config.scheduler.decode_batch, 1)
+            if self._tiled(res // self.vae_scale):
+                # a tiled decode runs one image at a time, as in the JAX
+                # pipeline (base.py:2707-2713)
+                chunk = 1
             for i in range(0, len(reqs), chunk):
                 self._decode_group(reqs[i:i + chunk])
 
@@ -237,9 +243,22 @@ class BasePipeline:
         for i, req in enumerate(reqs):
             req.output = images[i]
 
+    def _tiled(self, latent_hw: int) -> bool:
+        """Does a latent this wide take the tiled decode?  (SD3: 64-cell
+        tiles past 512^2; ``ModelConfig.vae_tile_latent``, 0 = never.)"""
+        tile = self.config.model.vae_tile_latent
+        return bool(tile) and latent_hw > tile
+
     def _decode_fn(self, latents):
-        """VAE decode in the VAE's dtype (float32 for SDXL) -> uint8."""
-        img = self.bundle.models["vae"].decode(latents.float())
+        """VAE decode in the VAE's dtype (bf16 on the card, float32 on the
+        CPU and for SDXL) -> uint8; tiled where :meth:`_tiled` says so."""
+        vae = self.bundle.models["vae"]
+        if self._tiled(latents.shape[1]):
+            mc = self.config.model
+            img = vae.decode_tiled(latents.float(), tile=mc.vae_tile_latent,
+                                   overlap=mc.vae_tile_overlap)
+        else:
+            img = vae.decode(latents.float())
         img = torch.clamp(img.float() / 2.0 + 0.5, 0.0, 1.0)
         return torch.round(img * 255.0).to(torch.uint8)
 

@@ -1,4 +1,5 @@
-"""Sampler registry (the port carries the Euler sampler SDXL uses)."""
+"""Sampler registry (the port carries the Euler sampler of SDXL and the
+flow-matching Euler sampler of SD-3.5)."""
 
 from __future__ import annotations
 
@@ -10,8 +11,10 @@ from sduss_tpu_torch.samplers.base import (  # noqa: F401
     gather_timesteps,
 )
 from sduss_tpu_torch.samplers.euler import EulerDiscreteSampler
+from sduss_tpu_torch.samplers.flow_match import FlowMatchEulerSampler
 
-_REGISTRY = {"euler": EulerDiscreteSampler}
+_REGISTRY = {"euler": EulerDiscreteSampler,
+             "flow_match": FlowMatchEulerSampler}
 
 
 def get_sampler(name: str, **kwargs: Any):

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card (skipped without one).
+"""The port's CUDA kernels on the card (skipped without one): K1, K2a/K3b
+(flash_mha), the masked kernel K2b/K3a and K4.
 
 This file imports no jax, so it also runs where the JAX package is not
 installed: on the GPU machine,
@@ -65,6 +66,37 @@ def test_k1_matches_plain(cuda, b, lq, lk, d, heads):
     diff, ref = out.float() - ref.float(), ref.float()
     assert diff.abs().max().item() <= K1_MAX_REL * ref.abs().max().item()
     assert (diff.norm() / ref.norm()).item() <= K1_RMS_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,lq,lk,kv_len", [
+    (2, 2304, 2304, None),   # SD3 768^2 dual attention
+    (2, 1000, 777, None),    # ragged Lq and Lk
+    (2, 700, 900, 650),      # kv_len < Lk: keys past it hold 1e4
+    (1, 100, 64, 1),         # one key
+])
+def test_flash_mha_matches_plain(cuda, b, lq, lk, kv_len):
+    """K2a/K3b at SD3.5-medium's width (24 heads x 64)."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q = _randn(gen, b, lq, 1536, device=cuda)
+    k, v = (_randn(gen, b, lk, 1536, device=cuda) for _ in range(2))
+    if kv_len is not None:
+        k[:, kv_len:], v[:, kv_len:] = 1e4, 1e4
+    before = tflash.flash_mha.launches
+    out = tflash.flash_mha(q, k, v, 24, 0.125, kv_len=kv_len)
+    ref = tflash.flash_mha_reference(q, k, v, 24, 0.125, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert tflash.flash_mha.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    diff, ref = out.float() - ref.float(), ref.float()
+    assert diff.abs().max().item() <= K1_MAX_REL * ref.abs().max().item()
+    assert (diff.norm() / ref.norm()).item() <= K1_RMS_REL
+    # an unmasked K row over 6 MiB routes here, a narrower long one to K1
+    wide = lk * 1536 * 2 > 6 * 2**20
+    n = tflash.flash_mha_fused.launches
+    tattn.masked_attention(q, k, v, 24)
+    assert tflash.flash_mha.launches == before + 1 + wide
+    assert tflash.flash_mha_fused.launches == n + (not wide and lk >= 128)
 
 
 @pytest.mark.cuda

@@ -1,5 +1,5 @@
-"""Kernels K1 (flash_mha_fused) and K2b/K3a (flash_mha_masked) and the
-attention dispatch of the port.
+"""Kernels K1 (flash_mha_fused), K2a/K3b (flash_mha) and K2b/K3a
+(flash_mha_masked) and the attention dispatch of the port.
 
 On the CPU each wrapper runs its plain PyTorch version, which is held here
 against the JAX Pallas kernels in interpret mode and against the JAX dense
@@ -7,7 +7,11 @@ path, at hd-64 cases like tests/test_flash.py's.  The masked version is
 held against both JAX kernels it replaces: the two-pass kernel (K2b) and
 the online-softmax kernel (``force_online=True``, K3a), on rows with at
 least one valid key; a batch row with no valid key must be finite (zeros
-in the port, a uniform average in JAX).  The CUDA kernels themselves are
+in the port, a uniform average in JAX).  ``flash_mha`` without a mask is
+held against each JAX kernel it replaces: the aligned two-pass kernel
+(K2a), the two-pass kernel with a kv_len bias row (ragged keys, or
+``kv_len < Lk`` with large garbage in the excluded keys) and the online
+kernel (``force_online=True``, K3b).  The CUDA kernels themselves are
 held against the plain versions by tests/test_torch_cuda.py (on a card)
 and by chip_smoke.py.  float32 tolerance: RTOL 2e-4, ATOL 5e-4.
 """
@@ -98,6 +102,48 @@ def test_masked_plain_matches_jax_kernels(b, lq, lk, heads, dead_row, online):
                                atol=ATOL)
 
 
+@pytest.mark.parametrize("b,lq,lk,kv_len,heads,online", [
+    (2, 256, 256, None, 2, False),  # aligned Lk: _mha_kernel_2pass_nobias (K2a)
+    (2, 200, 333, None, 2, False),  # ragged Lk: _mha_kernel_2pass, kv_len bias
+    (2, 256, 384, 300, 1, False),   # kv_len < Lk: bias row over the garbage
+    (2, 200, 256, None, 2, True),   # online softmax: _mha_kernel (K3b)
+    (3, 130, 384, 200, 2, True),    # online, kv_len < Lk
+])
+def test_flash_mha_plain_matches_jax_kernels(b, lq, lk, kv_len, heads, online):
+    q, k, v = _mk(b, lq, lk, heads * 64, seed=lq + lk)
+    if kv_len is not None:  # keys past kv_len must take no part
+        k[:, kv_len:], v[:, kv_len:] = 1e4, -1e4
+    scale = 1.0 / math.sqrt(64)
+    out = tflash.flash_mha(torch.from_numpy(q), torch.from_numpy(k),
+                           torch.from_numpy(v), heads, scale,
+                           kv_len=kv_len).numpy()
+    kernel = jax_flash_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           heads, scale, kv_len=kv_len, block_q=128,
+                           block_kv=128, interpret=True, force_online=online)
+    np.testing.assert_allclose(out, np.asarray(kernel), rtol=RTOL, atol=ATOL)
+    n = lk if kv_len is None else kv_len
+    dense = jax_dense_masked(jnp.asarray(q), jnp.asarray(k[:, :n]),
+                             jnp.asarray(v[:, :n]), heads, None, scale)
+    np.testing.assert_allclose(out, np.asarray(dense), rtol=RTOL, atol=ATOL)
+
+
+def test_flash_mha_kv_mask_is_the_masked_kernel():
+    q, k, v = (torch.from_numpy(a) for a in _mk(2, 100, 150, 128, seed=5))
+    mask = torch.from_numpy(np.random.default_rng(6).random((2, 150)) > 0.5)
+    np.testing.assert_array_equal(
+        tflash.flash_mha_reference(q, k, v, 2, 0.125, kv_mask=mask).numpy(),
+        tflash.flash_mha_masked_reference(q, k, v, mask, 2, 0.125).numpy())
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        tflash.flash_mha(q, k, v, 2, 0.125, kv_mask=mask, kv_len=10)
+
+
+@pytest.mark.parametrize("kv_len", [0, 151])
+def test_flash_mha_rejects_kv_len_out_of_range(kv_len):
+    q, k, v = (torch.from_numpy(a) for a in _mk(1, 10, 150, 128, seed=7))
+    with pytest.raises(ValueError, match="kv_len"):
+        tflash.flash_mha(q, k, v, 2, 0.125, kv_len=kv_len)
+
+
 def test_masked_plain_all_valid_equals_unmasked():
     q, k, v = (torch.from_numpy(a) for a in _mk(2, 100, 150, 128, seed=4))
     mask = torch.ones(2, 150, dtype=torch.bool)
@@ -140,6 +186,35 @@ def test_masked_attention_routing(monkeypatch, lk, masked, to_k1):
         assert calls[0][2:] == (2, 1.0 / math.sqrt(64))
 
 
+@pytest.mark.parametrize("lk,d,route", [
+    (4096, 640, "k1"),        # SDXL 1024^2 level 1: the widest SDXL K row, 5 MiB
+    (1357, 1536, "k1"),       # SD3 512^2 joint attention: 4.0 MiB
+    (2304, 1536, "flash_mha"),  # SD3 768^2 dual attention: 6.75 MiB
+    (4429, 1536, "flash_mha"),  # SD3 1024^2 joint attention: 13 MiB
+    (77, 1536, "plain"),      # short text keys stay plain
+])
+def test_wide_key_rows_route_to_flash_mha(monkeypatch, lk, d, route):
+    """The JAX K-row gate (attention.py:128-130): unmasked attention whose K
+    row exceeds 6 MiB (bf16) goes to flash_mha (K2a), narrower rows to K1."""
+    calls = []
+
+    def spy(name, ref):
+        def fn(q, k, v, num_heads, scale, **kw):
+            calls.append(name)
+            return ref(q, k, v, num_heads, scale, **kw)
+        return fn
+
+    monkeypatch.setattr(tattn, "flash_mha_fused",
+                        spy("k1", tflash.flash_mha_fused_reference))
+    monkeypatch.setattr(tattn, "flash_mha",
+                        spy("flash_mha", tflash.flash_mha_reference))
+    q = torch.randn(1, 4, d)
+    k = v = torch.randn(1, lk, d)
+    out = tattn.masked_attention(q, k, v, d // 64)
+    assert out.shape == q.shape
+    assert calls == ([] if route == "plain" else [route])
+
+
 def test_cpu_wrapper_never_loads_kernel_library(monkeypatch):
     def refuse():
         raise AssertionError("kernel library loaded for a CPU tensor")
@@ -154,6 +229,18 @@ def test_cpu_wrapper_never_loads_kernel_library(monkeypatch):
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
     assert (tflash.flash_mha_fused.launches,
             tflash.flash_mha_masked.launches) == before
+
+
+def test_cpu_flash_mha_never_loads_kernel_library(monkeypatch):
+    def refuse():
+        raise AssertionError("kernel library loaded for a CPU tensor")
+
+    monkeypatch.setattr(_build, "load_library", refuse)
+    before = tflash.flash_mha.launches
+    q = torch.randn(1, 256, 128, dtype=torch.bfloat16)
+    out = tflash.flash_mha(q, q, q, 2, 0.125, kv_len=200)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert tflash.flash_mha.launches == before
 
 
 def _bf16(*shape):

@@ -1,4 +1,5 @@
-"""The port's Euler sampler against sduss_tpu.samplers.euler.
+"""The port's Euler and flow-matching Euler samplers against
+sduss_tpu.samplers.euler and sduss_tpu.samplers.flow_match.
 
 Tables are numpy in both packages and must be identical; the step math
 runs in float32 (RTOL 2e-4, ATOL 5e-4, the float32 bound of the other
@@ -14,6 +15,7 @@ import torch
 
 from sduss_tpu.samplers import base as jbase
 from sduss_tpu.samplers.euler import EulerDiscreteSampler as JaxEuler
+from sduss_tpu.samplers.flow_match import FlowMatchEulerSampler as JaxFlow
 from sduss_tpu_torch.samplers import base as tbase
 from sduss_tpu_torch.samplers import get_sampler
 
@@ -62,3 +64,33 @@ def test_step_matches(prediction):
     # the final cast keeps the latent dtype
     assert port_s.step(torch.from_numpy(x).bfloat16(), torch.from_numpy(eps),
                        tc0, tc1).dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("shift", [3.0, 1.0])
+@pytest.mark.parametrize("steps", [2, 8, 28, 40])
+def test_flow_match_tables_identical(shift, steps):
+    jt = JaxFlow(shift=shift).make_table(steps)
+    tt = get_sampler("flow_match", shift=shift).make_table(steps)
+    np.testing.assert_array_equal(tt.timesteps, jt.timesteps)
+    np.testing.assert_array_equal(tt.coeffs, jt.coeffs)
+    assert tt.init_noise_sigma == jt.init_noise_sigma == 1.0
+    assert tt.timesteps.dtype == jt.timesteps.dtype == np.float32
+
+
+def test_flow_match_step_matches():
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((3, 8, 8, 16)).astype(np.float32)
+    vel = rng.standard_normal((3, 8, 8, 16)).astype(np.float32)
+    c = JaxFlow().make_table(28).coeffs[[0, 13, 27]]
+    tc0, tc1 = torch.from_numpy(c[:, 0]), torch.from_numpy(c[:, 1])
+    port = get_sampler("flow_match", shift=3.0)
+    # identity model input
+    np.testing.assert_array_equal(
+        port.scale_model_input(torch.from_numpy(x), tc0).numpy(), x)
+    out = port.step(torch.from_numpy(x), torch.from_numpy(vel), tc0, tc1)
+    ref = JaxFlow.step(jnp.asarray(x), jnp.asarray(vel),
+                       jnp.asarray(c[:, 0]), jnp.asarray(c[:, 1]))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=RTOL,
+                               atol=ATOL)
+    assert port.step(torch.from_numpy(x).bfloat16(), torch.from_numpy(vel),
+                     tc0, tc1).dtype == torch.bfloat16
