@@ -11,12 +11,16 @@ Phases (any failure propagates and the script exits non-zero):
      shapes the serving paths give it, and time the kernel, the plain
      version and, where one PyTorch call computes the same function, that
      call (``scaled_dot_product_attention``) with CUDA events: K1
-     (flash_mha_fused), K2a/K3b (flash_mha, at SD3.5-medium's joint and
-     dual shapes, ragged and with kv_len < Lk), the masked flash attention
-     K2b/K3a (flash_mha_masked, SDXL patch groups and the SD3 token batch,
-     including batch rows with no valid key) and K4 (gn_silu_halo); hold
-     one full-width SDXL transformer block (through K1) and SD3.5-medium's
-     dual block 0 (through flash_mha) on the card in bf16 against the same
+     (flash_mha_fused, SDXL's head dim 64 and SD-1.5's 40/80/160), K2a/K3b
+     (flash_mha, at SD3.5-medium's joint and dual shapes, ragged and with
+     kv_len < Lk), the masked flash attention K2b/K3a (flash_mha_masked,
+     SDXL and SD-1.5 patch groups and the SD3 token batch, including batch
+     rows with no valid key), K4 (gn_silu_halo, SDXL's patch sides and
+     SD-1.5's s = 4) and K5 (flash_cross_short, not routed: text
+     cross-attention shapes, also timed beside the port's plain route);
+     hold one full-width SDXL transformer block (through K1), SD3.5-medium's
+     dual block 0 (through flash_mha) and an SD-1.5 conv-projection
+     transformer (through K1 at hd 40) on the card in bf16 against the same
      block on the CPU in float32;
   4. hold one full-width SDXL UNet forward on a 768^2 + 1024^2 patch batch
      against the dense forward of each image (bf16, on the card);
@@ -36,7 +40,15 @@ Phases (any failure propagates and the script exits non-zero):
   8. SD3.5-medium mixed serving: [512, 1024, 1024] with the default
      configuration (one padded-token MMDiT step per iteration); check the
      mixed batches, the images and the masked launches; read the step time;
-  9. print the kernels' JSON line, then the result line
+  9. free the SD3 bundle; SD-1.5 (conv-projection UNet, CLIP-L, bf16 VAE;
+     random bf16 weights): the full-width UNet patched against dense on a
+     256^2 + 512^2 + 768^2 batch, then four serving runs, each checking
+     images, latents, the DENOISING batches and the exact launches of K1,
+     the masked kernel and K4 that SD15_UNET gives (K5 none): dense
+     [512, 512, 768] with Euler, 8 steps; mixed [256, 512, 768] in the
+     default configuration, Euler, 8 steps; the same mixed batch with PNDM
+     (4 steps, 5 evaluations) and the dense one with DDIM (4 steps);
+ 10. print the kernels' JSON line, then the result line
      ``{"ok": true, "device": {...}}`` last.
 """
 
@@ -56,9 +68,14 @@ from sduss_tpu_torch import configure_numerics
 from sduss_tpu_torch.entrypoints.offline import DiffusionPipeline, default_config
 from sduss_tpu_torch.models import mmdit
 from sduss_tpu_torch.models.registry import ModelBundle
+from sduss_tpu_torch.models import unet as unet_mod
 from sduss_tpu_torch.models.unet import BasicTransformerBlock
+from sduss_tpu_torch.ops.attention import FLASH_MIN_KV
 from sduss_tpu_torch.ops import _build, patching
-from sduss_tpu_torch.ops.flash import (flash_mha, flash_mha_fused,
+from sduss_tpu_torch.ops.attention import _dense_masked
+from sduss_tpu_torch.ops.flash import (flash_cross_short,
+                                       flash_cross_short_reference, flash_mha,
+                                       flash_mha_fused,
                                        flash_mha_fused_reference,
                                        flash_mha_masked,
                                        flash_mha_masked_reference,
@@ -89,7 +106,14 @@ K1_SHAPES = [        # (B, Lq, Lk, D, H)
     (2, 1024, 1024, 1280, 20),  # SDXL level 2 at 1024^2
     (3, 1000, 1000, 640, 10),   # ragged query and key tiles
     (3, 1000, 65, 640, 10),     # last key tile 1 real key + 63 padded
+    (2, 4096, 4096, 320, 8),    # SD-1.5 level 0 at 512^2, hd 40
+    (2, 1024, 1024, 640, 8),    # SD-1.5 level 1 at 512^2, hd 80
+    (2, 256, 256, 1280, 8),     # SD-1.5 level 2 at 512^2, hd 160
+    (2, 144, 144, 1280, 8),     # SD-1.5 mid block at 768^2: ragged keys
+    (3, 1000, 777, 320, 8),     # ragged query and key tiles at hd 40
 ]
+# timed beside the plain version and SDPA: SDXL's two and SD-1.5's three
+K1_TIMED = K1_SHAPES[:2] + K1_SHAPES[4:7]
 # K2a/K3b (flash_mha) at SD3.5-medium's width, CFG pair at 1024^2:
 # (B, Lq, Lk, D, H, kv_len); kv_len None = Lk.  Same bounds as K1.
 K2A_SHAPES = [
@@ -112,13 +136,36 @@ MASKED_SHAPES = [
     (3, 1000, 640, 10, None),  # random mask, ragged
     (8, 4429, 1536, 24, "joint"),  # SD3 joint: latent + 333 text keys
     (8, 4096, 1536, 24, "dual"),   # SD3 dual: latent keys only
+    # SD-1.5 mixed phase (256^2 + 512^2 + 768^2, CFG-doubled: classes of 2
+    # images of 1, 4 and 9 patches of 32^2 latent cells), each group with
+    # one more image slot that has no valid key:
+    (3, 9216, 320, 8, 1),      # 768^2 class, level 0, hd 40
+    (3, 1024, 640, 8, 1),      # 512^2 class, level 1, hd 80
+    (3, 576, 1280, 8, 1),      # 768^2 class, level 2, hd 160
+    (3, 144, 1280, 8, 1),      # 768^2 class, mid block (level 3): ragged
+    (3, 1000, 320, 8, None),   # random mask, ragged, hd 40
 ]
 K4_SHAPES = [(32, 320), (16, 640), (8, 1280)]  # (s, C) at SDXL levels 0-2
+SD15_K4_SHAPES = [(4, 1280)]  # SD-1.5 level 3: the side without a template
+# K5 (flash_cross_short) at scripts/bench_cross_kernel.py's text
+# cross-attention shapes (B, Lq, Lk, D, H), then two edge cases: 256 keys at
+# hd 160 (the most shared memory a block takes) and a 5-key sequence
+K5_SHAPES = [
+    (16, 1024, 77, 1280, 20),   # SDXL level 2
+    (16, 4096, 77, 640, 10),    # SDXL level 1
+    (16, 4096, 77, 320, 8),     # SD-1.5 level 0, hd 40
+    (16, 1024, 77, 640, 8),     # SD-1.5 level 1, hd 80
+    (2, 1000, 256, 1280, 8),    # hd 160, the longest key sequence
+    (3, 100, 5, 640, 8),        # ragged query tile, one key tile
+]
 REQUESTS = [1024, 1024, 768]
 MIXED_REQUESTS = [768, 1024, 1024, 1024]
 SD3_REQUESTS = [1024, 1024, 768]
 SD3_MIXED_REQUESTS = [512, 1024, 1024]
 SD3_CTX = 77 + 256  # CLIP + T5 tokens
+SD15_REQUESTS = [512, 512, 768]
+SD15_MIXED_REQUESTS = [256, 512, 768]
+SD15_SAMPLER_STEPS = 4  # the PNDM (mixed) and DDIM (dense) runs
 STEPS = 8
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
@@ -199,7 +246,7 @@ def check_k1(card: str) -> dict:
             raise AssertionError(f"K1 disagrees with its plain version at "
                                  f"{shape}: {max_rel}, {rms_rel}")
         worst = max(worst, err)
-        if shape in K1_SHAPES[:2]:  # the two SDXL shapes
+        if shape in K1_TIMED:
             # alternate plain, kernel, kernel, plain on one card
             p1 = cuda_ms(lambda: flash_mha_fused_reference(q, k, v, h, scale), 5)
             k1 = cuda_ms(lambda: flash_mha_fused(q, k, v, h, scale), 20)
@@ -349,24 +396,25 @@ def check_masked(card: str) -> dict:
     return {"max_abs_err": worst, "times": times}
 
 
-def mixed_meta():
-    """The CFG-doubled patch metadata of the mixed serving phase."""
-    sc = default_config("sdxl").scheduler
-    grids = tuple(r // 8 // (sc.patch_size // 8) for r in MIXED_REQUESTS)
+def mixed_meta(family: str = "sdxl", requests=MIXED_REQUESTS):
+    """The CFG-doubled patch metadata of a mixed serving phase."""
+    sc = default_config(family).scheduler
+    grids = tuple(r // 8 // (sc.patch_size // 8) for r in requests)
     return patching.double_meta(grids, sc.patch_size // 8,
                                 tuple(sc.patch_buckets), tuple(sc.batch_buckets))
 
 
-def check_k4(card: str) -> dict:
-    """K4 against its plain version on the mixed phase's doubled patch batch
-    (128 patches of 8 image slots, real border patches and a dummy image)
-    at SDXL's three (s, C); halo cells of -1 neighbours must be exactly 0."""
-    meta = mixed_meta()
-    gen = torch.Generator(device="cuda").manual_seed(2)
+def check_k4(card: str, meta=None, shapes=K4_SHAPES, seed: int = 2) -> dict:
+    """K4 against its plain version on a mixed phase's doubled patch batch
+    (SDXL's by default: 128 patches of 8 image slots, real border patches
+    and a dummy image) at each (s, C) of ``shapes``; halo cells of -1
+    neighbours must be exactly 0."""
+    meta = mixed_meta() if meta is None else meta
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     image_id = torch.from_numpy(meta.image_id).cuda()
     nb = neighbors = torch.from_numpy(meta.neighbors).cuda()
     worst, times = 0.0, {}
-    for s, c in K4_SHAPES:
+    for s, c in shapes:
         shape = (meta.p_pad, s, c)
         x = (1.5 * torch.randn(meta.p_pad, c, s, s, generator=gen,
                                device="cuda") + 0.2).to(torch.bfloat16)
@@ -406,6 +454,54 @@ def check_k4(card: str) -> dict:
               f"{bms:.4f} ms ({by}) [{card}]")
         times[shape] = {"ms": kms, "plain_ms": pms, "library_ms": None,
                         "bound_ms": bms, "bound_by": by}
+    return {"max_abs_err": worst, "times": times}
+
+
+def check_k5(card: str) -> dict:
+    """K5 (flash_cross_short) against its plain version at the bench's text
+    cross-attention shapes (same bounds as K1), timed beside the plain
+    version, SDPA and the port's real route for that attention
+    (``ops/attention.py::_dense_masked``, the plain path the dispatcher
+    keeps 77-token cross-attention on)."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    worst, times = 0.0, {}
+    for shape in K5_SHAPES:
+        b, lq, lk, d, h = shape
+        q = torch.randn(b, lq, d, generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        k, v = (torch.randn(b, lk, d, generator=gen, device="cuda",
+                            dtype=torch.bfloat16) for _ in range(2))
+        scale = 1.0 / np.sqrt(d // h)
+        out = flash_cross_short(q, k, v, h, scale)
+        ref = flash_cross_short_reference(q, k, v, h, scale)
+        torch.cuda.synchronize()
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"K5 non-finite at {shape}")
+        err, max_rel, rms_rel = k1_errors(out, ref)
+        print(f"K5 flash_cross_short {shape}: max_abs_err {err:.3e}, "
+              f"/ max|plain| {max_rel:.3e} (bound {K1_MAX_REL:.3e}), "
+              f"rel RMS {rms_rel:.3e} (bound {K1_RMS_REL:.0e})")
+        if not (max_rel <= K1_MAX_REL and rms_rel <= K1_RMS_REL):
+            raise AssertionError(f"K5 disagrees with its plain version at "
+                                 f"{shape}: {max_rel}, {rms_rel}")
+        worst = max(worst, err)
+        if shape in K5_SHAPES[:4]:  # the bench shapes
+            p1 = cuda_ms(lambda: flash_cross_short_reference(q, k, v, h, scale), 5)
+            k1 = cuda_ms(lambda: flash_cross_short(q, k, v, h, scale), 20)
+            k2 = cuda_ms(lambda: flash_cross_short(q, k, v, h, scale), 20)
+            p2 = cuda_ms(lambda: flash_cross_short_reference(q, k, v, h, scale), 5)
+            route = cuda_ms(lambda: _dense_masked(q, k, v, h, None, scale), 20)
+            lib = cuda_ms(lambda: sdpa(q, k, v, h, scale), 20)
+            kms, pms = (k1 + k2) / 2, (p1 + p2) / 2
+            flops = 4.0 * b * lq * lk * d
+            nbytes = 2.0 * (2 * q.numel() + 2 * k.numel())
+            bms, by = bound(flops, nbytes)
+            print(f"K5 time {shape}: kernel {kms:.4f} ms "
+                  f"({nbytes / kms / 1e6:.1f} GB/s), plain {pms:.4f} ms, "
+                  f"the port's route (_dense_masked) {route:.4f} ms, sdpa "
+                  f"{lib:.4f} ms, bound {bms:.4f} ms ({by}) [{card}]")
+            times[shape] = {"ms": kms, "plain_ms": pms, "library_ms": lib,
+                            "bound_ms": bms, "bound_by": by}
     return {"max_abs_err": worst, "times": times}
 
 
@@ -473,23 +569,59 @@ def check_sd3_block() -> None:
             raise AssertionError(f"SD3 block {name} disagrees with CPU: {rel}")
 
 
-def build_bundle() -> ModelBundle:
+def check_sd15_block() -> None:
+    """A full-width SD-1.5 level-0 spatial transformer (320 ch, 8 heads of
+    40, context 768, 1x1-conv projections) over 64x64 tokens, CFG pair:
+    card bf16 through K1 at hd 40 vs CPU float32."""
+    torch.manual_seed(0)
+    blk = unet_mod.Transformer2DModel(320, 768, 8, 1, 32,
+                                      use_linear=False).eval()
+    with torch.no_grad():
+        for name, p in blk.named_parameters():
+            if name.startswith("norm"):
+                continue  # GroupNorm affine stays (1, 0)
+            p.normal_(0.0, 0.05)
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.standard_normal((2, 320, 64, 64),
+                                             dtype=np.float32))
+    ctx = torch.from_numpy(rng.standard_normal((2, 77, 768), dtype=np.float32))
+    with torch.inference_mode():
+        ref = blk(x, ctx)
+        gpu = blk.to("cuda", torch.bfloat16)
+        before = flash_mha_fused.launches
+        out = gpu(x.to("cuda", torch.bfloat16), ctx.to("cuda", torch.bfloat16))
+        torch.cuda.synchronize()
+    if flash_mha_fused.launches != before + 1:
+        raise AssertionError("the SD-1.5 block's self-attention did not "
+                             "launch K1")
+    rel = ((out.float().cpu() - ref).abs().max() / ref.abs().max()).item()
+    print(f"SD-1.5 conv-projection transformer (2, 320, 64, 64) card bf16 vs "
+          f"CPU fp32: max err / max |ref| {rel:.3e} (bound {BLOCK_BOUND:.0e})")
+    if not rel <= BLOCK_BOUND:
+        raise AssertionError(f"SD-1.5 block disagrees with CPU: {rel}")
+
+
+def build_bundle(family: str = "sdxl") -> ModelBundle:
     t0 = time.perf_counter()
-    bundle = ModelBundle("sdxl", dtype=torch.bfloat16, device="cuda")
+    bundle = ModelBundle(family, dtype=torch.bfloat16, device="cuda")
     bundle.init_random(seed=0)
     torch.cuda.synchronize()
-    print(f"SDXL bundle built (random bf16 weights, fp32 VAE) in "
-          f"{time.perf_counter() - t0:.1f} s")
+    n = {k: sum(p.numel() for p in m.parameters())
+         for k, m in bundle.models.items()}
+    print(f"{family} bundle built (random bf16 weights, "
+          f"{bundle.param_dtype('vae')} VAE) in "
+          f"{time.perf_counter() - t0:.1f} s: " + ", ".join(
+              f"{k} {v / 1e9:.3f} B" for k, v in sorted(n.items())))
     return bundle
 
 
-def check_patched(bundle: ModelBundle) -> None:
-    """One full-width UNet forward on a 768^2 + 1024^2 patch batch (bf16)
+def check_patched(bundle: ModelBundle, res=(768, 1024)) -> None:
+    """One full-width UNet forward on a patch batch of ``res`` images (bf16)
     against the dense forward of each image."""
     unet = bundle.denoiser
-    sc = default_config("sdxl").scheduler
+    family = bundle.family
+    sc = default_config(family).scheduler
     cells = sc.patch_size // 8
-    res = [768, 1024]
     grids = tuple(r // 8 // cells for r in res)
     meta = patching.build_meta(grids, cells, tuple(sc.patch_buckets),
                                tuple(sc.batch_buckets))
@@ -499,34 +631,40 @@ def check_patched(bundle: ModelBundle) -> None:
         return torch.randn(*shape, generator=gen, device="cuda").to(
             torch.bfloat16)
 
+    n = len(res)
     images = [rand(1, r // 8, r // 8, 4) for r in res]
-    t = torch.tensor([700.0, 300.0], device="cuda")
-    ehs, pooled = rand(2, 77, 2048), rand(2, 1280)
-    time_ids = torch.tensor([[r, r, 0, 0, r, r] for r in res],
-                            dtype=torch.float32, device="cuda")
+    t = torch.linspace(700.0, 300.0, n, device="cuda")
+    ehs = rand(n, 77, unet.cfg.cross_attention_dim)
+    added = None
+    if unet.cfg.addition_embed is not None:  # SDXL's text_time conditioning
+        added = {"text_embeds": rand(n, unet.cfg.addition_embed[1]),
+                 "time_ids": torch.tensor([[r, r, 0, 0, r, r] for r in res],
+                                          dtype=torch.float32, device="cuda")}
 
     def pad(x, rows):
         return torch.cat([x, x.new_zeros((rows - x.shape[0],) + x.shape[1:])])
+
+    def rows(i, j):
+        return None if added is None else {k: a[i:j] for k, a in added.items()}
 
     x = pad(torch.cat([patching.split_latent(im, cells) for im in images]),
             meta.p_pad)
     with torch.inference_mode():
         out = unet(x, pad(t, meta.i_pad), pad(ehs, meta.i_pad),
-                   added_cond={"text_embeds": pad(pooled, meta.i_pad),
-                               "time_ids": pad(time_ids, meta.i_pad)},
+                   added_cond=None if added is None else {
+                       k: pad(a, meta.i_pad) for k, a in added.items()},
                    ctx=PatchContext(meta, "cuda"))
         off = 0
         for i, g in enumerate(grids):
             dense = unet(images[i], t[i:i + 1], ehs[i:i + 1],
-                         added_cond={"text_embeds": pooled[i:i + 1],
-                                     "time_ids": time_ids[i:i + 1]})
+                         added_cond=rows(i, i + 1))
             got = patching.merge_patches(out[off:off + g * g], g)
             off += g * g
             rel = ((got.float() - dense.float()).abs().max()
                    / dense.float().abs().max()).item()
-            print(f"SDXL UNet {res[i]}^2 patched (in a {res} patch batch) vs "
-                  f"dense, bf16 on the card: max err / max |dense| {rel:.3e} "
-                  f"(bound {PATCH_BOUND:.0e})")
+            print(f"{family} UNet {res[i]}^2 patched (in a {list(res)} patch "
+                  f"batch) vs dense, bf16 on the card: max err / max |dense| "
+                  f"{rel:.3e} (bound {PATCH_BOUND:.0e})")
             if not (np.isfinite(rel) and rel <= PATCH_BOUND):
                 raise AssertionError(f"patched UNet disagrees with dense at "
                                      f"{res[i]}: {rel}")
@@ -821,6 +959,110 @@ def serve_sd3_mixed(card: str, bundle: ModelBundle) -> int:
     return masked
 
 
+def sd15_self_attention_keys(cfg, res: int) -> list:
+    """Key count of every self-attention of one dense UNet forward at
+    ``res``^2: each transformer block attends over its level's latent
+    cells (down and up blocks of the levels with attention, the mid block
+    at the deepest level)."""
+    n_levels = len(cfg.block_out_channels)
+    keys = []
+    for lvl in range(n_levels):
+        if cfg.down_block_has_attn[lvl]:
+            per_level = (2 * cfg.layers_per_block + 1) * cfg.transformer_layers[lvl]
+            keys += [((res // 8) >> lvl) ** 2] * per_level
+    mid = max(cfg.transformer_layers[-1], 1)
+    return keys + [((res // 8) >> (n_levels - 1)) ** 2] * mid
+
+
+def reset_counts() -> None:
+    flash_mha_fused.launches = flash_mha.launches = 0
+    flash_mha_masked.launches = gn_silu_halo.launches = 0
+    flash_cross_short.launches = 0
+
+
+def read_counts() -> dict:
+    return {"k1": flash_mha_fused.launches, "flash_mha": flash_mha.launches,
+            "masked": flash_mha_masked.launches, "k4": gn_silu_halo.launches,
+            "k5": flash_cross_short.launches}
+
+
+def serve_sd15(card: str, bundle: ModelBundle, mixed: bool, sampler: str,
+               steps: int, requests: list) -> dict:
+    """SD-1.5 serving through ``DiffusionPipeline.generate``: the dense path
+    (mixed batches off, one UNet forward per resolution group) or the
+    default configuration (one patched forward per step).  Asserts the
+    images, the DENOISING batches and the launches of K1, the masked kernel
+    and K4 that SD15_UNET gives for these requests; K5 is never launched."""
+    torch.cuda.reset_peak_memory_stats()
+    config = default_config("sd15", dtype="bfloat16", seed=0, sampler=sampler)
+    config.scheduler.use_mixed_resolution = mixed
+    config.engine.collect_data = True
+    pipe = DiffusionPipeline(config=config, device="cuda", bundle=bundle)
+    if mixed and config.scheduler.policy != "fcfs_mixed":
+        raise AssertionError("the default configuration is not the mixed path")
+    cfg = bundle.denoiser.cfg
+    n_k4 = 2 * sum(type(m).__name__ == "ResnetBlock2D"
+                   for m in bundle.denoiser.modules()) + 1
+    prompts = ["a lighthouse on a cliff at dusk", "a bowl of ramen",
+               "an astronaut riding a horse", "a red fox in snow"][:len(requests)]
+    evals = pipe.engine.worker.pipeline.sampler.make_table(steps).num_steps
+
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = pipe.generate(prompts, resolution=requests,
+                         num_inference_steps=steps, seed=1234)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_counts()
+
+    check_outputs(outs, requests, card)
+    log = pipe.engine.worker.schedule_log
+    batches = [e["resolutions"] for e in log if e["stage"] == "denoising"]
+    groups = sorted(set(requests))
+    counts = [f"{r}x{requests.count(r)}" for r in groups]
+    if mixed:
+        if batches != [";".join(counts)] * evals:
+            raise AssertionError(f"expected {evals} mixed DENOISING batches "
+                                 f"{';'.join(counts)}, got {batches}")
+    elif sorted(batches) != sorted(counts * evals):
+        raise AssertionError(f"expected {evals} DENOISING batches of each of "
+                             f"{counts}, got {batches}")
+    # the launches each logged batch makes: a mixed batch is one patched
+    # forward (one masked call per resolution class and self-attention, one
+    # K4 per GroupNorm+SiLU before a 3x3 conv); a dense one is a forward
+    # per resolution, each self-attention with >= FLASH_MIN_KV keys on K1
+    n_self = len(sd15_self_attention_keys(cfg, requests[0]))
+    want = {"k1": 0, "flash_mha": 0, "masked": 0, "k4": 0, "k5": 0}
+    for entry in batches:
+        res = [int(part.split("x")[0]) for part in entry.split(";")]
+        if mixed:
+            want["masked"] += n_self * len(res)
+            want["k4"] += n_k4
+        else:
+            want["k1"] += sum(k >= FLASH_MIN_KV for r in res
+                              for k in sd15_self_attention_keys(cfg, r))
+    key = batches[0]
+    path = "mixed" if mixed else "dense"
+    print(f"SD-1.5 {path} serving ({sampler}, {steps} steps = {evals} "
+          f"evaluations): {len(outs)} requests in {wall:.3f} s; DENOISING "
+          f"batches {sorted(set(batches))} x {len(batches)}; launches {got} "
+          f"(expected {want})")
+    if got != want:
+        raise AssertionError(f"SD-1.5 {path} launches {got} != {want}")
+    step_gaps(log, key, f"SD-1.5 {path} {key} ({sampler})", card)
+    peak = torch.cuda.max_memory_allocated()
+
+    # final latents are finite (the uint8 cast would hide NaN)
+    lat = pipe.generate(prompts, resolution=requests, num_inference_steps=2,
+                        seed=7, output_type="latent")
+    for o, r in zip(lat, requests):
+        if o.image.shape != (r // 8, r // 8, 4) or not np.isfinite(o.image).all():
+            raise AssertionError(f"bad SD-1.5 latents {o.image.shape}")
+    print(f"max_memory_allocated {peak / 2**30:.2f} GiB (SD-1.5 {path}, "
+          f"{sampler}) [{card}]")
+    return got
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -841,19 +1083,41 @@ def main() -> None:
     k2a = check_k2a(card)
     masked = check_masked(card)
     k4 = check_k4(card)
+    k4_sd15 = check_k4(card, mixed_meta("sd15", SD15_MIXED_REQUESTS),
+                       SD15_K4_SHAPES, seed=7)
+    k4["max_abs_err"] = max(k4["max_abs_err"], k4_sd15["max_abs_err"])
+    k5 = check_k5(card)
     check_block()
     check_sd3_block()
+    check_sd15_block()
     bundle = build_bundle()
     check_patched(bundle)
     k1_launches = serve(card, bundle)
     masked_launches, k4_launches = serve_mixed(card, bundle)
-    # free the SDXL bundle so each family's peak memory reads alone
+    # free each bundle so each family's peak memory reads alone
     del bundle
     gc.collect()
     torch.cuda.empty_cache()
     sd3 = build_sd3_bundle()
     k2a_launches = serve_sd3(card, sd3)
     masked_launches += serve_sd3_mixed(card, sd3)
+    del sd3
+    gc.collect()
+    torch.cuda.empty_cache()
+    sd15 = build_bundle("sd15")
+    check_patched(sd15, SD15_MIXED_REQUESTS)
+    sd15_runs = [
+        serve_sd15(card, sd15, False, "euler", STEPS, SD15_REQUESTS),
+        serve_sd15(card, sd15, True, "euler", STEPS, SD15_MIXED_REQUESTS),
+        serve_sd15(card, sd15, True, "pndm", SD15_SAMPLER_STEPS,
+                   SD15_MIXED_REQUESTS),
+        serve_sd15(card, sd15, False, "ddim", SD15_SAMPLER_STEPS,
+                   SD15_REQUESTS),
+    ]
+    k1_launches += sum(r["k1"] for r in sd15_runs)
+    masked_launches += sum(r["masked"] for r in sd15_runs)
+    k4_launches += sum(r["k4"] for r in sd15_runs)
+    k5_launches = sum(r["k5"] for r in sd15_runs)
 
     # launches: the sum over the serving paths, each read just after its run
     kernels = [
@@ -867,6 +1131,8 @@ def main() -> None:
         ("gn_silu_halo", "sduss_tpu_torch/csrc/gn_halo.cu",
          "sduss_tpu/ops/gn_halo.py:196", k4_launches, k4,
          (mixed_meta().p_pad,) + K4_SHAPES[0]),
+        ("flash_cross_short", "sduss_tpu_torch/csrc/flash_cross.cu",
+         "sduss_tpu/ops/flash.py:421", k5_launches, k5, K5_SHAPES[2]),
     ]
     print(card)
     print(json.dumps({"kernels": [

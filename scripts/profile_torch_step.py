@@ -1,29 +1,32 @@
 #!/usr/bin/env python3
 """Where the time of a denoise step goes in the PyTorch/CUDA port.
 
-    python3 scripts/profile_torch_step.py [--family sdxl|sd3] [--steps 3]
-                                          [--out FILE.json]
+    python3 scripts/profile_torch_step.py [--family sdxl|sd3|sd15]
+                                          [--steps 3] [--out FILE.json]
 
 Needs one CUDA card.  Builds the full-width pipeline of ``sduss_tpu_torch``
 for the family (random bf16 weights from seed 0, TF32 off; SDXL: fp32
-VAE; SD3.5-medium: bf16 tiled VAE) and measures, printing one line each:
+VAE; SD3.5-medium: bf16 tiled VAE; SD-1.5: bf16 VAE) and measures,
+printing one line each:
 
-  1. ``--steps`` denoise steps at 1024^2, batch 2 (4 denoiser rows with
-     CFG) under ``torch.profiler``: wall ms per step (CUDA events),
-     device-busy ms per step (the union of kernel intervals) and device ms
-     per op class;
+  1. ``--steps`` denoise steps at the family's size (1024^2; SD-1.5
+     512^2), batch 2 (4 denoiser rows with CFG) under ``torch.profiler``:
+     wall ms per step (CUDA events), device-busy ms per step (the union of
+     kernel intervals) and device ms per op class;
   2. prepare (the family's text encoders over 2 prompts and 2 negatives,
-     latent init) and the VAE decode of one image at 1024^2 and at 768^2;
-  3. the 1024^2 step at batch 1, 2 and 4 (SD3: 1 and 2, since the plain
+     latent init) and the VAE decode of one image at the family's two
+     largest sizes (1024^2 and 768^2; SD-1.5 768^2 and 512^2);
+  3. that step at batch 1, 2 and 4 (SD3: 1 and 2, since the plain
      version's float32 scores of batch 4 take 15 GB a copy) with every
-     long unmasked attention through its kernel (SDXL: K1; SD3: flash_mha)
-     and through
-     its plain PyTorch version, alternated kernel, plain, plain, kernel.
-     For the plain phase only, this script rebinds the dispatcher's kernel
-     entry (``ops.attention.flash_mha_fused`` / ``flash_mha``) to the
-     plain version; the package itself has no such switch;
+     long unmasked attention through its kernel (SDXL, SD-1.5: K1; SD3:
+     flash_mha) and through its plain PyTorch version, alternated kernel,
+     plain, plain, kernel.  For the plain phase only, this script rebinds
+     the dispatcher's kernel entry (``ops.attention.flash_mha_fused`` /
+     ``flash_mha``) to the plain version; the package itself has no such
+     switch;
   4. the mixed step (SDXL: 768^2 + 3 x 1024^2, one patched UNet forward;
-     SD3: 512^2 + 2 x 1024^2, one padded-token MMDiT forward;
+     SD3: 512^2 + 2 x 1024^2, one padded-token MMDiT forward; SD-1.5:
+     256^2 + 512^2 + 768^2, one patched UNet forward;
      ``denoise_step_mixed``) under the profiler as in 1, and its wall ms
      against the same requests as dense per-resolution forwards
      (``denoise_step``), alternated mixed, dense, dense, mixed.
@@ -52,13 +55,17 @@ from sduss_tpu_torch.ops import attention as attn_ops  # noqa: E402
 from sduss_tpu_torch.ops import flash  # noqa: E402
 from sduss_tpu_torch.pipelines import build_pipeline  # noqa: E402
 
-RES = 1024
+# the dense step's resolution, and the two decode sizes, per family
+RES = {"sdxl": 1024, "sd3": 1024, "sd15": 512}
+DECODE_RES = {"sdxl": (1024, 768), "sd3": (1024, 768), "sd15": (768, 512)}
 STEPS_PER_REQUEST = 50  # sampler table long enough for every timed step
 
-# op classes by kernel name, first match wins
+# op classes by kernel name, first match wins (the flash template's name
+# carries <head dim, masked>, e.g. mha_fused_kernel<40, true>)
 OP_CLASSES = [
-    ("masked flash attention", ("mha_fused_kernel<true>",)),
+    ("masked flash attention", (", true>(__nv_bfloat16",)),
     ("unmasked flash (K1, flash_mha)", ("mha_fused",)),
+    ("K5 flash_cross_short", ("cross_short",)),
     ("K4 gn+silu+halo", ("gn_halo",)),
     ("convolution", ("conv", "fprop", "dgrad", "wgrad", "implicit")),
     ("matmul", ("gemm", "xmma", "cutlass", "cublas", "nvjet")),
@@ -88,7 +95,7 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def prepared(pipe, batch: int, res: int = RES, tag: str = "r") -> list:
+def prepared(pipe, batch: int, res: int, tag: str = "r") -> list:
     reqs = [Request(f"{tag}{i}", SamplingParams(
         prompt=f"a photo of object {i}", negative_prompt="blurry",
         resolution=res, num_inference_steps=STEPS_PER_REQUEST, seed=i))
@@ -105,9 +112,9 @@ def op_class(name: str) -> str:
     return "other"
 
 
-def profile_step(pipe, steps: int) -> dict:
-    reqs = prepared(pipe, 2, tag="prof")
-    return profile(lambda: pipe.denoise_step({RES: reqs}), steps)
+def profile_step(pipe, res: int, steps: int) -> dict:
+    reqs = prepared(pipe, 2, res, tag="prof")
+    return profile(lambda: pipe.denoise_step({res: reqs}), steps)
 
 
 def profile(step, steps: int) -> dict:
@@ -149,21 +156,23 @@ def profile(step, steps: int) -> dict:
             "top_kernels": [{"name": n[:120], "ms": ms} for n, ms in top]}
 
 
-def stage_times(pipe) -> dict:
-    prep = cuda_ms(lambda: prepared(pipe, 2, tag="prep"), 3)
+def stage_times(pipe, family: str) -> dict:
+    prep = cuda_ms(lambda: prepared(pipe, 2, RES[family], tag="prep"), 3)
     out = {"prepare_2_requests_ms": prep}
-    for res in (1024, 768):
+    for res in DECODE_RES[family]:
         lat = prepared(pipe, 1, res=res, tag=f"dec{res}")[0].latents
         out[f"vae_decode_{res}_ms"] = cuda_ms(lambda: pipe._decode_fn(lat), 3)
     return out
 
 
-# the dispatcher entry of each family's 1024^2 unmasked attention, and the
+# the dispatcher entry of each family's long unmasked attention, and the
 # mixed batch of its serving phase
 KERNEL_ENTRY = {"sdxl": ("flash_mha_fused", flash.flash_mha_fused_reference),
-                "sd3": ("flash_mha", flash.flash_mha_reference)}
-MIXED = {"sdxl": [768, 1024, 1024, 1024], "sd3": [512, 1024, 1024]}
-AB_BATCHES = {"sdxl": (1, 2, 4), "sd3": (1, 2)}
+                "sd3": ("flash_mha", flash.flash_mha_reference),
+                "sd15": ("flash_mha_fused", flash.flash_mha_fused_reference)}
+MIXED = {"sdxl": [768, 1024, 1024, 1024], "sd3": [512, 1024, 1024],
+         "sd15": [256, 512, 768]}
+AB_BATCHES = {"sdxl": (1, 2, 4), "sd3": (1, 2), "sd15": (1, 2, 4)}
 
 
 def kernel_vs_plain(pipe, family: str, steps: int) -> dict:
@@ -172,9 +181,10 @@ def kernel_vs_plain(pipe, family: str, steps: int) -> dict:
     name, plain = KERNEL_ENTRY[family]
     kernel = getattr(attn_ops, name)
     out = {}
+    res = RES[family]
     for batch in AB_BATCHES[family]:
-        reqs = prepared(pipe, batch, tag=f"ab{batch}")
-        step = lambda: pipe.denoise_step({RES: reqs})  # noqa: E731
+        reqs = prepared(pipe, batch, res, tag=f"ab{batch}")
+        step = lambda: pipe.denoise_step({res: reqs})  # noqa: E731
         row = {"kernel": [], "plain": []}
         for variant in ("kernel", "plain", "plain", "kernel"):
             setattr(attn_ops, name, plain if variant == "plain" else kernel)
@@ -228,17 +238,18 @@ def main() -> None:
     torch.cuda.synchronize()
     print(f"{fam} pipeline built in {time.perf_counter() - t0:.1f} s")
 
-    prof = profile_step(pipe, args.steps)
-    print(f"step 1024^2 batch 2: wall {prof['wall_ms']:.2f} ms, device busy "
+    res = RES[fam]
+    prof = profile_step(pipe, res, args.steps)
+    print(f"step {res}^2 batch 2: wall {prof['wall_ms']:.2f} ms, device busy "
           f"{prof['busy_ms']:.2f} ms ({prof['busy_ms'] / prof['wall_ms']:.1%}) "
           f"[{card}]")
     print_profile(prof)
-    stages = stage_times(pipe)
+    stages = stage_times(pipe, fam)
     print("stages: " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
           + f" [{card}]")
     ab = kernel_vs_plain(pipe, fam, args.steps)
     for batch, row in ab.items():
-        print(f"step 1024^2 {batch}: {KERNEL_ENTRY[fam][0]} "
+        print(f"step {res}^2 {batch}: {KERNEL_ENTRY[fam][0]} "
               + "/".join(f"{x:.2f}" for x in row["kernel"]) + " ms, plain "
               + "/".join(f"{x:.2f}" for x in row["plain"]) + f" ms [{card}]")
     mix = MIXED[fam]

@@ -19,16 +19,22 @@
 //       softmax.  The mask is one byte per (batch row, key); masked keys get
 //       -inf before the row max.
 // All compute softmax(Q K^T * scale) V over (B, L, D) tensors
-// whose heads are column slices of D (head h at columns [h*64, h*64+64)),
-// so no head transposes are ever materialized.  Computes what the TPU
+// whose heads are column slices of D (head h at columns [h*hd, h*hd+hd)),
+// so no head transposes are ever materialized.  The head dim hd is a
+// template constant, instantiated at 40, 64, 80 and 160 (SD-1.5's 40/80/160
+// at 8 heads over 320/640/1280 channels, SDXL's and SD3's 64).  The wmma
+// tiles are 16 wide, so a head is held padded to HDP = ceil(hd/16)*16
+// columns (40 -> 48): the pad columns of Q, K and V are zero-filled on
+// load, add nothing to Q K^T, and the output's pad columns are never
+// written.  Computes what the TPU
 // kernel computes, not its tiling: the TPU kernel holds whole K/V rows in
 // VMEM and runs a two-pass softmax; shared memory here is ~227 KB per SM,
 // so K/V stream through it in 64-row tiles under an online softmax.
-//
+
 // Design (one simple, correct kernel; wgmma/TMA/warp specialisation are
 // later work):
 //   grid (ceil(Lq/64), H, B), 128 threads = 4 warps, each warp owns 16
-//   query rows.  Q's 16x64 slice lives in wmma fragments for the whole
+//   query rows.  Q's 16 x HDP slice lives in wmma fragments for the whole
 //   block; 64-row K and V tiles are staged in shared memory; QK^T and PV
 //   run on bf16 16x16x16 tensor-core fragments with float32 accumulators.
 //   Softmax statistics (running max m, running sum l) are float32, kept in
@@ -69,53 +75,69 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int HD = 64;            // head dim (the only one SDXL has)
 constexpr int BQ = 64;            // query rows per block
 constexpr int BK = 64;            // key/value rows per tile
 constexpr int WARPS = 4;          // 16 query rows each
 constexpr int THREADS = WARPS * 32;
-constexpr int BF_LD = HD + 8;     // padded bf16 row (bank spread, 16 B rows)
-constexpr int F_LD = BK + 4;      // padded f32 row
+constexpr int P_LD = BK + 8;      // padded bf16 probability row
+constexpr int F_LD = BK + 4;      // padded f32 score row
 
-constexpr int SQ_ELEMS = BQ * BF_LD;
-constexpr int SKV_ELEMS = BK * BF_LD;
-constexpr int SP_ELEMS = WARPS * 16 * BF_LD;
-constexpr int SF_ELEMS = WARPS * 16 * F_LD;
-constexpr size_t SMEM_BYTES =
-    (size_t)(SQ_ELEMS + 2 * SKV_ELEMS + SP_ELEMS) * sizeof(bf16) +
-    (size_t)(2 * SF_ELEMS) * sizeof(float);
+// Shared-memory layout for head dim HD.  At hd 64 every stride and size is
+// the one the kernel had before it took other head dims.
+template <int HD>
+struct Tile {
+  static constexpr int HDP = (HD + 15) / 16 * 16;  // head padded for wmma
+  static constexpr int LD = HDP + 8;     // padded bf16 Q/K/V row (banks)
+  static constexpr int O_LD = HDP + 4;   // padded f32 output row
+  static constexpr int SQ = BQ * LD;
+  static constexpr int SKV = BK * LD;
+  static constexpr int SP = WARPS * 16 * P_LD;
+  static constexpr int SS = WARPS * 16 * F_LD;
+  static constexpr int SO = WARPS * 16 * O_LD;
+  // 70 KB at hd 64, 130 KB at hd 160 (one block per SM there)
+  static constexpr size_t SMEM_BYTES =
+      (size_t)(SQ + 2 * SKV + SP) * sizeof(bf16) +
+      (size_t)(SS + SO) * sizeof(float);
+};
 
-// Copy rows [row0, row0+64) x cols [col0, col0+64) of a (L, D) bf16 matrix
-// into shared memory, 16 bytes per thread per step; rows >= L become 0.
+// Copy rows [row0, row0+64) x cols [col0, col0+HD) of a (L, D) bf16 matrix
+// into shared memory, 16 bytes per thread per step; rows >= L and the pad
+// columns [HD, HDP) become 0.
+template <int HD>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
                                           int row0, int L, int D,
                                           int col0, int tid) {
-  for (int i = tid; i < 64 * (HD / 8); i += THREADS) {
-    const int r = i / (HD / 8);
-    const int c = (i % (HD / 8)) * 8;
+  constexpr int VEC = Tile<HD>::HDP / 8;  // 16-byte vectors per padded row
+  for (int i = tid; i < 64 * VEC; i += THREADS) {
+    const int r = i / VEC;
+    const int c = (i % VEC) * 8;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     const int gr = row0 + r;
-    if (gr < L) {
+    if (gr < L && c < HD) {
       val = *reinterpret_cast<const uint4*>(src + (size_t)gr * D + col0 + c);
     }
-    *reinterpret_cast<uint4*>(dst + r * BF_LD + c) = val;
+    *reinterpret_cast<uint4*>(dst + r * Tile<HD>::LD + c) = val;
   }
 }
 
-template <bool MASKED>
+template <int HD, bool MASKED>
 __global__ void __launch_bounds__(THREADS)
 mha_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o,
                  const uint8_t* __restrict__ kv_mask,
                  int Lq, int Lk, int kv_len, int D, float scale_log2) {
+  using T = Tile<HD>;
+  constexpr int HDP = T::HDP;
+  constexpr int LD = T::LD;
+  constexpr int O_LD = T::O_LD;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ uint8_t sMask[BK];  // MASKED: this key tile's validity
   bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + SQ_ELEMS;
-  bf16* sV = sK + SKV_ELEMS;
-  bf16* sP = sV + SKV_ELEMS;
-  float* sS = reinterpret_cast<float*>(sP + SP_ELEMS);
-  float* sO = sS + SF_ELEMS;
+  bf16* sK = sQ + T::SQ;
+  bf16* sV = sK + T::SKV;
+  bf16* sP = sV + T::SKV;
+  float* sS = reinterpret_cast<float*>(sP + T::SP);
+  float* sO = sS + T::SS;
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -128,20 +150,21 @@ mha_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vb = v + (size_t)b * Lk * D;
 
   float* wS = sS + warp * 16 * F_LD;   // this warp's 16x64 scores
-  float* wO = sO + warp * 16 * F_LD;   // this warp's 16x64 output acc
-  bf16* wP = sP + warp * 16 * BF_LD;   // this warp's 16x64 probabilities
+  float* wO = sO + warp * 16 * O_LD;   // this warp's 16xHDP output acc
+  bf16* wP = sP + warp * 16 * P_LD;    // this warp's 16x64 probabilities
 
-  load_tile(sQ, qb, q0, Lq, D, col0, tid);
-  for (int i = lane; i < 16 * HD; i += 32) wO[(i / HD) * F_LD + i % HD] = 0.f;
+  load_tile<HD>(sQ, qb, q0, Lq, D, col0, tid);
+  for (int i = lane; i < 16 * HDP; i += 32) wO[(i / HDP) * O_LD + i % HDP] = 0.f;
   __syncthreads();
 
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qf[HD / 16];
+  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qf[HDP / 16];
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    wmma::load_matrix_sync(qf[kk], sQ + warp * 16 * BF_LD + kk * 16, BF_LD);
+  for (int kk = 0; kk < HDP / 16; ++kk) {
+    wmma::load_matrix_sync(qf[kk], sQ + warp * 16 * LD + kk * 16, LD);
   }
 
-  // Two lanes per query row, each owning 32 of the tile's 64 columns.
+  // Two lanes per query row, each owning 32 of the tile's 64 key columns
+  // and HDP/2 of the output accumulator's columns.
   const int row = lane >> 1;
   const int half = lane & 1;
   float m = -INFINITY;
@@ -160,8 +183,8 @@ mha_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
       if (!__syncthreads_or(valid_key != 0)) continue;
     }
-    load_tile(sK, kb, kv0, kv_len, D, col0, tid);
-    load_tile(sV, vb, kv0, kv_len, D, col0, tid);
+    load_tile<HD>(sK, kb, kv0, kv_len, D, col0, tid);
+    load_tile<HD>(sV, vb, kv0, kv_len, D, col0, tid);
     __syncthreads();
 
     // S = Q K^T: K is (kv, hd) row-major in smem, i.e. K^T col-major.
@@ -170,9 +193,9 @@ mha_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
       wmma::fill_fragment(acc, 0.f);
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
+      for (int kk = 0; kk < HDP / 16; ++kk) {
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
-        wmma::load_matrix_sync(kf, sK + n * 16 * BF_LD + kk * 16, BF_LD);
+        wmma::load_matrix_sync(kf, sK + n * 16 * LD + kk * 16, LD);
         wmma::mma_sync(acc, qf[kk], kf, acc);
       }
       wmma::store_matrix_sync(wS + n * 16, acc, F_LD, wmma::mem_row_major);
@@ -194,7 +217,7 @@ mha_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
     const float m_new = fmaxf(m, mx);  // finite: every processed tile has a key
     const float alpha = exp2f(m - m_new);   // 0 on the first tile
-    bf16* prow = wP + row * BF_LD + half * 32;
+    bf16* prow = wP + row * P_LD + half * 32;
     float sum = 0.f;
 #pragma unroll 8
     for (int j = 0; j < 32; ++j) {
@@ -205,25 +228,25 @@ mha_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     l = l * alpha + sum;
     m = m_new;
-    float* orow = wO + row * F_LD + half * 32;
+    float* orow = wO + row * O_LD + half * (HDP / 2);
 #pragma unroll 8
-    for (int j = 0; j < 32; ++j) orow[j] *= alpha;
+    for (int j = 0; j < HDP / 2; ++j) orow[j] *= alpha;
     __syncwarp();
 
     // O += P V: V is (kv, hd) row-major in smem.
 #pragma unroll
-    for (int n = 0; n < HD / 16; ++n) {
+    for (int n = 0; n < HDP / 16; ++n) {
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, wO + n * 16, F_LD, wmma::mem_row_major);
+      wmma::load_matrix_sync(acc, wO + n * 16, O_LD, wmma::mem_row_major);
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pf;
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-        wmma::load_matrix_sync(pf, wP + kk * 16, BF_LD);
-        wmma::load_matrix_sync(vf, sV + kk * 16 * BF_LD + n * 16, BF_LD);
+        wmma::load_matrix_sync(pf, wP + kk * 16, P_LD);
+        wmma::load_matrix_sync(vf, sV + kk * 16 * LD + n * 16, LD);
         wmma::mma_sync(acc, pf, vf, acc);
       }
-      wmma::store_matrix_sync(wO + n * 16, acc, F_LD, wmma::mem_row_major);
+      wmma::store_matrix_sync(wO + n * 16, acc, O_LD, wmma::mem_row_major);
     }
     __syncthreads();  // all warps done with sK/sV before the next load
   }
@@ -232,10 +255,15 @@ mha_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   if (gq < Lq) {
     // l == 0 only for a fully masked row, whose accumulator is still 0
     const float inv = 1.f / fmaxf(l, 1e-30f);
-    const float* orow = wO + row * F_LD + half * 32;
-    bf16* dst = o + ((size_t)b * Lq + gq) * D + col0 + half * 32;
+    const float* orow = wO + row * O_LD;
+    bf16* dst = o + ((size_t)b * Lq + gq) * D + col0;
+    // The row's hd/8 16-byte vectors, split between its two lanes (hd 40:
+    // 3 + 2).  Global offsets stay 16-byte aligned: col0 = h * hd, hd % 8 == 0.
+    constexpr int NV = HD / 8;
+    constexpr int SPLIT = (NV + 1) / 2;
 #pragma unroll
-    for (int c = 0; c < 32; c += 8) {
+    for (int vec = half * SPLIT; vec < (half ? NV : SPLIT); ++vec) {
+      const int c = vec * 8;
       __align__(16) bf16 tmp[8];
 #pragma unroll
       for (int j = 0; j < 8; ++j) tmp[j] = __float2bfloat16(orow[c + j] * inv);
@@ -244,34 +272,60 @@ mha_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <bool MASKED>
+template <int HD, bool MASKED>
 int launch(const void* q, const void* k, const void* v, const void* kv_mask,
            void* o, int B, int Lq, int Lk, int kv_len, int D, int H,
            float scale_log2, void* stream) {
+  constexpr size_t smem = Tile<HD>::SMEM_BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      mha_fused_kernel<MASKED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM_BYTES);
+      mha_fused_kernel<HD, MASKED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Lq + BQ - 1) / BQ, H, B);
-  mha_fused_kernel<MASKED><<<grid, THREADS, SMEM_BYTES,
-                             static_cast<cudaStream_t>(stream)>>>(
+  mha_fused_kernel<HD, MASKED><<<grid, THREADS, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o),
       static_cast<const uint8_t*>(kv_mask), Lq, Lk, kv_len, D, scale_log2);
   return (int)cudaGetLastError();
 }
 
+// The instantiation for head dim D / H; an unsupported one is refused
+// (the wrappers in ops/flash.py raise before this).
+template <bool MASKED>
+int dispatch(const void* q, const void* k, const void* v, const void* kv_mask,
+             void* o, int B, int Lq, int Lk, int kv_len, int D, int H,
+             float scale_log2, void* stream) {
+  if (H < 1 || D % H != 0) return (int)cudaErrorInvalidValue;
+  switch (D / H) {
+    case 40:
+      return launch<40, MASKED>(q, k, v, kv_mask, o, B, Lq, Lk, kv_len, D, H,
+                                scale_log2, stream);
+    case 64:
+      return launch<64, MASKED>(q, k, v, kv_mask, o, B, Lq, Lk, kv_len, D, H,
+                                scale_log2, stream);
+    case 80:
+      return launch<80, MASKED>(q, k, v, kv_mask, o, B, Lq, Lk, kv_len, D, H,
+                                scale_log2, stream);
+    case 160:
+      return launch<160, MASKED>(q, k, v, kv_mask, o, B, Lq, Lk, kv_len, D, H,
+                                 scale_log2, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// q, k, v, o: contiguous bf16 (B, Lq|Lk, D) with D = H * 64 on one device.
-// scale_log2 = softmax scale * log2(e).  Launches on `stream` and returns
-// cudaGetLastError() (0 = launched).
+// q, k, v, o: contiguous bf16 (B, Lq|Lk, D) with D = H * hd, hd one of 40,
+// 64, 80, 160, on one device.  scale_log2 = softmax scale * log2(e).
+// Launches on `stream` and returns cudaGetLastError() (0 = launched).
 extern "C" int sduss_flash_mha_fused(const void* q, const void* k,
                                      const void* v, void* o, int B, int Lq,
                                      int Lk, int D, int H, float scale_log2,
                                      void* stream) {
-  return launch<false>(q, k, v, nullptr, o, B, Lq, Lk, Lk, D, H, scale_log2,
-                       stream);
+  return dispatch<false>(q, k, v, nullptr, o, B, Lq, Lk, Lk, D, H,
+                         scale_log2, stream);
 }
 
 // As sduss_flash_mha_fused, over the first kv_len keys of each batch row
@@ -280,8 +334,8 @@ extern "C" int sduss_flash_mha_fused(const void* q, const void* k,
 extern "C" int sduss_flash_mha(const void* q, const void* k, const void* v,
                                void* o, int B, int Lq, int Lk, int kv_len,
                                int D, int H, float scale_log2, void* stream) {
-  return launch<false>(q, k, v, nullptr, o, B, Lq, Lk, kv_len, D, H,
-                       scale_log2, stream);
+  return dispatch<false>(q, k, v, nullptr, o, B, Lq, Lk, kv_len, D, H,
+                         scale_log2, stream);
 }
 
 // As sduss_flash_mha_fused, plus kv_mask: contiguous (B, Lk) bytes, nonzero
@@ -290,8 +344,8 @@ extern "C" int sduss_flash_mha_masked(const void* q, const void* k,
                                       const void* v, const void* kv_mask,
                                       void* o, int B, int Lq, int Lk, int D,
                                       int H, float scale_log2, void* stream) {
-  return launch<true>(q, k, v, kv_mask, o, B, Lq, Lk, Lk, D, H, scale_log2,
-                      stream);
+  return dispatch<true>(q, k, v, kv_mask, o, B, Lq, Lk, Lk, D, H, scale_log2,
+                        stream);
 }
 
 extern "C" const char* sduss_cuda_error_string(int err) {

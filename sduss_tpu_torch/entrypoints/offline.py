@@ -13,7 +13,7 @@ from sduss_tpu_torch.engine.engine import Engine
 from sduss_tpu_torch.models.registry import ModelBundle
 
 
-def default_config(model: str = "sdxl", **model_kwargs) -> Config:
+def default_config(model: str = "sd15", **model_kwargs) -> Config:
     """The JAX package's defaults: the ``fcfs_mixed`` policy with
     mixed-resolution denoise batches (SDXL: the patch path; SD3: the
     padded-token path), and for full-size SD3 the tiled VAE decode."""
@@ -31,7 +31,7 @@ class DiffusionPipeline:
     instead of seeded random ones.
     """
 
-    def __init__(self, model: str = "sdxl", *, config: Optional[Config] = None,
+    def __init__(self, model: str = "sd15", *, config: Optional[Config] = None,
                  device: torch.device | str = "cuda",
                  bundle: Optional[ModelBundle] = None, **kwargs):
         device = torch.device(device)

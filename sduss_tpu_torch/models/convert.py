@@ -4,7 +4,11 @@ The exact inverse of sduss_tpu/models/convert.py's ``convert_unet``,
 ``convert_clip``, ``convert_vae``, ``convert_mmdit`` and ``convert_t5``:
 matmul kernels ``(in, out)`` go back
 to torch's ``(out, in)``, conv kernels HWIO back to OIHW, and every tensor
-gets its diffusers name again.  This is how the JAX package's parameters
+gets its diffusers name again.  A UNet transformer's ``proj_in`` /
+``proj_out`` follow their kernel: SDXL's linears become ``(C, C)``
+weights, SD-1.5's 1x1 convs (``use_linear_projection=False``) diffusers'
+``(C, C, 1, 1)`` ones, which ``convert_unet`` reads back with the flag
+from the config.  This is how the JAX package's parameters
 are carried into the port (``ModelBundle.load_state_dicts``).
 """
 

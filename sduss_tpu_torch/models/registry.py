@@ -46,6 +46,12 @@ class FamilySpec:
 
 
 SPECS: Dict[str, FamilySpec] = {
+    "sd15": FamilySpec(
+        family="sd15", latent_channels=4, vae_scale=8,
+        default_sampler="euler", sampler_kwargs={}, default_steps=50,
+        default_guidance=7.5, resolutions=(256, 512, 768),
+        text_encoders=("clip_l",),
+    ),
     "sdxl": FamilySpec(
         family="sdxl", latent_channels=4, vae_scale=8,
         default_sampler="euler", sampler_kwargs={}, default_steps=50,
@@ -124,20 +130,36 @@ class ModelBundle:
                                "explicitly to run on the CPU")
         # built on the meta device: no memory, no default init, until the
         # weights are materialized on the target device
+        models_of = {"sd15": self._sd15_models, "sdxl": self._sdxl_models,
+                     "sd3": self._sd3_models}
         with torch.device("meta"):
-            self.models: Dict[str, nn.Module] = (
-                self._sd3_models(tiny) if family == "sd3"
-                else self._sdxl_models(tiny))
+            self.models: Dict[str, nn.Module] = models_of[family](tiny)
         self.tokenizers = {
-            "tokenizer": StubTokenizer(self.models["text_encoder"].cfg.vocab_size),
-            "tokenizer_2": StubTokenizer(
-                self.models["text_encoder_2"].cfg.vocab_size),
-        }
+            "tokenizer": StubTokenizer(self.models["text_encoder"].cfg.vocab_size)}
+        if "text_encoder_2" in self.models:
+            self.tokenizers["tokenizer_2"] = StubTokenizer(
+                self.models["text_encoder_2"].cfg.vocab_size)
         if "text_encoder_3" in self.models:
             # the JAX T5 stub (loader.py:100): no BOS, EOS 1, pad 0, 256 ids
             self.tokenizers["tokenizer_3"] = StubTokenizer(
                 self.models["text_encoder_3"].cfg.vocab_size,
                 model_max_length=256, bos=None, eos=1, pad=0)
+
+    @staticmethod
+    def _sd15_models(tiny: bool) -> Dict[str, nn.Module]:
+        """The JAX registry's SD-1.5 bundle (registry.py:70-81): CLIP-L
+        alone, last hidden state, no projection."""
+        if tiny:
+            # the text width equals TINY_UNET's cross_attention_dim (32)
+            te = dataclasses.replace(clip_mod.TINY_CLIP, hidden_size=32,
+                                     intermediate_size=64, projection_dim=None)
+            unet, vae = unet_mod.TINY_UNET, vae_mod.TINY_VAE
+        else:
+            te = dataclasses.replace(clip_mod.CLIP_L, projection_dim=None)
+            unet, vae = unet_mod.SD15_UNET, vae_mod.SD15_VAE
+        return {"unet": unet_mod.UNet2DConditionModel(unet),
+                "text_encoder": clip_mod.CLIPTextModel(te),
+                "vae": vae_mod.AutoencoderKL(vae)}
 
     @staticmethod
     def _sdxl_models(tiny: bool) -> Dict[str, nn.Module]:

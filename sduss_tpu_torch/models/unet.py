@@ -2,11 +2,12 @@
 
 The port carries the JAX ``apply``'s dense path (``ctx=None``) and its
 mixed-resolution patch path (``ctx`` a ``PatchContext``, ops/patch_ctx.py),
-without the block cache or ``deep_mode``, for configs with linear
-transformer projections (SDXL).  With a ``ctx`` every convolution, group
-norm, self/cross-attention and upsample goes through the context, as the
-JAX ``_gn`` / ``_gn_silu_conv`` / ``_conv`` / ``_self_attention`` /
-``_cross_attention`` / ``_upsample_2x`` seam does.  Module names follow diffusers', so ``state_dict()`` keys are the
+without the block cache or ``deep_mode``, for linear transformer
+projections (SDXL) and 1x1-conv ones (SD-1.5).  With a ``ctx`` every 3x3
+convolution, group norm, self/cross-attention and upsample goes through the
+context, as the JAX ``_gn`` / ``_gn_silu_conv`` / ``_conv`` /
+``_self_attention`` / ``_cross_attention`` / ``_upsample_2x`` seam does.
+Module names follow diffusers', so ``state_dict()`` keys are the
 diffusers keys and ``models/convert.py`` maps them to and from the JAX
 parameter tree.  The public forward takes and returns NHWC latents; inside,
 activations are NCHW.
@@ -48,6 +49,7 @@ class UNetConfig:
         return self.block_out_channels[0] * 4
 
 
+SD15_UNET = UNetConfig()
 SDXL_UNET = UNetConfig(
     block_out_channels=(320, 640, 1280),
     down_block_has_attn=(False, True, True),
@@ -57,6 +59,16 @@ SDXL_UNET = UNetConfig(
     addition_embed=(256, 1280, 6),
     use_linear_projection=True,
     sample_size=128,
+)
+TINY_UNET = UNetConfig(
+    block_out_channels=(32, 64),
+    down_block_has_attn=(True, False),
+    layers_per_block=1,
+    transformer_layers=(1, 0),
+    num_heads=(2, 2),
+    cross_attention_dim=32,
+    norm_num_groups=8,
+    sample_size=16,
 )
 TINY_SDXL_UNET = UNetConfig(
     block_out_channels=(32, 64),
@@ -174,26 +186,40 @@ class BasicTransformerBlock(nn.Module):
 
 
 class Transformer2DModel(nn.Module):
-    """Spatial transformer with linear projections (SDXL)."""
+    """Spatial transformer, with linear projections (SDXL) or 1x1-conv ones
+    (SD-1.5, diffusers' ``(C, C, 1, 1)`` weights).  A 1x1 conv is a linear
+    map over the channels, so both kinds run as one on the tokens (the JAX
+    ``_transformer_apply`` convolves the map before flattening it: the same
+    function), dense and patched alike."""
 
     def __init__(self, channels: int, context_dim: int, heads: int,
-                 depth: int, groups: int):
+                 depth: int, groups: int, use_linear: bool = True):
         super().__init__()
         self.norm = L.GroupNorm(groups, channels, 1e-6)
-        self.proj_in = nn.Linear(channels, channels)
+
+        def proj():
+            return (nn.Linear(channels, channels) if use_linear
+                    else nn.Conv2d(channels, channels, 1))
+
+        self.proj_in = proj()
         self.transformer_blocks = nn.ModuleList(
             [BasicTransformerBlock(channels, context_dim, heads)
              for _ in range(depth)])
-        self.proj_out = nn.Linear(channels, channels)
+        self.proj_out = proj()
+
+    @staticmethod
+    def _project(layer, h):
+        return F.linear(h, layer.weight.reshape(layer.weight.shape[0], -1),
+                        layer.bias)
 
     def forward(self, x, ehs, ctx=None):
         n, c, hh, ww = x.shape
         h = self.norm(x) if ctx is None else ctx.group_norm(self.norm, x)
-        h = h.permute(0, 2, 3, 1).reshape(n, hh * ww, c)
-        h = self.proj_in(h)
+        h = self._project(self.proj_in, h.permute(0, 2, 3, 1).reshape(
+            n, hh * ww, c))
         for blk in self.transformer_blocks:
             h = blk(h, ehs, ctx=ctx)
-        h = self.proj_out(h)
+        h = self._project(self.proj_out, h)
         return h.reshape(n, hh, ww, c).permute(0, 3, 1, 2) + x
 
 
@@ -234,9 +260,6 @@ class UNetBlock(nn.Module):
 class UNet2DConditionModel(nn.Module):
     def __init__(self, cfg: UNetConfig):
         super().__init__()
-        if not cfg.use_linear_projection:
-            raise NotImplementedError(
-                "conv-projection transformers (SD1.5) are not ported yet")
         self.cfg = cfg
         bo = cfg.block_out_channels
         n_levels = len(bo)
@@ -245,7 +268,8 @@ class UNet2DConditionModel(nn.Module):
 
         def transformer(ch, lvl, depth):
             return Transformer2DModel(ch, cfg.cross_attention_dim,
-                                      cfg.num_heads[lvl], depth, g)
+                                      cfg.num_heads[lvl], depth, g,
+                                      cfg.use_linear_projection)
 
         self.conv_in = nn.Conv2d(cfg.in_channels, bo[0], 3, padding=1)
         self.time_embedding = TimestepEmbedding(bo[0], temb)

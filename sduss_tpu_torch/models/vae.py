@@ -37,6 +37,7 @@ class VAEConfig:
     use_quant_conv: bool = True
 
 
+SD15_VAE = VAEConfig()
 SDXL_VAE = VAEConfig(scaling_factor=0.13025, force_upcast=True)
 # SD3's 16-channel VAE ships without the 1x1 (post_)quant convs
 SD3_VAE = VAEConfig(latent_channels=16, scaling_factor=1.5305,

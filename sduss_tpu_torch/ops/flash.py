@@ -1,5 +1,5 @@
 """Model-layout flash attention (counterpart of sduss_tpu/ops/flash.py
-``flash_mha_fused`` and ``flash_mha``).
+``flash_mha_fused``, ``flash_mha`` and ``flash_cross_short``).
 
 Three wrappers of the hand-written CUDA kernel ``csrc/flash_fused.cu``:
 
@@ -12,9 +12,19 @@ Three wrappers of the hand-written CUDA kernel ``csrc/flash_fused.cu``:
   hands over to ``flash_mha_masked``, as the JAX function does;
 * ``flash_mha_masked`` — kernel K2b/K3a, replacing ``_mha_kernel_2pass`` and
   ``_mha_kernel_masked`` (attention under a per-key validity mask, the
-  mixed-resolution paths' grouped and padded-token attention).
+  mixed-resolution paths' grouped and padded-token attention);
 
-Each has a plain PyTorch version beside it (``*_reference``).  A wrapper
+and one of ``csrc/flash_cross.cu``:
+
+* ``flash_cross_short`` — kernel K5, replacing ``_cross_short_kernel``
+  (unmasked attention over at most 256 keys: text cross-attention).  As in
+  the JAX package, nothing routes to it: ``ops/attention.py`` keeps
+  77-token cross-attention on the plain path (the JAX dispatcher keeps it
+  dense, attention.py:135-140); chip_smoke.py holds and times it.
+
+The kernels take head dims 40, 64, 80 and 160 (SD-1.5's 40/80/160 at 8
+heads; SDXL's and SD3's 64); any other raises ``ValueError``.  Each
+wrapper has a plain PyTorch version beside it (``*_reference``).  A wrapper
 takes the plain version only for tensors on the CPU; a CUDA tensor launches
 the kernel or raises — there is no fallback.
 """
@@ -27,7 +37,8 @@ import torch
 
 from sduss_tpu_torch.ops import _build
 
-HEAD_DIM = 64  # the kernel's only head dim (SDXL's and SD3's); 40/80/160 are queued
+HEAD_DIMS = (40, 64, 80, 160)  # the kernels' template instantiations
+CROSS_MAX_KV = 256  # keys flash_cross_short holds whole in shared memory
 _LOG2E = 1.0 / math.log(2.0)
 
 
@@ -87,6 +98,12 @@ def flash_mha_masked_reference(q, k, v, kv_mask, num_heads: int,
     return out.transpose(1, 2).reshape(b, lq, d).to(q.dtype)
 
 
+def _check_head_dim(d: int, num_heads: int) -> None:
+    if num_heads < 1 or d % num_heads or d // num_heads not in HEAD_DIMS:
+        raise ValueError(f"head dim {d}/{num_heads} unsupported: the kernels "
+                         f"take head dims {HEAD_DIMS}")
+
+
 def check_inputs(q, k, v, num_heads: int) -> None:
     """Raise ``ValueError`` for anything the CUDA kernel does not take."""
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
@@ -95,10 +112,7 @@ def check_inputs(q, k, v, num_heads: int) -> None:
             or q.shape[2] != k.shape[2]:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    d = q.shape[2]
-    if num_heads < 1 or d % num_heads or d // num_heads != HEAD_DIM:
-        raise ValueError(f"head dim {d}/{num_heads} unsupported: the kernel "
-                         f"takes head dim {HEAD_DIM} only")
+    _check_head_dim(q.shape[2], num_heads)
     if q.shape[1] == 0 or k.shape[1] == 0:
         raise ValueError("empty sequence")
     if max(q.numel(), k.numel()) >= 2**31:
@@ -227,3 +241,43 @@ def flash_mha_masked(q, k, v, kv_mask, num_heads: int, scale: float):
 
 
 flash_mha_masked.launches = 0
+
+
+def flash_cross_short_reference(q, k, v, num_heads: int, scale: float):
+    """Plain version of K5: per-head float32 ``softmax(q k^T * scale) v``
+    over all (at most 256) keys, the function of
+    :func:`flash_mha_fused_reference`.  Returns q's dtype."""
+    return flash_mha_fused_reference(q, k, v, num_heads, scale)
+
+
+def flash_cross_short(q, k, v, num_heads: int, scale: float):
+    """Attention over a short key sequence (text cross-attention): q
+    ``(B, Lq, D)``, k/v ``(B, Lk, D)`` with ``Lk <= 256``.
+
+    Not routed by ``ops/attention.py`` (see the module docstring).  A key
+    sequence over 256 or an unsupported head dim raises ``ValueError`` on
+    any device.  CPU tensors: :func:`flash_cross_short_reference`; anything
+    else goes to the CUDA kernel (``csrc/flash_cross.cu``): inputs it does
+    not take raise ``ValueError``, a failed launch raises ``RuntimeError``.
+    Each launch adds one to ``flash_cross_short.launches``.
+    """
+    if k.dim() == 3 and k.shape[1] > CROSS_MAX_KV:
+        raise ValueError(f"flash_cross_short holds at most {CROSS_MAX_KV} "
+                         f"keys, got {k.shape[1]}")
+    _check_head_dim(q.shape[-1], num_heads)
+    if q.device.type == "cpu":
+        return flash_cross_short_reference(q, k, v, num_heads, scale)
+    check_inputs(q, k, v, num_heads)
+    lib = _build.load_library()
+    b, lq, d = q.shape
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.sduss_flash_cross_short(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, lq, k.shape[1], d, num_heads, float(scale) * _LOG2E, stream)
+    _build.check(lib, err, "flash_cross_short launch")
+    flash_cross_short.launches += 1
+    return out
+
+
+flash_cross_short.launches = 0

@@ -9,10 +9,12 @@ import torch
 from sduss_tpu_torch.config import Config
 from sduss_tpu_torch.models.registry import ModelBundle
 from sduss_tpu_torch.pipelines.base import BasePipeline
+from sduss_tpu_torch.pipelines.sd import StableDiffusionPipeline
 from sduss_tpu_torch.pipelines.sd3 import StableDiffusion3Pipeline
 from sduss_tpu_torch.pipelines.sdxl import StableDiffusionXLPipeline
 
-PIPELINES = {"sdxl": StableDiffusionXLPipeline,
+PIPELINES = {"sd15": StableDiffusionPipeline,
+             "sdxl": StableDiffusionXLPipeline,
              "sd3": StableDiffusion3Pipeline}
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 

@@ -17,8 +17,11 @@ compile cache to key.  The patch path pads the patch and image counts to
 the configured buckets like the JAX package, so both form the same patch
 batch and the padded image slots reach the masked attention kernel.
 Requests at different timesteps batch through per-request sampler
-coefficient rows.  The block caches, stateful samplers on patches and the
-fused multi-step dispatch are not ported yet.
+coefficient rows.  A stateful sampler (PNDM) keeps its state per request in
+the dense latent layout (``Request.sampler_state``); the mixed step slices
+it into patches like the latents and merges it back, so a request may move
+between dense and patched steps.  The block caches and the fused
+multi-step dispatch are not ported yet.
 """
 
 from __future__ import annotations
@@ -112,7 +115,17 @@ class BasePipeline:
             dtype=torch.float32, device=dev)
         cond = {key: torch.cat([r.conditioning[key] for r in reqs], dim=0)
                 for key in reqs[0].conditioning}
-        new_latents = self._denoise_fn(latents, t, coeffs, guidance, cond)
+        if self.sampler.needs_state:
+            self._init_sampler_state(reqs)
+            state = {key: torch.cat([r.sampler_state[key] for r in reqs])
+                     for key in reqs[0].sampler_state}
+            new_latents, new_state = self._denoise_fn_stateful(
+                latents, t, coeffs, guidance, cond, state)
+            for i, r in enumerate(reqs):
+                r.sampler_state = {key: a[i:i + 1]
+                                   for key, a in new_state.items()}
+        else:
+            new_latents = self._denoise_fn(latents, t, coeffs, guidance, cond)
         for i, req in enumerate(reqs):
             req.latents = new_latents[i:i + 1]
             req.sampler_table.advance()
@@ -123,6 +136,12 @@ class BasePipeline:
         noise_pred, c0, c1 = self._cfg_forward(latents, t, coeffs, guidance,
                                                cond)
         return self.sampler.step(latents, noise_pred, c0, c1)
+
+    def _denoise_fn_stateful(self, latents, t, coeffs, guidance, cond, state):
+        """As :meth:`_denoise_fn`, through ``step_with_state``."""
+        noise_pred, c0, c1 = self._cfg_forward(latents, t, coeffs, guidance,
+                                               cond)
+        return self.sampler.step_with_state(latents, noise_pred, c0, c1, state)
 
     def _cfg_forward(self, latents, t, coeffs, guidance, cond):
         """Rows go uncond first, then cond (the JAX ``_cfg_step`` order)."""
@@ -192,9 +211,16 @@ class BasePipeline:
             cond[key] = torch.cat([arr, arr.new_zeros(
                 (meta.i_pad - arr.shape[0],) + arr.shape[1:])], dim=0)
 
-        new_x = self._mixed_fn(x, t, coeffs, guidance, cond,
-                               PatchContext(meta, dev),
-                               PatchContext(meta2, dev))
+        ctx1, ctx2 = PatchContext(meta, dev), PatchContext(meta2, dev)
+        if self.sampler.needs_state:
+            state = self._gather_sampler_state_mixed(ordered, grids, cells,
+                                                     meta.p_pad)
+            new_x, new_state = self._mixed_fn(x, t, coeffs, guidance, cond,
+                                              ctx1, ctx2, state)
+            self._scatter_sampler_state_mixed(ordered, grids, cells,
+                                              new_state)
+        else:
+            new_x = self._mixed_fn(x, t, coeffs, guidance, cond, ctx1, ctx2)
         off = 0
         for r, g in zip(ordered, grids):
             n = g * g
@@ -203,10 +229,12 @@ class BasePipeline:
             r.sampler_table.advance()
             r.remain_steps -= 1
 
-    def _mixed_fn(self, x, t, coeffs, guidance, cond, ctx1, ctx2):
+    def _mixed_fn(self, x, t, coeffs, guidance, cond, ctx1, ctx2, state=None):
         """CFG duplicate -> scale -> patched model -> combine -> sampler
         step, per patch with its image's coefficients (rows go uncond
-        block first, then cond, as in the JAX ``_make_mixed_fn``)."""
+        block first, then cond, as in the JAX ``_make_mixed_fn``).  With a
+        patch-sliced sampler ``state`` it returns ``(x, new_state)``: the
+        stateful update is element-wise, so it is exact per patch."""
         c0, c1 = coeffs[:, 0], coeffs[:, 1]  # per image (i_pad,)
         x2 = torch.cat([x, x], dim=0)
         t2 = torch.cat([t, t], dim=0)
@@ -214,8 +242,63 @@ class BasePipeline:
         uncond, text = self.denoiser_forward(x2, t2, cond, ctx=ctx2).chunk(2, dim=0)
         g = guidance[ctx1.image_id].reshape(-1, 1, 1, 1)
         noise_pred = uncond + g * (text - uncond)
-        return self.sampler.step(x, noise_pred, c0[ctx1.image_id],
-                                 c1[ctx1.image_id])
+        c0p, c1p = c0[ctx1.image_id], c1[ctx1.image_id]
+        if state is not None:
+            return self.sampler.step_with_state(x, noise_pred, c0p, c1p, state)
+        return self.sampler.step(x, noise_pred, c0p, c1p)
+
+    # -- stateful sampler state on the patch path ---------------------------
+
+    @staticmethod
+    def _sampler_state_to_patches(leaf, g: int, cells: int):
+        """``(1, *L, h, w, C)`` -> ``(g*g, *L, s, s, C)``, sliced exactly
+        like the latents; a per-request scalar row ``(1,)`` is repeated per
+        patch."""
+        if leaf.dim() < 4:
+            return leaf.expand((g * g,) + tuple(leaf.shape[1:]))
+        lead = tuple(leaf.shape[1:-3])
+        parts = [patching.split_latent(flat[None], cells)
+                 for flat in leaf.reshape((-1,) + tuple(leaf.shape[-3:]))]
+        stacked = torch.stack(parts, dim=1)  # (g*g, K, s, s, C)
+        return stacked.reshape((g * g,) + lead + tuple(stacked.shape[-3:]))
+
+    @staticmethod
+    def _sampler_state_from_patches(leaf, g: int, cells: int):
+        """Inverse of :meth:`_sampler_state_to_patches` (a scalar row takes
+        patch 0's value)."""
+        if leaf.dim() < 4:
+            return leaf[:1]
+        lead = tuple(leaf.shape[1:-3])
+        flat = leaf.reshape((g * g, -1) + tuple(leaf.shape[-3:]))
+        merged = torch.stack([patching.merge_patches(flat[:, k], g)[0]
+                              for k in range(flat.shape[1])])  # (K, h, w, C)
+        return merged.reshape((1,) + lead + tuple(merged.shape[-3:]))
+
+    def _init_sampler_state(self, reqs) -> None:
+        """A request's state starts at its first step (zeros, count 0)."""
+        for r in reqs:
+            if r.sampler_state is None:
+                r.sampler_state = self.sampler.init_state(r.latents)
+
+    def _gather_sampler_state_mixed(self, ordered, grids, cells, p_pad):
+        """Per-request dense sampler state -> one patch-major batch, padded
+        with zero rows to ``p_pad`` patches."""
+        self._init_sampler_state(ordered)
+        out = {}
+        for key in ordered[0].sampler_state:
+            a = torch.cat([self._sampler_state_to_patches(
+                r.sampler_state[key], g, cells) for r, g in zip(ordered, grids)])
+            out[key] = torch.cat([a, a.new_zeros((p_pad - a.shape[0],)
+                                                 + tuple(a.shape[1:]))])
+        return out
+
+    def _scatter_sampler_state_mixed(self, ordered, grids, cells, new_state):
+        off = 0
+        for r, g in zip(ordered, grids):
+            n = g * g
+            r.sampler_state = {key: self._sampler_state_from_patches(
+                a[off:off + n], g, cells) for key, a in new_state.items()}
+            off += n
 
     # -- stage 3: postprocess ------------------------------------------------
 

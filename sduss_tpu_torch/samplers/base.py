@@ -4,8 +4,10 @@ Schedule state is split as in the JAX package: a host-side numpy
 ``SamplerTable`` per request (timesteps and ``[coeff_t, coeff_next]`` rows,
 plus the current step index), and step math on device tensors that
 consumes only per-sample coefficient rows, so requests at different
-timesteps share one model forward.  The tables are copied rather than
-imported: ``sduss_tpu.samplers`` imports jax.
+timesteps share one model forward.  A stateful sampler (PNDM's epsilon
+history) also keeps a per-request dict of device tensors, threaded through
+``step_with_state`` like the latents (the ``needs_state`` protocol).  The
+tables are copied rather than imported: ``sduss_tpu.samplers`` imports jax.
 """
 
 from __future__ import annotations
@@ -52,6 +54,21 @@ class SamplerTable:
         self.step += 1
 
 
+class Sampler:
+    """Family interface: ``make_table(num_steps)`` (the host table of one
+    request), ``scale_model_input(x, coeff_t)`` and the step math.
+
+    Stateless samplers implement ``step(x, model_out, coeff_t,
+    coeff_next)``.  A sampler with ``needs_state`` instead implements
+    ``init_state(latents)`` (a dict of tensors whose rows are the batch
+    rows) and ``step_with_state(x, model_out, coeff_t, coeff_next, state)
+    -> (x_next, new_state)``.
+    """
+
+    kind: str = "base"
+    needs_state: bool = False
+
+
 def gather_timesteps(tables: Sequence[SamplerTable]) -> np.ndarray:
     """(B,) float32 model-timestep values for a batch of requests."""
     return np.asarray([t.current_timestep() for t in tables], dtype=np.float32)
@@ -68,6 +85,20 @@ def gather_coeffs(tables: Sequence[SamplerTable]) -> np.ndarray:
 def expand_to(x, ndim: int):
     """Reshape a (B,) coefficient vector to (B, 1, 1, ...) for broadcasting."""
     return x.reshape(x.shape[0], *([1] * (ndim - 1)))
+
+
+def train_alphas_cumprod(num_train_timesteps: int, beta_start: float,
+                         beta_end: float, beta_schedule: str) -> np.ndarray:
+    """float64 cumulative products of 1 - beta over the training steps."""
+    if beta_schedule == "scaled_linear":
+        betas = np.linspace(beta_start**0.5, beta_end**0.5,
+                            num_train_timesteps, dtype=np.float64) ** 2
+    elif beta_schedule == "linear":
+        betas = np.linspace(beta_start, beta_end, num_train_timesteps,
+                            dtype=np.float64)
+    else:
+        raise NotImplementedError(beta_schedule)
+    return np.cumprod(1.0 - betas)
 
 
 def leading_timesteps(num_steps: int, num_train_timesteps: int, steps_offset: int) -> np.ndarray:

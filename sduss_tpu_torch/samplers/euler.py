@@ -10,15 +10,17 @@ import numpy as np
 import torch
 
 from sduss_tpu_torch.samplers.base import (
+    Sampler,
     SamplerTable,
     expand_to,
     leading_timesteps,
     linspace_timesteps,
     trailing_timesteps,
+    train_alphas_cumprod,
 )
 
 
-class EulerDiscreteSampler:
+class EulerDiscreteSampler(Sampler):
     kind = "euler"
 
     def __init__(
@@ -35,13 +37,8 @@ class EulerDiscreteSampler:
         self.prediction_type = prediction_type
         self.timestep_spacing = timestep_spacing
         self.steps_offset = steps_offset
-        if beta_schedule == "scaled_linear":
-            betas = np.linspace(beta_start**0.5, beta_end**0.5, num_train_timesteps, dtype=np.float64) ** 2
-        elif beta_schedule == "linear":
-            betas = np.linspace(beta_start, beta_end, num_train_timesteps, dtype=np.float64)
-        else:
-            raise NotImplementedError(beta_schedule)
-        alphas_cumprod = np.cumprod(1.0 - betas)
+        alphas_cumprod = train_alphas_cumprod(num_train_timesteps, beta_start,
+                                              beta_end, beta_schedule)
         # sigma_t = sqrt((1 - abar_t) / abar_t): the EDM-style noise level.
         self.train_sigmas = np.sqrt((1.0 - alphas_cumprod) / alphas_cumprod)
 

@@ -13,10 +13,10 @@ from __future__ import annotations
 
 import numpy as np
 
-from sduss_tpu_torch.samplers.base import SamplerTable, expand_to
+from sduss_tpu_torch.samplers.base import Sampler, SamplerTable, expand_to
 
 
-class FlowMatchEulerSampler:
+class FlowMatchEulerSampler(Sampler):
     kind = "flow_match"
 
     def __init__(self, num_train_timesteps: int = 1000, shift: float = 3.0) -> None:

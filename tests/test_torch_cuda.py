@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card (skipped without one): K1, K2a/K3b
-(flash_mha), the masked kernel K2b/K3a and K4.
+(flash_mha), the masked kernel K2b/K3a, K4 and K5 (flash_cross_short), the
+attention kernels at head dims 64 and SD-1.5's 40/80/160.
 
 This file imports no jax, so it also runs where the JAX package is not
 installed: on the GPU machine,
@@ -52,6 +53,9 @@ def _randn(gen, *shape, device):
     (3, 1000, 777, 640, 10),    # ragged Lq and Lk, Lq != Lk
     (2, 1000, 65, 640, 10),     # last key tile 1 real key + 63 padded
     (1, 100, 64, 64, 1),        # one partial query tile, one key tile
+    (2, 4096, 4096, 320, 8),    # SD-1.5 level 0 at 512^2, hd 40
+    (2, 1000, 777, 640, 8),     # hd 80, ragged
+    (2, 144, 144, 1280, 8),     # SD-1.5 mid block at 768^2, hd 160
 ])
 def test_k1_matches_plain(cuda, b, lq, lk, d, heads):
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -112,7 +116,7 @@ def test_cuda_routing_never_falls_back(cuda):
     tattn.masked_attention(q, text, text, 10)
     assert tflash.flash_mha_fused.launches == n + 1
     with pytest.raises(ValueError, match="head dim"):
-        tattn.masked_attention(q, q, q, 8)            # hd 80 (SD1.5)
+        tattn.masked_attention(q, q, q, 5)            # hd 128
     with pytest.raises(ValueError, match="bfloat16"):
         tattn.masked_attention(q.float(), q.float(), q.float(), 10)
     m = tflash.flash_mha_masked.launches
@@ -132,6 +136,9 @@ def test_cuda_routing_never_falls_back(cuda):
     (2, 576, 576, 1280, 20, ()),       # 768^2 class at level 2
     (3, 1000, 777, 640, 10, (2,)),     # ragged Lq and Lk
     (2, 300, 65, 64, 1, ()),           # last key tile 1 real key
+    (3, 2304, 2304, 320, 8, (2,)),     # SD-1.5 patch group, hd 40
+    (3, 1024, 1024, 640, 8, (0,)),     # hd 80
+    (3, 144, 144, 1280, 8, (1,)),      # SD-1.5 mid-block group, hd 160
 ])
 def test_masked_matches_plain(cuda, b, lq, lk, d, heads, dead_rows):
     gen = torch.Generator(device=cuda).manual_seed(2)
@@ -182,3 +189,30 @@ def test_k4_matches_plain(cuda, grids, s, c):
     assert err <= K4_MAX_REL * ref.float().abs().max().item()
     border = torch.from_numpy(meta.neighbors[:, 0] < 0).to(cuda)
     assert (out[border][:, :, 0, :] == 0).all()  # top image border
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,lq,lk,d,heads", [
+    (4, 1024, 77, 1280, 20),   # SDXL level-2 text cross-attention
+    (4, 4096, 77, 320, 8),     # SD-1.5 level 0, hd 40
+    (2, 1000, 77, 640, 8),     # hd 80, ragged query tile
+    (2, 1000, 256, 1280, 8),   # hd 160 at the most keys it holds
+    (3, 100, 5, 640, 10),      # one short key tile
+])
+def test_k5_matches_plain(cuda, b, lq, lk, d, heads):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q = _randn(gen, b, lq, d, device=cuda)
+    k, v = (_randn(gen, b, lk, d, device=cuda) for _ in range(2))
+    scale = (d // heads) ** -0.5
+    before = tflash.flash_cross_short.launches
+    out = tflash.flash_cross_short(q, k, v, heads, scale)
+    ref = tflash.flash_cross_short_reference(q, k, v, heads, scale)
+    torch.cuda.synchronize()
+    assert tflash.flash_cross_short.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    diff, ref = out.float() - ref.float(), ref.float()
+    assert diff.abs().max().item() <= K1_MAX_REL * ref.abs().max().item()
+    assert (diff.norm() / ref.norm()).item() <= K1_RMS_REL
+    # not routed: the dispatcher keeps text cross-attention plain
+    tattn.masked_attention(q, k, v, heads)
+    assert tflash.flash_cross_short.launches == before + 1

@@ -1,5 +1,6 @@
-"""Kernels K1 (flash_mha_fused), K2a/K3b (flash_mha) and K2b/K3a
-(flash_mha_masked) and the attention dispatch of the port.
+"""Kernels K1 (flash_mha_fused), K2a/K3b (flash_mha), K2b/K3a
+(flash_mha_masked) and K5 (flash_cross_short) and the attention dispatch of
+the port.
 
 On the CPU each wrapper runs its plain PyTorch version, which is held here
 against the JAX Pallas kernels in interpret mode and against the JAX dense
@@ -11,7 +12,10 @@ in the port, a uniform average in JAX).  ``flash_mha`` without a mask is
 held against each JAX kernel it replaces: the aligned two-pass kernel
 (K2a), the two-pass kernel with a kv_len bias row (ragged keys, or
 ``kv_len < Lk`` with large garbage in the excluded keys) and the online
-kernel (``force_online=True``, K3b).  The CUDA kernels themselves are
+kernel (``force_online=True``, K3b).  SD-1.5's head dims 40/80/160 are held
+against the JAX kernels like tests/test_flash.py holds them.  K5's plain
+version is held against ``flash_cross_short(..., interpret=True)`` on the
+cases of tests/test_flash.py.  The CUDA kernels themselves are
 held against the plain versions by tests/test_torch_cuda.py (on a card)
 and by chip_smoke.py.  float32 tolerance: RTOL 2e-4, ATOL 5e-4.
 """
@@ -26,6 +30,7 @@ import pytest
 import torch
 
 from sduss_tpu.ops.attention import _dense_masked as jax_dense_masked
+from sduss_tpu.ops.flash import flash_cross_short as jax_flash_cross_short
 from sduss_tpu.ops.flash import flash_mha as jax_flash_mha
 from sduss_tpu.ops.flash import flash_mha_fused as jax_flash_mha_fused
 from sduss_tpu_torch.ops import _build
@@ -57,6 +62,91 @@ def test_plain_matches_jax_kernel_and_dense(b, lq, lk, heads, hd):
     dense = jax_dense_masked(jq, jk, jv, heads, None, scale)
     np.testing.assert_allclose(out, np.asarray(kernel), rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(out, np.asarray(dense), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("hd", [40, 80, 160])
+def test_plain_matches_jax_kernels_at_sd15_head_dims(hd):
+    """SD-1.5's head dims (8 heads over 320/640/1280 channels): the plain
+    version against ``flash_mha_fused`` and ``flash_mha`` in interpret mode
+    (tests/test_flash.py's SD-1.5 cases, ragged key tiles)."""
+    heads = 2
+    q, k, v = _mk(2, 256, 200, heads * hd, seed=hd)
+    scale = 1.0 / math.sqrt(hd)
+    out = tflash.flash_mha_fused(torch.from_numpy(q), torch.from_numpy(k),
+                                 torch.from_numpy(v), heads, scale).numpy()
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    fused = jax_flash_mha_fused(jq, jk, jv, heads, scale, block_q=128,
+                                interpret=True)
+    two_pass = jax_flash_mha(jq, jk, jv, heads, scale, block_q=128,
+                             block_kv=128, interpret=True)
+    np.testing.assert_allclose(out, np.asarray(fused), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(out, np.asarray(two_pass), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("hd", [40, 80, 160])
+def test_masked_plain_matches_jax_at_sd15_head_dims(hd):
+    """The masked plain version at SD-1.5's head dims against the JAX
+    two-pass masked kernel, with a batch row that has no valid key."""
+    q, k, v = _mk(3, 130, 260, 2 * hd, seed=hd + 1)
+    mask = np.random.default_rng(hd).random((3, 260)) > 0.4
+    mask[1] = False
+    scale = 1.0 / math.sqrt(hd)
+    out = tflash.flash_mha_masked(torch.from_numpy(q), torch.from_numpy(k),
+                                  torch.from_numpy(v), torch.from_numpy(mask),
+                                  2, scale).numpy()
+    kernel = np.asarray(jax_flash_mha(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 2, scale,
+        kv_mask=jnp.asarray(mask), block_q=128, block_kv=128, interpret=True))
+    live = mask.any(axis=1)
+    np.testing.assert_allclose(out[live], kernel[live], rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(out[~live], 0.0)
+
+
+@pytest.mark.parametrize("lq,lk,heads,hd", [
+    (512, 77, 4, 64),    # text keys, ragged against the 16-key tiles
+    (640, 128, 2, 64),   # aligned keys, ragged query tile
+    (512, 77, 4, 40),    # SD-1.5 head dim
+])
+def test_cross_short_plain_matches_jax_kernel(lq, lk, heads, hd):
+    """K5's plain version against the Pallas kernel in interpret mode and
+    the JAX dense path (tests/test_flash.py's cases)."""
+    q, k, v = _mk(3, lq, lk, heads * hd, seed=5)
+    scale = 1.0 / math.sqrt(hd)
+    out = tflash.flash_cross_short(torch.from_numpy(q), torch.from_numpy(k),
+                                   torch.from_numpy(v), heads, scale).numpy()
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    kernel = jax_flash_cross_short(jq, jk, jv, heads, scale, block_q=256,
+                                   interpret=True)
+    dense = jax_dense_masked(jq, jk, jv, heads, None, scale)
+    np.testing.assert_allclose(out, np.asarray(kernel), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(out, np.asarray(dense), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("lk,d,heads,match", [
+    (257, 640, 8, "at most 256"),   # too many keys for the block
+    (77, 768, 8, "head dim"),       # hd 96
+    (77, 640, 3, "head dim"),       # D not a multiple of the heads
+])
+def test_cross_short_rejects(lk, d, heads, match):
+    q = torch.zeros(1, 64, d)
+    k = torch.zeros(1, lk, d)
+    with pytest.raises(ValueError, match=match):
+        tflash.flash_cross_short(q, k, k, heads, 0.1)
+
+
+def test_cross_short_is_not_routed(monkeypatch):
+    """As in the JAX package, the dispatcher keeps text cross-attention on
+    the plain path: K5 is never called."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("the dispatcher routed to flash_cross_short")
+
+    monkeypatch.setattr(tflash, "flash_cross_short", refuse)
+    q, k = torch.randn(2, 256, 320), torch.randn(2, 77, 320)
+    out = tattn.masked_attention(q, k, k, 8)
+    np.testing.assert_allclose(
+        out.numpy(), tflash.flash_cross_short_reference(q, k, k, 8,
+                                                        40 ** -0.5).numpy(),
+        rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -241,6 +331,10 @@ def test_cpu_flash_mha_never_loads_kernel_library(monkeypatch):
     out = tflash.flash_mha(q, q, q, 2, 0.125, kv_len=200)
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
     assert tflash.flash_mha.launches == before
+    before = tflash.flash_cross_short.launches
+    out = tflash.flash_cross_short(q, q[:, :77], q[:, :77], 2, 0.125)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert tflash.flash_cross_short.launches == before
 
 
 def _bf16(*shape):
@@ -248,7 +342,7 @@ def _bf16(*shape):
 
 
 @pytest.mark.parametrize("args,match", [
-    ((_bf16(1, 64, 80), _bf16(1, 64, 80), _bf16(1, 64, 80), 2), "head dim"),
+    ((_bf16(1, 64, 96), _bf16(1, 64, 96), _bf16(1, 64, 96), 2), "head dim"),
     ((_bf16(1, 64, 128), _bf16(1, 64, 128), _bf16(1, 64, 128), 1), "head dim"),
     ((torch.zeros(1, 64, 128), torch.zeros(1, 64, 128),
       torch.zeros(1, 64, 128), 2), "bfloat16"),
