@@ -111,6 +111,14 @@ K1_SHAPES = [        # (B, Lq, Lk, D, H)
     (2, 256, 256, 1280, 8),     # SD-1.5 level 2 at 512^2, hd 160
     (2, 144, 144, 1280, 8),     # SD-1.5 mid block at 768^2: ragged keys
     (3, 1000, 777, 320, 8),     # ragged query and key tiles at hd 40
+    # edge cases of the K/V ring (2 or 3 slots of 64 keys, csrc/flash_fused.cu
+    # Shape<hd>): one query row, one key, one tile more than the ring holds
+    (2, 1, 1000, 640, 10),      # Lq = 1
+    (2, 300, 1, 640, 10),       # Lk = 1: one ragged tile with one key
+    (2, 500, 129, 640, 10),     # Lk = 64 * 2 + 1
+    (2, 500, 193, 640, 10),     # Lk = 64 * 3 + 1
+    (2, 500, 129, 1280, 8),     # the same at hd 160
+    (2, 500, 193, 1280, 8),
 ]
 # timed beside the plain version and SDPA: SDXL's two and SD-1.5's three
 K1_TIMED = K1_SHAPES[:2] + K1_SHAPES[4:7]
@@ -121,6 +129,7 @@ K2A_SHAPES = [
     (2, 4429, 4429, 1536, 24, None),  # joint attention (4096 + 77 + 256)
     (3, 1000, 777, 1536, 24, None),   # ragged query and key tiles
     (2, 2637, 2760, 1536, 24, 2637),  # kv_len < Lk: keys past it hold 1e4
+    (2, 300, 129, 1536, 24, 1),       # kv_len = 1: one key of three tiles
 ]
 # The mixed serving phase's class groups (768^2 + 3 x 1024^2, CFG-doubled:
 # the 1024^2 class has 6 real of 8 image slots): (B, L, D, H, dead rows),
@@ -144,7 +153,15 @@ MASKED_SHAPES = [
     (3, 576, 1280, 8, 1),      # 768^2 class, level 2, hd 160
     (3, 144, 1280, 8, 1),      # 768^2 class, mid block (level 3): ragged
     (3, 1000, 320, 8, None),   # random mask, ragged, hd 40
+    # the ring walks only tiles with a valid key:
+    (3, 1000, 640, 10, "last"),  # only the last key of the last tile
+    (3, 1000, 640, 10, "alt"),   # keys valid only in alternate tiles
+    (3, 1000, 320, 8, "last"),   # the same at hd 40
+    (3, 1000, 320, 8, "alt"),
+    (1, 16448, 64, 1, None),   # 257 key tiles: the list is built in two chunks
 ]
+# masked cases that are checked but not timed (no serving shape)
+MASKED_UNTIMED = (None, "last", "alt")
 K4_SHAPES = [(32, 320), (16, 640), (8, 1280)]  # (s, C) at SDXL levels 0-2
 SD15_K4_SHAPES = [(4, 1280)]  # SD-1.5 level 3: the side without a template
 # K5 (flash_cross_short) at scripts/bench_cross_kernel.py's text
@@ -246,6 +263,17 @@ def check_k1(card: str) -> dict:
             raise AssertionError(f"K1 disagrees with its plain version at "
                                  f"{shape}: {max_rel}, {rms_rel}")
         worst = max(worst, err)
+        if shape == K1_SHAPES[2]:
+            # the kernel folds a positive scale into its exponent; a negative
+            # one negates Q, and 0 weighs every key the same
+            for s in (-scale, 0.0):
+                e = k1_errors(flash_mha_fused(q, k, v, h, s),
+                              flash_mha_fused_reference(q, k, v, h, s))
+                print(f"K1 flash_mha_fused {shape} scale {s:.4f}: / max|plain| "
+                      f"{e[1]:.3e}, rel RMS {e[2]:.3e}")
+                if not (e[1] <= K1_MAX_REL and e[2] <= K1_RMS_REL):
+                    raise AssertionError(f"K1 disagrees with its plain version "
+                                         f"at {shape}, scale {s}: {e}")
         if shape in K1_TIMED:
             # alternate plain, kernel, kernel, plain on one card
             p1 = cuda_ms(lambda: flash_mha_fused_reference(q, k, v, h, scale), 5)
@@ -340,6 +368,12 @@ def masked_inputs(gen, shape):
         mask = torch.rand(b, length, generator=gen, device=dev) > 0.3
         mask[:, :64] = False   # a whole key tile masked
         mask[:, -1] = True
+    elif dead == "last":
+        mask = torch.zeros(b, length, dtype=torch.bool, device=dev)
+        mask[:, -1] = True
+    elif dead == "alt":
+        tile = torch.arange(length, device=dev) // 64
+        mask = (tile % 2 == 0).expand(b, length).contiguous()
     else:
         mask = torch.ones(b, length, dtype=torch.bool, device=dev)
         mask[b - dead:] = False  # padded image slots: no valid key
@@ -375,7 +409,7 @@ def check_masked(card: str) -> dict:
             raise AssertionError(f"masked flash disagrees with its plain "
                                  f"version at {shape}: {max_rel}, {rms_rel}")
         worst = max(worst, err)
-        if dead is not None:
+        if dead not in MASKED_UNTIMED:
             p1 = cuda_ms(lambda: flash_mha_masked_reference(q, k, v, mask, h,
                                                             scale), 3)
             k1 = cuda_ms(lambda: flash_mha_masked(q, k, v, mask, h, scale), 10)
@@ -599,6 +633,28 @@ def check_sd15_block() -> None:
           f"CPU fp32: max err / max |ref| {rel:.3e} (bound {BLOCK_BOUND:.0e})")
     if not rel <= BLOCK_BOUND:
         raise AssertionError(f"SD-1.5 block disagrees with CPU: {rel}")
+
+
+def check_ptxas(log: str) -> None:
+    """Registers and spills of the flash template's eight instantiations
+    (hd 40/64/80/160 x masked); none may spill at hd 40, 64 or 80.  A
+    fresh build's log only: a reused library has none."""
+    if not log:
+        print("ptxas: the library was reused, no build log")
+        return
+    flash = [u for u in _build.ptxas_usage(log)
+             if u["kernel"].startswith("mha_fused_kernel<")]
+    for u in flash:
+        print(f"ptxas {u['kernel']}: {u['registers']} registers, "
+              f"{u['spill_stores']} bytes spill stores, {u['spill_loads']} "
+              f"bytes spill loads, {u['smem']} bytes static smem")
+    if len(flash) != 8:
+        raise AssertionError(f"{len(flash)} flash instantiations in the "
+                             f"ptxas log, not 8")
+    spilled = [u["kernel"] for u in flash if u["spill_stores"]
+               and not u["kernel"].startswith("mha_fused_kernel<160,")]
+    if spilled:
+        raise AssertionError(f"flash instantiations spill: {spilled}")
 
 
 def build_bundle(family: str = "sdxl") -> ModelBundle:
@@ -1078,6 +1134,7 @@ def main() -> None:
     for line in built.log.splitlines():
         if "ptxas info" in line:
             print(line.strip())
+    check_ptxas(built.log)
 
     k1 = check_k1(card)
     k2a = check_k2a(card)

@@ -18,256 +18,523 @@
 //       same function, the first by a two-pass and the second by an online
 //       softmax.  The mask is one byte per (batch row, key); masked keys get
 //       -inf before the row max.
-// All compute softmax(Q K^T * scale) V over (B, L, D) tensors
-// whose heads are column slices of D (head h at columns [h*hd, h*hd+hd)),
-// so no head transposes are ever materialized.  The head dim hd is a
-// template constant, instantiated at 40, 64, 80 and 160 (SD-1.5's 40/80/160
-// at 8 heads over 320/640/1280 channels, SDXL's and SD3's 64).  The wmma
-// tiles are 16 wide, so a head is held padded to HDP = ceil(hd/16)*16
-// columns (40 -> 48): the pad columns of Q, K and V are zero-filled on
-// load, add nothing to Q K^T, and the output's pad columns are never
-// written.  Computes what the TPU
-// kernel computes, not its tiling: the TPU kernel holds whole K/V rows in
-// VMEM and runs a two-pass softmax; shared memory here is ~227 KB per SM,
-// so K/V stream through it in 64-row tiles under an online softmax.
-
-// Design (one simple, correct kernel; wgmma/TMA/warp specialisation are
-// later work):
-//   grid (ceil(Lq/64), H, B), 128 threads = 4 warps, each warp owns 16
-//   query rows.  Q's 16 x HDP slice lives in wmma fragments for the whole
-//   block; 64-row K and V tiles are staged in shared memory; QK^T and PV
-//   run on bf16 16x16x16 tensor-core fragments with float32 accumulators.
-//   Softmax statistics (running max m, running sum l) are float32, kept in
-//   registers by the two lanes that share a row.  The output accumulator is
-//   float32 in shared memory so each tile can rescale it by exp2(m_old -
-//   m_new) row by row (wmma accumulator layouts are opaque).  Ragged Lq and
-//   kv_len tiles are zero-filled on load; key columns at or past kv_len get
-//   -inf scores, and no key past kv_len is ever read.
+// All compute softmax(Q K^T * scale) V over (B, L, D) tensors whose heads
+// are column slices of D (head h at columns [h*hd, h*hd+hd)), so no head
+// transposes are ever materialized.  The head dim hd is a template constant,
+// instantiated at 40, 64, 80 and 160 (SD-1.5's 40/80/160 at 8 heads over
+// 320/640/1280 channels, SDXL's and SD3's 64).  Computes what the TPU kernel
+// computes, not its tiling: the TPU kernel holds whole K/V rows in VMEM and
+// runs a two-pass softmax; shared memory here is ~227 KB per SM, so K/V
+// stream through it in 64-key tiles under an online softmax.
 //
-// What bounds it on this card: attention at SDXL shapes is compute-bound
-// in principle (L=4096, hd=64: ~64 FLOP per byte of K/V per query tile,
-// K/V of one head is 1 MB and stays in the 50 MB L2).  This design is
-// bound instead by shared-memory traffic and instruction count: every
-// tile writes the 16x64 f32 scores, reads them back for the softmax,
-// writes bf16 probabilities and round-trips the f32 output accumulator.  The fast
-// version keeps S/P/O in registers (mma.sync or wgmma layouts) and
-// pipelines K/V loads with cp.async/TMA.
+// Design (FlashAttention-2's register layout on mma.sync):
+//   grid (ceil(Lq/BQ), H, B), query tile fastest so the blocks of one head
+//   run together and its K/V is read from L2.  Each warp owns MT m16 row
+//   tiles (16*MT query rows); Shape<hd> below gives the warps, MT, the key
+//   tile and the ring depth of each head dim.  Q is copied into shared
+//   memory once and held as bf16 A fragments (ldmatrix).  S = Q K^T and
+//   O += P V run on mma.sync.m16n8k16 bf16 -> f32 in registers: K fragments
+//   come by ldmatrix (K row-major is K^T column-major, the .col B operand),
+//   V fragments by ldmatrix.trans; two adjacent m16n8 score tiles are the
+//   m16k16 A fragment of P, so P is never stored.  hd 40 finishes Q K^T with
+//   one m16n8k8 step (16 + 16 + 8) and P V tiles the head in n8 steps, so no
+//   head dim is padded.  A lane holds rows lane/4 and lane/4 + 8 of each
+//   row tile: their running max m (reduced over the 4 lanes of a quad) and
+//   their partial row sums l (reduced once, at the end), both f32; the
+//   scale is folded into one FMA, p = exp2(s*scale_log2 - m*scale_log2),
+//   and the f32 O accumulator is rescaled by exp2(m_old - m_new) in
+//   registers.  O is divided by l once and leaves through the warp's Q rows
+//   of shared memory in 16-byte vectors.
+//   K/V tiles arrive by cp.async.cg (16 B) into a ring of STAGES slots
+//   (commit_group / wait_group): tile j+STAGES-1 is in flight while tile j
+//   is computed.  Rows at or past kv_len are zero-filled by the copy's
+//   src-size operand from a clamped address (no key past kv_len is read)
+//   and their scores get -inf.  Shared rows have a stride of an odd number
+//   of 16-byte units (hd 40: 80 B as is; 64/80/160: +16 B), so the 8 row
+//   addresses of an ldmatrix fall in 8 different bank groups.
 //
-// Masked variant: every row of a block belongs to one batch row, so the
-// mask of a key tile is the same for all of the block's rows.  The block
-// reads the tile's 64 mask bytes first and skips the tile entirely (no K/V
-// load, no math) when none is set; a processed tile has >= 1 valid key, so
-// every row's running max stays finite and exp2(-inf - m) is 0 for masked
-// keys.  A batch row whose keys are all masked (a padded image slot of the
-// patch path) processes no tile: l stays 0 and its output is written as
-// zeros, a defined finite value.  Skipped tiles also cost nothing, so the
-// work follows the real keys.  The bound is as above: the same FLOPs per
-// valid key tile, plus 64 bytes of mask per tile.
+// Masked variant: the mask is per batch row, so it is the same for all of
+// a block's rows.  In its prologue the block turns its batch row's mask
+// into one 64-bit word per key tile and lists, in shared memory, the tiles
+// with at least one valid key (MASK_CHUNK tiles at a time); the ring walks
+// that list only, and a listed tile's bits set -inf scores before the row
+// max.  Every processed tile has a valid key, so every row's running max is
+// finite and exp2(-inf - m) = 0.  A batch row whose keys are all masked (a
+// padded image slot of the patch path) lists no tile: l stays 0 and its
+// output is written as zeros, a defined finite value.  The work follows the
+// real keys.
+//
+// What bounds it on this card: Q K^T and P V are 4*Lq*kv_len*hd FLOP per
+// (batch row, head) against 2 bytes per element of Q, K, V and O, so at the
+// serving shapes the tensor cores, not HBM, are the limit (K/V of a head
+// stays in the 50 MB L2).  With mma.sync every warp reads the whole K and V
+// tile from shared memory for its own rows: 16 KB per 16-row tile per 64
+// keys at hd 64, about twice the tile's tensor time at the SM's 128 B per
+// clock of shared-memory bandwidth, which caps this design near half of
+// the bf16 peak (MT = 2 halves that traffic per row).  The exponentials
+// (one MUFU ex2 per score) come next.  The next step is wgmma on 64-row
+// warpgroup tiles, which reads each K/V tile once per warpgroup straight
+// from shared memory, with TMA loads and warp-specialised producers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int BQ = 64;            // query rows per block
-constexpr int BK = 64;            // key/value rows per tile
-constexpr int WARPS = 4;          // 16 query rows each
-constexpr int THREADS = WARPS * 32;
-constexpr int P_LD = BK + 8;      // padded bf16 probability row
-constexpr int F_LD = BK + 4;      // padded f32 score row
+// Block shape per head dim: WARPS warps of MT m16 row tiles each, key tiles
+// of BK rows, STAGES ring slots (measured by scripts/tune_flash_shapes.py;
+// PERF.md has the numbers).
+template <int HD> struct Shape;
+template <> struct Shape<40> { static constexpr int WARPS = 4, MT = 2, BK = 64, STAGES = 3; };
+template <> struct Shape<64> { static constexpr int WARPS = 4, MT = 2, BK = 64, STAGES = 3; };
+template <> struct Shape<80> { static constexpr int WARPS = 8, MT = 1, BK = 64, STAGES = 2; };
+template <> struct Shape<160> { static constexpr int WARPS = 4, MT = 1, BK = 64, STAGES = 2; };
 
-// Shared-memory layout for head dim HD.  At hd 64 every stride and size is
-// the one the kernel had before it took other head dims.
+constexpr int MASK_CHUNK = 256;  // key tiles the masked kernel lists at once
+constexpr unsigned FULL_WARP = 0xffffffffu;
+
 template <int HD>
 struct Tile {
-  static constexpr int HDP = (HD + 15) / 16 * 16;  // head padded for wmma
-  static constexpr int LD = HDP + 8;     // padded bf16 Q/K/V row (banks)
-  static constexpr int O_LD = HDP + 4;   // padded f32 output row
-  static constexpr int SQ = BQ * LD;
-  static constexpr int SKV = BK * LD;
-  static constexpr int SP = WARPS * 16 * P_LD;
-  static constexpr int SS = WARPS * 16 * F_LD;
-  static constexpr int SO = WARPS * 16 * O_LD;
-  // 70 KB at hd 64, 130 KB at hd 160 (one block per SM there)
+  using S = Shape<HD>;
+  static constexpr int WARPS = S::WARPS, MT = S::MT, BK = S::BK;
+  static constexpr int STAGES = S::STAGES;
+  static constexpr int THREADS = WARPS * 32;
+  static constexpr int BQ = WARPS * MT * 16;       // query rows per block
+  static constexpr int VEC = HD / 8;               // 16-byte vectors per row
+  static constexpr int LD = VEC % 2 ? HD : HD + 8;  // shared row stride
+  static constexpr int KS = HD / 16;               // k16 steps of Q K^T
+  static constexpr bool TAIL = HD % 16 != 0;       // one more 8-wide step
+  static constexpr int NS = BK / 8;                // n8 score tiles
+  static constexpr int NO = HD / 8;                // n8 output tiles
+  static constexpr uint64_t ALL_KEYS = BK == 64 ? ~0ull : (1ull << BK) - 1;
+  // Q, then STAGES K slots, then STAGES V slots
   static constexpr size_t SMEM_BYTES =
-      (size_t)(SQ + 2 * SKV + SP) * sizeof(bf16) +
-      (size_t)(SS + SO) * sizeof(float);
+      (size_t)(BQ + 2 * STAGES * BK) * LD * sizeof(bf16);
+  static_assert(HD % 8 == 0 && BK % 32 == 0 && BK <= 64, "tile shape");
 };
 
-// Copy rows [row0, row0+64) x cols [col0, col0+HD) of a (L, D) bf16 matrix
-// into shared memory, 16 bytes per thread per step; rows >= L and the pad
-// columns [HD, HDP) become 0.
-template <int HD>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          int row0, int L, int D,
-                                          int col0, int tid) {
-  constexpr int VEC = Tile<HD>::HDP / 8;  // 16-byte vectors per padded row
-  for (int i = tid; i < 64 * VEC; i += THREADS) {
-    const int r = i / VEC;
-    const int c = (i % VEC) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !ok.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// d += a b: m16n8k16, bf16 A (row) and B (col), f32 accumulators.
+__device__ __forceinline__ void mma_k16(float (&d)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b: m16n8k8 (the last 8 columns of hd 40).
+__device__ __forceinline__ void mma_k8(float (&d)[4], const uint32_t (&a)[2],
+                                       uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
+}
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x; 2^-inf = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Two floats as bf16x2, the first in the low half (the lower column).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Start copying rows [row0, row0 + ROWS) x columns [0, HD) of a matrix with
+// row stride D (src already at the head's first column) into shared memory;
+// rows at or past n are zero-filled and read from row n - 1 (n >= 1).
+template <int HD, int ROWS>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
+                                          int row0, int n, int D, int tid) {
+  using T = Tile<HD>;
+#pragma unroll
+  for (int i = tid; i < ROWS * T::VEC; i += T::THREADS) {
+    const int r = i / T::VEC;
+    const int c = (i % T::VEC) * 8;
     const int gr = row0 + r;
-    if (gr < L && c < HD) {
-      val = *reinterpret_cast<const uint4*>(src + (size_t)gr * D + col0 + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * Tile<HD>::LD + c) = val;
+    const bool ok = gr < n;
+    cp_async16(dst + r * T::LD + c, src + (size_t)(ok ? gr : n - 1) * D + c,
+               ok);
   }
 }
 
 template <int HD, bool MASKED>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(Tile<HD>::THREADS)
 mha_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o,
                  const uint8_t* __restrict__ kv_mask,
                  int Lq, int Lk, int kv_len, int D, float scale_log2) {
   using T = Tile<HD>;
-  constexpr int HDP = T::HDP;
-  constexpr int LD = T::LD;
-  constexpr int O_LD = T::O_LD;
+  constexpr int MT = T::MT, BK = T::BK, LD = T::LD, STAGES = T::STAGES;
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ uint8_t sMask[BK];  // MASKED: this key tile's validity
+  // MASKED: the chunk's per-tile key bits, then the listed (live) tiles
+  __shared__ uint64_t sBits[MASKED ? MASK_CHUNK : 1];
+  __shared__ uint64_t sLiveBits[MASKED ? MASK_CHUNK : 1];
+  __shared__ int sLive[MASKED ? MASK_CHUNK : 1];
+  __shared__ int sCount;
   bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + T::SQ;
-  bf16* sV = sK + T::SKV;
-  bf16* sP = sV + T::SKV;
-  float* sS = reinterpret_cast<float*>(sP + T::SP);
-  float* sO = sS + T::SS;
+  bf16* sK = sQ + T::BQ * LD;
+  bf16* sV = sK + STAGES * BK * LD;
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * T::BQ;
   const int col0 = blockIdx.y * HD;
   const int b = blockIdx.z;
-  const bf16* qb = q + (size_t)b * Lq * D;
-  const bf16* kb = k + (size_t)b * Lk * D;
-  const bf16* vb = v + (size_t)b * Lk * D;
+  const bf16* kb = k + (size_t)b * Lk * D + col0;
+  const bf16* vb = v + (size_t)b * Lk * D + col0;
+  bf16* wQ = sQ + warp * MT * 16 * LD;  // this warp's Q rows, later its O
 
-  float* wS = sS + warp * 16 * F_LD;   // this warp's 16x64 scores
-  float* wO = sO + warp * 16 * O_LD;   // this warp's 16xHDP output acc
-  bf16* wP = sP + warp * 16 * P_LD;    // this warp's 16x64 probabilities
-
-  load_tile<HD>(sQ, qb, q0, Lq, D, col0, tid);
-  for (int i = lane; i < 16 * HDP; i += 32) wO[(i / HDP) * O_LD + i % HDP] = 0.f;
+  load_rows<HD, T::BQ>(sQ, q + (size_t)b * Lq * D + col0, q0, Lq, D, tid);
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
 
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qf[HDP / 16];
+  // Q as A fragments: ldmatrix.x4 over (rows 0-7 | 8-15) x (cols 0-7 |
+  // 8-15) of each 16x16 block; hd 40's last 8 columns by ldmatrix.x2.
+  uint32_t qf[MT][T::KS][4];
+  uint32_t qt[MT][2];
 #pragma unroll
-  for (int kk = 0; kk < HDP / 16; ++kk) {
-    wmma::load_matrix_sync(qf[kk], sQ + warp * 16 * LD + kk * 16, LD);
+  for (int mt = 0; mt < MT; ++mt) {
+    const bf16* row = wQ + (mt * 16 + (lane & 15)) * LD;
+#pragma unroll
+    for (int ks = 0; ks < T::KS; ++ks) {
+      ldsm_x4(qf[mt][ks], row + ks * 16 + (lane >> 4) * 8);
+    }
+    if constexpr (T::TAIL) ldsm_x2(qt[mt], row + T::KS * 16);
+  }
+  // The folded softmax below takes scale_log2 > 0.  softmax(s * c) =
+  // softmax(-s * |c|), so a negative scale negates Q (exact in bf16); at
+  // c = 0 every valid key weighs the same, so Q becomes 0 and c 1.
+  if (scale_log2 <= 0.f) {
+    const bool zero = scale_log2 == 0.f;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int ks = 0; ks < T::KS; ++ks) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          qf[mt][ks][r] = zero ? 0u : qf[mt][ks][r] ^ 0x80008000u;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) qt[mt][r] = zero ? 0u : qt[mt][r] ^ 0x80008000u;
+    }
+    scale_log2 = zero ? 1.f : -scale_log2;
   }
 
-  // Two lanes per query row, each owning 32 of the tile's 64 key columns
-  // and HDP/2 of the output accumulator's columns.
-  const int row = lane >> 1;
-  const int half = lane & 1;
-  float m = -INFINITY;
-  float l = 0.f;
+  // Lane state: rows lane/4 (index 0) and lane/4 + 8 (index 1) of each
+  // row tile; the output fragment of n8 tile j holds columns
+  // 8j + 2*(lane%4) + {0, 1}.
+  float acc[MT][T::NO][4];
+  float m_run[MT][2], l_run[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int j = 0; j < T::NO; ++j) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[mt][j][r] = 0.f;
+    }
+    m_run[mt][0] = m_run[mt][1] = -INFINITY;
+    l_run[mt][0] = l_run[mt][1] = 0.f;
+  }
 
   // Lk is the batch stride of K/V; keys at or past kv_len take no part
   // (kv_len == Lk except for the sduss_flash_mha entry).
-  for (int kv0 = 0; kv0 < kv_len; kv0 += BK) {
+  const int n_tiles = (kv_len + BK - 1) / BK;
+  constexpr int CHUNK = MASKED ? MASK_CHUNK : (1 << 30);
+  for (int c0 = 0; c0 < n_tiles; c0 += CHUNK) {
+    int cnt = n_tiles;
     if constexpr (MASKED) {
-      // Block-uniform: skip a tile with no valid key (see the header).
-      uint8_t valid_key = 0;
-      if (tid < BK) {
-        valid_key = (kv0 + tid < kv_len) ? kv_mask[(size_t)b * Lk + kv0 + tid]
-                                         : (uint8_t)0;
-        sMask[tid] = valid_key;
+      // The chunk's key bits, one tile per warp at a time ...
+      const int nc = min(CHUNK, n_tiles - c0);
+      const uint8_t* mrow = kv_mask + (size_t)b * Lk;
+      for (int t = warp; t < nc; t += T::WARPS) {
+        const int key = (c0 + t) * BK + lane;
+        uint64_t bits = __ballot_sync(FULL_WARP, key < kv_len && mrow[key]);
+        if constexpr (BK > 32) {
+          bits |= (uint64_t)__ballot_sync(
+                      FULL_WARP, key + 32 < kv_len && mrow[key + 32])
+                  << 32;
+        }
+        if (lane == 0) sBits[t] = bits;
       }
-      if (!__syncthreads_or(valid_key != 0)) continue;
-    }
-    load_tile<HD>(sK, kb, kv0, kv_len, D, col0, tid);
-    load_tile<HD>(sV, vb, kv0, kv_len, D, col0, tid);
-    __syncthreads();
-
-    // S = Q K^T: K is (kv, hd) row-major in smem, i.e. K^T col-major.
-#pragma unroll
-    for (int n = 0; n < BK / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < HDP / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
-        wmma::load_matrix_sync(kf, sK + n * 16 * LD + kk * 16, LD);
-        wmma::mma_sync(acc, qf[kk], kf, acc);
+      __syncthreads();
+      // ... then the list of tiles with a valid key, in key order.
+      if (warp == 0) {
+        int n = 0;
+        for (int t0 = 0; t0 < nc; t0 += 32) {
+          const int t = t0 + lane;
+          const uint64_t bits = t < nc ? sBits[t] : 0ull;
+          const unsigned live = __ballot_sync(FULL_WARP, bits != 0ull);
+          if (bits != 0ull) {
+            const int pos = n + __popc(live & ((1u << lane) - 1u));
+            sLive[pos] = c0 + t;
+            sLiveBits[pos] = bits;
+          }
+          n += __popc(live);
+        }
+        if (lane == 0) sCount = n;
       }
-      wmma::store_matrix_sync(wS + n * 16, acc, F_LD, wmma::mem_row_major);
+      __syncthreads();
+      cnt = sCount;
     }
-    __syncwarp();
-
-    // Online softmax on this lane's half row (base-2 exponent, f32).
-    const int valid = min(BK, kv_len - kv0);
-    float* srow = wS + row * F_LD + half * 32;
-    float mx = -INFINITY;
-#pragma unroll 8
-    for (int j = 0; j < 32; ++j) {
-      bool keep = half * 32 + j < valid;
-      if constexpr (MASKED) keep = keep && sMask[half * 32 + j] != 0;
-      const float s = keep ? srow[j] * scale_log2 : -INFINITY;
-      srow[j] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m, mx);  // finite: every processed tile has a key
-    const float alpha = exp2f(m - m_new);   // 0 on the first tile
-    bf16* prow = wP + row * P_LD + half * 32;
-    float sum = 0.f;
-#pragma unroll 8
-    for (int j = 0; j < 32; ++j) {
-      const float p = exp2f(srow[j] - m_new);
-      sum += p;
-      prow[j] = __float2bfloat16(p);
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    l = l * alpha + sum;
-    m = m_new;
-    float* orow = wO + row * O_LD + half * (HDP / 2);
-#pragma unroll 8
-    for (int j = 0; j < HDP / 2; ++j) orow[j] *= alpha;
-    __syncwarp();
-
-    // O += P V: V is (kv, hd) row-major in smem.
-#pragma unroll
-    for (int n = 0; n < HDP / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, wO + n * 16, O_LD, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pf;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-        wmma::load_matrix_sync(pf, wP + kk * 16, P_LD);
-        wmma::load_matrix_sync(vf, sV + kk * 16 * LD + n * 16, LD);
-        wmma::mma_sync(acc, pf, vf, acc);
+    auto tile_at = [&](int i) -> int {
+      if constexpr (MASKED) {
+        return sLive[i];
+      } else {
+        return i;
       }
-      wmma::store_matrix_sync(wO + n * 16, acc, O_LD, wmma::mem_row_major);
+    };
+    auto bits_at = [&](int i) -> uint64_t {
+      if constexpr (MASKED) {
+        return sLiveBits[i];
+      } else {
+        const int rem = kv_len - i * BK;  // >= 1
+        return rem >= BK ? T::ALL_KEYS : (1ull << rem) - 1ull;
+      }
+    };
+    auto load_kv = [&](int slot, int tile) {
+      load_rows<HD, BK>(sK + slot * BK * LD, kb, tile * BK, kv_len, D, tid);
+      load_rows<HD, BK>(sV + slot * BK * LD, vb, tile * BK, kv_len, D, tid);
+    };
+    // The ring: one commit group per tile, empty ones past the list's end,
+    // so wait_group<STAGES-2> always means "tile i has landed".
+#pragma unroll
+    for (int st = 0; st < STAGES - 1; ++st) {
+      if (st < cnt) load_kv(st, tile_at(st));
+      cp_async_commit();
     }
-    __syncthreads();  // all warps done with sK/sV before the next load
+    for (int i = 0; i < cnt; ++i) {
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();  // tile i visible; every warp is done with tile i-1
+      const int next = i + STAGES - 1;
+      if (next < cnt) load_kv(next % STAGES, tile_at(next));
+      cp_async_commit();
+      // One key tile: scores, mask, online softmax, P V.
+      const bf16* Ks = sK + (i % STAGES) * BK * LD;
+      const bf16* Vs = sV + (i % STAGES) * BK * LD;
+      const uint64_t bits = bits_at(i);
+      float s[MT][T::NS][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int j = 0; j < T::NS; ++j) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) s[mt][j][r] = 0.f;
+        }
+      }
+      // S = Q K^T.  ldmatrix.x4 matrix i = lane/8 covers keys 16p + (i/2)*8
+      // and head columns 16ks + (i%2)*8: B fragments b0, b1 of score tiles
+      // 2p and 2p+1.
+#pragma unroll
+      for (int ks = 0; ks < T::KS; ++ks) {
+#pragma unroll
+        for (int p = 0; p < T::NS / 2; ++p) {
+          uint32_t kf[4];
+          const int mi = lane >> 3;
+          ldsm_x4(kf, Ks + (p * 16 + (mi >> 1) * 8 + (lane & 7)) * LD +
+                          ks * 16 + (mi & 1) * 8);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_k16(s[mt][2 * p], qf[mt][ks], kf[0], kf[1]);
+            mma_k16(s[mt][2 * p + 1], qf[mt][ks], kf[2], kf[3]);
+          }
+        }
+      }
+      if constexpr (T::TAIL) {  // head columns [HD-8, HD): keys 32p + 8i
+#pragma unroll
+        for (int p = 0; p < T::NS / 4; ++p) {
+          uint32_t kf[4];
+          ldsm_x4(kf, Ks + (p * 32 + lane) * LD + T::KS * 16);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) mma_k8(s[mt][4 * p + e], qt[mt], kf[e]);
+          }
+        }
+      }
+      if (bits != T::ALL_KEYS) {  // block-uniform: masked or padded keys
+#pragma unroll
+        for (int j = 0; j < T::NS; ++j) {
+          const int c = j * 8 + 2 * (lane & 3);
+          const bool k0 = (bits >> c) & 1, k1 = (bits >> (c + 1)) & 1;
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            if (!k0) s[mt][j][0] = s[mt][j][2] = -INFINITY;
+            if (!k1) s[mt][j][1] = s[mt][j][3] = -INFINITY;
+          }
+        }
+      }
+      // Online softmax per row, on the fragments.
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float mx = -INFINITY;
+#pragma unroll
+          for (int j = 0; j < T::NS; ++j) {
+            mx = fmaxf(mx, fmaxf(s[mt][j][2 * h], s[mt][j][2 * h + 1]));
+          }
+          mx = fmaxf(mx, __shfl_xor_sync(FULL_WARP, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(FULL_WARP, mx, 2));
+          // finite: every processed tile has a valid key
+          const float m_new = fmaxf(m_run[mt][h], mx);
+          const float alpha = ex2((m_run[mt][h] - m_new) * scale_log2);
+          m_run[mt][h] = m_new;
+          const float mb = m_new * scale_log2;
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < T::NS; ++j) {
+#pragma unroll
+            for (int e = 2 * h; e < 2 * h + 2; ++e) {
+              s[mt][j][e] = ex2(fmaf(s[mt][j][e], scale_log2, -mb));
+              sum += s[mt][j][e];
+            }
+          }
+          l_run[mt][h] = l_run[mt][h] * alpha + sum;
+#pragma unroll
+          for (int j = 0; j < T::NO; ++j) {
+            acc[mt][j][2 * h] *= alpha;
+            acc[mt][j][2 * h + 1] *= alpha;
+          }
+        }
+      }
+      // O += P V.  Score tiles 2c and 2c+1 are the A fragment of keys
+      // [16c, 16c+16); ldmatrix.x4.trans matrix i covers keys 16c + (i%2)*8
+      // and head columns 16p + (i/2)*8: b0, b1 of output tiles 2p and 2p+1.
+#pragma unroll
+      for (int c = 0; c < BK / 16; ++c) {
+        uint32_t pa[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          pa[mt][0] = pack_bf16(s[mt][2 * c][0], s[mt][2 * c][1]);
+          pa[mt][1] = pack_bf16(s[mt][2 * c][2], s[mt][2 * c][3]);
+          pa[mt][2] = pack_bf16(s[mt][2 * c + 1][0], s[mt][2 * c + 1][1]);
+          pa[mt][3] = pack_bf16(s[mt][2 * c + 1][2], s[mt][2 * c + 1][3]);
+        }
+        const int mi = lane >> 3;
+        const bf16* vrow = Vs + (c * 16 + (mi & 1) * 8 + (lane & 7)) * LD;
+#pragma unroll
+        for (int p = 0; p < HD / 16; ++p) {
+          uint32_t vf[4];
+          ldsm_x4_t(vf, vrow + p * 16 + (mi >> 1) * 8);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_k16(acc[mt][2 * p], pa[mt], vf[0], vf[1]);
+            mma_k16(acc[mt][2 * p + 1], pa[mt], vf[2], vf[3]);
+          }
+        }
+        if constexpr (T::TAIL) {  // output columns [HD-8, HD)
+          uint32_t vf[2];
+          ldsm_x2_t(vf, vrow + (HD / 16) * 16);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_k16(acc[mt][T::NO - 1], pa[mt], vf[0], vf[1]);
+          }
+        }
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the slots and the list are free for the next chunk
   }
 
-  const int gq = q0 + warp * 16 + row;
-  if (gq < Lq) {
-    // l == 0 only for a fully masked row, whose accumulator is still 0
-    const float inv = 1.f / fmaxf(l, 1e-30f);
-    const float* orow = wO + row * O_LD;
-    bf16* dst = o + ((size_t)b * Lq + gq) * D + col0;
-    // The row's hd/8 16-byte vectors, split between its two lanes (hd 40:
-    // 3 + 2).  Global offsets stay 16-byte aligned: col0 = h * hd, hd % 8 == 0.
-    constexpr int NV = HD / 8;
-    constexpr int SPLIT = (NV + 1) / 2;
+  // O / l (0 for a row with no valid key, whose accumulator is 0) through
+  // this warp's Q rows (its own since the fragments were loaded), then out
+  // in 16-byte vectors: col0 = h * hd with hd % 8 == 0 keeps them aligned.
 #pragma unroll
-    for (int vec = half * SPLIT; vec < (half ? NV : SPLIT); ++vec) {
-      const int c = vec * 8;
-      __align__(16) bf16 tmp[8];
+  for (int mt = 0; mt < MT; ++mt) {
+    float inv[2];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) tmp[j] = __float2bfloat16(orow[c + j] * inv);
-      *reinterpret_cast<uint4*>(dst + c) = *reinterpret_cast<const uint4*>(tmp);
+    for (int h = 0; h < 2; ++h) {
+      float l = l_run[mt][h];
+      l += __shfl_xor_sync(FULL_WARP, l, 1);
+      l += __shfl_xor_sync(FULL_WARP, l, 2);
+      inv[h] = l > 0.f ? 1.f / l : 0.f;
+    }
+    bf16* row = wQ + (mt * 16 + (lane >> 2)) * LD + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < T::NO; ++j) {
+      *reinterpret_cast<uint32_t*>(row + j * 8) =
+          pack_bf16(acc[mt][j][0] * inv[0], acc[mt][j][1] * inv[0]);
+      *reinterpret_cast<uint32_t*>(row + 8 * LD + j * 8) =
+          pack_bf16(acc[mt][j][2] * inv[1], acc[mt][j][3] * inv[1]);
+    }
+  }
+  __syncwarp();
+  bf16* ob = o + (size_t)b * Lq * D + col0;
+#pragma unroll
+  for (int i = lane; i < MT * 16 * T::VEC; i += 32) {
+    const int r = i / T::VEC;
+    const int c = (i % T::VEC) * 8;
+    const int gq = q0 + warp * MT * 16 + r;
+    if (gq < Lq) {
+      *reinterpret_cast<uint4*>(ob + (size_t)gq * D + c) =
+          *reinterpret_cast<const uint4*>(wQ + r * LD + c);
     }
   }
 }
@@ -276,13 +543,14 @@ template <int HD, bool MASKED>
 int launch(const void* q, const void* k, const void* v, const void* kv_mask,
            void* o, int B, int Lq, int Lk, int kv_len, int D, int H,
            float scale_log2, void* stream) {
-  constexpr size_t smem = Tile<HD>::SMEM_BYTES;
+  using T = Tile<HD>;
+  constexpr size_t smem = T::SMEM_BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       mha_fused_kernel<HD, MASKED>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Lq + BQ - 1) / BQ, H, B);
-  mha_fused_kernel<HD, MASKED><<<grid, THREADS, smem,
+  const dim3 grid((Lq + T::BQ - 1) / T::BQ, H, B);
+  mha_fused_kernel<HD, MASKED><<<grid, T::THREADS, smem,
                                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o),

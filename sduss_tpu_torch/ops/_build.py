@@ -16,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -100,6 +101,55 @@ def build() -> Build:
         log += _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
         os.replace(tmp, path)
     return Build(path, time.perf_counter() - t0, log)
+
+
+def _kernel_name(mangled: str) -> str:
+    """The ``*kernel`` identifier in a mangled name, where names are
+    length-prefixed ("16mha_fused_kernel") and may follow a hash's digits."""
+    for i, ch in enumerate(mangled):
+        m = re.match(r"\d+", mangled[i:]) if ch.isdigit() else None
+        if m:
+            n = int(m.group())
+            ident = mangled[m.end() + i:m.end() + i + n]
+            if len(ident) == n and ident.endswith("kernel"):
+                return ident
+    return mangled
+
+
+def ptxas_usage(log: str) -> list:
+    """Per kernel of an nvcc log: registers, spill bytes and shared memory.
+
+    ptxas prints, per entry function, "Compiling entry function '<mangled>'",
+    then "N bytes stack frame, N bytes spill stores, N bytes spill loads" and
+    "Used N registers, ... N bytes smem".  Template arguments of the mangled
+    name are spelled out for the kernels of this package (``Li64E`` = 64,
+    ``Lb1E`` = true).
+    """
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            mangled = m.group(1)
+            args = re.findall(r"L([ib])(\d+)E", mangled)
+            cur = {"kernel": _kernel_name(mangled) + (
+                "<" + ", ".join(v if t == "i" else ("true" if v == "1" else
+                                                     "false")
+                                for t, v in args) + ">" if args else ""),
+                   "registers": None, "spill_stores": None,
+                   "spill_loads": None, "smem": 0}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(smem.group(1)) if smem else 0
+    return out
 
 
 @functools.lru_cache(maxsize=1)

@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card (skipped without one): K1, K2a/K3b
 (flash_mha), the masked kernel K2b/K3a, K4 and K5 (flash_cross_short), the
-attention kernels at head dims 64 and SD-1.5's 40/80/160.
+attention kernels at head dims 64 and SD-1.5's 40/80/160, and the edge
+cases of the flash template's K/V ring (one query row, one key, one tile
+more than the ring, masks that leave it the last key or alternate tiles).
 
 This file imports no jax, so it also runs where the JAX package is not
 installed: on the GPU machine,
@@ -56,6 +58,13 @@ def _randn(gen, *shape, device):
     (2, 4096, 4096, 320, 8),    # SD-1.5 level 0 at 512^2, hd 40
     (2, 1000, 777, 640, 8),     # hd 80, ragged
     (2, 144, 144, 1280, 8),     # SD-1.5 mid block at 768^2, hd 160
+    # edge cases of the K/V ring (2 or 3 slots of 64 keys)
+    (2, 1, 1000, 640, 10),      # Lq = 1
+    (2, 300, 1, 640, 10),       # Lk = 1
+    (2, 500, 129, 640, 10),     # Lk = 64 * 2 + 1: one tile more than 2 slots
+    (2, 500, 193, 640, 10),     # Lk = 64 * 3 + 1: one more than 3 slots
+    (2, 500, 129, 1280, 8),     # the same at hd 160
+    (2, 500, 193, 1280, 8),
 ])
 def test_k1_matches_plain(cuda, b, lq, lk, d, heads):
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -73,11 +82,26 @@ def test_k1_matches_plain(cuda, b, lq, lk, d, heads):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("scale", [-0.125, 0.0])
+def test_k1_scale_sign(cuda, scale):
+    """A negative softmax scale (the kernel negates Q) and a zero one (every
+    key weighs the same) against the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v = (_randn(gen, 2, 300, 640, device=cuda) for _ in range(3))
+    out = tflash.flash_mha_fused(q, k, v, 10, scale)
+    ref = tflash.flash_mha_fused_reference(q, k, v, 10, scale)
+    diff, ref = out.float() - ref.float(), ref.float()
+    assert diff.abs().max().item() <= K1_MAX_REL * ref.abs().max().item()
+    assert (diff.norm() / ref.norm()).item() <= K1_RMS_REL
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,lq,lk,kv_len", [
     (2, 2304, 2304, None),   # SD3 768^2 dual attention
     (2, 1000, 777, None),    # ragged Lq and Lk
     (2, 700, 900, 650),      # kv_len < Lk: keys past it hold 1e4
     (1, 100, 64, 1),         # one key
+    (2, 300, 129, 1),        # one key of three tiles
 ])
 def test_flash_mha_matches_plain(cuda, b, lq, lk, kv_len):
     """K2a/K3b at SD3.5-medium's width (24 heads x 64)."""
@@ -139,6 +163,7 @@ def test_cuda_routing_never_falls_back(cuda):
     (3, 2304, 2304, 320, 8, (2,)),     # SD-1.5 patch group, hd 40
     (3, 1024, 1024, 640, 8, (0,)),     # hd 80
     (3, 144, 144, 1280, 8, (1,)),      # SD-1.5 mid-block group, hd 160
+    (1, 64, 16448, 64, 1, ()),         # 257 key tiles: two chunks of the list
 ])
 def test_masked_matches_plain(cuda, b, lq, lk, d, heads, dead_rows):
     gen = torch.Generator(device=cuda).manual_seed(2)
@@ -160,6 +185,36 @@ def test_masked_matches_plain(cuda, b, lq, lk, d, heads, dead_rows):
     diff, ref = (out[live].float() - ref[live].float()), ref[live].float()
     assert diff.abs().max().item() <= K1_MAX_REL * ref.abs().max().item()
     assert (diff.norm() / ref.norm()).item() <= K1_RMS_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [40, 64])
+@pytest.mark.parametrize("pattern", ["last", "alt"])
+def test_masked_ring_edges(cuda, pattern, hd):
+    """The masked kernel walks only key tiles with a valid key: a mask
+    whose one valid key is the last of the last (ragged) tile, and one
+    valid only in alternate 64-key tiles."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    b, length, heads = 3, 1000, 8
+    q, k, v = (_randn(gen, b, length, heads * hd, device=cuda)
+               for _ in range(3))
+    if pattern == "last":
+        mask = torch.zeros(b, length, dtype=torch.bool, device=cuda)
+        mask[:, -1] = True
+    else:
+        tile = torch.arange(length, device=cuda) // 64
+        mask = (tile % 2 == 0).expand(b, length).contiguous()
+    before = tflash.flash_mha_masked.launches
+    out = tflash.flash_mha_masked(q, k, v, mask, heads, hd ** -0.5)
+    ref = tflash.flash_mha_masked_reference(q, k, v, mask, heads, hd ** -0.5)
+    torch.cuda.synchronize()
+    assert tflash.flash_mha_masked.launches == before + 1
+    assert torch.isfinite(out).all()
+    diff, ref = out.float() - ref.float(), ref.float()
+    assert diff.abs().max().item() <= K1_MAX_REL * ref.abs().max().item()
+    assert (diff.norm() / ref.norm()).item() <= K1_RMS_REL
+    if pattern == "last":  # every row is the last key's value
+        assert torch.equal(out, v[:, -1:].expand_as(out))
 
 
 @pytest.mark.cuda

@@ -102,6 +102,93 @@ def test_masked_plain_matches_jax_at_sd15_head_dims(hd):
     np.testing.assert_array_equal(out[~live], 0.0)
 
 
+# The edge cases of the CUDA kernels' K/V ring (64-key tiles, 2 or 3
+# slots): one query row, one key, one tile more than the ring holds.  The
+# card checks (tests/test_torch_cuda.py, chip_smoke.py) hold the kernels
+# against these plain versions there.
+RING_EDGES = [
+    (1, 200, 64),    # Lq = 1
+    (130, 1, 64),    # Lk = 1: one ragged key tile with one key
+    (130, 129, 64),  # Lk = 64 * 2 + 1
+    (130, 193, 64),  # Lk = 64 * 3 + 1
+    (130, 129, 160),
+    (130, 193, 160),
+    (1, 1, 40),      # both at hd 40
+]
+
+
+@pytest.mark.parametrize("lq,lk,hd", RING_EDGES)
+def test_plain_matches_jax_kernels_at_ring_edges(lq, lk, hd):
+    """The unmasked plain version against JAX ``flash_mha_fused`` and
+    ``flash_mha`` (interpret mode) at the ring's edge shapes."""
+    heads = 2
+    q, k, v = _mk(2, lq, lk, heads * hd, seed=lq + lk + hd)
+    scale = 1.0 / math.sqrt(hd)
+    out = tflash.flash_mha_fused(torch.from_numpy(q), torch.from_numpy(k),
+                                 torch.from_numpy(v), heads, scale).numpy()
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    fused = jax_flash_mha_fused(jq, jk, jv, heads, scale, block_q=128,
+                                interpret=True)
+    two_pass = jax_flash_mha(jq, jk, jv, heads, scale, block_q=128,
+                             block_kv=128, interpret=True)
+    np.testing.assert_allclose(out, np.asarray(fused), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(out, np.asarray(two_pass), rtol=RTOL, atol=ATOL)
+    if lk == 1:  # softmax over one key: every row is that key's value
+        np.testing.assert_allclose(out, np.broadcast_to(v, out.shape),
+                                   rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("online", [False, True])
+def test_flash_mha_plain_kv_len_one(online):
+    """``kv_len = 1`` of 129 keys (three tiles of 64): the plain version
+    against the JAX kernels (two-pass with its bias row, and online), with
+    large values past ``kv_len``; every row is the first key's value."""
+    q, k, v = _mk(2, 100, 129, 128, seed=11)
+    k[:, 1:], v[:, 1:] = 1e4, -1e4
+    scale = 0.125
+    out = tflash.flash_mha(torch.from_numpy(q), torch.from_numpy(k),
+                           torch.from_numpy(v), 2, scale, kv_len=1).numpy()
+    kernel = jax_flash_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 2,
+                           scale, kv_len=1, block_q=128, block_kv=128,
+                           interpret=True, force_online=online)
+    np.testing.assert_allclose(out, np.asarray(kernel), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(out, np.broadcast_to(v[:, :1], out.shape),
+                               rtol=RTOL, atol=ATOL)
+
+
+def _ring_mask(pattern: str, b: int, lk: int) -> np.ndarray:
+    """"last": only the last key of the last (ragged) tile is valid;
+    "alt": keys are valid in alternate 64-key tiles only."""
+    if pattern == "last":
+        mask = np.zeros((b, lk), bool)
+        mask[:, -1] = True
+        return mask
+    return np.broadcast_to((np.arange(lk) // 64) % 2 == 0, (b, lk)).copy()
+
+
+@pytest.mark.parametrize("online", [False, True])
+@pytest.mark.parametrize("hd", [40, 64])
+@pytest.mark.parametrize("pattern", ["last", "alt"])
+def test_masked_plain_matches_jax_at_ring_edges(pattern, hd, online):
+    """The masked plain version against the JAX masked kernels (two-pass
+    K2b and online K3a) on masks that leave the ring few or alternate
+    tiles: 300 keys are four full tiles and a ragged one of 44."""
+    q, k, v = _mk(2, 130, 300, 2 * hd, seed=hd + len(pattern))
+    mask = _ring_mask(pattern, 2, 300)
+    scale = 1.0 / math.sqrt(hd)
+    out = tflash.flash_mha_masked(torch.from_numpy(q), torch.from_numpy(k),
+                                  torch.from_numpy(v), torch.from_numpy(mask),
+                                  2, scale).numpy()
+    kernel = np.asarray(jax_flash_mha(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 2, scale,
+        kv_mask=jnp.asarray(mask), block_q=128, block_kv=128, interpret=True,
+        force_online=online))
+    np.testing.assert_allclose(out, kernel, rtol=RTOL, atol=ATOL)
+    if pattern == "last":
+        np.testing.assert_allclose(out, np.broadcast_to(v[:, -1:], out.shape),
+                                   rtol=RTOL, atol=ATOL)
+
+
 @pytest.mark.parametrize("lq,lk,heads,hd", [
     (512, 77, 4, 64),    # text keys, ragged against the 16-key tiles
     (640, 128, 2, 64),   # aligned keys, ragged query tile
@@ -335,6 +422,28 @@ def test_cpu_flash_mha_never_loads_kernel_library(monkeypatch):
     out = tflash.flash_cross_short(q, q[:, :77], q[:, :77], 2, 0.125)
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
     assert tflash.flash_cross_short.launches == before
+
+
+def test_ptxas_usage_names_the_flash_instantiations():
+    """chip_smoke.py reads registers and spills per instantiation from the
+    nvcc log: the mangled names (length-prefixed, after a file hash) come
+    out as ``mha_fused_kernel<hd, masked>``."""
+    log = (
+        "ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__941d3b32_"
+        "14_flash_fused_cu_b31612f316mha_fused_kernelILi160ELb0EEEvPK13__nv_"
+        "bfloat16S3_S3_PS1_PKhiiiif' for 'sm_90a'\n"
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 225 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function '_ZN43_GLOBAL__N__8ae705e2_"
+        "10_gn_halo_cu_5077393a14gn_halo_kernelILi8EEEvPK13__nv_bfloat16' "
+        "for 'sm_90a'\n"
+        "    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads\n"
+        "ptxas info    : Used 31 registers, used 1 barriers, 1280 bytes smem\n")
+    assert _build.ptxas_usage(log) == [
+        {"kernel": "mha_fused_kernel<160, false>", "registers": 225,
+         "spill_stores": 0, "spill_loads": 0, "smem": 0},
+        {"kernel": "gn_halo_kernel<8>", "registers": 31, "spill_stores": 4,
+         "spill_loads": 8, "smem": 1280}]
 
 
 def _bf16(*shape):
