@@ -16,8 +16,11 @@ Phases (any failure propagates and the script exits non-zero):
      kv_len < Lk), the masked flash attention K2b/K3a (flash_mha_masked,
      SDXL and SD-1.5 patch groups and the SD3 token batch, including batch
      rows with no valid key), K4 (gn_silu_halo, SDXL's patch sides and
-     SD-1.5's s = 4) and K5 (flash_cross_short, not routed: text
-     cross-attention shapes, also timed beside the port's plain route);
+     SD-1.5's s = 4; the patched step's moments and the fused op must
+     repeat bit for bit) and K5
+     (flash_cross_short: the text cross-attention of the dense and patch
+     paths, also timed beside the plain route it replaced; negative and
+     zero scale);
      hold one full-width SDXL transformer block (through K1), SD3.5-medium's
      dual block 0 (through flash_mha) and an SD-1.5 conv-projection
      transformer (through K1 at hd 40) on the card in bf16 against the same
@@ -26,12 +29,13 @@ Phases (any failure propagates and the script exits non-zero):
      against the dense forward of each image (bf16, on the card);
   5. SDXL dense serving: three requests at full width (random weights from
      a seed) through ``DiffusionPipeline.generate`` with mixed batches off;
-     check the images and that the path launched K1; read the step time of
-     the two-request 1024^2 batch;
+     check the images and that the path launched K1 and K5; read the step
+     time of the two-request 1024^2 batch;
   6. SDXL mixed serving: [768, 1024, 1024, 1024] with the default
      configuration (one patched UNet step per iteration); check the mixed
-     batch in the schedule log, the images and that the path launched K4
-     and the masked kernel; read the mixed step time;
+     batch in the schedule log, the images and that the path launched K4,
+     the masked kernel and K5 (one per cross-attention and step); read the
+     mixed step time;
   7. free the SDXL bundle; SD3.5-medium dense serving (MMDiT, CLIP-L/G,
      T5-XXL, 16-channel tiled VAE; random bf16 weights): [1024, 1024, 768]
      with mixed batches off; check the images, the latents and that every
@@ -44,7 +48,7 @@ Phases (any failure propagates and the script exits non-zero):
      random bf16 weights): the full-width UNet patched against dense on a
      256^2 + 512^2 + 768^2 batch, then four serving runs, each checking
      images, latents, the DENOISING batches and the exact launches of K1,
-     the masked kernel and K4 that SD15_UNET gives (K5 none): dense
+     the masked kernel, K4 and K5 that SD15_UNET gives: dense
      [512, 512, 768] with Euler, 8 steps; mixed [256, 512, 768] in the
      default configuration, Euler, 8 steps; the same mixed batch with PNDM
      (4 steps, 5 evaluations) and the dense one with DDIM (4 steps);
@@ -70,9 +74,9 @@ from sduss_tpu_torch.models import mmdit
 from sduss_tpu_torch.models.registry import ModelBundle
 from sduss_tpu_torch.models import unet as unet_mod
 from sduss_tpu_torch.models.unet import BasicTransformerBlock
+from sduss_tpu_torch.models import layers
 from sduss_tpu_torch.ops.attention import FLASH_MIN_KV
 from sduss_tpu_torch.ops import _build, patching
-from sduss_tpu_torch.ops.attention import _dense_masked
 from sduss_tpu_torch.ops.flash import (flash_cross_short,
                                        flash_cross_short_reference, flash_mha,
                                        flash_mha_fused,
@@ -81,7 +85,7 @@ from sduss_tpu_torch.ops.flash import (flash_cross_short,
                                        flash_mha_masked_reference,
                                        flash_mha_reference)
 from sduss_tpu_torch.ops.gn_halo import (gn_silu_halo, gn_silu_halo_reference,
-                                         moments)
+                                         gn_silu_haloed, moments)
 from sduss_tpu_torch.ops.patch_ctx import PatchContext
 from sduss_tpu_torch.request import Request, SamplingParams
 
@@ -165,16 +169,28 @@ MASKED_UNTIMED = (None, "last", "alt")
 K4_SHAPES = [(32, 320), (16, 640), (8, 1280)]  # (s, C) at SDXL levels 0-2
 SD15_K4_SHAPES = [(4, 1280)]  # SD-1.5 level 3: the side without a template
 # K5 (flash_cross_short) at scripts/bench_cross_kernel.py's text
-# cross-attention shapes (B, Lq, Lk, D, H), then two edge cases: 256 keys at
-# hd 160 (the most shared memory a block takes) and a 5-key sequence
+# cross-attention shapes (B, Lq, Lk, D, H), the serving paths' own (dense
+# CFG pairs; per-patch K/V of the patch path: B = patches), then edge cases:
+# 256 keys at hd 160 (two key chunks, the most shared memory a block
+# takes), a second chunk with one key, a 5-key and a 1-key sequence
 K5_SHAPES = [
     (16, 1024, 77, 1280, 20),   # SDXL level 2
     (16, 4096, 77, 640, 10),    # SDXL level 1
     (16, 4096, 77, 320, 8),     # SD-1.5 level 0, hd 40
     (16, 1024, 77, 640, 8),     # SD-1.5 level 1, hd 80
+    (4, 4096, 77, 640, 10),     # SDXL dense 1024^2 pair, level 1
+    (4, 1024, 77, 1280, 20),    # SDXL dense 1024^2 pair, level 2
+    (128, 256, 77, 640, 10),    # SDXL patch batch, level 1
+    (128, 64, 77, 1280, 20),    # SDXL patch batch, level 2
+    (32, 1024, 77, 320, 8),     # SD-1.5 patch batch, level 0, hd 40
+    (32, 64, 77, 1280, 8),      # SD-1.5 patch batch, level 2, hd 160
+    (4, 64, 64, 1280, 8),       # SD-1.5 512^2 mid-block self-attention
     (2, 1000, 256, 1280, 8),    # hd 160, the longest key sequence
+    (2, 300, 129, 640, 10),     # a second key chunk with one key
     (3, 100, 5, 640, 8),        # ragged query tile, one key tile
+    (2, 50, 1, 320, 8),         # one key, hd 40
 ]
+K5_TIMED = K5_SHAPES[:11]
 REQUESTS = [1024, 1024, 768]
 MIXED_REQUESTS = [768, 1024, 1024, 1024]
 SD3_REQUESTS = [1024, 1024, 768]
@@ -441,20 +457,34 @@ def mixed_meta(family: str = "sdxl", requests=MIXED_REQUESTS):
 def check_k4(card: str, meta=None, shapes=K4_SHAPES, seed: int = 2) -> dict:
     """K4 against its plain version on a mixed phase's doubled patch batch
     (SDXL's by default: 128 patches of 8 image slots, real border patches
-    and a dummy image) at each (s, C) of ``shapes``; halo cells of -1
-    neighbours must be exactly 0."""
+    and a dummy image) at each (s, C) of ``shapes``, with a bf16 GroupNorm
+    weight and bias (the model's dtype); halo cells of -1 neighbours must be
+    exactly 0.  The moments and the fused op (``gn_silu_haloed``) must give
+    the same bits on a second call."""
     meta = mixed_meta() if meta is None else meta
     gen = torch.Generator(device="cuda").manual_seed(seed)
     image_id = torch.from_numpy(meta.image_id).cuda()
     nb = neighbors = torch.from_numpy(meta.neighbors).cuda()
+    groups = 32
     worst, times = 0.0, {}
     for s, c in shapes:
         shape = (meta.p_pad, s, c)
         x = (1.5 * torch.randn(meta.p_pad, c, s, s, generator=gen,
                                device="cuda") + 0.2).to(torch.bfloat16)
-        w = torch.randn(c, generator=gen, device="cuda")
-        bias = torch.randn(c, generator=gen, device="cuda")
-        mean, var = moments(x, image_id, meta.i_pad, 32)
+        w, bias = (torch.randn(c, generator=gen, device="cuda").to(
+            torch.bfloat16) for _ in range(2))
+        stats = moments(x, image_id, meta.i_pad, groups)
+        again = moments(x, image_id, meta.i_pad, groups)
+        haloed = [gn_silu_haloed(x, w, bias, image_id, neighbors, meta.i_pad,
+                                 groups, 1e-5) for _ in range(2)]
+        torch.cuda.synchronize()
+        if not (all(torch.equal(a, b) for a, b in zip(stats, again))
+                and torch.equal(*haloed)):
+            raise AssertionError(f"K4's moments or gn_silu_haloed differ "
+                                 f"between two calls at {shape}")
+        print(f"K4 (P, s, C) {shape}: moments and gn_silu_haloed repeat bit "
+              f"for bit")
+        mean, var = stats
         rstd = torch.rsqrt(var + 1e-5)
         out = gn_silu_halo(x, image_id, neighbors, mean, rstd, w, bias)
         ref = gn_silu_halo_reference(x, image_id, neighbors, mean, rstd, w,
@@ -468,7 +498,8 @@ def check_k4(card: str, meta=None, shapes=K4_SHAPES, seed: int = 2) -> dict:
             raise AssertionError(f"K4 halo of an image border not zero at "
                                  f"{shape}")
         print(f"K4 gn_silu_halo (P, s, C) {shape}: max_abs_err {err:.3e}, "
-              f"/ max|plain| {max_rel:.3e} (bound {K4_MAX_REL:.3e})")
+              f"/ max|plain| {max_rel:.3e} (bound {K4_MAX_REL:.3e}), image "
+              f"borders 0")
         if not max_rel <= K4_MAX_REL:
             raise AssertionError(f"K4 disagrees with its plain version at "
                                  f"{shape}: {max_rel}")
@@ -479,9 +510,10 @@ def check_k4(card: str, meta=None, shapes=K4_SHAPES, seed: int = 2) -> dict:
         k2 = cuda_ms(lambda: gn_silu_halo(*args), 20)
         p2 = cuda_ms(lambda: gn_silu_halo_reference(*args), 5)
         kms, pms = (k1 + k2) / 2, (p1 + p2) / 2
-        # bf16 in and out, the folded float32 A/B tables, the index arrays
-        nbytes = (2.0 * (x.numel() + out.numel()) + 2 * 4 * meta.i_pad * c
-                  + 4 * 9 * meta.p_pad)
+        # bf16 in and out, the float32 moments, the bf16 affine, the index
+        # arrays
+        nbytes = (2.0 * (x.numel() + out.numel()) + 2 * 4 * meta.i_pad * groups
+                  + 2 * 2 * c + 4 * 9 * meta.p_pad)
         bms, by = bound(2.0 * out.numel(), nbytes)
         print(f"K4 time {shape}: kernel {kms:.4f} ms "
               f"({nbytes / kms / 1e6:.1f} GB/s), plain {pms:.4f} ms, bound "
@@ -492,11 +524,11 @@ def check_k4(card: str, meta=None, shapes=K4_SHAPES, seed: int = 2) -> dict:
 
 
 def check_k5(card: str) -> dict:
-    """K5 (flash_cross_short) against its plain version at the bench's text
-    cross-attention shapes (same bounds as K1), timed beside the plain
-    version, SDPA and the port's real route for that attention
-    (``ops/attention.py::_dense_masked``, the plain path the dispatcher
-    keeps 77-token cross-attention on)."""
+    """K5 (flash_cross_short) against its plain version at the text
+    cross-attention shapes of the bench and of the serving paths and at the
+    key chunks' edges (same bounds as K1), and with a negative and a zero
+    scale; timed beside the plain version, SDPA and the plain route the
+    dispatcher took before it routed here (``layers.attention``)."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     worst, times = 0.0, {}
     for shape in K5_SHAPES:
@@ -519,12 +551,24 @@ def check_k5(card: str) -> dict:
             raise AssertionError(f"K5 disagrees with its plain version at "
                                  f"{shape}: {max_rel}, {rms_rel}")
         worst = max(worst, err)
-        if shape in K5_SHAPES[:4]:  # the bench shapes
+        if shape == K5_SHAPES[-3]:
+            # the kernel folds a positive scale into its exponent; a negative
+            # one negates Q, and 0 weighs every key the same
+            for sc in (-scale, 0.0):
+                e = k1_errors(flash_cross_short(q, k, v, h, sc),
+                              flash_cross_short_reference(q, k, v, h, sc))
+                print(f"K5 flash_cross_short {shape} scale {sc:.4f}: / "
+                      f"max|plain| {e[1]:.3e}, rel RMS {e[2]:.3e}")
+                if not (e[1] <= K1_MAX_REL and e[2] <= K1_RMS_REL):
+                    raise AssertionError(f"K5 disagrees with its plain "
+                                         f"version at {shape}, scale {sc}: {e}")
+        if shape in K5_TIMED:
             p1 = cuda_ms(lambda: flash_cross_short_reference(q, k, v, h, scale), 5)
             k1 = cuda_ms(lambda: flash_cross_short(q, k, v, h, scale), 20)
             k2 = cuda_ms(lambda: flash_cross_short(q, k, v, h, scale), 20)
             p2 = cuda_ms(lambda: flash_cross_short_reference(q, k, v, h, scale), 5)
-            route = cuda_ms(lambda: _dense_masked(q, k, v, h, None, scale), 20)
+            route = cuda_ms(lambda: layers.attention(q, k, v, h, scale=scale),
+                            20)
             lib = cuda_ms(lambda: sdpa(q, k, v, h, scale), 20)
             kms, pms = (k1 + k2) / 2, (p1 + p2) / 2
             flops = 4.0 * b * lq * lk * d
@@ -532,8 +576,9 @@ def check_k5(card: str) -> dict:
             bms, by = bound(flops, nbytes)
             print(f"K5 time {shape}: kernel {kms:.4f} ms "
                   f"({nbytes / kms / 1e6:.1f} GB/s), plain {pms:.4f} ms, "
-                  f"the port's route (_dense_masked) {route:.4f} ms, sdpa "
-                  f"{lib:.4f} ms, bound {bms:.4f} ms ({by}) [{card}]")
+                  f"the plain route it replaced (layers.attention) "
+                  f"{route:.4f} ms, sdpa {lib:.4f} ms, bound {bms:.4f} ms "
+                  f"({by}) [{card}]")
             times[shape] = {"ms": kms, "plain_ms": pms, "library_ms": lib,
                             "bound_ms": bms, "bound_by": by}
     return {"max_abs_err": worst, "times": times}
@@ -637,24 +682,28 @@ def check_sd15_block() -> None:
 
 def check_ptxas(log: str) -> None:
     """Registers and spills of the flash template's eight instantiations
-    (hd 40/64/80/160 x masked); none may spill at hd 40, 64 or 80.  A
+    (hd 40/64/80/160 x masked), none of which may spill at hd 40, 64 or
+    80, and of K5's four (hd 40/64/80/160), none of which may spill.  A
     fresh build's log only: a reused library has none."""
     if not log:
         print("ptxas: the library was reused, no build log")
         return
-    flash = [u for u in _build.ptxas_usage(log)
-             if u["kernel"].startswith("mha_fused_kernel<")]
-    for u in flash:
+    usage = _build.ptxas_usage(log)
+    for u in usage:
         print(f"ptxas {u['kernel']}: {u['registers']} registers, "
               f"{u['spill_stores']} bytes spill stores, {u['spill_loads']} "
               f"bytes spill loads, {u['smem']} bytes static smem")
-    if len(flash) != 8:
-        raise AssertionError(f"{len(flash)} flash instantiations in the "
-                             f"ptxas log, not 8")
+    flash = [u for u in usage if u["kernel"].startswith("mha_fused_kernel<")]
+    cross = [u for u in usage if u["kernel"].startswith("cross_short_kernel<")]
+    if len(flash) != 8 or len(cross) != 4:
+        raise AssertionError(f"{len(flash)} flash and {len(cross)} K5 "
+                             f"instantiations in the ptxas log, not 8 and 4")
     spilled = [u["kernel"] for u in flash if u["spill_stores"]
                and not u["kernel"].startswith("mha_fused_kernel<160,")]
+    spilled += [u["kernel"] for u in cross
+                if u["spill_stores"] or u["spill_loads"]]
     if spilled:
-        raise AssertionError(f"flash instantiations spill: {spilled}")
+        raise AssertionError(f"instantiations spill: {spilled}")
 
 
 def build_bundle(family: str = "sdxl") -> ModelBundle:
@@ -756,7 +805,7 @@ def step_gaps(log, resolutions: str, label: str, card: str) -> float:
     return float(gaps.mean())
 
 
-def serve(card: str, bundle: ModelBundle) -> int:
+def serve(card: str, bundle: ModelBundle) -> dict:
     torch.cuda.reset_peak_memory_stats()
     config = default_config("sdxl", dtype="bfloat16", seed=0)
     config.scheduler.use_mixed_resolution = False  # the dense path
@@ -767,22 +816,23 @@ def serve(card: str, bundle: ModelBundle) -> int:
     prompts = ["a lighthouse on a cliff at dusk", "a bowl of ramen, studio photo",
                "an astronaut riding a horse"]
 
-    flash_mha_fused.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     outs = pipe.generate(prompts, resolution=REQUESTS,
                          num_inference_steps=STEPS, seed=1234)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = flash_mha_fused.launches
+    got = read_counts()
 
     check_outputs(outs, REQUESTS, card)
-    # two single-resolution groups (1024 pair, then 768), STEPS steps each
+    # two single-resolution groups (1024 pair, then 768), STEPS steps each;
+    # every transformer block has one self- and one text cross-attention
     expected = n_self * STEPS * len(set(REQUESTS))
-    print(f"serving: {len(outs)} requests in {wall:.3f} s, K1 launches "
-          f"{launches} (expected >= {expected}: {n_self} self-attentions x "
-          f"{STEPS} steps x {len(set(REQUESTS))} groups)")
-    if launches < expected:
-        raise AssertionError("the serving path did not go through K1")
+    print(f"serving: {len(outs)} requests in {wall:.3f} s, launches {got} "
+          f"(K1 and K5 expected >= {expected} each: {n_self} self- and "
+          f"cross-attentions x {STEPS} steps x {len(set(REQUESTS))} groups)")
+    if got["k1"] < expected or got["k5"] < expected:
+        raise AssertionError("the serving path did not go through K1 and K5")
 
     # final latents are finite (the uint8 cast would hide NaN)
     lat = pipe.generate(prompts[:1], resolution=768, num_inference_steps=2,
@@ -795,10 +845,10 @@ def serve(card: str, bundle: ModelBundle) -> int:
               "batch 2 x 1024^2 (CFG 4 rows)", card)
     print(f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} "
           f"GiB [{card}]")
-    return launches
+    return got
 
 
-def serve_mixed(card: str, bundle: ModelBundle) -> tuple:
+def serve_mixed(card: str, bundle: ModelBundle) -> dict:
     """The default configuration: one mixed 768^2 + 3 x 1024^2 DENOISING
     batch per iteration, one patched UNet forward each."""
     torch.cuda.reset_peak_memory_stats()
@@ -815,15 +865,14 @@ def serve_mixed(card: str, bundle: ModelBundle) -> tuple:
     prompts = ["a red fox in snow", "a harbor at night, long exposure",
                "a watercolor of a mountain lake", "a robot reading a book"]
 
-    flash_mha_masked.launches = gn_silu_halo.launches = 0
-    flash_mha_fused.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     outs = pipe.generate(prompts, resolution=MIXED_REQUESTS,
                          num_inference_steps=STEPS, seed=99)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    masked, k4 = flash_mha_masked.launches, gn_silu_halo.launches
-    dense_k1 = flash_mha_fused.launches
+    got = read_counts()
+    masked, k4 = got["masked"], got["k4"]
 
     check_outputs(outs, MIXED_REQUESTS, card)
     log = pipe.engine.worker.schedule_log
@@ -836,13 +885,15 @@ def serve_mixed(card: str, bundle: ModelBundle) -> tuple:
     classes = len(set(MIXED_REQUESTS))
     want_masked = n_self * classes * STEPS
     want_k4 = n_k4 * STEPS
+    want_k5 = n_self * STEPS  # one text cross-attention per block
     print(f"mixed serving: {len(outs)} requests in {wall:.3f} s; DENOISING "
           f"batches {batches[0]} x {len(batches)}; masked flash launches "
           f"{masked} (expected >= {want_masked}: {n_self} self-attentions x "
           f"{classes} classes x {STEPS} steps), K4 launches {k4} (expected "
-          f">= {want_k4}: {n_k4} per forward x {STEPS} steps), K1 launches "
-          f"{dense_k1}")
-    if masked < want_masked or k4 < want_k4:
+          f">= {want_k4}: {n_k4} per forward x {STEPS} steps), K5 launches "
+          f"{got['k5']} (expected {want_k5}: {n_self} cross-attentions x "
+          f"{STEPS} steps), all {got}")
+    if masked < want_masked or k4 < want_k4 or got["k5"] != want_k5:
         raise AssertionError("the mixed path did not go through its kernels")
 
     meta = mixed_meta()
@@ -857,7 +908,7 @@ def serve_mixed(card: str, bundle: ModelBundle) -> tuple:
         if o.image.shape != (r // 8, r // 8, 4) or not np.isfinite(o.image).all():
             raise AssertionError(f"bad mixed latents {o.image.shape}")
     print(f"max_memory_allocated {peak / 2**30:.2f} GiB [{card}]")
-    return masked, k4
+    return got
 
 
 def build_sd3_bundle() -> ModelBundle:
@@ -924,23 +975,21 @@ def serve_sd3(card: str, bundle: ModelBundle) -> int:
                "an astronaut riding a horse"]
     n_attn = sd3_attentions(bundle)
 
-    flash_mha.launches = flash_mha_fused.launches = 0
-    flash_mha_masked.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     outs = pipe.generate(prompts, resolution=SD3_REQUESTS,
                          num_inference_steps=STEPS, seed=1234)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = flash_mha.launches
-    others = (flash_mha_fused.launches, flash_mha_masked.launches)
+    got = read_counts()
+    launches = got["flash_mha"]
 
     check_outputs(outs, SD3_REQUESTS, card)
     groups = len(set(SD3_REQUESTS))
     expected = n_attn * STEPS * groups
     print(f"SD3 dense serving: {len(outs)} requests in {wall:.3f} s, "
           f"flash_mha launches {launches} (expected >= {expected}: {n_attn} "
-          f"attentions x {STEPS} steps x {groups} groups), K1 / masked "
-          f"launches {others}")
+          f"attentions x {STEPS} steps x {groups} groups), all {got}")
     if launches < expected:
         raise AssertionError("the SD3 dense path did not go through flash_mha")
     res, n = SD3_REQUESTS[0], SD3_REQUESTS.count(SD3_REQUESTS[0])
@@ -956,7 +1005,7 @@ def serve_sd3(card: str, bundle: ModelBundle) -> int:
         raise AssertionError(f"bad SD3 latents {lat.shape}")
     time_sd3_stages(pipe, card)
     print(f"max_memory_allocated {peak / 2**30:.2f} GiB (SD3 dense) [{card}]")
-    return launches
+    return got
 
 
 def serve_sd3_mixed(card: str, bundle: ModelBundle) -> int:
@@ -974,15 +1023,14 @@ def serve_sd3_mixed(card: str, bundle: ModelBundle) -> int:
                "a watercolor of a mountain lake"]
     n_attn = sd3_attentions(bundle)
 
-    flash_mha.launches = flash_mha_fused.launches = 0
-    flash_mha_masked.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     outs = pipe.generate(prompts, resolution=SD3_MIXED_REQUESTS,
                          num_inference_steps=STEPS, seed=99)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    masked = flash_mha_masked.launches
-    others = (flash_mha_fused.launches, flash_mha.launches)
+    got = read_counts()
+    masked = got["masked"]
 
     check_outputs(outs, SD3_MIXED_REQUESTS, card)
     log = pipe.engine.worker.schedule_log
@@ -996,7 +1044,7 @@ def serve_sd3_mixed(card: str, bundle: ModelBundle) -> int:
     print(f"SD3 mixed serving: {len(outs)} requests in {wall:.3f} s; "
           f"DENOISING batches {batches[0]} x {len(batches)}; masked flash "
           f"launches {masked} (expected >= {want}: {n_attn} attentions x "
-          f"{STEPS} steps), K1 / flash_mha launches {others}")
+          f"{STEPS} steps), all {got}")
     if masked < want:
         raise AssertionError("the SD3 mixed path did not go through the "
                              "masked kernel")
@@ -1012,7 +1060,7 @@ def serve_sd3_mixed(card: str, bundle: ModelBundle) -> int:
                 or not np.isfinite(o.image).all():
             raise AssertionError(f"bad SD3 mixed latents {o.image.shape}")
     print(f"max_memory_allocated {peak / 2**30:.2f} GiB (SD3 mixed) [{card}]")
-    return masked
+    return got
 
 
 def sd15_self_attention_keys(cfg, res: int) -> list:
@@ -1047,8 +1095,8 @@ def serve_sd15(card: str, bundle: ModelBundle, mixed: bool, sampler: str,
     """SD-1.5 serving through ``DiffusionPipeline.generate``: the dense path
     (mixed batches off, one UNet forward per resolution group) or the
     default configuration (one patched forward per step).  Asserts the
-    images, the DENOISING batches and the launches of K1, the masked kernel
-    and K4 that SD15_UNET gives for these requests; K5 is never launched."""
+    images, the DENOISING batches and the launches of K1, the masked kernel,
+    K4 and K5 that SD15_UNET gives for these requests."""
     torch.cuda.reset_peak_memory_stats()
     config = default_config("sd15", dtype="bfloat16", seed=0, sampler=sampler)
     config.scheduler.use_mixed_resolution = mixed
@@ -1085,8 +1133,10 @@ def serve_sd15(card: str, bundle: ModelBundle, mixed: bool, sampler: str,
                              f"{counts}, got {batches}")
     # the launches each logged batch makes: a mixed batch is one patched
     # forward (one masked call per resolution class and self-attention, one
-    # K4 per GroupNorm+SiLU before a 3x3 conv); a dense one is a forward
-    # per resolution, each self-attention with >= FLASH_MIN_KV keys on K1
+    # K4 per GroupNorm+SiLU before a 3x3 conv, one K5 per text
+    # cross-attention); a dense one is a forward per resolution, each
+    # self-attention with >= FLASH_MIN_KV keys on K1, each shorter one and
+    # each cross-attention on K5
     n_self = len(sd15_self_attention_keys(cfg, requests[0]))
     want = {"k1": 0, "flash_mha": 0, "masked": 0, "k4": 0, "k5": 0}
     for entry in batches:
@@ -1094,9 +1144,11 @@ def serve_sd15(card: str, bundle: ModelBundle, mixed: bool, sampler: str,
         if mixed:
             want["masked"] += n_self * len(res)
             want["k4"] += n_k4
+            want["k5"] += n_self
         else:
-            want["k1"] += sum(k >= FLASH_MIN_KV for r in res
-                              for k in sd15_self_attention_keys(cfg, r))
+            keys = [k for r in res for k in sd15_self_attention_keys(cfg, r)]
+            want["k1"] += sum(k >= FLASH_MIN_KV for k in keys)
+            want["k5"] += len(keys) + sum(k < FLASH_MIN_KV for k in keys)
     key = batches[0]
     path = "mixed" if mixed else "dense"
     print(f"SD-1.5 {path} serving ({sampler}, {steps} steps = {evals} "
@@ -1149,21 +1201,19 @@ def main() -> None:
     check_sd15_block()
     bundle = build_bundle()
     check_patched(bundle)
-    k1_launches = serve(card, bundle)
-    masked_launches, k4_launches = serve_mixed(card, bundle)
+    runs = [serve(card, bundle), serve_mixed(card, bundle)]
     # free each bundle so each family's peak memory reads alone
     del bundle
     gc.collect()
     torch.cuda.empty_cache()
     sd3 = build_sd3_bundle()
-    k2a_launches = serve_sd3(card, sd3)
-    masked_launches += serve_sd3_mixed(card, sd3)
+    runs += [serve_sd3(card, sd3), serve_sd3_mixed(card, sd3)]
     del sd3
     gc.collect()
     torch.cuda.empty_cache()
     sd15 = build_bundle("sd15")
     check_patched(sd15, SD15_MIXED_REQUESTS)
-    sd15_runs = [
+    runs += [
         serve_sd15(card, sd15, False, "euler", STEPS, SD15_REQUESTS),
         serve_sd15(card, sd15, True, "euler", STEPS, SD15_MIXED_REQUESTS),
         serve_sd15(card, sd15, True, "pndm", SD15_SAMPLER_STEPS,
@@ -1171,25 +1221,24 @@ def main() -> None:
         serve_sd15(card, sd15, False, "ddim", SD15_SAMPLER_STEPS,
                    SD15_REQUESTS),
     ]
-    k1_launches += sum(r["k1"] for r in sd15_runs)
-    masked_launches += sum(r["masked"] for r in sd15_runs)
-    k4_launches += sum(r["k4"] for r in sd15_runs)
-    k5_launches = sum(r["k5"] for r in sd15_runs)
-
     # launches: the sum over the serving paths, each read just after its run
+    launches = {key: sum(r[key] for r in runs) for key in runs[0]}
+    print(f"launches on the serving paths: {launches}")
+
     kernels = [
         ("flash_mha_fused", "sduss_tpu_torch/csrc/flash_fused.cu",
-         "sduss_tpu/ops/flash.py:373", k1_launches, k1, K1_SHAPES[0]),
+         "sduss_tpu/ops/flash.py:373", launches["k1"], k1, K1_SHAPES[0]),
         ("flash_mha", "sduss_tpu_torch/csrc/flash_fused.cu",
-         "sduss_tpu/ops/flash.py:570", k2a_launches, k2a, K2A_SHAPES[1]),
+         "sduss_tpu/ops/flash.py:570", launches["flash_mha"], k2a,
+         K2A_SHAPES[1]),
         ("flash_mha_masked", "sduss_tpu_torch/csrc/flash_fused.cu",
-         "sduss_tpu/ops/flash.py:579", masked_launches, masked,
+         "sduss_tpu/ops/flash.py:579", launches["masked"], masked,
          MASKED_SHAPES[0]),
         ("gn_silu_halo", "sduss_tpu_torch/csrc/gn_halo.cu",
-         "sduss_tpu/ops/gn_halo.py:196", k4_launches, k4,
+         "sduss_tpu/ops/gn_halo.py:196", launches["k4"], k4,
          (mixed_meta().p_pad,) + K4_SHAPES[0]),
         ("flash_cross_short", "sduss_tpu_torch/csrc/flash_cross.cu",
-         "sduss_tpu/ops/flash.py:421", k5_launches, k5, K5_SHAPES[2]),
+         "sduss_tpu/ops/flash.py:421", launches["k5"], k5, K5_SHAPES[2]),
     ]
     print(card)
     print(json.dumps({"kernels": [

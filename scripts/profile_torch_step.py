@@ -29,7 +29,13 @@ printing one line each:
      256^2 + 512^2 + 768^2, one patched UNet forward;
      ``denoise_step_mixed``) under the profiler as in 1, and its wall ms
      against the same requests as dense per-resolution forwards
-     (``denoise_step``), alternated mixed, dense, dense, mixed.
+     (``denoise_step``), alternated mixed, dense, dense, mixed;
+  5. SDXL and SD-1.5: the dense batch-2 step and the mixed step with
+     short-KV attention (text cross-attention) on K5 and on the plain
+     route the dispatcher took before it routed K5 (``layers.attention``:
+     float32 scores and softmax), alternated K5, plain, plain, K5; as in 3
+     the script rebinds ``ops.attention.flash_cross_short`` for the plain
+     phase only.
 
 The last line is a JSON object with every number; ``--out`` also writes it
 to a file.
@@ -51,6 +57,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from sduss_tpu_torch.request import Request, SamplingParams  # noqa: E402
 from sduss_tpu_torch import configure_numerics  # noqa: E402
 from sduss_tpu_torch.entrypoints.offline import default_config  # noqa: E402
+from sduss_tpu_torch.models import layers  # noqa: E402
 from sduss_tpu_torch.ops import attention as attn_ops  # noqa: E402
 from sduss_tpu_torch.ops import flash  # noqa: E402
 from sduss_tpu_torch.pipelines import build_pipeline  # noqa: E402
@@ -196,6 +203,36 @@ def kernel_vs_plain(pipe, family: str, steps: int) -> dict:
     return out
 
 
+def plain_route(q, k, v, num_heads, scale):
+    """The route of short-KV attention before K5 was routed: the plain
+    attention layer."""
+    return layers.attention(q, k, v, num_heads, scale=scale)
+
+
+def route_vs_plain(pipe, family: str, steps: int) -> dict:
+    """Wall ms of the dense batch-2 step and the mixed step with short-KV
+    attention on K5 and on the plain route, alternated on one card."""
+    kernel = attn_ops.flash_cross_short
+    res, mix = RES[family], MIXED[family]
+    dense = prepared(pipe, 2, res, tag="route")
+    by_res = {r: prepared(pipe, mix.count(r), res=r, tag=f"rt{r}_")
+              for r in sorted(set(mix))}
+    steps_of = {"dense": lambda: pipe.denoise_step({res: dense}),
+                "mixed": lambda: pipe.denoise_step_mixed(by_res)}
+    out = {}
+    for name, step in steps_of.items():
+        row = {"k5": [], "plain": []}
+        for variant in ("k5", "plain", "plain", "k5"):
+            attn_ops.flash_cross_short = (plain_route if variant == "plain"
+                                          else kernel)
+            try:
+                row[variant].append(cuda_ms(step, steps))
+            finally:
+                attn_ops.flash_cross_short = kernel
+        out[name] = row
+    return out
+
+
 def mixed_vs_dense(pipe, mixed: list, steps: int) -> dict:
     """The mixed step's profile, and its wall ms against two dense
     per-resolution forwards of the same requests, alternated."""
@@ -264,8 +301,17 @@ def main() -> None:
     print(f"mixed {key}: one forward " + "/".join(f"{x:.2f}" for x in row["mixed"])
           + " ms, dense per-resolution forwards "
           + "/".join(f"{x:.2f}" for x in row["dense"]) + f" ms [{card}]")
+    route = {}
+    if fam != "sd3":  # the MMDiT has no short-KV attention
+        route = route_vs_plain(pipe, fam, args.steps)
+        for name, row in route.items():
+            print(f"{name} step, short-KV attention on K5 "
+                  + "/".join(f"{x:.2f}" for x in row["k5"])
+                  + " ms, on the plain route "
+                  + "/".join(f"{x:.2f}" for x in row["plain"])
+                  + f" ms [{card}]")
     result = {"card": card, "family": fam, "profile": prof, "stages": stages,
-              "kernel_vs_plain": ab, "mixed": mixed}
+              "kernel_vs_plain": ab, "mixed": mixed, "route_vs_plain": route}
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(result, indent=1))

@@ -87,7 +87,8 @@ def build_all(jobs):
         cu.write_text(text)
         lib = OUT_DIR / f"lib{name}.so"
         procs[name] = (lib, subprocess.Popen(
-            [nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(lib), str(cu)],
+            [nvcc, *_build.NVCC_FLAGS, "-I", str(_build.SRC_DIR), "-shared",
+             "-o", str(lib), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     out = {}
     for name, (lib, proc) in procs.items():

@@ -12,6 +12,8 @@ prewarm program matrix: eager PyTorch compiles nothing ahead of a step
 
 from __future__ import annotations
 
+import csv
+import os
 import time
 from typing import List, Optional, Sequence, Set
 
@@ -109,3 +111,20 @@ class Engine:
             self.stats.on_finish(out)
             outputs.append(out)
         return outputs
+
+    # -- data collection -----------------------------------------------------
+
+    def dump_data(self, out_dir: Optional[str] = None) -> None:
+        """Write ``request_data.csv`` and ``schedule_rank{r}.csv`` (the
+        worker's per-iteration schedule log) to ``out_dir``, by default
+        ``engine.collect_dir``."""
+        out_dir = out_dir or self.config.engine.collect_dir
+        os.makedirs(out_dir, exist_ok=True)
+        self.stats.dump_csv(os.path.join(out_dir, "request_data.csv"))
+        log = self.worker.schedule_log
+        if log:
+            path = os.path.join(out_dir, f"schedule_rank{self.worker.rank}.csv")
+            with open(path, "w", newline="") as f:
+                w = csv.DictWriter(f, fieldnames=list(log[0]))
+                w.writeheader()
+                w.writerows(log)

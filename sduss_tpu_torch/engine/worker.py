@@ -35,7 +35,7 @@ from sduss_tpu_torch.scheduler import WorkerScheduler
 from sduss_tpu_torch.scheduler.policies import ScheduledBatch
 from sduss_tpu_torch.pipelines.base import BasePipeline
 
-_ASYNC_TODO = ("ROADMAP 'Queue 1' item 8: async prepare/postprocess with the "
+_ASYNC_TODO = ("ROADMAP 'Queue 1' item 4: async prepare/postprocess with the "
                "decode-overlap bound")
 
 

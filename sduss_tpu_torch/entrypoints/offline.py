@@ -85,4 +85,6 @@ class DiffusionPipeline:
             outputs.extend(self.engine.step())
         # results in PROMPT order
         outputs.sort(key=lambda o: order.get(o.request_id, len(order)))
+        if self.config.engine.collect_data:
+            self.engine.dump_data()
         return outputs

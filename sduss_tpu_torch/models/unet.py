@@ -142,7 +142,7 @@ class Attention(nn.Module):
                    else ctx.cross_attention(self, h, context))
             return self.to_out[0](out)
         kv = h if context is None else context
-        # self-attention routes to kernel K1, 77-token cross stays plain
+        # self-attention routes to kernel K1, 77-token cross-attention to K5
         out = masked_attention(self.to_q(h), self.to_k(kv), self.to_v(kv),
                                self.heads)
         return self.to_out[0](out)

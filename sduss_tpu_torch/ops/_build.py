@@ -169,7 +169,8 @@ def load_library() -> ctypes.CDLL:
     lib.sduss_flash_cross_short.argtypes = [p, p, p, p, i, i, i, i, i,
                                             ctypes.c_float, p]
     lib.sduss_flash_cross_short.restype = ctypes.c_int
-    lib.sduss_gn_silu_halo.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+    lib.sduss_gn_silu_halo.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i,
+                                       p]
     lib.sduss_gn_silu_halo.restype = ctypes.c_int
     lib.sduss_cuda_error_string.argtypes = [ctypes.c_int]
     lib.sduss_cuda_error_string.restype = ctypes.c_char_p

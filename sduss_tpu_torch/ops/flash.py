@@ -17,10 +17,11 @@ Three wrappers of the hand-written CUDA kernel ``csrc/flash_fused.cu``:
 and one of ``csrc/flash_cross.cu``:
 
 * ``flash_cross_short`` — kernel K5, replacing ``_cross_short_kernel``
-  (unmasked attention over at most 256 keys: text cross-attention).  As in
-  the JAX package, nothing routes to it: ``ops/attention.py`` keeps
-  77-token cross-attention on the plain path (the JAX dispatcher keeps it
-  dense, attention.py:135-140); chip_smoke.py holds and times it.
+  (unmasked attention over at most 256 keys): ``ops/attention.py`` routes
+  every unmasked attention over fewer than 128 keys to it, text
+  cross-attention above all.  The JAX dispatcher keeps that attention
+  dense (attention.py:135-140) after a v5e measurement; on the H100 the
+  plain route is 4-16x slower than K5.
 
 The kernels take head dims 40, 64, 80 and 160 (SD-1.5's 40/80/160 at 8
 heads; SDXL's and SD3's 64); any other raises ``ValueError``.  Each
@@ -98,12 +99,6 @@ def flash_mha_masked_reference(q, k, v, kv_mask, num_heads: int,
     return out.transpose(1, 2).reshape(b, lq, d).to(q.dtype)
 
 
-def _check_head_dim(d: int, num_heads: int) -> None:
-    if num_heads < 1 or d % num_heads or d // num_heads not in HEAD_DIMS:
-        raise ValueError(f"head dim {d}/{num_heads} unsupported: the kernels "
-                         f"take head dims {HEAD_DIMS}")
-
-
 def check_inputs(q, k, v, num_heads: int) -> None:
     """Raise ``ValueError`` for anything the CUDA kernel does not take."""
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
@@ -112,7 +107,10 @@ def check_inputs(q, k, v, num_heads: int) -> None:
             or q.shape[2] != k.shape[2]:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    _check_head_dim(q.shape[2], num_heads)
+    d = q.shape[2]
+    if num_heads < 1 or d % num_heads or d // num_heads not in HEAD_DIMS:
+        raise ValueError(f"head dim {d}/{num_heads} unsupported: the kernels "
+                         f"take head dims {HEAD_DIMS}")
     if q.shape[1] == 0 or k.shape[1] == 0:
         raise ValueError("empty sequence")
     if max(q.numel(), k.numel()) >= 2**31:
@@ -254,17 +252,17 @@ def flash_cross_short(q, k, v, num_heads: int, scale: float):
     """Attention over a short key sequence (text cross-attention): q
     ``(B, Lq, D)``, k/v ``(B, Lk, D)`` with ``Lk <= 256``.
 
-    Not routed by ``ops/attention.py`` (see the module docstring).  A key
-    sequence over 256 or an unsupported head dim raises ``ValueError`` on
-    any device.  CPU tensors: :func:`flash_cross_short_reference`; anything
-    else goes to the CUDA kernel (``csrc/flash_cross.cu``): inputs it does
-    not take raise ``ValueError``, a failed launch raises ``RuntimeError``.
-    Each launch adds one to ``flash_cross_short.launches``.
+    A key sequence over 256 raises ``ValueError`` on any device.  CPU
+    tensors: :func:`flash_cross_short_reference`, at any head dim (the tiny
+    test models route here too); anything else goes to the CUDA kernel
+    (``csrc/flash_cross.cu``): inputs it does not take, an unsupported head
+    dim among them, raise ``ValueError``, a failed launch raises
+    ``RuntimeError``.  Each launch adds one to
+    ``flash_cross_short.launches``.
     """
     if k.dim() == 3 and k.shape[1] > CROSS_MAX_KV:
         raise ValueError(f"flash_cross_short holds at most {CROSS_MAX_KV} "
                          f"keys, got {k.shape[1]}")
-    _check_head_dim(q.shape[-1], num_heads)
     if q.device.type == "cpu":
         return flash_cross_short_reference(q, k, v, num_heads, scale)
     check_inputs(q, k, v, num_heads)

@@ -9,16 +9,17 @@ permuted).
 Two phases, as in the JAX op:
 
 1. ``moments`` (plain PyTorch): per-image mean and variance of each group
-   across that image's patches, from ``(P, G)`` partial sums added per
-   image with ``index_add_``; the variance is clamped at 0.
+   across that image's patches, from ``(P, G)`` partial sums combined per
+   image in a fixed order (the JAX op's ``segment_sum``); the variance is
+   clamped at 0.
 2. ``gn_silu_halo``: the wrapper of the hand-written CUDA kernel
    ``csrc/gn_halo.cu`` (kernel K4, replacing the Pallas kernel
-   ``gn_halo.py::_kernel``): normalize with the folded per-(image, channel)
-   affine, apply SiLU, and write the centre plus the neighbours' normalized
-   edge cells in one pass.  ``gn_silu_halo_reference`` is its plain
-   version (normalize -> SiLU -> ``haloed``).  The wrapper takes the plain
-   version only for tensors on the CPU; a CUDA tensor launches the kernel
-   or raises.
+   ``gn_halo.py::_kernel``): fold the moments and the affine into one FMA
+   per (image, channel), apply SiLU, and write the centre plus the
+   neighbours' normalized edge cells, all in one launch.
+   ``gn_silu_halo_reference`` is its plain version (normalize -> SiLU ->
+   ``haloed``).  The wrapper takes the plain version only for tensors on
+   the CPU; a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -36,17 +37,21 @@ _ACTS = {"silu": 1, None: 0}
 
 def group_sums(x, image_id, n_images: int, groups: int):
     """Per-image (E[x], E[x^2]) of each group across the image's patches:
-    ``(I, G)`` float32 each, from ``(P, G)`` partial sums added per image.
-    x: (P, C, s, s).  An image slot with no patch gets zeros."""
+    ``(I, G)`` float32 each.  x: (P, C, s, s).  An image slot with no patch
+    gets zeros.
+
+    The ``(P, G)`` partial sums are combined per image by a one-hot
+    ``(I, P) @ (P, 2G)`` float32 product: a fixed summation order, so the
+    result is the same on every call (``index_add_`` on CUDA adds with
+    atomics in varying order)."""
     pp = x.shape[0]
     xf = x.float().reshape(pp, groups, -1)
-    idx = image_id.long()
-    sums = xf.new_zeros(n_images, groups).index_add_(0, idx, xf.sum(dim=2))
-    sqs = xf.new_zeros(n_images, groups).index_add_(0, idx,
-                                                    (xf * xf).sum(dim=2))
-    cnt = torch.bincount(idx, minlength=n_images).float() * xf.shape[2]
-    cnt = torch.clamp(cnt, min=1.0)[:, None]
-    return sums / cnt, sqs / cnt
+    parts = torch.cat([xf.sum(dim=2), (xf * xf).sum(dim=2)], dim=1)
+    slots = torch.arange(n_images, device=x.device)
+    onehot = (image_id.long()[None, :] == slots[:, None]).float()
+    sums = onehot @ parts
+    cnt = torch.clamp(onehot.sum(dim=1) * xf.shape[2], min=1.0)[:, None]
+    return sums[:, :groups] / cnt, sums[:, groups:] / cnt
 
 
 def moments(x, image_id, n_images: int, groups: int):
@@ -95,6 +100,10 @@ def check_inputs(x, image_id, neighbors, mean, rstd, weight, bias) -> None:
     if mean.dim() != 2 or mean.shape != rstd.shape or c % mean.shape[1]:
         raise ValueError(f"mean/rstd must be (I, G) with C % G == 0, got "
                          f"{tuple(mean.shape)}, {tuple(rstd.shape)}, C={c}")
+    for name, t in (("mean", mean), ("rstd", rstd)):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32, got "
+                             f"{t.dtype}")
     if weight.shape != (c,) or bias.shape != (c,):
         raise ValueError(f"weight/bias must be ({c},)")
     for name, t in (("image_id", image_id), ("neighbors", neighbors),
@@ -104,6 +113,10 @@ def check_inputs(x, image_id, neighbors, mean, rstd, weight, bias) -> None:
             raise ValueError(f"{name} on {t.device}, x on {x.device}")
     if x.device.type != "cuda":
         raise ValueError(f"x must lie on a CUDA device ({x.device})")
+    if weight.dtype != torch.bfloat16 or bias.dtype != torch.bfloat16 \
+            or not (weight.is_contiguous() and bias.is_contiguous()):
+        raise ValueError(f"weight/bias must be contiguous bfloat16 (the "
+                         f"model's dtype), got {weight.dtype}, {bias.dtype}")
 
 
 def gn_silu_halo(x, image_id, neighbors, mean, rstd, weight, bias,
@@ -112,10 +125,11 @@ def gn_silu_halo(x, image_id, neighbors, mean, rstd, weight, bias,
     (P, C, s+2, s+2), NCHW.
 
     ``image_id`` (P,) and ``neighbors`` (P, 8) int32; ``mean`` / ``rstd``
-    (I, G) float32 per image and group; ``weight`` / ``bias`` (C,).
-    CPU tensors: :func:`gn_silu_halo_reference`.  Anything else goes to the
-    CUDA kernel: inputs it does not take raise ``ValueError``, a failed
-    launch raises ``RuntimeError``.  Each launch adds one to
+    (I, G) float32 per image and group; ``weight`` / ``bias`` (C,),
+    bfloat16 on the card.  CPU tensors: :func:`gn_silu_halo_reference`.
+    Anything else goes to the CUDA kernel, one launch that also folds the
+    moments and the affine: inputs it does not take raise ``ValueError``, a
+    failed launch raises ``RuntimeError``.  Each launch adds one to
     ``gn_silu_halo.launches``.
     """
     if act not in _ACTS:
@@ -125,17 +139,13 @@ def gn_silu_halo(x, image_id, neighbors, mean, rstd, weight, bias,
                                       weight, bias, act)
     check_inputs(x, image_id, neighbors, mean, rstd, weight, bias)
     pp, c, s, _ = x.shape
-    cpg = c // mean.shape[1]
-    # fold normalization + affine into one FMA per (image, channel)
-    a = rstd.float().repeat_interleave(cpg, dim=1) * weight.float()
-    b = (bias.float() - mean.float().repeat_interleave(cpg, dim=1) * a)
-    a, b = a.contiguous(), b.contiguous()
     lib = _build.load_library()
     out = torch.empty((pp, c, s + 2, s + 2), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.sduss_gn_silu_halo(
-        x.data_ptr(), image_id.data_ptr(), neighbors.data_ptr(), a.data_ptr(),
-        b.data_ptr(), out.data_ptr(), pp, c, s, _ACTS[act], stream)
+        x.data_ptr(), image_id.data_ptr(), neighbors.data_ptr(),
+        mean.data_ptr(), rstd.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), pp, c, s, mean.shape[1], _ACTS[act], stream)
     _build.check(lib, err, "gn_silu_halo launch")
     gn_silu_halo.launches += 1
     return out

@@ -12,7 +12,7 @@ the port's layout; token runs are ``(P, s*s, C)``.
                   kernel K4 (ops/gn_halo.py), then the conv at padding 0
   self_attention  patches gathered into per-image groups per resolution
                   class, one masked attention per class (kernel K2b/K3a)
-  cross_attention per-image text K/V gathered to the patches
+  cross_attention per-image text K/V gathered to the patches (kernel K5)
 
 Patched equals dense per image to float tolerance
 (tests/test_torch_patch_unet.py).

@@ -19,7 +19,9 @@ as an unmasked padded key tile, adds its own size on top).  The masked
 kernel is held to the same bounds over the rows with a valid key, and must
 write zeros (finite) where a batch row has none.  K4 (gn_silu_halo) within
 2^-7 of max |plain| (one bf16 ulp at the output scale: both compute in
-float32 and round once), with exact zeros at image borders.
+float32 and round once), with exact zeros at image borders.  The patched
+step's moments and the fused op give the same bits on two calls with the
+same input.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from __future__ import annotations
 import pytest
 import torch
 
+from sduss_tpu_torch.entrypoints.offline import default_config
 from sduss_tpu_torch.ops import attention as tattn
 from sduss_tpu_torch.ops import flash as tflash
 from sduss_tpu_torch.ops import gn_halo as tgn
@@ -129,16 +132,21 @@ def test_flash_mha_matches_plain(cuda, b, lq, lk, kv_len):
 
 @pytest.mark.cuda
 def test_cuda_routing_never_falls_back(cuda):
-    """Self-attention on CUDA launches K1; short-KV cross-attention stays
-    plain; what K1 cannot take raises instead of running the plain path."""
+    """Self-attention on CUDA launches K1; short-KV cross-attention K5;
+    what a kernel cannot take raises instead of running the plain path."""
     gen = torch.Generator(device=cuda).manual_seed(1)
     q = _randn(gen, 2, 256, 640, device=cuda)
     text = _randn(gen, 2, 77, 640, device=cuda)
     n = tflash.flash_mha_fused.launches
     tattn.masked_attention(q, q, q, 10)
     assert tflash.flash_mha_fused.launches == n + 1
+    c = tflash.flash_cross_short.launches
     tattn.masked_attention(q, text, text, 10)
     assert tflash.flash_mha_fused.launches == n + 1
+    assert tflash.flash_cross_short.launches == c + 1
+    with pytest.raises(ValueError, match="head dim"):
+        tattn.masked_attention(q, text, text, 5)      # hd 128
+    assert tflash.flash_cross_short.launches == c + 1
     with pytest.raises(ValueError, match="head dim"):
         tattn.masked_attention(q, q, q, 5)            # hd 128
     with pytest.raises(ValueError, match="bfloat16"):
@@ -220,7 +228,9 @@ def test_masked_ring_edges(cuda, pattern, hd):
 @pytest.mark.cuda
 @pytest.mark.parametrize("grids,s,c", [
     ((3, 4), 32, 320), ((3, 4), 16, 640), ((3, 4), 8, 1280),
+    ((1, 2, 3), 4, 1280),  # SD-1.5 level 3
     ((2, 1), 6, 64),   # a side with no specialised kernel
+    ((2, 1), 3, 64),   # a side under 4: the ring's segments
 ])
 def test_k4_matches_plain(cuda, grids, s, c):
     meta = tpatching.build_meta(grids, s, (4, 8, 16, 32), (2, 4))
@@ -231,8 +241,9 @@ def test_k4_matches_plain(cuda, grids, s, c):
     neighbors = torch.from_numpy(meta.neighbors).to(cuda)
     mean, var = tgn.moments(x, image_id, meta.i_pad, 32)
     rstd = torch.rsqrt(var + 1e-5)
-    w = torch.randn(c, generator=gen, device=cuda)
-    bias = torch.randn(c, generator=gen, device=cuda)
+    # the GroupNorm affine in the model's dtype, as the kernel takes it
+    w = torch.randn(c, generator=gen, device=cuda).to(torch.bfloat16)
+    bias = torch.randn(c, generator=gen, device=cuda).to(torch.bfloat16)
     before = tgn.gn_silu_halo.launches
     out = tgn.gn_silu_halo(x, image_id, neighbors, mean, rstd, w, bias)
     ref = tgn.gn_silu_halo_reference(x, image_id, neighbors, mean, rstd, w,
@@ -242,17 +253,75 @@ def test_k4_matches_plain(cuda, grids, s, c):
     assert out.shape == (meta.p_pad, c, s + 2, s + 2)
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= K4_MAX_REL * ref.float().abs().max().item()
-    border = torch.from_numpy(meta.neighbors[:, 0] < 0).to(cuda)
-    assert (out[border][:, :, 0, :] == 0).all()  # top image border
+    nb = neighbors
+    for side, cells in ((0, out[nb[:, 0] < 0][:, :, 0, :]),
+                        (1, out[nb[:, 1] < 0][:, :, -1, :]),
+                        (2, out[nb[:, 2] < 0][:, :, :, 0]),
+                        (3, out[nb[:, 3] < 0][:, :, :, -1])):
+        assert (cells == 0).all(), side  # image borders are exactly 0
+
+
+def _sdxl_mix_meta():
+    """The CFG-doubled patch metadata of chip_smoke.py's SDXL mixed phase
+    (768^2 + 3 x 1024^2 in the default configuration): 128 patches."""
+    sc = default_config("sdxl").scheduler
+    cells = sc.patch_size // 8
+    grids = tuple(r // 8 // cells for r in (768, 1024, 1024, 1024))
+    return tpatching.double_meta(grids, cells, tuple(sc.patch_buckets),
+                                 tuple(sc.batch_buckets))
+
+
+@pytest.mark.cuda
+def test_k4_takes_bf16_affine_only(cuda):
+    """K4 reads the GroupNorm weight and bias as bf16 (the model's dtype);
+    a float32 affine raises instead of being converted."""
+    meta = tpatching.build_meta((2,), 8, (4, 8), (2,))
+    x = torch.zeros(meta.p_pad, 64, 8, 8, dtype=torch.bfloat16, device=cuda)
+    image_id = torch.from_numpy(meta.image_id).to(cuda)
+    neighbors = torch.from_numpy(meta.neighbors).to(cuda)
+    stats = torch.zeros(meta.i_pad, 32, device=cuda)
+    with pytest.raises(ValueError, match="weight/bias must be contiguous"):
+        tgn.gn_silu_halo(x, image_id, neighbors, stats, stats,
+                         torch.ones(64, device=cuda), torch.zeros(64,
+                                                                   device=cuda))
+
+
+@pytest.mark.cuda
+def test_patched_moments_and_k4_repeat_bitwise(cuda):
+    """The per-image moments combine the (P, G) partial sums in a fixed
+    order, so two calls on the same (P 128, s 32, C 320) patch batch give
+    the same bits, and so does the fused op."""
+    meta = _sdxl_mix_meta()
+    assert meta.p_pad == 128
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x = (1.5 * torch.randn(meta.p_pad, 320, 32, 32, generator=gen,
+                           device=cuda) + 0.2).to(torch.bfloat16)
+    image_id = torch.from_numpy(meta.image_id).to(cuda)
+    neighbors = torch.from_numpy(meta.neighbors).to(cuda)
+    w = torch.randn(320, generator=gen, device=cuda).to(torch.bfloat16)
+    bias = torch.randn(320, generator=gen, device=cuda).to(torch.bfloat16)
+    first = tgn.moments(x, image_id, meta.i_pad, 32)
+    second = tgn.moments(x, image_id, meta.i_pad, 32)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    args = (x, w, bias, image_id, neighbors, meta.i_pad, 32, 1e-5)
+    assert torch.equal(tgn.gn_silu_haloed(*args), tgn.gn_silu_haloed(*args))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,lq,lk,d,heads", [
     (4, 1024, 77, 1280, 20),   # SDXL level-2 text cross-attention
+    (4, 4096, 77, 640, 10),    # SDXL level 1, dense pair with CFG
+    (128, 256, 77, 640, 10),   # SDXL patch path: per-patch K/V, level 1
+    (128, 64, 77, 1280, 20),   # SDXL patch path, level 2
     (4, 4096, 77, 320, 8),     # SD-1.5 level 0, hd 40
+    (32, 1024, 77, 320, 8),    # SD-1.5 patch path, level 0
+    (32, 64, 77, 1280, 8),     # SD-1.5 patch path, level 2, hd 160
+    (4, 64, 64, 1280, 8),      # SD-1.5 512^2 mid block self-attention
     (2, 1000, 77, 640, 8),     # hd 80, ragged query tile
-    (2, 1000, 256, 1280, 8),   # hd 160 at the most keys it holds
+    (2, 1000, 256, 1280, 8),   # hd 160 at the most keys it holds: 2 chunks
+    (2, 300, 129, 640, 10),    # a second chunk with one key
     (3, 100, 5, 640, 10),      # one short key tile
+    (2, 50, 1, 320, 8),        # one key, hd 40
 ])
 def test_k5_matches_plain(cuda, b, lq, lk, d, heads):
     gen = torch.Generator(device=cuda).manual_seed(5)
@@ -268,6 +337,22 @@ def test_k5_matches_plain(cuda, b, lq, lk, d, heads):
     diff, ref = out.float() - ref.float(), ref.float()
     assert diff.abs().max().item() <= K1_MAX_REL * ref.abs().max().item()
     assert (diff.norm() / ref.norm()).item() <= K1_RMS_REL
-    # not routed: the dispatcher keeps text cross-attention plain
+    # routed: the dispatcher sends fewer than FLASH_MIN_KV keys to K5
     tattn.masked_attention(q, k, v, heads)
-    assert tflash.flash_cross_short.launches == before + 1
+    assert tflash.flash_cross_short.launches == before + (
+        2 if lk < tattn.FLASH_MIN_KV else 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [-0.125, 0.0])
+def test_k5_scale_sign(cuda, scale):
+    """K5 folds a positive scale into its exponent; a negative one negates
+    Q, and 0 weighs every key the same."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    q = _randn(gen, 2, 300, 640, device=cuda)
+    k, v = (_randn(gen, 2, 77, 640, device=cuda) for _ in range(2))
+    out = tflash.flash_cross_short(q, k, v, 10, scale)
+    ref = tflash.flash_cross_short_reference(q, k, v, 10, scale)
+    diff, ref = out.float() - ref.float(), ref.float()
+    assert diff.abs().max().item() <= K1_MAX_REL * ref.abs().max().item()
+    assert (diff.norm() / ref.norm()).item() <= K1_RMS_REL

@@ -15,7 +15,8 @@ held against each JAX kernel it replaces: the aligned two-pass kernel
 kernel (``force_online=True``, K3b).  SD-1.5's head dims 40/80/160 are held
 against the JAX kernels like tests/test_flash.py holds them.  K5's plain
 version is held against ``flash_cross_short(..., interpret=True)`` on the
-cases of tests/test_flash.py.  The CUDA kernels themselves are
+cases of tests/test_flash.py, and the dispatcher's short-key route to K5
+against the JAX dense path.  The CUDA kernels themselves are
 held against the plain versions by tests/test_torch_cuda.py (on a card)
 and by chip_smoke.py.  float32 tolerance: RTOL 2e-4, ATOL 5e-4.
 """
@@ -33,6 +34,7 @@ from sduss_tpu.ops.attention import _dense_masked as jax_dense_masked
 from sduss_tpu.ops.flash import flash_cross_short as jax_flash_cross_short
 from sduss_tpu.ops.flash import flash_mha as jax_flash_mha
 from sduss_tpu.ops.flash import flash_mha_fused as jax_flash_mha_fused
+from sduss_tpu_torch.models import layers as tlayers
 from sduss_tpu_torch.ops import _build
 from sduss_tpu_torch.ops import attention as tattn
 from sduss_tpu_torch.ops import flash as tflash
@@ -215,37 +217,84 @@ def test_cross_short_plain_matches_jax_kernel(lq, lk, heads, hd):
     (77, 640, 3, "head dim"),       # D not a multiple of the heads
 ])
 def test_cross_short_rejects(lk, d, heads, match):
-    q = torch.zeros(1, 64, d)
-    k = torch.zeros(1, lk, d)
+    """What the kernel does not take raises before a launch (a meta tensor
+    goes the way of a CUDA one, without a card): 257 keys on any device, a
+    head dim outside 40/64/80/160 on the kernel's path."""
+    q = torch.zeros(1, 64, d, device="meta")
+    k = torch.zeros(1, lk, d, device="meta")
     with pytest.raises(ValueError, match=match):
         tflash.flash_cross_short(q, k, k, heads, 0.1)
 
 
+def test_cross_short_cpu_takes_any_head_dim():
+    """On the CPU K5's wrapper is its plain version at any head dim (the
+    tiny test models' 16 and 32 route to it); 257 keys still raise."""
+    q, k = torch.randn(2, 40, 48), torch.randn(2, 77, 48)
+    out = tflash.flash_cross_short(q, k, k, 3, 0.25)
+    np.testing.assert_allclose(
+        out.numpy(), tlayers.attention(q, k, k, 3, scale=0.25).numpy(),
+        rtol=RTOL, atol=ATOL)
+    with pytest.raises(ValueError, match="at most 256"):
+        tflash.flash_cross_short(q, torch.randn(2, 257, 48),
+                                 torch.randn(2, 257, 48), 3, 0.25)
+
+
 def test_cross_short_is_not_routed(monkeypatch):
-    """As in the JAX package, the dispatcher keeps text cross-attention on
-    the plain path: K5 is never called."""
+    """K5 is not routed what is not its function: a key mask goes to the
+    masked kernel at any key length, 128 keys or more to K1."""
     def refuse(*args, **kwargs):
         raise AssertionError("the dispatcher routed to flash_cross_short")
 
-    monkeypatch.setattr(tflash, "flash_cross_short", refuse)
+    monkeypatch.setattr(tattn, "flash_cross_short", refuse)
     q, k = torch.randn(2, 256, 320), torch.randn(2, 77, 320)
-    out = tattn.masked_attention(q, k, k, 8)
+    mask = torch.ones(2, 77, dtype=torch.bool)
+    out = tattn.masked_attention(q, k, k, 8, kv_token_mask=mask)
     np.testing.assert_allclose(
         out.numpy(), tflash.flash_cross_short_reference(q, k, k, 8,
                                                         40 ** -0.5).numpy(),
         rtol=RTOL, atol=ATOL)
+    long_k = torch.randn(2, tattn.FLASH_MIN_KV, 320)
+    out = tattn.masked_attention(q, long_k, long_k, 8)
+    np.testing.assert_allclose(
+        out.numpy(), tflash.flash_mha_fused_reference(
+            q, long_k, long_k, 8, 40 ** -0.5).numpy(), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("lk", [1, 77, 127])
+def test_short_kv_routes_to_cross_short(monkeypatch, lk):
+    """Unmasked attention over fewer than FLASH_MIN_KV keys (text
+    cross-attention) goes to K5, and on the CPU gives the JAX dense
+    path's values."""
+    calls = []
+
+    def spy(q, k, v, num_heads, scale):
+        calls.append((tuple(k.shape), num_heads, scale))
+        return tflash.flash_cross_short_reference(q, k, v, num_heads, scale)
+
+    monkeypatch.setattr(tattn, "flash_cross_short", spy)
+    q, k, v = _mk(2, 100, lk, 320, seed=lk)
+    out = tattn.masked_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                 torch.from_numpy(v), 8)
+    assert calls == [((2, lk, 320), 8, 40 ** -0.5)]
+    ref = jax_dense_masked(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 8,
+                           None, 40 ** -0.5)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=RTOL,
+                               atol=ATOL)
 
 
 @pytest.mark.parametrize("masked", [False, True])
 def test_dense_masked_matches_jax(masked):
+    """The plain attention layer (the CPU's reference for every kernel
+    route, and the K-less route of CLIP and T5) with an optional key mask
+    against the JAX dense path."""
     q, k, v = _mk(3, 40, 77, 128, seed=2)
     mask = np.random.default_rng(3).random((3, 77)) > 0.3 if masked else None
     ref = jax_dense_masked(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 2,
                            None if mask is None else jnp.asarray(mask), 0.125)
-    out = tattn._dense_masked(torch.from_numpy(q), torch.from_numpy(k),
-                              torch.from_numpy(v), 2,
-                              None if mask is None else torch.from_numpy(mask),
-                              0.125)
+    out = tlayers.attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), 2,
+        mask=None if mask is None else torch.from_numpy(mask)[:, None, None, :],
+        scale=0.125)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=RTOL, atol=ATOL)
 
 
@@ -333,16 +382,20 @@ def test_masked_plain_all_valid_equals_unmasked():
 @pytest.mark.parametrize("lk,masked,to_k1", [
     (256, False, True),     # SDXL self-attention (shortest, 512^2 level 2)
     (4096, False, True),    # SDXL 1024^2 level 1 self-attention
-    (77, False, False),     # text cross-attention stays plain
+    (77, False, False),     # text cross-attention: K5
     (256, True, False),     # key mask (patch path): the masked kernel
     (77, True, False),      # a key mask at any key length: masked kernel
 ])
 def test_masked_attention_routing(monkeypatch, lk, masked, to_k1):
-    calls, masked_calls = [], []
+    calls, masked_calls, cross_calls = [], [], []
 
     def spy(q, k, v, num_heads, scale):
         calls.append((tuple(q.shape), tuple(k.shape), num_heads, scale))
         return tflash.flash_mha_fused_reference(q, k, v, num_heads, scale)
+
+    def cross_spy(q, k, v, num_heads, scale):
+        cross_calls.append((tuple(k.shape), num_heads, scale))
+        return tflash.flash_cross_short_reference(q, k, v, num_heads, scale)
 
     def masked_spy(q, k, v, kv_mask, num_heads, scale):
         masked_calls.append((tuple(kv_mask.shape), num_heads, scale))
@@ -351,6 +404,7 @@ def test_masked_attention_routing(monkeypatch, lk, masked, to_k1):
 
     monkeypatch.setattr(tattn, "flash_mha_fused", spy)
     monkeypatch.setattr(tattn, "flash_mha_masked", masked_spy)
+    monkeypatch.setattr(tattn, "flash_cross_short", cross_spy)
     q = torch.randn(1, 8, 128)
     k = v = torch.randn(1, lk, 128)
     mask = torch.ones(1, lk, dtype=torch.bool) if masked else None
@@ -359,6 +413,9 @@ def test_masked_attention_routing(monkeypatch, lk, masked, to_k1):
     assert bool(calls) == to_k1
     assert masked_calls == ([((1, lk), 2, 1.0 / math.sqrt(64))] if masked
                             else [])
+    short = not masked and lk < tattn.FLASH_MIN_KV
+    assert cross_calls == ([((1, lk, 128), 2, 1.0 / math.sqrt(64))] if short
+                           else [])
     if to_k1:
         assert calls[0][2:] == (2, 1.0 / math.sqrt(64))
 
@@ -368,11 +425,12 @@ def test_masked_attention_routing(monkeypatch, lk, masked, to_k1):
     (1357, 1536, "k1"),       # SD3 512^2 joint attention: 4.0 MiB
     (2304, 1536, "flash_mha"),  # SD3 768^2 dual attention: 6.75 MiB
     (4429, 1536, "flash_mha"),  # SD3 1024^2 joint attention: 13 MiB
-    (77, 1536, "plain"),      # short text keys stay plain
+    (77, 1536, "k5"),         # short text keys: K5
 ])
 def test_wide_key_rows_route_to_flash_mha(monkeypatch, lk, d, route):
     """The JAX K-row gate (attention.py:128-130): unmasked attention whose K
-    row exceeds 6 MiB (bf16) goes to flash_mha (K2a), narrower rows to K1."""
+    row exceeds 6 MiB (bf16) goes to flash_mha (K2a), narrower rows to K1,
+    fewer than FLASH_MIN_KV keys to K5."""
     calls = []
 
     def spy(name, ref):
@@ -385,11 +443,13 @@ def test_wide_key_rows_route_to_flash_mha(monkeypatch, lk, d, route):
                         spy("k1", tflash.flash_mha_fused_reference))
     monkeypatch.setattr(tattn, "flash_mha",
                         spy("flash_mha", tflash.flash_mha_reference))
+    monkeypatch.setattr(tattn, "flash_cross_short",
+                        spy("k5", tflash.flash_cross_short_reference))
     q = torch.randn(1, 4, d)
     k = v = torch.randn(1, lk, d)
     out = tattn.masked_attention(q, k, v, d // 64)
     assert out.shape == q.shape
-    assert calls == ([] if route == "plain" else [route])
+    assert calls == [route]
 
 
 def test_cpu_wrapper_never_loads_kernel_library(monkeypatch):

@@ -132,3 +132,16 @@ def test_check_inputs_rejects(args, match):
     stats = torch.zeros(1, 4)
     with pytest.raises(ValueError, match=match):
         tgn.check_inputs(*args, stats, stats, torch.zeros(8), torch.zeros(8))
+
+
+@pytest.mark.parametrize("stats", [
+    torch.zeros(1, 4, dtype=torch.float64),
+    torch.zeros(1, 4, dtype=torch.bfloat16),
+    torch.zeros(1, 8)[:, ::2],
+])
+def test_check_inputs_rejects_moments(stats):
+    """The kernel folds the moments itself: they must be contiguous float32
+    (I, G)."""
+    with pytest.raises(ValueError, match="mean must be contiguous float32"):
+        tgn.check_inputs(_bf(2, 8, 4, 4), _i32(2), _i32(2, 8), stats, stats,
+                         torch.zeros(8), torch.zeros(8))

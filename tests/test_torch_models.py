@@ -26,6 +26,7 @@ from sduss_tpu_torch.models import convert as tconvert
 from sduss_tpu_torch.models import unet as tunet
 from sduss_tpu_torch.models import vae as tvae
 from sduss_tpu_torch.models.convert import jax_to_torch_state_dict
+from sduss_tpu_torch.ops import attention as tattn
 
 RTOL = 2e-4
 ATOL = 5e-4
@@ -45,6 +46,25 @@ def np_params(init, seed: int):
 
     shapes = jax.eval_shape(init, jax.random.key(0))
     return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+def spy_cross_short(monkeypatch) -> list:
+    """Count the dispatcher's calls of K5 (``flash_cross_short``): the
+    returned list gets each call's key count; the call itself goes on."""
+    calls, real = [], tattn.flash_cross_short
+
+    def spy(q, k, v, num_heads, scale):
+        calls.append(k.shape[1])
+        return real(q, k, v, num_heads, scale)
+
+    monkeypatch.setattr(tattn, "flash_cross_short", spy)
+    return calls
+
+
+def cross_attentions(model) -> int:
+    """Cross-attentions of one UNet forward: one per transformer block."""
+    return sum(isinstance(m, tunet.BasicTransformerBlock)
+               for m in model.modules())
 
 
 def _load(module, sd):
@@ -104,7 +124,8 @@ def test_state_dict_round_trip(kind, request):
         np.testing.assert_array_equal(a, b)
 
 
-def test_tiny_sdxl_unet_forward(unet_params):
+def test_tiny_sdxl_unet_forward(unet_params, monkeypatch):
+    """Self-attention takes K1 (256 keys), each text cross-attention K5."""
     cfg = junet.TINY_SDXL_UNET
     p = unet_params
     rng = np.random.default_rng(0)
@@ -119,11 +140,13 @@ def test_tiny_sdxl_unet_forward(unet_params):
                     "time_ids": jnp.asarray(time_ids)})
     model = _load(tunet.UNet2DConditionModel(tunet.TINY_SDXL_UNET),
                   jax_to_torch_state_dict("unet", p))
+    calls = spy_cross_short(monkeypatch)
     with torch.no_grad():
         out = model(torch.from_numpy(x), torch.from_numpy(t),
                     torch.from_numpy(ehs),
                     added_cond={"text_embeds": torch.from_numpy(pooled),
                                 "time_ids": torch.from_numpy(time_ids)})
+    assert calls == [77] * cross_attentions(model) and calls
     _close(out, ref)
 
 

@@ -26,7 +26,7 @@ from sduss_tpu_torch.models import unet as tunet
 from sduss_tpu_torch.models.convert import jax_to_torch_state_dict
 from sduss_tpu_torch.ops import patching as tpatching
 from sduss_tpu_torch.ops.patch_ctx import PatchContext
-from test_torch_models import np_params
+from test_torch_models import cross_attentions, np_params, spy_cross_short
 
 PATCH_BUCKETS = (4, 8, 16, 32, 64)
 IMAGE_BUCKETS = (2, 4, 8, 16)
@@ -82,11 +82,15 @@ def _port_patched(port, meta, x, per_img):
 
 @pytest.mark.parametrize("grids,seed", [((2,), 0), ((2, 4), 1),
                                         ((2, 2, 4), 3)])
-def test_patched_matches_jax_and_dense(models, grids, seed):
+def test_patched_matches_jax_and_dense(models, grids, seed, monkeypatch):
+    """The patched forward sends each text cross-attention (per-patch K/V)
+    to K5."""
     cfg, params, port = models
     images, t, ehs, pooled, time_ids = _inputs(cfg, grids, seed)
     meta, x, per_img = _patch_batch(grids, images, t, ehs, pooled, time_ids)
+    calls = spy_cross_short(monkeypatch)
     got = _port_patched(port, meta, x, per_img)
+    assert calls == [77] * cross_attentions(port) and calls
     n = meta.n_patches
 
     jmeta = jpatching.build_meta(tuple(grids), CELLS, PATCH_BUCKETS,

@@ -52,11 +52,12 @@ def runs():
 
 @pytest.mark.parametrize("sampler", ["euler", "pndm"])
 @pytest.mark.parametrize("output_type", ["latent", "np"])
-def test_sd15_mixed_slice_matches_jax(runs, sampler, output_type):
+def test_sd15_mixed_slice_matches_jax(runs, sampler, output_type, tmp_path):
     latents, images, bundle = runs[sampler]
     config = default_config(dtype="float32", test_tiny=True, sampler=sampler)
     config.scheduler.patch_size = PATCH
     config.engine.collect_data = True
+    config.engine.collect_dir = str(tmp_path)
     assert config.scheduler.use_mixed_resolution
     port = DiffusionPipeline(config=config, device="cpu", bundle=bundle)
     outs = port.generate([PROMPTS[i % 2] for i in range(len(MIXED_RES))],

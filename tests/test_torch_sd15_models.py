@@ -32,7 +32,7 @@ from sduss_tpu_torch.models.convert import jax_to_torch_state_dict
 from sduss_tpu_torch.models.registry import ModelBundle
 from sduss_tpu_torch.ops import patching as tpatching
 from sduss_tpu_torch.ops.patch_ctx import PatchContext
-from test_torch_models import np_params
+from test_torch_models import cross_attentions, np_params, spy_cross_short
 
 RTOL = 2e-4
 ATOL = 5e-4
@@ -110,16 +110,18 @@ def _inputs(cfg, n, seed, hw=32):
     return x, t, ehs
 
 
-def test_tiny_unet_dense_forward(tiny):
+def test_tiny_unet_dense_forward(tiny, monkeypatch):
     """Level 0 (1024 tokens) and the mid block (256 tokens) take the K1
-    route; level 1 has no attention."""
+    route, each text cross-attention K5; level 1 has no attention."""
     cfg, params, port = tiny
     x, t, ehs = _inputs(cfg, 2, 0)
     ref = jax.jit(junet.UNet2DConditionModel(cfg).apply)(
         params, jnp.asarray(x), jnp.asarray(t), jnp.asarray(ehs))
+    calls = spy_cross_short(monkeypatch)
     with torch.no_grad():
         out = port(torch.from_numpy(x), torch.from_numpy(t),
                    torch.from_numpy(ehs))
+    assert calls == [77] * cross_attentions(port) and calls
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=RTOL,
                                atol=ATOL)
 
@@ -130,10 +132,10 @@ def _pad(a, rows):
 
 
 @pytest.mark.parametrize("grids,seed", [((1, 2), 1), ((1, 2, 3), 2)])
-def test_tiny_unet_patched(tiny, grids, seed):
+def test_tiny_unet_patched(tiny, grids, seed, monkeypatch):
     """One mixed patch batch through the JAX ``apply(ctx=...)`` and the
-    port's ``forward(ctx=...)``; each image also against the port's dense
-    forward."""
+    port's ``forward(ctx=...)`` (each text cross-attention on K5); each
+    image also against the port's dense forward."""
     cfg, params, port = tiny
     rng = np.random.default_rng(seed)
     images = [rng.standard_normal((1, g * CELLS, g * CELLS, 4)).astype(np.float32)
@@ -145,9 +147,11 @@ def test_tiny_unet_patched(tiny, grids, seed):
                                                     CELLS).numpy()
                              for im in images]), meta.p_pad)
     tp, ehsp = _pad(t, meta.i_pad), _pad(ehs, meta.i_pad)
+    calls = spy_cross_short(monkeypatch)
     with torch.no_grad():
         got = port(torch.from_numpy(x), torch.from_numpy(tp),
                    torch.from_numpy(ehsp), ctx=PatchContext(meta, "cpu")).numpy()
+    assert calls == [77] * cross_attentions(port) and calls
     jmeta = jpatching.build_meta(tuple(grids), CELLS, PATCH_BUCKETS,
                                  IMAGE_BUCKETS)
     want = jax.jit(lambda p, x, t, e: junet.UNet2DConditionModel(cfg).apply(

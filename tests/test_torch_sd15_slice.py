@@ -13,6 +13,8 @@ patch path with Euler and PNDM is in tests/test_torch_sd15_mixed.py.
 
 from __future__ import annotations
 
+import csv
+
 import jax
 import numpy as np
 import pytest
@@ -88,12 +90,13 @@ def bundle(jax_pipes):
 @pytest.mark.parametrize("sampler", ["euler", "ddim"])
 @pytest.mark.parametrize("output_type", ["latent", "np"])
 def test_sd15_dense_slice_matches_jax(jax_pipes, bundle, sampler,
-                                      output_type):
+                                      output_type, tmp_path):
     jout = jax_pipes[sampler].generate(PROMPTS, output_type=output_type,
                                        **KW)
     config = default_config(dtype="float32", test_tiny=True, sampler=sampler)
     config.scheduler.use_mixed_resolution = False
     config.engine.collect_data = True
+    config.engine.collect_dir = str(tmp_path)
     port = DiffusionPipeline(config=config, device="cpu", bundle=bundle)
     tout = port.generate(PROMPTS, output_type=output_type, **KW)
     assert port.engine.worker.pipeline.sampler.kind == sampler
@@ -101,6 +104,37 @@ def test_sd15_dense_slice_matches_jax(jax_pipes, bundle, sampler,
                if e["stage"] == "denoising"]
     assert sorted(set(denoise)) == ["128x1", "64x1"]
     assert_outputs_close(tout, [o.image for o in jout], output_type)
+
+
+def test_collect_data_writes_the_jax_files(jax_pipes, bundle, tmp_path,
+                                           monkeypatch):
+    """With ``engine.collect_data`` on, ``generate`` writes
+    ``request_data.csv`` and ``schedule_rank0.csv`` to
+    ``engine.collect_dir`` with the JAX package's headers
+    (engine.py ``dump_data``); the schedule CSV has one row per entry of
+    the worker's schedule log."""
+    jpipe = jax_pipes["euler"]
+    monkeypatch.setattr(jpipe.config.engine, "collect_data", True)
+    monkeypatch.setattr(jpipe.config.engine, "collect_dir",
+                        str(tmp_path / "jax"))
+    jpipe.generate(PROMPTS, output_type="latent", **KW)
+    config = default_config(dtype="float32", test_tiny=True)
+    config.scheduler.use_mixed_resolution = False
+    config.engine.collect_data = True
+    config.engine.collect_dir = str(tmp_path / "port")
+    port = DiffusionPipeline(config=config, device="cpu", bundle=bundle)
+    port.generate(PROMPTS, output_type="latent", **KW)
+    for name in ("request_data.csv", "schedule_rank0.csv"):
+        jax_lines = (tmp_path / "jax" / name).read_text().splitlines()
+        port_lines = (tmp_path / "port" / name).read_text().splitlines()
+        assert port_lines[0] == jax_lines[0]
+    with open(tmp_path / "port" / "schedule_rank0.csv", newline="") as f:
+        rows = list(csv.DictReader(f))
+    log = port.engine.worker.schedule_log
+    assert len(rows) == len(log) > 0
+    assert [r["stage"] for r in rows] == [e["stage"] for e in log]
+    with open(tmp_path / "port" / "request_data.csv", newline="") as f:
+        assert len(list(csv.DictReader(f))) == len(PROMPTS)
 
 
 def test_default_pipeline_is_sd15():

@@ -254,10 +254,11 @@ def mixed_jax(both):
 
 
 @pytest.mark.parametrize("output_type", ["latent", "np"])
-def test_sd3_mixed_slice_matches_jax(both, mixed_jax, output_type):
+def test_sd3_mixed_slice_matches_jax(both, mixed_jax, output_type, tmp_path):
     config = default_config("sd3", dtype="float32", test_tiny=True,
                             resolutions=RESOLUTIONS)
     config.engine.collect_data = True
+    config.engine.collect_dir = str(tmp_path)
     port = DiffusionPipeline(config=config, device="cpu",
                              bundle=both[1].engine.worker.pipeline.bundle)
     outs = port.generate([PROMPTS[i % 2] for i in range(len(MIXED_RES))],

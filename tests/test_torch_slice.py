@@ -114,10 +114,11 @@ def mixed_jax(both):
 
 
 @pytest.mark.parametrize("output_type", ["latent", "np"])
-def test_mixed_slice_matches_jax(both, mixed_jax, output_type):
+def test_mixed_slice_matches_jax(both, mixed_jax, output_type, tmp_path):
     tpipe = both[1]
     config = _mixed_config(default_config("sdxl", dtype="float32",
                                           test_tiny=True))
+    config.engine.collect_dir = str(tmp_path)
     port = DiffusionPipeline(config=config, device="cpu",
                              bundle=tpipe.engine.worker.pipeline.bundle)
     outs = port.generate([PROMPTS[i % 2] for i in range(len(MIXED_RES))],
