@@ -52,7 +52,21 @@ Phases (any failure propagates and the script exits non-zero):
      [512, 512, 768] with Euler, 8 steps; mixed [256, 512, 768] in the
      default configuration, Euler, 8 steps; the same mixed batch with PNDM
      (4 steps, 5 evaluations) and the dense one with DDIM (4 steps);
- 10. print the kernels' JSON line, then the result line
+ 10. the deep cache (``CacheConfig.mode="deep"``, dense path): with the
+     SDXL bundle, one full-width UNet forward at 1024^2 (2 requests, CFG)
+     in ``deep_mode`` full (equal to the plain forward within one bf16
+     ulp), shallow from that deep feature and partial with one selected
+     request (both within 5e-2 of the full pass); 8 x 1024^2 requests, 30
+     Euler steps, under ``CacheConfig.production("sdxl", serving=False)``
+     (the bench's default trajectory), then the same run cache-off: the
+     images, finite final latents, at least one full and one shallow
+     step, K1 and K5 launches exactly 70 per full step, the step time of
+     each mode, the row-cache bytes, the peak memory and both runs' wall
+     time; with the SD-1.5 bundle, ``production("sd15", serving=True)``
+     under ESyMReD: two 512^2 requests and a third added through
+     ``Engine.add_request`` once they have taken 4 steps, 16 Euler steps,
+     at least one partial step and exact K1/K5 launches per mode;
+ 11. print the kernels' JSON line, then the result line
      ``{"ok": true, "device": {...}}`` last.
 """
 
@@ -69,6 +83,7 @@ import torch
 import torch.nn.functional as F
 
 from sduss_tpu_torch import configure_numerics
+from sduss_tpu_torch.config import CacheConfig
 from sduss_tpu_torch.entrypoints.offline import DiffusionPipeline, default_config
 from sduss_tpu_torch.models import mmdit
 from sduss_tpu_torch.models.registry import ModelBundle
@@ -87,6 +102,7 @@ from sduss_tpu_torch.ops.flash import (flash_cross_short,
 from sduss_tpu_torch.ops.gn_halo import (gn_silu_halo, gn_silu_halo_reference,
                                          gn_silu_haloed, moments)
 from sduss_tpu_torch.ops.patch_ctx import PatchContext
+from sduss_tpu_torch.pipelines.base import _state_nbytes
 from sduss_tpu_torch.request import Request, SamplingParams
 
 # K1 against its plain version (float32 softmax(q k^T) v, rounded to bf16
@@ -200,6 +216,14 @@ SD15_REQUESTS = [512, 512, 768]
 SD15_MIXED_REQUESTS = [256, 512, 768]
 SD15_SAMPLER_STEPS = 4  # the PNDM (mixed) and DDIM (dense) runs
 STEPS = 8
+# The deep cache: the full pass against the plain forward is the same op
+# sequence (any gap above one bf16 ulp means a wrong capture point); the
+# shallow and partial passes against the full one take PATCH_BOUND.
+DEEP_FULL_MAX_REL = 2.0 ** -7
+DEEP_REQUESTS = [1024] * 8
+DEEP_STEPS = 30
+DEEP_SD15_STEPS = 16
+DEEP_SD15_RES = 512
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
@@ -1078,6 +1102,234 @@ def sd15_self_attention_keys(cfg, res: int) -> list:
     return keys + [((res // 8) >> (n_levels - 1)) ** 2] * mid
 
 
+def deep_launches(cfg, res: int, boundary: int = 1) -> dict:
+    """K1 and K5 launches of one dense deep step per mode at ``res``^2: a
+    full or partial step runs every transformer (each self-attention over
+    >= FLASH_MIN_KV keys on K1, a shorter one on K5, each text
+    cross-attention on K5); a shallow step the levels < boundary (the
+    gated pairs' one call each on the gathered rows)."""
+    keys = sd15_self_attention_keys(cfg, res)
+    spine = []
+    for lvl in range(boundary):
+        if cfg.down_block_has_attn[lvl]:
+            spine += [((res // 8) >> lvl) ** 2] * (
+                (2 * cfg.layers_per_block + 1) * cfg.transformer_layers[lvl])
+
+    def count(ks):
+        return {"k1": sum(k >= FLASH_MIN_KV for k in ks),
+                "k5": len(ks) + sum(k < FLASH_MIN_KV for k in ks)}
+
+    return {"full": count(keys), "partial": count(keys),
+            "shallow": count(spine)}
+
+
+def spy_deep(pipe) -> list:
+    """Record every deep step of ``pipe``: its mode (from the deep step
+    call), CUDA events around the whole group step and the bytes of the
+    hybrid's row caches after it.  Also checks that the final latents
+    entering the VAE decode are finite (the uint8 cast would hide NaN)."""
+    steps = []
+    group, step, decode = (pipe._denoise_group_deep, pipe._deep_step,
+                           pipe._decode_fn)
+
+    def deep_step(mode, *args):
+        steps[-1]["mode"] = mode
+        return step(mode, *args)
+
+    def group_deep(*args):
+        rec = {"start": torch.cuda.Event(enable_timing=True),
+               "end": torch.cuda.Event(enable_timing=True)}
+        steps.append(rec)
+        rec["start"].record()
+        out = group(*args)
+        rec["end"].record()
+        rec["state_bytes"] = sum(_state_nbytes(e["state"])
+                                 for e in pipe._comp_state.values())
+        return out
+
+    def decode_fn(latents):
+        if not torch.isfinite(latents).all():
+            raise AssertionError("non-finite final latents")
+        return decode(latents)
+
+    pipe._denoise_group_deep = group_deep
+    pipe._deep_step = deep_step
+    pipe._decode_fn = decode_fn
+    return steps
+
+
+def report_deep(steps, label: str, card: str) -> dict:
+    """Print each mode's step time (CUDA events around the group step)."""
+    torch.cuda.synchronize()
+    by_mode: dict = {}
+    for rec in steps:
+        by_mode.setdefault(rec["mode"], []).append(
+            rec["start"].elapsed_time(rec["end"]))
+    for mode, ms in sorted(by_mode.items()):
+        print(f"deep step {label}, {mode}: {len(ms)} steps, mean "
+              f"{np.mean(ms):.2f} ms (min {np.min(ms):.2f}, max "
+              f"{np.max(ms):.2f}; CUDA events) [{card}]")
+    return {mode: len(ms) for mode, ms in by_mode.items()}
+
+
+def check_deep_invariant(bundle: ModelBundle, card: str) -> None:
+    """One full-width SDXL UNet forward at 1024^2 (2 requests, CFG: 4 rows,
+    bf16) in each deep mode at boundary 1 against the plain forward."""
+    unet = bundle.denoiser
+    gen = torch.Generator(device="cuda").manual_seed(4)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    x = rand(4, 128, 128, 4)
+    t = torch.tensor([700.0, 300.0, 700.0, 300.0], device="cuda")
+    ehs = rand(4, 77, unet.cfg.cross_attention_dim)
+    added = {"text_embeds": rand(4, unet.cfg.addition_embed[1]),
+             "time_ids": torch.tensor([[1024.0, 1024, 0, 0, 1024, 1024]] * 4,
+                                      device="cuda")}
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max()
+                / b.float().abs().max()).item()
+
+    with torch.inference_mode():
+        args = (x, t, ehs)
+        plain = unet(*args, added_cond=added)
+        full, feat = unet(*args, added_cond=added, deep_mode="full",
+                          deep_boundary=1)
+        shallow, _ = unet(*args, added_cond=added, deep_mode="shallow",
+                          deep_state=feat, deep_boundary=1)
+        carry = torch.zeros_like(feat)
+        part, _ = unet(*args, added_cond=added, deep_mode="partial",
+                       deep_state=carry, deep_boundary=1,
+                       deep_sel=torch.tensor([0], device="cuda"))
+    errs = {"full vs plain": (rel(full, plain), DEEP_FULL_MAX_REL),
+            "shallow vs full": (rel(shallow, full), PATCH_BOUND),
+            "partial vs full, selected rows": (
+                rel(part[[0, 2]], full[[0, 2]]), PATCH_BOUND),
+            "partial feature vs full, selected rows": (
+                rel(carry[[0, 2]], feat[[0, 2]]), PATCH_BOUND)}
+    print(f"SDXL deep feature at 1024^2, boundary 1: {tuple(feat.shape)} "
+          f"{feat.dtype} ({feat[:2].numel() * feat.element_size() / 1e6:.1f} "
+          f"MB a request) [{card}]")
+    for name, (err, bnd) in errs.items():
+        print(f"SDXL UNet deep mode {name}: max err / max |ref| {err:.3e} "
+              f"(bound {bnd:.3e}) [{card}]")
+        if not (np.isfinite(err) and err <= bnd):
+            raise AssertionError(f"deep mode {name}: {err} > {bnd}")
+    if carry[[1, 3]].abs().max().item() != 0:
+        raise AssertionError("partial wrote an unselected row's feature")
+
+
+def serve_sdxl_deep(card: str, bundle: ModelBundle) -> list:
+    """8 x 1024^2 SDXL requests, 30 Euler steps, guidance 5.0, under the
+    bench's default trajectory (``CacheConfig.production("sdxl",
+    serving=False)``), then the same requests cache-off."""
+    prompts = [f"an image of scene {i}, detailed" for i in range(8)]
+    runs = []
+    for cache in (CacheConfig.production("sdxl", serving=False),
+                  CacheConfig()):
+        torch.cuda.reset_peak_memory_stats()
+        config = default_config("sdxl", dtype="bfloat16", seed=0)
+        config.scheduler.use_mixed_resolution = False
+        config.engine.collect_data = True
+        config.cache = cache
+        pipe = DiffusionPipeline(config=config, device="cuda", bundle=bundle)
+        steps = spy_deep(pipe.engine.worker.pipeline)
+        reset_counts()
+        t0 = time.perf_counter()
+        outs = pipe.generate(prompts, resolution=DEEP_REQUESTS,
+                             num_inference_steps=DEEP_STEPS,
+                             guidance_scale=5.0, seed=2024)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_counts()
+        runs.append(got)
+        check_outputs(outs, DEEP_REQUESTS, card)
+        label = "on" if cache.enabled else "off"
+        step_gaps(pipe.engine.worker.schedule_log,
+                  f"{DEEP_REQUESTS[0]}x{len(DEEP_REQUESTS)}",
+                  f"SDXL 8 x 1024^2 cache {label} (schedule log)", card)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"SDXL 8 x 1024^2, {DEEP_STEPS} steps, cache {label}: "
+              f"end to end {wall:.3f} s, launches {got}, "
+              f"max_memory_allocated {peak / 2**30:.2f} GiB [{card}]")
+        if not cache.enabled:
+            continue
+        modes = report_deep(steps, "SDXL 8 x 1024^2 (16 rows)", card)
+        state = max(rec["state_bytes"] for rec in steps)
+        print(f"SDXL hybrid row caches: {state / 1e9:.3f} GB at bucket 8 "
+              f"[{card}]")
+        per = deep_launches(bundle.denoiser.cfg, DEEP_REQUESTS[0])
+        want = {k: sum(per[m][k] * n for m, n in modes.items())
+                for k in ("k1", "k5")}
+        print(f"deep modes {modes}; K1/K5 expected {want}")
+        if (modes.get("full", 0) < 1 or modes.get("shallow", 0) < 1
+                or sum(modes.values()) != DEEP_STEPS):
+            raise AssertionError(f"deep modes {modes}")
+        if bundle.denoiser.cfg == unet_mod.SDXL_UNET and (
+                per["full"] != {"k1": 70, "k5": 70}
+                or per["shallow"] != {"k1": 0, "k5": 0}):
+            raise AssertionError(f"SDXL launches per deep step {per}")
+        if {k: got[k] for k in want} != want \
+                or got["masked"] or got["k4"] or got["flash_mha"]:
+            raise AssertionError(f"SDXL deep launches {got} != {want}")
+    return runs
+
+
+def serve_sd15_rowwarm(card: str, bundle: ModelBundle) -> dict:
+    """``production("sd15", serving=True)`` (row-granular warmup) under
+    ESyMReD, whose admissions join a running batch: two 512^2 requests,
+    then a third added once they have taken 4 denoising steps, so that
+    its warmup runs as partial steps.  A loose SLO keeps every request
+    admitted: the phase checks the cache, not SLO attainment."""
+    torch.cuda.reset_peak_memory_stats()
+    config = default_config("sd15", dtype="bfloat16", seed=0)
+    config.scheduler.use_mixed_resolution = False
+    config.scheduler.policy = "esymred"
+    config.scheduler.slo_scale = 1e4
+    config.engine.collect_data = True
+    config.cache = CacheConfig.production("sd15", serving=True)
+    engine = DiffusionPipeline(config=config, device="cuda",
+                               bundle=bundle).engine
+    steps = spy_deep(engine.worker.pipeline)
+
+    def add(i):
+        return engine.add_request(f"rowwarm-{i}", SamplingParams(
+            prompt=f"a row warmup prompt {i}", resolution=DEEP_SD15_RES,
+            num_inference_steps=DEEP_SD15_STEPS, seed=i))
+
+    reset_counts()
+    t0 = time.perf_counter()
+    reqs, outs = [add(0), add(1)], []
+    while engine.has_unfinished_requests():
+        if len(reqs) == 2 and reqs[0].sampler_table is not None \
+                and reqs[0].sampler_table.step >= 4:
+            reqs.append(add(2))
+        outs.extend(engine.step())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_counts()
+    outs.sort(key=lambda o: o.request_id)
+    check_outputs(outs, [DEEP_SD15_RES] * 3, card)
+    modes = report_deep(steps, f"SD-1.5 {DEEP_SD15_RES}^2 row warmup", card)
+    per = deep_launches(bundle.denoiser.cfg, DEEP_SD15_RES)
+    want = {"k1": 0, "flash_mha": 0, "masked": 0, "k4": 0, "k5": 0}
+    for mode, n in modes.items():
+        for k in ("k1", "k5"):
+            want[k] += per[mode][k] * n
+    print(f"SD-1.5 row warmup: 3 requests in {wall:.3f} s; deep modes "
+          f"{modes} (per step {per}); launches {got} (expected {want}); "
+          f"max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    if modes.get("partial", 0) < 1:
+        raise AssertionError(f"no partial step: {modes}")
+    if got != want:
+        raise AssertionError(f"SD-1.5 row warmup launches {got} != {want}")
+    return got
+
+
 def reset_counts() -> None:
     flash_mha_fused.launches = flash_mha.launches = 0
     flash_mha_masked.launches = gn_silu_halo.launches = 0
@@ -1202,6 +1454,8 @@ def main() -> None:
     bundle = build_bundle()
     check_patched(bundle)
     runs = [serve(card, bundle), serve_mixed(card, bundle)]
+    check_deep_invariant(bundle, card)
+    runs += serve_sdxl_deep(card, bundle)
     # free each bundle so each family's peak memory reads alone
     del bundle
     gc.collect()
@@ -1220,6 +1474,7 @@ def main() -> None:
                    SD15_MIXED_REQUESTS),
         serve_sd15(card, sd15, False, "ddim", SD15_SAMPLER_STEPS,
                    SD15_REQUESTS),
+        serve_sd15_rowwarm(card, sd15),
     ]
     # launches: the sum over the serving paths, each read just after its run
     launches = {key: sum(r[key] for r in runs) for key in runs[0]}

@@ -1,0 +1,128 @@
+#!/usr/bin/env python3
+"""Where the time of a deep-cache step goes in the PyTorch/CUDA port.
+
+    python3 scripts/profile_deep_step.py [--steps 3] [--out FILE.json]
+
+Needs one CUDA card.  Builds the full-width SDXL and SD-1.5 pipelines of
+``sduss_tpu_torch`` (random bf16 weights from seed 0, TF32 off, dense
+path) and profiles, with ``scripts/profile_torch_step.py``'s ``profile``
+(wall ms by CUDA events, device-busy ms, device ms by op class):
+
+  1. SDXL 8 x 1024^2 (16 denoiser rows) under
+     ``CacheConfig.production("sdxl", serving=False)``, the bench's
+     default trajectory: ``--steps`` shallow steps, and ``--steps`` full
+     steps (each forced by an expired age, as the refresh policy forces
+     one);
+  2. SD-1.5 3 x 512^2 (bucket 4, 8 rows) under
+     ``production("sd15", serving=True)``: shallow, full and partial steps
+     (one request's deep feature dropped, as an admission has none).
+
+Each profiled mode is checked against the mode the pipeline ran.  The last
+line is a JSON object with every number; ``--out`` also writes it to a
+file.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+
+from profile_torch_step import (card_line, prepared, print_profile,  # noqa: E402
+                                profile)
+from sduss_tpu_torch import configure_numerics  # noqa: E402
+from sduss_tpu_torch.config import CacheConfig  # noqa: E402
+from sduss_tpu_torch.entrypoints.offline import default_config  # noqa: E402
+from sduss_tpu_torch.pipelines import build_pipeline  # noqa: E402
+from sduss_tpu_torch.pipelines.base import _state_nbytes  # noqa: E402
+
+CELLS = {"sdxl": (1024, 8, False), "sd15": (512, 3, True)}  # res, batch, serving
+
+
+def deep_pipeline(family: str, serving: bool):
+    config = default_config(family, dtype="bfloat16", seed=0)
+    config.scheduler.use_mixed_resolution = False
+    config.cache = CacheConfig.production(family, serving=serving)
+    pipe = build_pipeline(config, torch.device("cuda"))
+    modes, step = [], pipe._deep_step
+
+    def spy(mode, *args):
+        modes.append(mode)
+        return step(mode, *args)
+
+    pipe._deep_step = spy
+    return pipe, modes
+
+
+def profile_modes(family: str, steps: int, card: str) -> dict:
+    res, batch, serving = CELLS[family]
+    pipe, modes = deep_pipeline(family, serving)
+    reqs = prepared(pipe, batch, res, tag=family)
+    for _ in range(pipe.config.cache.deep_warmup + 1):  # past the warmup
+        pipe.denoise_step({res: reqs})
+
+    def shallow():
+        pipe.denoise_step({res: reqs})
+
+    def full():
+        for r in reqs:
+            r.deep_age = 10 ** 6  # the interval expired
+        pipe.denoise_step({res: reqs})
+
+    def partial():
+        reqs[0].deep_state = None  # an admission: no deep feature yet
+        pipe.denoise_step({res: reqs})
+
+    out = {}
+    runs = [("shallow", shallow), ("full", full)]
+    if serving:
+        runs.append(("partial", partial))
+    for mode, fn in runs:
+        del modes[:]
+        prof = profile(fn, steps)
+        if set(modes) != {mode}:
+            raise AssertionError(f"{family} {mode} profile ran {modes}")
+        print(f"{family} {batch} x {res}^2 {mode} step: wall "
+              f"{prof['wall_ms']:.2f} ms, device busy {prof['busy_ms']:.2f} "
+              f"ms ({prof['busy_ms'] / prof['wall_ms']:.1%}) [{card}]")
+        print_profile(prof)
+        out[mode] = prof
+    out["state_bytes"] = sum(_state_nbytes(e["state"])
+                             for e in pipe._comp_state.values())
+    print(f"{family} hybrid row caches {out['state_bytes'] / 1e9:.3f} GB "
+          f"[{card}]")
+    return out
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=3,
+                    help="timed steps per measurement")
+    ap.add_argument("--out", type=Path, help="also write the JSON here")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_deep_step: no CUDA device")
+    configure_numerics()
+    card = card_line()
+    print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+    result = {"card": card}
+    for family in CELLS:
+        t0 = time.perf_counter()
+        result[family] = profile_modes(family, args.steps, card)
+        print(f"{family} done in {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(result, indent=1))
+    print(json.dumps(result))
+
+
+if __name__ == "__main__":
+    main()

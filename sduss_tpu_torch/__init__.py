@@ -1,9 +1,9 @@
 """sduss_tpu_torch — the PyTorch/CUDA port of sduss_tpu for NVIDIA Hopper.
 
 The package mirrors ``sduss_tpu``'s layout module for module, so each
-port has an obvious counterpart.  It imports torch and numpy and never jax;
-the jax-free host modules of ``sduss_tpu`` (config, request, scheduler,
-metrics) are reused as imports.
+port has an obvious counterpart.  It imports torch and numpy and never jax
+nor ``sduss_tpu``: the host modules it needs (config, request, scheduler,
+metrics, logger) are copies of the JAX package's.
 
 Public seams keep the JAX package's layouts so the two packages compare
 like with like: latents are NHWC ``(B, H, W, C)``, attention inputs and

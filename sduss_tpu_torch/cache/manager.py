@@ -1,0 +1,199 @@
+"""Row gates of the deep x compact hybrid (counterpart of the parts of
+sduss_tpu/cache/manager.py that the dense UNet deep cache runs).
+
+Per gated block, per step, recompute only the most-drifted rows of the
+batch and splice cached outputs into the rest: ``gate_compact`` selects
+rows, ``gate_compact_pairs`` selects CFG pairs (both halves of an image
+recompute together).  The drift score is the relative MSE of a row's input
+against its input at its last recompute, or a trained per-block logistic
+over ``[rel_mse, t, hits]`` loaded from ``CacheConfig.classifier_path``;
+a row left unselected for ``max_hits`` gated steps outranks every other.
+
+State per gated block key, NCHW like the port's activations::
+
+    {"inp":  (R, C_in, s, s)   block input at the last recompute,
+     "out":  (R, C_out, s, s)  block output at the last recompute,
+     "hits": (R,) int32        gated steps since the last recompute,
+     # with CacheConfig.compact_predict (reuse-then-predict):
+     "slope": (R, C_out, s, s) output velocity per step,
+     "seen":  (R,) bool        the row has been recomputed once}
+
+The JAX package returns new state pytrees; the port updates the state in
+place, so the old and the new state are never held together (at SDXL
+1024^2, bucket 8, the rows are 2.35 GB).  The selection stays on the
+device: no gate reads a value back to the host.
+
+Not ported: mode "block" (``gate``), the patch path's
+``gate_compact_images`` and the MMDiT token variants (ROADMAP Queue 1
+items 5, 6 and 9).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import numpy as np
+import torch
+
+from sduss_tpu_torch.config import CacheConfig
+
+
+def top_k_stable(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the ``k`` largest scores, the lowest index first among
+    equal ones, as ``jax.lax.top_k`` orders them.  Ties are the normal case
+    here: forced rows all score ``1e6 + rel - threshold``, and float32 at
+    1e6 has a 0.0625 ulp.  ``torch.topk`` promises no order among ties."""
+    return torch.sort(scores, descending=True, stable=True).indices[:k]
+
+
+def _rows(v: torch.Tensor, ndim: int) -> torch.Tensor:
+    """A per-row vector shaped to broadcast over ``ndim``-dim rows."""
+    return v.reshape((-1,) + (1,) * (ndim - 1))
+
+
+class BlockCache:
+    """Decision and splice logic of one deployment; the state lives in
+    plain dicts of tensors owned by the caller."""
+
+    def __init__(self, config: CacheConfig):
+        self.config = config
+        # block key -> (w_mse, w_t, w_hits, bias)
+        self.classifiers: Dict[str, np.ndarray] = {}
+        if config.classifier_path:
+            data = np.load(config.classifier_path)
+            for k in data.files:
+                self.classifiers[k] = data[k]
+
+    # -- state -------------------------------------------------------------
+
+    def init_rows(self, key: str, n_rows: int, s: int, c_in: int, c_out: int,
+                  dtype=torch.bfloat16, device=None) -> dict:
+        """Fresh cache rows: zeros, with ``hits = max_hits`` so that the
+        first gated step selects every fresh row before any other."""
+        state = {
+            "inp": torch.zeros((n_rows, c_in, s, s), dtype=dtype,
+                               device=device),
+            "out": torch.zeros((n_rows, c_out, s, s), dtype=dtype,
+                               device=device),
+            "hits": torch.full((n_rows,), self.config.max_hits,
+                               dtype=torch.int32, device=device),
+        }
+        self._add_predict_state(state)
+        return state
+
+    def _add_predict_state(self, state: dict) -> None:
+        """Reuse-then-predict extras (``compact_predict``): the per-row
+        output velocity, in the output dtype, and a ``seen`` flag so that a
+        row's first recompute, whose previous output is the zeros init,
+        never sets a slope."""
+        if self.config.compact_predict:
+            state["slope"] = torch.zeros_like(state["out"])
+            state["seen"] = torch.zeros(state["hits"].shape, dtype=torch.bool,
+                                        device=state["hits"].device)
+
+    # -- decision ----------------------------------------------------------
+
+    def _drift_logit(self, key: str, x, state_k, t_norm):
+        """(signed score, > 0 means recompute; rel_mse) per row, in
+        float32, reduced over every axis but the first."""
+        axes = tuple(range(1, x.dim()))
+        xf = x.float()
+        mse = (xf - state_k["inp"].float()).square().mean(dim=axes)
+        rel = mse / (xf.square().mean(dim=axes) + 1e-8)
+        clf = self.classifiers.get(key)
+        if clf is not None:
+            w_mse, w_t, w_hits, bias = [float(v) for v in clf]
+            score = (w_mse * rel + w_t * t_norm
+                     + w_hits * state_k["hits"].float() + bias)
+        else:
+            score = rel - self.config.mse_threshold
+        return score, rel
+
+    def _scores(self, key: str, x, state_k, t_norm):
+        """(R,) float32 drift ranking; forced rows (hits >= max_hits) rank
+        first."""
+        score, _ = self._drift_logit(key, x, state_k, t_norm)
+        forced = (state_k["hits"] >= self.config.max_hits).float()
+        return score + forced * 1e6
+
+    # -- gates -------------------------------------------------------------
+
+    def gate_compact(self, key: str, x, t_norm, state_k: dict,
+                     compute_fn: Callable, n_active: int, row_valid=None):
+        """Recompute the ``n_active`` highest-scoring rows, gathered into a
+        sub-batch, and splice cached outputs into the rest.
+
+        ``compute_fn(x_gathered, idx)`` gathers its own row-aligned side
+        inputs (temb, text context) by ``idx``; rows must be independent
+        under it (dense image rows).  ``row_valid`` marks real rows: the
+        batch bucket's pad rows rank last.  Returns ``(y, state_k,
+        stats)``; ``state_k`` is updated in place.
+        """
+        scores = self._scores(key, x, state_k, t_norm)
+        if row_valid is not None:
+            scores = torch.where(row_valid, scores, -torch.inf)
+        idx = top_k_stable(scores, n_active)
+        x_c = x[idx]
+        y = self._compact_splice(state_k, x_c, compute_fn(x_c, idx), idx)
+        return y, state_k, {"idx": idx, "scores": scores}
+
+    def gate_compact_pairs(self, key: str, x, t_norm, state_k: dict,
+                           compute_fn: Callable, n_pairs: int,
+                           row_valid=None):
+        """``gate_compact`` with the CFG pair as the unit: rows are the
+        ``[uncond | cond]`` halves of the same images, a pair scores the sum
+        of its halves, and both rows of a selected pair recompute
+        together.  ``row_valid`` marks real rows in both halves."""
+        n = x.shape[0] // 2
+        scores = self._scores(key, x, state_k, t_norm)
+        if row_valid is not None:
+            scores = torch.where(row_valid, scores, -torch.inf)
+        pidx = top_k_stable(scores[:n] + scores[n:], n_pairs)
+        idx = torch.cat([pidx, pidx + n])
+        x_c = x[idx]
+        y = self._compact_splice(state_k, x_c, compute_fn(x_c, idx), idx)
+        return y, state_k, {"idx": idx, "scores": scores}
+
+    def _compact_splice(self, state_k: dict, x_c, y_c, idx):
+        """Scatter the fresh rows into the cached outputs and the state.
+
+        Unselected rows take the cached output or, with ``compact_predict``
+        m, ``out + m * (hits + 1) * slope``; a recomputed row's slope is
+        ``(fresh - cached) / (hits + 1)`` once it has been seen.  Without
+        prediction the spliced output is the updated ``out`` rows
+        themselves: nothing writes them until this key's next gate.
+        Returns the spliced output."""
+        m = float(self.config.compact_predict or 0.0)
+        predict = m != 0.0 and "slope" in state_k
+        hits, out = state_k["hits"], state_k["out"]
+        y = None
+        if predict:
+            k = _rows((hits + 1).float(), out.dim())
+            y = (out.float() + m * k * state_k["slope"].float()).to(y_c.dtype)
+            y.index_copy_(0, idx, y_c)
+            gap = _rows((hits[idx] + 1).float(), y_c.dim())
+            slope = (y_c.float() - out[idx].float()) / gap
+            slope = torch.where(_rows(state_k["seen"][idx], y_c.dim()),
+                                slope, 0.0)
+            state_k["slope"].index_copy_(0, idx, slope.to(out.dtype))
+            state_k["seen"][idx] = True
+        state_k["inp"].index_copy_(0, idx, x_c.to(state_k["inp"].dtype))
+        out.index_copy_(0, idx, y_c.to(out.dtype))
+        hits.add_(1)
+        hits[idx] = 0
+        return out if y is None else y
+
+    def write_through(self, state_k: dict, x, y) -> None:
+        """A full step's update of a gated pair: every row recomputed, so
+        the rows re-anchor (input and output written, hits 0); with
+        ``compact_predict`` every seen row's slope is measured against its
+        previous cached output over its ``hits + 1`` gated steps."""
+        if "slope" in state_k:
+            gap = _rows((state_k["hits"] + 1).float(), y.dim())
+            slope = (y.float() - state_k["out"].float()) / gap
+            state_k["slope"].copy_(torch.where(
+                _rows(state_k["seen"], y.dim()), slope, 0.0))
+            state_k["seen"].fill_(True)
+        state_k["inp"].copy_(x)
+        state_k["out"].copy_(y)
+        state_k["hits"].zero_()

@@ -190,8 +190,9 @@ class SchedulerConfig:
 
 @dataclass
 class CacheConfig:
-    """Learned per-block output cache settings (not carried over by the
-    port yet: ``enabled`` must stay False there)."""
+    """Learned per-block output cache settings.  The port serves
+    ``mode="deep"`` on the dense path of sd15 and sdxl; the Engine refuses
+    the other modes, SD3's caches and caches on mixed batches."""
 
     enabled: bool = False
     # "block": per-patch masked recompute splice;
@@ -230,10 +231,12 @@ class CacheConfig:
     # boundaries; a candidate whose SLO slack cannot afford the wait is
     # admitted immediately (SLO beats cache).
     phase_admission: bool = True
-    # Row-granular deep warmup (plain deep mode, UNet dense path): rows
-    # that need a full pass are served by a "partial" program — shallow
-    # spine for every row plus the deep tail for just those rows.  Ignored
-    # when deep_compact_fraction is set.
+    # Row-granular deep warmup (UNet dense path): rows that need a full
+    # pass are served by a "partial" step — shallow spine for every row
+    # plus the deep tail for just those rows.  It composes with the hybrid
+    # (deep_compact_fraction): a new batch composition's row caches are
+    # carried over from the previous one's surviving rows, and a finished
+    # request's survivors keep theirs.
     deep_row_warmup: bool = False
     # Deep x compact hybrid (mode "deep" only): on shallow steps, gate the
     # shallow block pairs with top-K compact row recompute.  None = off;

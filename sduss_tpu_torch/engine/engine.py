@@ -29,17 +29,34 @@ from sduss_tpu_torch.pipelines import build_pipeline
 
 
 def check_supported(config: Config) -> None:
-    """Raise for configurations whose code paths are not ported yet."""
+    """Raise, when the Engine is built, for configurations whose code paths
+    are not ported yet, naming the ROADMAP item that ports them.  Of the
+    caches, the deep cache (``mode="deep"``, with its adaptive refresh,
+    prediction, row warmup and CFG-pair hybrid) is served on the dense path
+    of the UNet families (sd15, sdxl)."""
     par, cc, sc = config.parallel, config.cache, config.scheduler
     if par.world_size != 1:
         raise NotImplementedError("multi-device serving is not ported "
                                   "(dp = tp = sp = pp = 1)")
     if cc.enabled:
-        raise NotImplementedError("the block/deep caches are not ported "
-                                  "(cache.enabled=False)")
+        if config.model.family == "sd3" or cc.sd3_deep_span is not None:
+            raise NotImplementedError(
+                "the SD3 caches (token caches, sd3_deep_span) are not ported "
+                "(ROADMAP Queue 1 item 5)")
+        if cc.mode != "deep":
+            raise NotImplementedError(
+                f"cache mode {cc.mode!r} is not ported; the deep cache is "
+                "(ROADMAP Queue 1 item 9)")
+        if sc.use_mixed_resolution:
+            # a mixed batch must never run cache-off without a word
+            raise NotImplementedError(
+                "the caches on the mixed patch path are not ported; set "
+                "scheduler.use_mixed_resolution=False for the dense deep "
+                "cache (ROADMAP Queue 1 item 6)")
     if sc.steps_per_dispatch != 1:
         raise NotImplementedError("fused multi-step dispatch is not ported "
-                                  "(steps_per_dispatch=1)")
+                                  "(steps_per_dispatch=1; ROADMAP Queue 1 "
+                                  "item 3)")
 
 
 class Engine:

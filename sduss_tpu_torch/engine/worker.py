@@ -75,6 +75,8 @@ class Worker:
             if req is not None:
                 req.finish_time = time.time()
                 out.append(req)
+        if out:
+            self.pipeline.evict_finished_state([r.request_id for r in out])
         return out
 
     def has_unfinished(self) -> bool:
@@ -108,6 +110,11 @@ class Worker:
         finished = self.scheduler.advance(batch)
         for req in finished:
             req.finish_time = time.time()
+        if finished:
+            # composition-state keys hold request ids: entries touching a
+            # finished or aborted request are unreachable; free them now
+            self.pipeline.evict_finished_state(
+                [r.request_id for r in finished])
         return finished
 
     def _execute(self, batch: ScheduledBatch) -> None:

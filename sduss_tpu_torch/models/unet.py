@@ -2,8 +2,12 @@
 
 The port carries the JAX ``apply``'s dense path (``ctx=None``) and its
 mixed-resolution patch path (``ctx`` a ``PatchContext``, ops/patch_ctx.py),
-without the block cache or ``deep_mode``, for linear transformer
-projections (SDXL) and 1x1-conv ones (SD-1.5).  With a ``ctx`` every 3x3
+for linear transformer projections (SDXL) and 1x1-conv ones (SD-1.5).  The
+dense path also takes the deep cache's modes (``deep_mode`` full / shallow
+/ partial at ``deep_boundary``) and, with them, the deep x compact hybrid's
+CFG-pair row gating (``cache`` a ``cache.manager.BlockCache``); the block
+and compact cache modes and the caches on the patch path are not ported.
+With a ``ctx`` every 3x3
 convolution, group norm, self/cross-attention and upsample goes through the
 context, as the JAX ``_gn`` / ``_gn_silu_conv`` / ``_conv`` /
 ``_self_attention`` / ``_cross_attention`` / ``_upsample_2x`` seam does.
@@ -81,6 +85,36 @@ TINY_SDXL_UNET = UNetConfig(
     addition_embed=(32, 48, 6),
     use_linear_projection=True,
     sample_size=16,
+)
+
+# 3-level tiny proxy with SDXL's level structure (no attention at level 0)
+# and 4-level tiny proxy with SD-1.5's (cross-attention at levels 0-2, none
+# at the deepest; conv projections): the deep-cache tests need three and
+# four levels to hold boundaries 1 and 2 (JAX unet.py TINY3_SDXL_UNET,
+# TINY4_SD15_UNET).
+TINY3_SDXL_UNET = UNetConfig(
+    block_out_channels=(32, 64, 128),
+    down_block_has_attn=(False, True, True),
+    layers_per_block=1,
+    transformer_layers=(0, 1, 2),
+    num_heads=(2, 2, 4),
+    cross_attention_dim=32,
+    norm_num_groups=8,
+    addition_embed=(32, 48, 6),
+    use_linear_projection=True,
+    sample_size=16,
+)
+TINY4_SD15_UNET = UNetConfig(
+    block_out_channels=(16, 24, 32, 32),
+    down_block_has_attn=(True, True, True, False),
+    layers_per_block=1,
+    transformer_layers=(1, 1, 1, 0),
+    num_heads=(2, 2, 2, 2),
+    cross_attention_dim=32,
+    norm_num_groups=8,
+    addition_embed=(32, 48, 6),
+    use_linear_projection=False,
+    sample_size=32,
 )
 
 
@@ -339,44 +373,222 @@ class UNet2DConditionModel(nn.Module):
             emb = emb + self.add_embedding(add_in)
         return emb
 
+
+    # -- the deep cache (dense path) ------------------------------------------
+
+    def shallow_cache_layout(self, cells: int,
+                             boundary: Optional[int] = None) -> dict:
+        """Gated-pair layout of the deep x compact hybrid: the resnet (+
+        transformer) pairs a shallow step runs (down levels < boundary, up
+        blocks of level < boundary; no mid), ``key -> (s, c_in, c_out)``
+        with ``c_in`` counting an up pair's skip concat."""
+        cfg = self.cfg
+        bo = cfg.block_out_channels
+        n_levels = len(bo)
+        if boundary is None:
+            boundary = n_levels - 1
+        layout = {}
+        out_ch = bo[0]
+        for i in range(min(boundary, n_levels)):
+            in_ch, out_ch = out_ch, bo[i]
+            for j in range(cfg.layers_per_block):
+                layout[f"down{i}.{j}"] = (cells >> i, in_ch if j == 0
+                                          else out_ch, out_ch)
+        rev = list(reversed(bo))
+        for i in range(n_levels - boundary, n_levels):
+            lvl = n_levels - 1 - i
+            prev_out = bo[-1] if i == 0 else rev[i - 1]
+            for j in range(cfg.layers_per_block + 1):
+                res_in = prev_out if j == 0 else rev[i]
+                skip_ch = bo[max(lvl - 1, 0)] \
+                    if j == cfg.layers_per_block else bo[lvl]
+                layout[f"up{i}.{j}"] = (cells >> lvl, res_in + skip_ch, rev[i])
+        return layout
+
+    @staticmethod
+    def _pair(blk, j):
+        """Resnet ``j`` of a block and its transformer (if the level has
+        one) as the ``(x, temb, ehs)`` body a gated pair computes."""
+        res = blk.resnets[j]
+        attn = blk.attentions[j] if len(blk.attentions) else None
+
+        def body(x, temb, ehs, ctx=None):
+            y = res(x, temb, ctx=ctx)
+            return y if attn is None else attn(y, ehs, ctx=ctx)
+        return body
+
+    def _mid(self, h, temb, ehs, ctx=None):
+        mid = self.mid_block
+        h = mid.resnets[0](h, temb, ctx=ctx)
+        h = mid.attentions[0](h, ehs, ctx=ctx)
+        return mid.resnets[1](h, temb, ctx=ctx)
+
+    def _deep_tail(self, h, temb, ehs, boundary: int):
+        """The ops a full pass runs between the partial capture point (the
+        input of the level-(boundary-1) downsample) and the deep-feature
+        capture (the output of up block ``n_levels - boundary - 1``, after
+        its upsample): down levels >= boundary, mid and the deep up blocks,
+        dense and ungated.  Rows are independent on the dense path, so on
+        a gathered row subset each row equals the full pass's."""
+        n_levels = len(self.cfg.block_out_channels)
+        h = self.down_blocks[boundary - 1].downsamplers[0](h)
+        dskips = [h]
+        for blk in self.down_blocks[boundary:]:
+            for j in range(len(blk.resnets)):
+                h = self._pair(blk, j)(h, temb, ehs)
+                dskips.append(h)
+            if hasattr(blk, "downsamplers"):
+                h = blk.downsamplers[0](h)
+                dskips.append(h)
+        h = self._mid(h, temb, ehs)
+        for blk in self.up_blocks[:n_levels - boundary]:
+            for j in range(len(blk.resnets)):
+                h = self._pair(blk, j)(torch.cat([h, dskips.pop()], dim=1),
+                                       temb, ehs)
+            h = blk.upsamplers[0](h)
+        assert not dskips
+        return h
+
     def forward(self, sample, timesteps, encoder_hidden_states,
-                added_cond=None, ctx=None):
+                added_cond=None, ctx=None, cache=None, cache_state=None,
+                deep_mode: Optional[str] = None, deep_state=None,
+                deep_boundary: Optional[int] = None, row_valid=None,
+                deep_sel=None):
         """sample: (B, H, W, C) NHWC; timesteps: (B,); ehs: (B, 77, D).
 
         With a patch ``ctx``: sample is the ``(P, s, s, C)`` patch batch and
         timesteps / ehs / added_cond are per image (``I_pad`` rows), spread
         to the patches through the context.  Returns the model output in
         the sample's layout, like the JAX apply.
+
+        ``deep_mode`` (dense path only), the deep cache's temporal reuse of
+        the levels >= ``deep_boundary`` (default: the deepest level + mid):
+
+        - ``"full"``: compute everything and also return the deep feature,
+          ``h`` entering up block ``n_levels - boundary`` (after the
+          previous block's upsample conv), NCHW;
+        - ``"shallow"``: skip the down levels >= boundary, the
+          level-(boundary-1) downsample, mid and the deep up blocks, and
+          resume from ``deep_state``;
+        - ``"partial"``: the shallow spine for every row plus the deep tail
+          for the request rows ``deep_sel`` (int64, both CFG halves: rows
+          ``i`` and ``i + B/2``), whose fresh features are written into
+          ``deep_state`` in place.
+
+        With a mode it returns ``(out, deep_feature)``; with the hybrid's
+        ``cache`` and ``cache_state`` as well (``cache.config.
+        deep_compact_fraction`` set) ``(out, deep_feature, cache_state)``:
+        full steps write every gated pair's rows through, shallow and
+        partial steps gate them by CFG pairs (``row_valid`` marks real
+        rows), and the state is updated in place.
         """
+        hybrid = (deep_mode is not None and cache is not None
+                  and cache.config.deep_compact_fraction is not None)
+        if deep_mode == "partial":
+            if ctx is not None or (cache is not None and not hybrid):
+                raise ValueError("deep_mode='partial' is dense-path only; "
+                                 "the only composing cache is the deep x "
+                                 "compact hybrid")
+            if deep_sel is None or deep_state is None:
+                raise ValueError("deep_mode='partial' needs deep_sel + "
+                                 "deep_state")
+        if deep_mode is not None and cache is not None and not hybrid:
+            raise ValueError("deep_mode and cache are mutually exclusive "
+                             "(set CacheConfig.deep_compact_fraction for "
+                             "the hybrid, which returns all three)")
+        if deep_mode is not None and ctx is not None:
+            raise NotImplementedError(
+                "the deep cache on the patch path is not ported (ROADMAP "
+                "Queue 1 item 6)")
+        if cache is not None and deep_mode is None:
+            raise NotImplementedError(
+                "the block and compact cache modes are not ported (ROADMAP "
+                "Queue 1 item 9)")
+        n_levels = len(self.cfg.block_out_channels)
+        boundary = deep_boundary if deep_boundary is not None else n_levels - 1
         temb = self.time_embed(timesteps, added_cond, dtype=sample.dtype)
         if ctx is not None:
             temb = ctx.broadcast_to_patches(temb)
         ehs = encoder_hidden_states
+        caching = cache is not None and cache_state is not None
+        gating = caching and deep_mode in ("shallow", "partial")
+        t_norm = timesteps.float() / 1000.0
+
+        def gated(key, x, body):
+            st = cache_state.get(key) if caching else None
+            if st is None:  # cache off, or a pair outside the hybrid layout
+                return body(x, temb, ehs, ctx)
+            if not gating:  # full step: recompute, re-anchor the rows
+                y = body(x, temb, ehs)
+                cache.write_through(st, x, y)
+                return y
+
+            def fn(x_c, idx):
+                return body(x_c, temb[idx], ehs[idx])
+
+            frac = cache.config.deep_compact_fraction
+            if cache.config.deep_compact_pairwise:
+                y, _, _ = cache.gate_compact_pairs(
+                    key, x, t_norm, st, fn,
+                    max(1, round(x.shape[0] // 2 * frac)), row_valid=row_valid)
+            else:
+                y, _, _ = cache.gate_compact(
+                    key, x, t_norm, st, fn,
+                    max(1, round(x.shape[0] * frac)), row_valid=row_valid)
+            return y
+
+        shallow = deep_mode in ("shallow", "partial")
         x = sample.permute(0, 3, 1, 2).contiguous()
         h = self.conv_in(x) if ctx is None else ctx.conv(self.conv_in, x)
         skips = [h]
-        for blk in self.down_blocks:
-            for j, res in enumerate(blk.resnets):
-                h = res(h, temb, ctx=ctx)
-                if len(blk.attentions):
-                    h = blk.attentions[j](h, ehs, ctx=ctx)
+        for i, blk in enumerate(self.down_blocks):
+            if shallow and i >= boundary:
+                break
+            for j in range(len(blk.resnets)):
+                h = gated(f"down{i}.{j}", h, self._pair(blk, j))
                 skips.append(h)
             if hasattr(blk, "downsamplers"):
+                if shallow and i == boundary - 1:
+                    break  # this downsample feeds only the deep tail
                 h = blk.downsamplers[0](h, ctx=ctx)
                 skips.append(h)
-        mid = self.mid_block
-        h = mid.resnets[0](h, temb, ctx=ctx)
-        h = mid.attentions[0](h, ehs, ctx=ctx)
-        h = mid.resnets[1](h, temb, ctx=ctx)
-        for blk in self.up_blocks:
-            for j, res in enumerate(blk.resnets):
-                h = res(torch.cat([h, skips.pop()], dim=1), temb, ctx=ctx)
-                if len(blk.attentions):
-                    h = blk.attentions[j](h, ehs, ctx=ctx)
+
+        deep_feature = None
+        if deep_mode == "partial":
+            half = h.shape[0] // 2
+            sel2 = torch.cat([deep_sel, deep_sel + half])
+            tail = self._deep_tail(h[sel2], temb[sel2], ehs[sel2], boundary)
+            # the pipeline pads deep_sel with copies of a selected row; the
+            # copies carry equal values, so the order of their writes does
+            # not matter
+            deep_state.index_copy_(0, sel2, tail.to(deep_state.dtype))
+            deep_feature = deep_state
+            h = deep_state.to(h.dtype)
+        elif shallow:
+            h = deep_state.to(h.dtype)
+            deep_feature = deep_state
+        else:
+            h = gated("mid", h, lambda x, temb_l, ehs_l, ctx_l=None:
+                      self._mid(x, temb_l, ehs_l, ctx_l))
+
+        first_shallow_up = n_levels - boundary
+        for i, blk in enumerate(self.up_blocks):
+            if shallow and i < first_shallow_up:
+                continue
+            if deep_mode == "full" and i == first_shallow_up:
+                deep_feature = h
+            for j in range(len(blk.resnets)):
+                h = gated(f"up{i}.{j}", torch.cat([h, skips.pop()], dim=1),
+                          self._pair(blk, j))
             if hasattr(blk, "upsamplers"):
                 h = blk.upsamplers[0](h, ctx=ctx)
         if ctx is None:
             h = self.conv_out(self.conv_norm_out(h, act="silu"))
         else:
             h = ctx.gn_silu_conv(self.conv_norm_out, self.conv_out, h)
-        return h.permute(0, 2, 3, 1).contiguous()
+        out = h.permute(0, 2, 3, 1).contiguous()
+        if deep_mode is None:
+            return out
+        if caching:
+            return out, deep_feature, cache_state
+        return out, deep_feature

@@ -20,23 +20,80 @@ Requests at different timesteps batch through per-request sampler
 coefficient rows.  A stateful sampler (PNDM) keeps its state per request in
 the dense latent layout (``Request.sampler_state``); the mixed step slices
 it into patches like the latents and merges it back, so a request may move
-between dense and patched steps.  The block caches and the fused
-multi-step dispatch are not ported yet.
+between dense and patched steps.
+
+The deep cache (``CacheConfig.mode == "deep"``) runs on the dense path of
+the UNet families: each step of a resolution group is full, shallow or
+partial (``_denoise_group_deep``), with the drift-adaptive refresh, the
+reuse-then-predict extrapolation, the row-granular warmup and the deep x
+compact hybrid's CFG-pair row caches, which live in a store keyed by the
+batch's composition (``_comp_state``).  Like the JAX package, the deep
+branch pads the batch to its bucket by repeating the last row, because the
+hybrid's gate capacity comes from the bucket.  The other cache modes, the
+caches on the patch path and the fused multi-step dispatch are not ported
+yet.
 """
 
 from __future__ import annotations
 
+import collections
 from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
 
-from sduss_tpu_torch.config import Config
+from sduss_tpu_torch.cache.manager import BlockCache
+from sduss_tpu_torch.config import Config, bucket_for
 from sduss_tpu_torch.request import Request
 from sduss_tpu_torch.models.registry import ModelBundle
 from sduss_tpu_torch.ops import patching
 from sduss_tpu_torch.ops.patch_ctx import PatchContext
 from sduss_tpu_torch.samplers import gather_coeffs, gather_timesteps, get_sampler
+
+
+def _pad_batch(arr: torch.Tensor, target: int) -> torch.Tensor:
+    """Pad the leading axis to ``target`` by repeating the last row."""
+    b = arr.shape[0]
+    if b == target:
+        return arr
+    return torch.cat([arr, arr[-1:].expand((target - b,) + arr.shape[1:])])
+
+
+def _latent_drift(new, ref):
+    """Relative MSE of the current latent against the latent of the last
+    full pass (the adaptive deep refresh's trigger), a float32 scalar."""
+    d = (new - ref).float()
+    return d.square().mean() / (ref.float().square().mean() + 1e-12)
+
+
+def _state_nbytes(state: dict) -> int:
+    """Bytes held by a composition-state entry's ``{key: {leaf: tensor}}``."""
+    return sum(v.numel() * v.element_size()
+               for st in state.values() for v in st.values())
+
+
+class _DriftScalar:
+    """A drift value on its way to the host.  On the card: a non-blocking
+    copy into pinned memory and the event recorded after it, so that the
+    value is read only once the event has completed; on the CPU the value
+    itself, ready at once."""
+
+    def __init__(self, value: torch.Tensor):
+        self._event = None
+        if value.is_cuda:
+            self._value = torch.empty((), dtype=torch.float32,
+                                      pin_memory=True)
+            self._value.copy_(value, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._value = value
+
+    def is_ready(self) -> bool:
+        return self._event is None or self._event.query()
+
+    def __float__(self) -> float:
+        return float(self._value)
 
 
 class BasePipeline:
@@ -53,6 +110,11 @@ class BasePipeline:
             self.sampler = get_sampler(self.spec.default_sampler,
                                        **self.spec.sampler_kwargs)
         self.vae_scale = self.spec.vae_scale
+        # the deep cache's device state, per batch composition: the
+        # hybrid's row caches and the batch-form deep carry
+        self._comp_state: collections.OrderedDict = collections.OrderedDict()
+        self._deep_carry: collections.OrderedDict = collections.OrderedDict()
+        self._cache_obj = None
 
     # -- family hooks --------------------------------------------------------
 
@@ -61,13 +123,16 @@ class BasePipeline:
         """Run the text encoders; return one conditioning dict per request."""
         raise NotImplementedError
 
-    def denoiser_forward(self, latents_in, t, cond, ctx=None):
+    def denoiser_forward(self, latents_in, t, cond, ctx=None, **deep):
         """Model forward on a CFG-paired batch.
 
         Dense: latents_in ``(2B, h, w, C)``, cond arrays ``(B, ...)``
         CFG-concatenated by the implementation.  Patched: latents_in is the
         doubled patch batch, t is per image (already doubled), cond per
-        image, and ctx the doubled batch's ``PatchContext``.
+        image, and ctx the doubled batch's ``PatchContext``.  ``deep``
+        passes the UNet's deep-cache keywords through (``deep_mode``,
+        ``deep_state``, ``deep_sel``, ``cache``, ``cache_state``,
+        ``row_valid``), with ``deep_boundary`` from the cache config.
         """
         raise NotImplementedError
 
@@ -115,6 +180,8 @@ class BasePipeline:
             dtype=torch.float32, device=dev)
         cond = {key: torch.cat([r.conditioning[key] for r in reqs], dim=0)
                 for key in reqs[0].conditioning}
+        # the JAX branch order: a stateful sampler first (PNDM runs without
+        # the deep cache, in both packages), then the deep cache
         if self.sampler.needs_state:
             self._init_sampler_state(reqs)
             state = {key: torch.cat([r.sampler_state[key] for r in reqs])
@@ -124,6 +191,9 @@ class BasePipeline:
             for i, r in enumerate(reqs):
                 r.sampler_state = {key: a[i:i + 1]
                                    for key, a in new_state.items()}
+        elif self._deep_cache_active():
+            new_latents = self._denoise_group_deep(reqs, latents, t, coeffs,
+                                                   guidance, cond)
         else:
             new_latents = self._denoise_fn(latents, t, coeffs, guidance, cond)
         for i, req in enumerate(reqs):
@@ -143,15 +213,419 @@ class BasePipeline:
                                                cond)
         return self.sampler.step_with_state(latents, noise_pred, c0, c1, state)
 
-    def _cfg_forward(self, latents, t, coeffs, guidance, cond):
-        """Rows go uncond first, then cond (the JAX ``_cfg_step`` order)."""
+    def _cfg_step(self, latents, t, coeffs, guidance, model_call):
+        """The CFG skeleton of the dense steps: duplicate (rows go uncond
+        first, then cond) -> scale -> ``model_call(lat_in, t2)`` -> split
+        -> guidance combine.  ``model_call`` returns the model output or
+        ``(output, extra)``; ``extra`` passes through.  Returns ``(eps, c0,
+        c1, extra)``."""
         lat_in = torch.cat([latents, latents], dim=0)
         t2 = torch.cat([t, t], dim=0)
         c0, c1 = coeffs[:, 0], coeffs[:, 1]
         lat_in = self.sampler.scale_model_input(lat_in, torch.cat([c0, c0]))
-        uncond, text = self.denoiser_forward(lat_in, t2, cond).chunk(2, dim=0)
+        out = model_call(lat_in, t2)
+        model_out, extra = out if isinstance(out, tuple) else (out, None)
+        uncond, text = model_out.chunk(2, dim=0)
         g = guidance.reshape(-1, *([1] * (latents.dim() - 1)))
-        return uncond + g * (text - uncond), c0, c1
+        return uncond + g * (text - uncond), c0, c1, extra
+
+    def _cfg_forward(self, latents, t, coeffs, guidance, cond):
+        noise_pred, c0, c1, _ = self._cfg_step(
+            latents, t, coeffs, guidance,
+            lambda lat_in, t2: self.denoiser_forward(lat_in, t2, cond))
+        return noise_pred, c0, c1
+
+    # -- the deep cache on the dense path (CacheConfig.mode "deep") ----------
+
+    def _deep_cache_active(self) -> bool:
+        return (self.config.cache.enabled
+                and self.config.cache.mode == "deep"
+                and hasattr(self.bundle.denoiser, "shallow_cache_layout"))
+
+    def _deep_state_shape(self, res: int) -> tuple:
+        """A request's deep feature at ``res``: ``(2, C, h', w')``, the CFG
+        halves of the feature entering up block ``n_levels - boundary``,
+        at the spatial size of level ``boundary - 1``."""
+        cfg = self.bundle.denoiser.cfg
+        n = len(cfg.block_out_channels)
+        bdy = self.config.cache.deep_boundary
+        bdy = max(1, min(bdy if bdy is not None else n - 1, n - 1))
+        hw = (res // self.vae_scale) >> (bdy - 1)
+        return (2, cfg.block_out_channels[bdy], hw, hw)
+
+    def _deep_policy(self):
+        """(interval cap, warmup, adaptive?) of the deep-reuse decision."""
+        cc = self.config.cache
+        if cc.deep_adaptive:
+            return max(cc.deep_max_interval, 1), cc.deep_warmup, True
+        return max(cc.deep_interval, 1), cc.deep_warmup, False
+
+    def _denoise_group_deep(self, reqs, latents, t, coeffs, guidance, cond):
+        """One deep-cache step of a resolution group; returns the bucket's
+        new latents.
+
+        The batch shares one mode.  Full when a request has no usable deep
+        feature or is in trajectory warmup, or when an incumbent's interval
+        expired or (adaptive) its latent drifted past the threshold; with
+        ``deep_row_warmup`` the warmup needs of a few requests are served
+        by a partial step instead (the deep tail for their rows only);
+        shallow otherwise.  Interval and drift expiry stay batch-wide: one
+        aligned full re-syncs every age.
+        """
+        res = reqs[0].resolution
+        bb = bucket_for(len(reqs), self.config.scheduler.batch_buckets)
+        latents, t, coeffs, guidance = (_pad_batch(a, bb) for a in
+                                        (latents, t, coeffs, guidance))
+        cond = {key: _pad_batch(a, bb) for key, a in cond.items()}
+        interval, warmup, adaptive = self._deep_policy()
+        cc = self.config.cache
+        want = self._deep_state_shape(res)
+
+        def _warm_need(r):
+            return (r.deep_state is None
+                    or tuple(r.deep_state.shape) != want
+                    or r.sampler_table.step < warmup)
+
+        def _expired(r):
+            return (r.deep_age >= interval - 1
+                    or (adaptive and self._drift_exceeds(r)))
+
+        need = [i for i, r in enumerate(reqs) if _warm_need(r)]
+        expiry = any(_expired(r) for r in reqs if not _warm_need(r))
+        entry = None
+        if cc.deep_compact_fraction is not None:
+            mk_state = self._hybrid_state_factory(res)
+            if cc.deep_row_warmup:
+                # an admission seeds the new composition's rows from the
+                # previous one's survivors; an anchoring full is needed
+                # only when the fresh pairs exceed the gate's capacity
+                entry, fresh_pairs = self._hybrid_entry_carry(
+                    res, reqs, bb, self._hybrid_sig(), mk_state)
+                frac = cc.deep_compact_fraction
+                if cc.deep_compact_pairwise:
+                    cap = max(1, round(bb * frac))
+                else:
+                    cap = max(1, round(2 * bb * frac)) // 2
+                if fresh_pairs > cap or not entry["anchored"]:
+                    expiry = True
+            else:
+                entry = self._comp_state_entry("unet_hybrid", res, reqs, bb,
+                                               self._hybrid_sig(), mk_state)
+                if not entry["anchored"]:
+                    expiry = True  # the full step's write-through anchors
+        kb = 1
+        while kb < len(need):
+            kb *= 2
+        partial = (cc.deep_row_warmup and not expiry
+                   and 0 < len(need) < len(reqs) and kb < bb)
+        mode = ("partial" if partial
+                else "full" if (need or expiry) else "shallow")
+        need_set = set(need)
+
+        # The batch-form carry: every step's deep output is the next step's
+        # deep input for a stable composition, so it is kept per
+        # composition instead of being rebuilt from the requests' features.
+        carry_key = (res, bb, tuple(r.request_id for r in reqs))
+        use_carry = cc.deep_row_warmup and not cc.deep_predict
+        deep = None
+        if mode != "full":
+            deep = self._deep_carry_get(carry_key, reqs) if use_carry else None
+        if mode != "full" and deep is None:
+            if mode == "shallow":
+                states = [self._deep_predicted(r) for r in reqs]
+            else:
+                # a refreshed row's input is overwritten by the scatter:
+                # feed its stale feature where the shape fits, else zeros
+                tmpl = next(r.deep_state for i, r in enumerate(reqs)
+                            if i not in need_set)
+                states = [
+                    (r.deep_state if i in need_set
+                     and r.deep_state is not None
+                     and r.deep_state.shape == tmpl.shape
+                     else torch.zeros_like(tmpl) if i in need_set
+                     else self._deep_predicted(r))
+                    for i, r in enumerate(reqs)]
+            states += [states[-1]] * (bb - len(reqs))
+            deep = torch.cat([s[0:1] for s in states]
+                             + [s[1:2] for s in states])
+
+        sel = None
+        if mode == "partial":
+            # bucketed to a power of two with copies of the first need
+            sel = np.full((kb,), need[0], np.int64)
+            sel[:len(need)] = need
+            sel = torch.from_numpy(sel).to(self.device)
+        new_latents, deep_out = self._deep_step(
+            mode, reqs, bb, latents, t, coeffs, guidance, cond, deep, entry,
+            sel)
+        refreshed = (set(range(len(reqs))) if mode == "full"
+                     else need_set if mode == "partial" else set())
+        for i, r in enumerate(reqs):
+            if i in refreshed:
+                new = torch.stack([deep_out[i], deep_out[bb + i]])
+                self._deep_update_slope(r, new)
+                r.deep_state = new
+                r.deep_age = 0
+            else:
+                r.deep_age += 1
+            if adaptive:
+                # refreshed: the reference is the latent the features were
+                # computed from (this step's input); else this step's
+                # output is the next decision's current latent
+                self._note_drift(r, "full" if i in refreshed else "shallow",
+                                 latents[i:i + 1] if i in refreshed
+                                 else new_latents[i:i + 1])
+        if use_carry:
+            # after the update: the identities stored must be the features
+            # the next step's decision sees
+            self._deep_carry_put(carry_key, deep_out, reqs)
+        return new_latents
+
+    def _deep_step(self, mode, reqs, bb, latents, t, coeffs, guidance, cond,
+                   deep, entry, sel):
+        """One deep-mode step of the padded batch: CFG forward in ``mode``
+        (with the hybrid's row caches when ``entry`` is given: CFG-doubled
+        rows ``[uncond x bb | cond x bb]``, pad rows masked out of the
+        gates) and the sampler update.  Returns ``(new_latents,
+        deep_feature)``; a full step anchors the hybrid entry."""
+        kwargs = dict(deep_mode=mode, deep_state=deep, deep_sel=sel)
+        if entry is not None:
+            # an un-anchored entry forces mode "full" upstream, whose
+            # write-through anchors every gated pair's rows
+            assert entry["anchored"] or mode == "full"
+            row_valid = torch.zeros(bb, dtype=torch.bool, device=self.device)
+            row_valid[:len(reqs)] = True
+            kwargs.update(cache=self._cache_obj, cache_state=entry["state"],
+                          row_valid=torch.cat([row_valid, row_valid]))
+
+        def call(lat_in, t2):
+            out = self.denoiser_forward(lat_in, t2, cond, **kwargs)
+            return out[0], out[1]
+
+        noise_pred, c0, c1, deep_out = self._cfg_step(
+            latents, t, coeffs, guidance, call)
+        if entry is not None and mode == "full":
+            entry["anchored"] = True
+        return self.sampler.step(latents, noise_pred, c0, c1), deep_out
+
+    def _deep_carry_get(self, key, reqs):
+        """The batch-form deep carry of this exact composition, valid only
+        while every member's ``deep_state`` is the object recorded at put
+        time (a request refreshed in another composition invalidates it)."""
+        v = self._deep_carry.get(key)
+        if v is None:
+            return None
+        carry, tokens = v
+        if len(tokens) != len(reqs) or any(
+                tok is not r.deep_state for tok, r in zip(tokens, reqs)):
+            del self._deep_carry[key]
+            return None
+        self._deep_carry.move_to_end(key)
+        return carry
+
+    def _deep_carry_put(self, key, carry, reqs) -> None:
+        store = self._deep_carry
+        store[key] = (carry, [r.deep_state for r in reqs])
+        store.move_to_end(key)
+        while len(store) > 2:  # this composition and one predecessor
+            store.popitem(last=False)
+
+    # -- reuse-then-predict (CacheConfig.deep_predict) ----------------------
+
+    def _deep_predicted(self, r):
+        """The deep feature a shallow step feeds for ``r``: the last full
+        pass's, extrapolated ``deep_age + 1`` steps along the velocity
+        between the last two full passes when ``deep_predict`` is on."""
+        m = self.config.cache.deep_predict
+        if not m or r.deep_slope is None:
+            return r.deep_state
+        k = float(r.deep_age + 1)
+        return (r.deep_state.float() + m * k * r.deep_slope.float()).to(
+            r.deep_state.dtype)
+
+    def _deep_update_slope(self, r, new) -> None:
+        """On a refresh: the per-step feature velocity ``(new - old) /
+        (deep_age + 1)``, stored in the feature's dtype; a layout change
+        resets it."""
+        if not self.config.cache.deep_predict:
+            return
+        old = r.deep_state
+        if old is None or old.shape != new.shape:
+            r.deep_slope = None
+            return
+        r.deep_slope = ((new.float() - old.float())
+                        / (r.deep_age + 1)).to(new.dtype)
+
+    # -- drift-triggered adaptive refresh (CacheConfig.deep_adaptive) -------
+
+    def _drift_exceeds(self, r) -> bool:
+        """True when the newest drift value that has reached the host
+        crosses the threshold.  Pending values are polled newest first
+        without blocking; the decision lags the device by at most the
+        steps in flight, and ``deep_max_interval`` caps a stale read."""
+        if r.lat_ref is None:
+            return True
+        pending = r.drift_pending
+        for j in range(len(pending) - 1, -1, -1):
+            if not pending[j].is_ready():
+                continue
+            r.drift_last = float(pending[j])
+            del pending[: j + 1]
+            break
+        return r.drift_last > self.config.cache.deep_drift_threshold
+
+    def _note_drift(self, r, mode: str, latent) -> None:
+        """After a step: a refresh resets the reference latent; any other
+        step queues its output's drift against it."""
+        if mode == "full":
+            r.lat_ref = latent
+            r.drift_pending.clear()
+            r.drift_last = 0.0
+        else:
+            r.drift_pending.append(_DriftScalar(_latent_drift(latent,
+                                                              r.lat_ref)))
+
+    # -- the deep x compact hybrid's row caches (deep_compact_fraction) ----
+
+    def _hybrid_sig(self):
+        """Composition-store signature: a knob that changes the state
+        layout or the gating resets the state."""
+        cc = self.config.cache
+        return ("hybrid", cc.deep_compact_fraction, cc.deep_boundary)
+
+    def _hybrid_state_factory(self, res):
+        """``mk_state(n_rows)``: zero row caches for every pair a shallow
+        step gates at ``res`` (``shallow_cache_layout``)."""
+        if self._cache_obj is None:
+            self._cache_obj = BlockCache(self.config.cache)
+        cache = self._cache_obj
+        layout = self.bundle.denoiser.shallow_cache_layout(
+            res // self.vae_scale, self.config.cache.deep_boundary)
+
+        def mk_state(n):
+            return {key: cache.init_rows(key, n, s, c_in, c_out,
+                                         self.bundle.dtype, self.device)
+                    for key, (s, c_in, c_out) in layout.items()}
+
+        return mk_state
+
+    def _comp_state_entry(self, kind, res, reqs, bb, sig, mk_state) -> dict:
+        """The row-cache entry of this batch composition, LRU- and
+        byte-bounded.  A stable batch reuses its entry across steps; any
+        change (membership, bucket, cache knobs) starts a fresh one,
+        ``{"state": ..., "anchored": False}``, which must be anchored by a
+        full step before any splice reads its zero out rows."""
+        key = (kind, res, bb, tuple(r.request_id for r in reqs), sig)
+        entry = self._comp_state.get(key)
+        if entry is None:
+            entry = {"state": mk_state(2 * bb), "anchored": False}
+            self._comp_state[key] = entry
+        self._comp_state.move_to_end(key)
+        self._trim_comp_state()
+        return entry
+
+    def _hybrid_entry_carry(self, res, reqs, bb, sig, mk_state):
+        """Get or create the hybrid entry with row carry-over
+        (``deep_row_warmup``): a new composition's entry gathers the
+        surviving requests' rows from the newest entry of the same
+        resolution and signature.  New requests' rows keep the fresh init
+        (``hits = max_hits``, forced into the next gate); carried rows'
+        hits are clamped to ``max_hits - 1`` so that only the fresh ones
+        are forced.  Returns ``(entry, fresh pairs at creation)``."""
+        kind = "unet_hybrid"
+        key = (kind, res, bb, tuple(r.request_id for r in reqs), sig)
+        entry = self._comp_state.get(key)
+        if entry is not None:
+            self._comp_state.move_to_end(key)
+            return entry, 0
+        parent = next((pk for pk in reversed(self._comp_state)
+                       if pk[0] == kind and pk[1] == res and pk[4] == sig),
+                      None)
+        if parent is None:
+            entry = {"state": mk_state(2 * bb), "anchored": False}
+            self._comp_state[key] = entry
+            self._trim_comp_state()
+            return entry, len(reqs)  # every pair fresh: anchor required
+        old_bb = parent[2]
+        pos = {rid: i for i, rid in enumerate(parent[3])}
+        fresh = [i for i, r in enumerate(reqs) if r.request_id not in pos]
+        # CFG-doubled row map [u x bb | c x bb]; -1 = a fresh row
+        idx = np.full((2 * bb,), -1, np.int64)
+        for j, r in enumerate(reqs):
+            i = pos.get(r.request_id)
+            if i is not None:
+                idx[j] = i
+                idx[bb + j] = old_bb + i
+        parent_entry = self._comp_state.pop(parent)
+        gather = torch.from_numpy(np.maximum(idx, 0)).to(self.device)
+        fresh_rows = torch.from_numpy(idx < 0).to(self.device)
+        maxh = int(self.config.cache.max_hits)
+        old, state = parent_entry["state"], {}
+        for k in list(old):
+            st = old.pop(k)  # the parent's rows go as the new ones come
+            new = {k2: v[gather].masked_fill_(
+                fresh_rows.reshape((-1,) + (1,) * (v.dim() - 1)), 0)
+                for k2, v in st.items()}
+            new["hits"] = torch.where(
+                fresh_rows, maxh, st["hits"][gather].clamp(max=maxh - 1)
+            ).to(torch.int32)
+            state[k] = new  # a fresh row's "seen" is False by the fill
+        entry = {"state": state, "anchored": parent_entry["anchored"]}
+        self._comp_state[key] = entry
+        self._trim_comp_state()
+        return entry, len(fresh)
+
+    def _shrink_hybrid_entry(self, store, key, entry, live) -> None:
+        """Gather the surviving requests' CFG-doubled rows into an entry of
+        their smaller bucket (pads repeat the last live row), from which
+        ``_hybrid_entry_carry`` seeds the next composition."""
+        kind, res, bb, ids, sig = key
+        nb = bucket_for(len(live), self.config.scheduler.batch_buckets)
+        pos = {rid: i for i, rid in enumerate(ids)}
+        idx = [pos[live[min(j, len(live) - 1)]] for j in range(nb)]
+        g = torch.tensor(idx + [i + bb for i in idx], device=self.device)
+        state = {k: {k2: v[g] for k2, v in st.items()}
+                 for k, st in entry["state"].items()}
+        store[(kind, res, nb, tuple(live), sig)] = {"state": state,
+                                                    "anchored": True}
+        self._trim_comp_state()
+
+    def _trim_comp_state(self) -> None:
+        """Evict the oldest entries past ``comp_state_lru`` entries or
+        ``comp_state_bytes`` bytes, always keeping the newest."""
+        store = self._comp_state
+        lru = max(int(self.config.cache.comp_state_lru), 1)
+        while len(store) > lru:
+            store.popitem(last=False)
+        budget = float(self.config.cache.comp_state_bytes)
+        while (len(store) > 1 and sum(_state_nbytes(e["state"])
+                                      for e in store.values()) > budget):
+            store.popitem(last=False)
+
+    def release_serving_state(self) -> None:
+        """Drop every composition's row caches and deep carry."""
+        self._comp_state.clear()
+        self._deep_carry.clear()
+
+    def evict_finished_state(self, req_ids) -> None:
+        """Drop the composition-state entries of any finished or aborted
+        request: their keys hold the exact request-id tuple, so they can
+        never be used again.  With ``deep_row_warmup`` an anchored hybrid
+        entry's survivors keep their rows in a shrunk entry, so that a
+        finish does not cost the next composition an anchoring full."""
+        ids = set(req_ids)
+        if not ids:
+            return
+        for k in [k for k in self._deep_carry if ids.intersection(k[2])]:
+            del self._deep_carry[k]
+        store = self._comp_state
+        for k in [k for k in store if ids.intersection(k[3])]:
+            entry = store.pop(k)
+            if (self.config.cache.deep_row_warmup and k[0] == "unet_hybrid"
+                    and entry["anchored"]):
+                live = [rid for rid in k[3] if rid not in ids]
+                if live:
+                    self._shrink_hybrid_entry(store, k, entry, live)
 
     # -- stage 2b: one denoising step on the mixed patch path ---------------
 
@@ -304,6 +778,10 @@ class BasePipeline:
 
     @torch.inference_mode()
     def postprocess(self, reqs_by_res: Dict[int, List[Request]]) -> None:
+        # these requests' composition-state entries can never be used
+        # again: free them before the decode, the pipeline's memory peak
+        self.evict_finished_state(
+            {r.request_id for reqs in reqs_by_res.values() for r in reqs})
         for res in sorted(reqs_by_res):
             all_reqs = reqs_by_res[res]
             # the latent output type skips the VAE decode entirely

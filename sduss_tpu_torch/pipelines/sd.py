@@ -26,8 +26,9 @@ class StableDiffusionPipeline(BasePipeline):
         return [{"embeds": emb[i:i + 1], "neg_embeds": nemb[i:i + 1]}
                 for i in range(len(prompts))]
 
-    def denoiser_forward(self, latents_in, t, cond, ctx=None):
+    def denoiser_forward(self, latents_in, t, cond, ctx=None, **deep):
         # CFG rows: [uncond, cond]
         ehs = torch.cat([cond["neg_embeds"], cond["embeds"]], dim=0)
-        return self.bundle.models["unet"](latents_in, t,
-                                          ehs.to(latents_in.dtype), ctx=ctx)
+        return self.bundle.models["unet"](
+            latents_in, t, ehs.to(latents_in.dtype), ctx=ctx,
+            deep_boundary=self.config.cache.deep_boundary, **deep)

@@ -45,11 +45,12 @@ class StableDiffusionXLPipeline(BasePipeline):
             })
         return conds
 
-    def denoiser_forward(self, latents_in, t, cond, ctx=None):
+    def denoiser_forward(self, latents_in, t, cond, ctx=None, **deep):
         dtype = latents_in.dtype
         ehs = torch.cat([cond["neg_embeds"], cond["embeds"]], dim=0)
         pooled = torch.cat([cond["neg_pooled"], cond["pooled"]], dim=0)
         time_ids = torch.cat([cond["time_ids"], cond["time_ids"]], dim=0)
         added = {"text_embeds": pooled.to(dtype), "time_ids": time_ids}
-        return self.bundle.models["unet"](latents_in, t, ehs.to(dtype),
-                                          added_cond=added, ctx=ctx)
+        return self.bundle.models["unet"](
+            latents_in, t, ehs.to(dtype), added_cond=added, ctx=ctx,
+            deep_boundary=self.config.cache.deep_boundary, **deep)

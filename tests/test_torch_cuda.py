@@ -21,7 +21,9 @@ write zeros (finite) where a batch row has none.  K4 (gn_silu_halo) within
 2^-7 of max |plain| (one bf16 ulp at the output scale: both compute in
 float32 and round once), with exact zeros at image borders.  The patched
 step's moments and the fused op give the same bits on two calls with the
-same input.
+same input.  The deep cache's row gate picks the same rows on the card as
+on the CPU, ties included, and a drift value reaches the host only once
+its event has completed.
 """
 
 from __future__ import annotations
@@ -29,11 +31,14 @@ from __future__ import annotations
 import pytest
 import torch
 
+from sduss_tpu_torch.cache.manager import BlockCache, top_k_stable
+from sduss_tpu_torch.config import CacheConfig
 from sduss_tpu_torch.entrypoints.offline import default_config
 from sduss_tpu_torch.ops import attention as tattn
 from sduss_tpu_torch.ops import flash as tflash
 from sduss_tpu_torch.ops import gn_halo as tgn
 from sduss_tpu_torch.ops import patching as tpatching
+from sduss_tpu_torch.pipelines.base import _DriftScalar
 
 K1_MAX_REL = 2.0 ** -6
 K1_RMS_REL = 5e-3
@@ -356,3 +361,58 @@ def test_k5_scale_sign(cuda, scale):
     diff, ref = out.float() - ref.float(), ref.float()
     assert diff.abs().max().item() <= K1_MAX_REL * ref.abs().max().item()
     assert (diff.norm() / ref.norm()).item() <= K1_RMS_REL
+
+
+@pytest.mark.cuda
+def test_top_k_stable_ties_on_card(cuda):
+    """Forced rows tie at 1e6 (a 0.0625 float32 ulp): the lowest index
+    first, as on the CPU and in jax.lax.top_k."""
+    gen = torch.Generator().manual_seed(0)
+    scores = 1e6 + torch.rand(4096, generator=gen) * 0.01
+    scores[::7] = torch.rand(586, generator=gen)
+    scores[5] = -torch.inf
+    want = top_k_stable(scores, 1000)
+    assert torch.equal(top_k_stable(scores.to(cuda), 1000).cpu(), want)
+    assert want[:4].tolist() == [1, 2, 3, 4]
+
+
+@pytest.mark.cuda
+def test_hybrid_gate_on_card_matches_cpu(cuda):
+    """gate_compact_pairs with compact_predict on the card (bf16 rows,
+    in-place state updates) against the same call on the CPU."""
+    cache = BlockCache(CacheConfig(compact_predict=0.5, max_hits=4))
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(16, 96, 32, 32, generator=gen).to(torch.bfloat16)
+    w = torch.randn(96, 32, generator=gen).to(torch.bfloat16)
+    state = cache.init_rows("k", 16, 32, 96, 32, torch.bfloat16)
+    state["inp"] += (x * 0.9).to(torch.bfloat16)
+    state["out"].normal_(generator=gen)
+    state["hits"].copy_(torch.tensor([4, 0, 1, 2, 3, 0, 1, 4] * 2))
+    state["seen"][::3] = True
+    t = torch.rand(16, generator=gen)
+    valid = torch.tensor([True] * 7 + [False] + [True] * 7 + [False])
+
+    def body(x_c, idx):
+        return torch.einsum("nchw,cd->ndhw", x_c, w.to(x_c.device))
+
+    got = {}
+    for dev in ("cpu", cuda):
+        st = {k: v.clone().to(dev) for k, v in state.items()}
+        y, st, stats = cache.gate_compact_pairs(
+            "k", x.to(dev), t.to(dev), st, body, 3, row_valid=valid.to(dev))
+        got[str(dev)] = (stats["idx"].cpu(), y.float().cpu(),
+                         {k: v.float().cpu() for k, v in st.items()})
+    (ci, cy, cs), (gi, gy, gs) = got["cpu"], got["cuda"]
+    assert torch.equal(ci, gi)
+    scale = cy.abs().max()
+    assert (gy - cy).abs().max() <= 2 ** -6 * scale
+    for k in cs:
+        assert (gs[k] - cs[k]).abs().max() <= 2 ** -6 * cs[k].abs().max()
+
+
+@pytest.mark.cuda
+def test_drift_scalar_is_read_after_its_event(cuda):
+    value = torch.full((1024, 1024), 0.25, device=cuda).square().mean()
+    scalar = _DriftScalar(value)
+    torch.cuda.synchronize()
+    assert scalar.is_ready() and float(scalar) == 0.0625
