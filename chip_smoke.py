@@ -66,7 +66,22 @@ Phases (any failure propagates and the script exits non-zero):
      under ESyMReD: two 512^2 requests and a third added through
      ``Engine.add_request`` once they have taken 4 steps, 16 Euler steps,
      at least one partial step and exact K1/K5 launches per mode;
- 11. print the kernels' JSON line, then the result line
+ 11. the deep cache on the mixed patch path: K4 at the gated
+     sub-compositions of SDXL's (768^2 + 3 x 1024^2: 50 patches) and
+     SD-1.5's (4 x 512^2 + 768^2: 26 patches) shallow steps and the masked
+     kernel at SD-1.5's (with the kernel checks of phase 3); the SDXL UNet's
+     patched deep modes at 768^2 + 1024^2 (full equal to the plain patched
+     forward within one bf16 ulp, shallow and the hybrid at fraction 1
+     within 5e-2) and the image gate choosing the same images on the card
+     as on the CPU; SDXL's serving mix under ``production("sdxl",
+     serving=True)``, ``serving=False`` and cache-off (12 steps): at least
+     one full and one shallow step, step ms per mode, end to end seconds,
+     peak memory, row-cache bytes and launches exactly as the modes give;
+     SD-1.5 under ``production("sd15", serving=True)`` and ESyMReD: 4 x
+     512^2 on the dense path, joined by a 768^2 request after 4 steps, which
+     flips their batch to the patched path with a full step, then shallow
+     steps whose gate skips images; exact launches per path and mode;
+ 12. print the kernels' JSON line, then the result line
      ``{"ok": true, "device": {...}}`` last.
 """
 
@@ -83,6 +98,7 @@ import torch
 import torch.nn.functional as F
 
 from sduss_tpu_torch import configure_numerics
+from sduss_tpu_torch.cache.manager import BlockCache
 from sduss_tpu_torch.config import CacheConfig
 from sduss_tpu_torch.entrypoints.offline import DiffusionPipeline, default_config
 from sduss_tpu_torch.models import mmdit
@@ -101,7 +117,7 @@ from sduss_tpu_torch.ops.flash import (flash_cross_short,
                                        flash_mha_reference)
 from sduss_tpu_torch.ops.gn_halo import (gn_silu_halo, gn_silu_halo_reference,
                                          gn_silu_haloed, moments)
-from sduss_tpu_torch.ops.patch_ctx import PatchContext
+from sduss_tpu_torch.ops.patch_ctx import PatchContext, compact_context
 from sduss_tpu_torch.pipelines.base import _state_nbytes
 from sduss_tpu_torch.request import Request, SamplingParams
 
@@ -179,11 +195,20 @@ MASKED_SHAPES = [
     (3, 1000, 320, 8, "last"),   # the same at hd 40
     (3, 1000, 320, 8, "alt"),
     (1, 16448, 64, 1, None),   # 257 key tiles: the list is built in two chunks
+    # the SD-1.5 mixed deep run's gated sub-composition (4 x 512^2 + 768^2,
+    # CFG-doubled, production fraction 0.3: 2 of 8 512^2 slots, 2 of 2
+    # 768^2; exact-fit classes, no dead rows), level 0, hd 40; SDXL's
+    # shallow spine (level 0) has no attention
+    (2, 9216, 320, 8, 0),      # 768^2 class of the sub-composition
+    (2, 4096, 320, 8, 0),      # 512^2 class of the sub-composition
 ]
 # masked cases that are checked but not timed (no serving shape)
 MASKED_UNTIMED = (None, "last", "alt")
 K4_SHAPES = [(32, 320), (16, 640), (8, 1280)]  # (s, C) at SDXL levels 0-2
 SD15_K4_SHAPES = [(4, 1280)]  # SD-1.5 level 3: the side without a template
+# K4 on the gated sub-composition of a shallow step (level 0 of SDXL and
+# SD-1.5: the resnets' norm1 inputs of 320, 640 and 960 channels)
+SUB_K4_SHAPES = [(32, 320), (32, 640), (32, 960)]
 # K5 (flash_cross_short) at scripts/bench_cross_kernel.py's text
 # cross-attention shapes (B, Lq, Lk, D, H), the serving paths' own (dense
 # CFG pairs; per-patch K/V of the patch path: B = patches), then edge cases:
@@ -224,6 +249,15 @@ DEEP_REQUESTS = [1024] * 8
 DEEP_STEPS = 30
 DEEP_SD15_STEPS = 16
 DEEP_SD15_RES = 512
+# The deep cache on the mixed patch path: SDXL's serving mix under both
+# production presets and cache-off; SD-1.5's 4 x 512^2 (the gate skips 3 of
+# 4 512^2 pairs) joined by a 768^2 request once they have taken
+# MIXED_SD15_ADMIT steps, which flips their batch from the dense path to
+# the patched one
+MIXED_DEEP_STEPS = 12
+MIXED_SD15_FIRST = [512] * 4
+MIXED_SD15_ADMIT = 4
+MIXED_SD15_LATE = 768
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
@@ -476,6 +510,16 @@ def mixed_meta(family: str = "sdxl", requests=MIXED_REQUESTS):
     grids = tuple(r // 8 // (sc.patch_size // 8) for r in requests)
     return patching.double_meta(grids, sc.patch_size // 8,
                                 tuple(sc.patch_buckets), tuple(sc.batch_buckets))
+
+
+def sub_meta(family: str, requests):
+    """The gated sub-composition of a mixed deep shallow step under the
+    family's production preset (``compact_submeta`` of the doubled meta,
+    pair-coherent capacities)."""
+    meta = mixed_meta(family, requests)
+    frac = CacheConfig.production(family).deep_compact_fraction
+    return patching.compact_submeta(meta.patch_cells, meta.class_info, frac,
+                                    True)[0]
 
 
 def check_k4(card: str, meta=None, shapes=K4_SHAPES, seed: int = 2) -> dict:
@@ -1124,28 +1168,47 @@ def deep_launches(cfg, res: int, boundary: int = 1) -> dict:
 
 
 def spy_deep(pipe) -> list:
-    """Record every deep step of ``pipe``: its mode (from the deep step
-    call), CUDA events around the whole group step and the bytes of the
-    hybrid's row caches after it.  Also checks that the final latents
-    entering the VAE decode are finite (the uint8 cast would hide NaN)."""
+    """Record every deep step of ``pipe``: a dense group step (path
+    "dense", its resolution) or a mixed step (path "mixed", its resolution
+    classes; mode "off" with the cache off), its mode (from the deep step
+    call), CUDA events around the whole step, the bytes of the hybrid's row
+    caches after it and, on the device, the largest hit count in them.
+    Also checks that the final latents entering the VAE decode are finite
+    (the uint8 cast would hide NaN)."""
     steps = []
     group, step, decode = (pipe._denoise_group_deep, pipe._deep_step,
                            pipe._decode_fn)
+    mixed, mixed_step = pipe.denoise_step_mixed, pipe._deep_step_mixed
 
     def deep_step(mode, *args):
         steps[-1]["mode"] = mode
         return step(mode, *args)
 
-    def group_deep(*args):
-        rec = {"start": torch.cuda.Event(enable_timing=True),
-               "end": torch.cuda.Event(enable_timing=True)}
+    def deep_step_mixed(mode, *args):
+        steps[-1]["mode"] = mode
+        return mixed_step(mode, *args)
+
+    def timed(fn, rec, arg):
+        rec.update(start=torch.cuda.Event(enable_timing=True),
+                   end=torch.cuda.Event(enable_timing=True))
         steps.append(rec)
         rec["start"].record()
-        out = group(*args)
+        out = fn(arg)
         rec["end"].record()
         rec["state_bytes"] = sum(_state_nbytes(e["state"])
                                  for e in pipe._comp_state.values())
+        hits = [st["hits"].max() for e in pipe._comp_state.values()
+                for st in e["state"].values()]
+        rec["hits"] = torch.stack(hits).max() if hits else None
         return out
+
+    def group_deep(reqs, *args):
+        return timed(lambda r: group(r, *args),
+                     {"path": "dense", "res": reqs[0].resolution}, reqs)
+
+    def step_mixed(reqs_by_res):
+        return timed(mixed, {"path": "mixed", "mode": "off",
+                             "classes": len(reqs_by_res)}, reqs_by_res)
 
     def decode_fn(latents):
         if not torch.isfinite(latents).all():
@@ -1154,8 +1217,44 @@ def spy_deep(pipe) -> list:
 
     pipe._denoise_group_deep = group_deep
     pipe._deep_step = deep_step
+    pipe.denoise_step_mixed = step_mixed
+    pipe._deep_step_mixed = deep_step_mixed
     pipe._decode_fn = decode_fn
     return steps
+
+
+def mixed_launches(cfg, n_classes: int, boundary: int = 1) -> dict:
+    """K4, masked and K5 launches of one patched step per deep mode ("off":
+    cache off) over ``n_classes`` resolution classes: a full step runs
+    every resnet (K4 before each of its two 3x3 convs, one more before
+    conv_out) and every transformer (one masked self-attention per class,
+    one K5 text cross-attention); a shallow step the levels < boundary, the
+    gated pairs once each on the sub-composition, whose classes are the
+    batch's (each keeps at least one image)."""
+    n_levels, lpb = len(cfg.block_out_channels), cfg.layers_per_block
+
+    def count(levels, mid):
+        res = (2 * lpb + 1) * len(levels) + 2 * mid
+        tr = sum((2 * lpb + 1) * cfg.transformer_layers[lvl] for lvl in levels
+                 if cfg.down_block_has_attn[lvl])
+        tr += mid * max(cfg.transformer_layers[-1], 1)
+        return {"k1": 0, "flash_mha": 0, "masked": tr * n_classes,
+                "k4": 2 * res + 1, "k5": tr}
+
+    full = count(range(n_levels), 1)
+    return {"full": full, "off": full, "shallow": count(range(boundary), 0)}
+
+
+def expected_launches(steps, cfg) -> dict:
+    """The launches of every recorded deep step (``spy_deep``), each by its
+    path and mode."""
+    want = {"k1": 0, "flash_mha": 0, "masked": 0, "k4": 0, "k5": 0}
+    for rec in steps:
+        per = (mixed_launches(cfg, rec["classes"]) if rec["path"] == "mixed"
+               else deep_launches(cfg, rec["res"]))[rec["mode"]]
+        for k, n in per.items():
+            want[k] += n
+    return want
 
 
 def report_deep(steps, label: str, card: str) -> dict:
@@ -1330,6 +1429,222 @@ def serve_sd15_rowwarm(card: str, bundle: ModelBundle) -> dict:
     return got
 
 
+def check_mixed_deep_invariant(bundle: ModelBundle, card: str) -> None:
+    """The SDXL UNet's deep modes on a 768^2 + 1024^2 patch batch (CFG:
+    2 x 25 patches in a bucket of 64, bf16) against the plain patched
+    forward, and the image gate on the card against the CPU."""
+    unet = bundle.denoiser
+    meta = mixed_meta("sdxl", [768, 1024])
+    ctx = PatchContext(meta, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    n_img = meta.i_pad
+    x = rand(meta.p_pad, meta.patch_cells, meta.patch_cells, 4)
+    t = torch.tensor([700.0, 300.0] * (n_img // 2), device="cuda")
+    ehs = rand(n_img, 77, unet.cfg.cross_attention_dim)
+    sides = [768.0, 1024.0] + [1024.0] * (n_img // 2 - 2)
+    added = {"text_embeds": rand(n_img, unet.cfg.addition_embed[1]),
+             "time_ids": torch.tensor([[r, r, 0, 0, r, r] for r in sides * 2],
+                                      device="cuda")}
+    real = ctx.patch_valid
+    cc = CacheConfig.production("sdxl", serving=False)
+    cc.deep_compact_fraction = 1.0
+    cache = BlockCache(cc)
+    state = {k: cache.init_rows(k, meta.p_pad, side, ci, co, torch.bfloat16,
+                                "cuda")
+             for k, (side, ci, co) in unet.shallow_cache_layout(
+                 meta.patch_cells, 1).items()}
+
+    def rel(a, b):
+        a, b = a[real].float(), b[real].float()
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    with torch.inference_mode():
+        kw = dict(added_cond=added, ctx=ctx, deep_boundary=1)
+        plain = unet(x, t, ehs, **kw)
+        full, feat = unet(x, t, ehs, deep_mode="full", **kw)
+        shallow, _ = unet(x, t, ehs, deep_mode="shallow", deep_state=feat,
+                          **kw)
+        hfull, hfeat, _ = unet(x, t, ehs, deep_mode="full", cache=cache,
+                               cache_state=state, **kw)
+        hshallow, _, _ = unet(x, t, ehs, deep_mode="shallow",
+                              deep_state=hfeat, cache=cache,
+                              cache_state=state, **kw)
+    errs = {"full vs plain": (rel(full, plain), DEEP_FULL_MAX_REL),
+            "shallow vs full": (rel(shallow, full), PATCH_BOUND),
+            "hybrid full vs full": (rel(hfull, full), DEEP_FULL_MAX_REL),
+            "hybrid shallow at fraction 1 vs shallow": (
+                rel(hshallow, shallow), PATCH_BOUND)}
+    print(f"SDXL patched deep feature, 768^2 + 1024^2 (CFG: {meta.p_pad} "
+          f"patches, {meta.n_patches} real), boundary 1: "
+          f"{tuple(feat.shape)} {feat.dtype} [{card}]")
+    for name, (err, bnd) in errs.items():
+        print(f"SDXL patched UNet deep mode {name}: max err / max |ref| "
+              f"{err:.3e} (bound {bnd:.3e}) [{card}]")
+        if not (np.isfinite(err) and err <= bnd):
+            raise AssertionError(f"patched deep mode {name}: {err} > {bnd}")
+    if not all((st["hits"][real] == 0).all() for st in state.values()):
+        raise AssertionError("the hybrid at fraction 1 skipped an image")
+    check_gate_card_vs_cpu(card)
+
+
+def check_gate_card_vs_cpu(card: str) -> None:
+    """``gate_compact_images`` on SDXL's serving mix (768^2 + 3 x 1024^2,
+    doubled: 128 patch rows of 64 channels at 32^2, production fraction
+    0.3) on the card and on the CPU with the same rows and state: the same
+    patches and images, the same output and hits.  Per-image drifts are
+    spread apart; the uncond half of one image is forced (hits at the
+    cap), so that no two images tie."""
+    meta = mixed_meta()
+    gen = torch.Generator().manual_seed(6)
+    side = meta.patch_cells
+    x = torch.randn(meta.p_pad, 64, side, side, generator=gen).to(
+        torch.bfloat16)
+    scale = 0.05 * (1 + torch.from_numpy(meta.image_id).float()) ** 1.5
+    inp = (x.float() + scale.reshape(-1, 1, 1, 1) * torch.randn(
+        x.shape, generator=gen)).to(torch.bfloat16)
+    cc = CacheConfig.production("sdxl", serving=False)
+    hits = torch.randint(0, cc.max_hits, (meta.p_pad,), generator=gen,
+                         dtype=torch.int32)
+    hits[torch.from_numpy(meta.image_id == 1)] = cc.max_hits  # one pair
+    t_norm = torch.rand(meta.p_pad, generator=gen)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        ctx = PatchContext(meta, dev)
+        sub_ctx, caps = compact_context(side, meta.class_info,
+                                        cc.deep_compact_fraction, True,
+                                        ctx.image_id.device)
+        st = {"inp": inp.to(dev), "out": torch.zeros_like(inp, device=dev),
+              "hits": hits.to(dev)}
+        y, st, stats = BlockCache(cc).gate_compact_images(
+            "up2.0", x.to(dev), t_norm.to(dev), st,
+            lambda x_s, gidx, imgs: x_s, ctx, caps,
+            cfg_pair_offset=meta.i_pad // 2, two_level=False)
+        runs[dev] = [a.cpu() for a in (stats["gather"], stats["images"], y,
+                                       st["hits"], st["inp"])]
+    names = ("gathered patches", "images", "output", "hits", "state inputs")
+    for name, a, b in zip(names, runs["cuda"], runs["cpu"]):
+        if not torch.equal(a, b):
+            raise AssertionError(f"image gate on the card vs the CPU: the "
+                                 f"{name} differ")
+    print(f"image gate, SDXL serving mix: card and CPU select images "
+          f"{runs['cuda'][1].tolist()} (sub-batch of "
+          f"{runs['cuda'][0].numel()} patches, caps {caps}) [{card}]")
+
+
+def serve_sdxl_mixed_deep(card: str, bundle: ModelBundle) -> list:
+    """SDXL's serving mix (768^2 + 3 x 1024^2, one mixed batch a step) in
+    the default configuration under ``production("sdxl", serving=True)``
+    and ``serving=False``, then cache-off: modes, step ms per mode (CUDA
+    events), end to end seconds, peak memory, the row-cache bytes and the
+    exact launches per realized mode."""
+    prompts = ["a red fox in snow", "a harbor at night, long exposure",
+               "a watercolor of a mountain lake", "a robot reading a book"]
+    cfg = bundle.denoiser.cfg
+    runs = []
+    for label, cache in (
+            ("serving", CacheConfig.production("sdxl", serving=True)),
+            ("offline", CacheConfig.production("sdxl", serving=False)),
+            ("off", CacheConfig())):
+        torch.cuda.reset_peak_memory_stats()
+        config = default_config("sdxl", dtype="bfloat16", seed=0)
+        config.cache = cache
+        pipe = DiffusionPipeline(config=config, device="cuda", bundle=bundle)
+        steps = spy_deep(pipe.engine.worker.pipeline)
+        reset_counts()
+        t0 = time.perf_counter()
+        outs = pipe.generate(prompts, resolution=MIXED_REQUESTS,
+                             num_inference_steps=MIXED_DEEP_STEPS,
+                             guidance_scale=5.0, seed=77)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_counts()
+        runs.append(got)
+        check_outputs(outs, MIXED_REQUESTS, card)
+        if len(steps) != MIXED_DEEP_STEPS or any(r["path"] != "mixed"
+                                                 for r in steps):
+            raise AssertionError(f"expected {MIXED_DEEP_STEPS} mixed steps, "
+                                 f"got {[r['path'] for r in steps]}")
+        modes = report_deep(steps, f"SDXL mixed 768^2 + 3 x 1024^2, cache "
+                                   f"{label}", card)
+        want = expected_launches(steps, cfg)
+        state = max(rec["state_bytes"] for rec in steps)
+        print(f"SDXL mixed deep ({label}): {MIXED_DEEP_STEPS} steps, modes "
+              f"{modes}, end to end {wall:.3f} s, max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, row "
+              f"caches {state / 1e9:.3f} GB; launches {got} (expected "
+              f"{want}; per step {mixed_launches(cfg, 2)}) [{card}]")
+        if cache.enabled and (modes.get("full", 0) < 1
+                              or modes.get("shallow", 0) < 1):
+            raise AssertionError(f"SDXL mixed deep modes {modes}")
+        if got != want:
+            raise AssertionError(f"SDXL mixed launches {got} != {want}")
+    return runs
+
+
+def serve_sd15_mixed_deep(card: str, bundle: ModelBundle) -> dict:
+    """``production("sd15", serving=True)`` under ESyMReD: 4 x 512^2
+    requests take dense deep steps, then a 768^2 request joins their batch,
+    which turns mixed: the 512^2 requests' dense deep features force a full
+    patched step, and on shallow steps the gate recomputes 1 of 4 512^2
+    image pairs.  Modes per path, step ms per mode, exact launches."""
+    torch.cuda.reset_peak_memory_stats()
+    config = default_config("sd15", dtype="bfloat16", seed=0)
+    config.scheduler.policy = "esymred"
+    config.scheduler.slo_scale = 1e4
+    config.cache = CacheConfig.production("sd15", serving=True)
+    engine = DiffusionPipeline(config=config, device="cuda",
+                               bundle=bundle).engine
+    steps = spy_deep(engine.worker.pipeline)
+
+    def add(i, res):
+        return engine.add_request(f"mixdeep-{i}", SamplingParams(
+            prompt=f"a mixed deep prompt {i}", resolution=res,
+            num_inference_steps=DEEP_SD15_STEPS, seed=i))
+
+    reset_counts()
+    t0 = time.perf_counter()
+    reqs = [add(i, r) for i, r in enumerate(MIXED_SD15_FIRST)]
+    outs = []
+    while engine.has_unfinished_requests():
+        if len(reqs) == len(MIXED_SD15_FIRST) \
+                and reqs[0].sampler_table is not None \
+                and reqs[0].sampler_table.step >= MIXED_SD15_ADMIT:
+            reqs.append(add(len(reqs), MIXED_SD15_LATE))
+        outs.extend(engine.step())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_counts()
+    outs.sort(key=lambda o: o.request_id)
+    check_outputs(outs, MIXED_SD15_FIRST + [MIXED_SD15_LATE], card)
+    mixed = [r for r in steps if r["path"] == "mixed"]
+    dense = [r for r in steps if r["path"] == "dense"]
+    dmodes = report_deep(dense, "SD-1.5 dense (512^2 group, then 768^2 "
+                                "alone)", card)
+    mmodes = report_deep(mixed, "SD-1.5 mixed 4 x 512^2 + 768^2", card)
+    want = expected_launches(steps, bundle.denoiser.cfg)
+    hits = max((int(r["hits"]) for r in mixed if r["hits"] is not None),
+               default=0)
+    print(f"SD-1.5 mixed deep: 5 requests in {wall:.3f} s; dense modes "
+          f"{dmodes}, mixed modes {mmodes} (first mixed step "
+          f"{mixed[0]['mode'] if mixed else None}); largest row hit count "
+          f"{hits}; launches {got} (expected {want}); max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    if not dense or not mixed or mixed[0]["mode"] != "full" \
+            or "shallow" not in mmodes:
+        raise AssertionError("no dense-to-patched flip with a full step "
+                             "and shallow steps after it")
+    if hits < 1:
+        raise AssertionError("the image gate never skipped an image")
+    if got != want:
+        raise AssertionError(f"SD-1.5 mixed deep launches {got} != {want}")
+    return got
+
+
 def reset_counts() -> None:
     flash_mha_fused.launches = flash_mha.launches = 0
     flash_mha_masked.launches = gn_silu_halo.launches = 0
@@ -1446,7 +1761,15 @@ def main() -> None:
     k4 = check_k4(card)
     k4_sd15 = check_k4(card, mixed_meta("sd15", SD15_MIXED_REQUESTS),
                        SD15_K4_SHAPES, seed=7)
-    k4["max_abs_err"] = max(k4["max_abs_err"], k4_sd15["max_abs_err"])
+    # the gated sub-compositions of the mixed deep shallow steps (SDXL:
+    # 50 patches of 768^2 + 3 x 1024^2; SD-1.5: 26 of 4 x 512^2 + 768^2)
+    k4_sub = check_k4(card, sub_meta("sdxl", MIXED_REQUESTS), SUB_K4_SHAPES,
+                      seed=8)
+    k4_sub_sd15 = check_k4(card, sub_meta("sd15", MIXED_SD15_FIRST
+                                          + [MIXED_SD15_LATE]),
+                           SUB_K4_SHAPES, seed=9)
+    k4["max_abs_err"] = max(k4["max_abs_err"], k4_sd15["max_abs_err"],
+                            k4_sub["max_abs_err"], k4_sub_sd15["max_abs_err"])
     k5 = check_k5(card)
     check_block()
     check_sd3_block()
@@ -1456,6 +1779,8 @@ def main() -> None:
     runs = [serve(card, bundle), serve_mixed(card, bundle)]
     check_deep_invariant(bundle, card)
     runs += serve_sdxl_deep(card, bundle)
+    check_mixed_deep_invariant(bundle, card)
+    runs += serve_sdxl_mixed_deep(card, bundle)
     # free each bundle so each family's peak memory reads alone
     del bundle
     gc.collect()
@@ -1475,6 +1800,7 @@ def main() -> None:
         serve_sd15(card, sd15, False, "ddim", SD15_SAMPLER_STEPS,
                    SD15_REQUESTS),
         serve_sd15_rowwarm(card, sd15),
+        serve_sd15_mixed_deep(card, sd15),
     ]
     # launches: the sum over the serving paths, each read just after its run
     launches = {key: sum(r[key] for r in runs) for key in runs[0]}

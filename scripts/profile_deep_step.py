@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Where the time of a deep-cache step goes in the PyTorch/CUDA port.
 
-    python3 scripts/profile_deep_step.py [--steps 3] [--out FILE.json]
+    python3 scripts/profile_deep_step.py [--steps 3] [--mixed] [--out FILE]
 
 Needs one CUDA card.  Builds the full-width SDXL and SD-1.5 pipelines of
 ``sduss_tpu_torch`` (random bf16 weights from seed 0, TF32 off, dense
-path) and profiles, with ``scripts/profile_torch_step.py``'s ``profile``
-(wall ms by CUDA events, device-busy ms, device ms by op class):
+path, or with ``--mixed`` the mixed patch path) and profiles, with
+``scripts/profile_torch_step.py``'s ``profile`` (wall ms by CUDA events,
+device-busy ms, device ms by op class):
 
   1. SDXL 8 x 1024^2 (16 denoiser rows) under
      ``CacheConfig.production("sdxl", serving=False)``, the bench's
@@ -16,6 +17,16 @@ path) and profiles, with ``scripts/profile_torch_step.py``'s ``profile``
   2. SD-1.5 3 x 512^2 (bucket 4, 8 rows) under
      ``production("sd15", serving=True)``: shallow, full and partial steps
      (one request's deep feature dropped, as an admission has none).
+
+With ``--mixed``, one mixed batch a step (``denoise_step_mixed``):
+
+  1. SDXL 768^2 + 3 x 1024^2 (CFG: 128 patch rows of 32^2 latent cells)
+     under ``production("sdxl", serving=False)``: shallow steps (the image
+     gate recomputes one 1024^2 pair of three and the 768^2 pair on the
+     50-patch sub-composition) and full steps;
+  2. SD-1.5 4 x 512^2 + 768^2 (CFG: 64 patch rows) under
+     ``production("sd15", serving=True)``: shallow (one 512^2 pair of four
+     and the 768^2 pair recomputed) and full steps.
 
 Each profiled mode is checked against the mode the pipeline ran.  The last
 line is a JSON object with every number; ``--out`` also writes it to a
@@ -44,20 +55,23 @@ from sduss_tpu_torch.pipelines import build_pipeline  # noqa: E402
 from sduss_tpu_torch.pipelines.base import _state_nbytes  # noqa: E402
 
 CELLS = {"sdxl": (1024, 8, False), "sd15": (512, 3, True)}  # res, batch, serving
+# the mixed path: {resolution: requests}, serving preset
+MIXED = {"sdxl": ({768: 1, 1024: 3}, False), "sd15": ({512: 4, 768: 1}, True)}
 
 
-def deep_pipeline(family: str, serving: bool):
+def deep_pipeline(family: str, serving: bool, mixed: bool = False):
     config = default_config(family, dtype="bfloat16", seed=0)
-    config.scheduler.use_mixed_resolution = False
+    config.scheduler.use_mixed_resolution = mixed
     config.cache = CacheConfig.production(family, serving=serving)
     pipe = build_pipeline(config, torch.device("cuda"))
-    modes, step = [], pipe._deep_step
+    name = "_deep_step_mixed" if mixed else "_deep_step"
+    modes, step = [], getattr(pipe, name)
 
     def spy(mode, *args):
         modes.append(mode)
         return step(mode, *args)
 
-    pipe._deep_step = spy
+    setattr(pipe, name, spy)
     return pipe, modes
 
 
@@ -101,10 +115,48 @@ def profile_modes(family: str, steps: int, card: str) -> dict:
     return out
 
 
+def profile_mixed(family: str, steps: int, card: str) -> dict:
+    counts, serving = MIXED[family]
+    pipe, modes = deep_pipeline(family, serving, mixed=True)
+    by_res = {res: prepared(pipe, n, res, tag=f"{family}{res}_")
+              for res, n in counts.items()}
+    label = " + ".join(f"{n} x {res}^2" for res, n in counts.items())
+    for _ in range(pipe.config.cache.deep_warmup + 1):  # past the warmup
+        pipe.denoise_step_mixed(by_res)
+
+    def shallow():
+        pipe.denoise_step_mixed(by_res)
+
+    def full():
+        for reqs in by_res.values():
+            for r in reqs:
+                r.deep_age = 10 ** 6  # the interval expired
+        pipe.denoise_step_mixed(by_res)
+
+    out = {}
+    for mode, fn in (("shallow", shallow), ("full", full)):
+        del modes[:]
+        prof = profile(fn, steps)
+        if set(modes) != {mode}:
+            raise AssertionError(f"{family} mixed {mode} profile ran {modes}")
+        print(f"{family} mixed {label} {mode} step: wall "
+              f"{prof['wall_ms']:.2f} ms, device busy {prof['busy_ms']:.2f} "
+              f"ms ({prof['busy_ms'] / prof['wall_ms']:.1%}) [{card}]")
+        print_profile(prof)
+        out[mode] = prof
+    out["state_bytes"] = sum(_state_nbytes(e["state"])
+                             for e in pipe._comp_state.values())
+    print(f"{family} mixed hybrid row caches {out['state_bytes'] / 1e9:.3f} "
+          f"GB [{card}]")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=3,
                     help="timed steps per measurement")
+    ap.add_argument("--mixed", action="store_true",
+                    help="profile the mixed patch path's deep steps")
     ap.add_argument("--out", type=Path, help="also write the JSON here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -112,10 +164,11 @@ def main() -> None:
     configure_numerics()
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
-    result = {"card": card}
+    result = {"card": card, "path": "mixed" if args.mixed else "dense"}
+    run = profile_mixed if args.mixed else profile_modes
     for family in CELLS:
         t0 = time.perf_counter()
-        result[family] = profile_modes(family, args.steps, card)
+        result[family] = run(family, args.steps, card)
         print(f"{family} done in {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
     if args.out:

@@ -1,13 +1,16 @@
 """Row gates of the deep x compact hybrid (counterpart of the parts of
-sduss_tpu/cache/manager.py that the dense UNet deep cache runs).
+sduss_tpu/cache/manager.py that the UNet deep cache runs).
 
 Per gated block, per step, recompute only the most-drifted rows of the
 batch and splice cached outputs into the rest: ``gate_compact`` selects
 rows, ``gate_compact_pairs`` selects CFG pairs (both halves of an image
-recompute together).  The drift score is the relative MSE of a row's input
-against its input at its last recompute, or a trained per-block logistic
-over ``[rel_mse, t, hits]`` loaded from ``CacheConfig.classifier_path``;
-a row left unselected for ``max_hits`` gated steps outranks every other.
+recompute together) and, on the patch path, ``gate_compact_images``
+selects whole images per resolution class (patch rows couple through
+per-image group norm, halos and attention).  The drift score is the
+relative MSE of a row's input against its input at its last recompute, or
+a trained per-block logistic over ``[rel_mse, t, hits]`` loaded from
+``CacheConfig.classifier_path``; a row left unselected for ``max_hits``
+gated steps outranks every other.
 
 State per gated block key, NCHW like the port's activations::
 
@@ -23,9 +26,9 @@ place, so the old and the new state are never held together (at SDXL
 1024^2, bucket 8, the rows are 2.35 GB).  The selection stays on the
 device: no gate reads a value back to the host.
 
-Not ported: mode "block" (``gate``), the patch path's
-``gate_compact_images`` and the MMDiT token variants (ROADMAP Queue 1
-items 5, 6 and 9).
+Not ported: mode "block" (``gate``), the two-level rows of
+``gate_compact_images`` (``patch_fraction < 1``, mode "compact") and the
+MMDiT token variants (ROADMAP Queue 1 items 5 and 9).
 """
 
 from __future__ import annotations
@@ -153,6 +156,76 @@ class BlockCache:
         x_c = x[idx]
         y = self._compact_splice(state_k, x_c, compute_fn(x_c, idx), idx)
         return y, state_k, {"idx": idx, "scores": scores}
+
+    def gate_compact_images(self, key: str, x, t_norm, state_k: dict,
+                            compute_fn: Callable, ctx, caps,
+                            cfg_pair_offset=None, two_level=True):
+        """Image-granular compact recompute on the patch path: per
+        resolution class, the ``caps[ci]`` most-drifted images are gathered
+        with all their patches into the sub-composition of
+        ``ops.patching.compact_submeta`` (where group norm, halos and
+        grouped attention are exact) and recomputed there; every other
+        image keeps its cached block output.
+
+        ``compute_fn(x_sub, gather_idx, sel_images) -> y_sub`` runs the
+        pair on the sub-batch (the caller binds the sub-context and gathers
+        temb by patch, text context by image).  An image scores the mean of
+        its real patches' scores, summed by ``ctx.image_onehot`` in a fixed
+        order so that the card picks the same images on every run; class
+        pad slots rank -inf.  ``cfg_pair_offset`` (the single meta's
+        ``i_pad`` on the CFG-doubled meta) symmetrises each image's score
+        with its CFG partner's, so that even caps select both halves
+        together.  Capacity beyond a class's real images selects pad slots,
+        whose rows write nowhere.  ``two_level`` with ``patch_fraction < 1``
+        (mode "compact") is not ported.
+
+        The state's ``inp``/``out``/``hits`` are updated in place; like the
+        JAX gate, whose returned state has only those three, it drops
+        ``slope``/``seen``, so ``compact_predict`` has no effect here.
+        Returns ``(y, state_k, stats)``, ``y`` the updated ``out`` rows.
+        """
+        if two_level and self.config.patch_fraction < 1.0:
+            raise NotImplementedError(
+                "two-level patch rows (patch_fraction < 1, cache mode "
+                "'compact') are not ported (ROADMAP Queue 1 item 9)")
+        scores = self._scores(key, x, state_k, t_norm)
+        valid = ctx.patch_valid
+        num = ctx.image_onehot @ torch.where(valid, scores, 0.0)
+        den = ctx.image_onehot @ valid.float()
+        img_scores = num / den.clamp(min=1.0)
+        if cfg_pair_offset is not None:
+            h = cfg_pair_offset
+            sym = 0.5 * (img_scores[:h] + img_scores[h:2 * h])
+            img_scores = torch.cat([sym, sym])
+        gathers, images = [], []
+        for ci in range(len(ctx.meta.class_info)):
+            slots = ctx.class_slots[ci]          # (ipc, g*g), -1 = pad slot
+            slot_valid = ctx.class_kv[ci][:, 0]
+            img_ids = ctx.image_id[slots[:, 0].clamp(min=0)]
+            s_c = torch.where(slot_valid, img_scores[img_ids], -torch.inf)
+            sel = top_k_stable(s_c, caps[ci])
+            gathers.append(slots[sel].reshape(-1))
+            images.append(img_ids[sel])
+        gidx = torch.cat(gathers)
+        sel_imgs = torch.cat(images)
+        src = gidx.clamp(min=0)
+        x_sub = x[src]
+        y_sub = compute_fn(x_sub, src, sel_imgs)
+        # real slots score finite, pads -inf, so a class's selection holds
+        # its real images first: the rows to write are known on the host
+        rows = ctx.real_rows(caps)
+        sidx, x_w, y_w = gidx, x_sub, y_sub
+        if rows is not None:
+            sidx, x_w, y_w = gidx[rows], x_sub[rows], y_sub[rows]
+        out, hits = state_k["out"], state_k["hits"]
+        state_k["inp"].index_copy_(0, sidx, x_w.to(state_k["inp"].dtype))
+        out.index_copy_(0, sidx, y_w.to(out.dtype))
+        hits.add_(1)
+        hits.index_fill_(0, sidx, 0)
+        state_k.pop("slope", None)
+        state_k.pop("seen", None)
+        return (out.to(y_sub.dtype), state_k,
+                {"gather": gidx, "images": sel_imgs})
 
     def _compact_splice(self, state_k: dict, x_c, y_c, idx):
         """Scatter the fresh rows into the cached outputs and the state.

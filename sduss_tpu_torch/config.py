@@ -191,8 +191,8 @@ class SchedulerConfig:
 @dataclass
 class CacheConfig:
     """Learned per-block output cache settings.  The port serves
-    ``mode="deep"`` on the dense path of sd15 and sdxl; the Engine refuses
-    the other modes, SD3's caches and caches on mixed batches."""
+    ``mode="deep"`` on the dense and the mixed patch path of sd15 and
+    sdxl; the Engine refuses the other modes and SD3's caches."""
 
     enabled: bool = False
     # "block": per-patch masked recompute splice;

@@ -32,8 +32,10 @@ def check_supported(config: Config) -> None:
     """Raise, when the Engine is built, for configurations whose code paths
     are not ported yet, naming the ROADMAP item that ports them.  Of the
     caches, the deep cache (``mode="deep"``, with its adaptive refresh,
-    prediction, row warmup and CFG-pair hybrid) is served on the dense path
-    of the UNet families (sd15, sdxl)."""
+    prediction, row warmup and CFG-pair hybrid) is served on both paths of
+    the UNet families (sd15, sdxl): dense batches and, with
+    ``use_mixed_resolution``, mixed batches on the patch path, so each
+    ``CacheConfig.production`` preset of those families runs as it is."""
     par, cc, sc = config.parallel, config.cache, config.scheduler
     if par.world_size != 1:
         raise NotImplementedError("multi-device serving is not ported "
@@ -47,12 +49,6 @@ def check_supported(config: Config) -> None:
             raise NotImplementedError(
                 f"cache mode {cc.mode!r} is not ported; the deep cache is "
                 "(ROADMAP Queue 1 item 9)")
-        if sc.use_mixed_resolution:
-            # a mixed batch must never run cache-off without a word
-            raise NotImplementedError(
-                "the caches on the mixed patch path are not ported; set "
-                "scheduler.use_mixed_resolution=False for the dense deep "
-                "cache (ROADMAP Queue 1 item 6)")
     if sc.steps_per_dispatch != 1:
         raise NotImplementedError("fused multi-step dispatch is not ported "
                                   "(steps_per_dispatch=1; ROADMAP Queue 1 "

@@ -2,11 +2,12 @@
 
 The port carries the JAX ``apply``'s dense path (``ctx=None``) and its
 mixed-resolution patch path (``ctx`` a ``PatchContext``, ops/patch_ctx.py),
-for linear transformer projections (SDXL) and 1x1-conv ones (SD-1.5).  The
-dense path also takes the deep cache's modes (``deep_mode`` full / shallow
-/ partial at ``deep_boundary``) and, with them, the deep x compact hybrid's
-CFG-pair row gating (``cache`` a ``cache.manager.BlockCache``); the block
-and compact cache modes and the caches on the patch path are not ported.
+for linear transformer projections (SDXL) and 1x1-conv ones (SD-1.5).  Both
+take the deep cache's modes (``deep_mode`` full / shallow at
+``deep_boundary``; partial on the dense path) and, with them, the deep x
+compact hybrid's gating (``cache`` a ``cache.manager.BlockCache``): CFG
+pairs of rows on the dense path, whole images per resolution class on the
+patch path.  The block and compact cache modes are not ported.
 With a ``ctx`` every 3x3
 convolution, group norm, self/cross-attention and upsample goes through the
 context, as the JAX ``_gn`` / ``_gn_silu_conv`` / ``_conv`` /
@@ -28,6 +29,7 @@ import torch.nn.functional as F
 
 from sduss_tpu_torch.models import layers as L
 from sduss_tpu_torch.ops.attention import masked_attention
+from sduss_tpu_torch.ops.patch_ctx import compact_context
 
 
 @dataclasses.dataclass(frozen=True)
@@ -461,8 +463,9 @@ class UNet2DConditionModel(nn.Module):
         to the patches through the context.  Returns the model output in
         the sample's layout, like the JAX apply.
 
-        ``deep_mode`` (dense path only), the deep cache's temporal reuse of
-        the levels >= ``deep_boundary`` (default: the deepest level + mid):
+        ``deep_mode``, the deep cache's temporal reuse of the levels >=
+        ``deep_boundary`` (default: the deepest level + mid), on dense and
+        patch batches (``partial`` dense only):
 
         - ``"full"``: compute everything and also return the deep feature,
           ``h`` entering up block ``n_levels - boundary`` (after the
@@ -478,9 +481,12 @@ class UNet2DConditionModel(nn.Module):
         With a mode it returns ``(out, deep_feature)``; with the hybrid's
         ``cache`` and ``cache_state`` as well (``cache.config.
         deep_compact_fraction`` set) ``(out, deep_feature, cache_state)``:
-        full steps write every gated pair's rows through, shallow and
-        partial steps gate them by CFG pairs (``row_valid`` marks real
-        rows), and the state is updated in place.
+        full steps write every gated pair's rows through, and the state is
+        updated in place.  Dense shallow and partial steps gate the pairs by
+        CFG pairs (``row_valid`` marks real rows); patched shallow steps
+        gate whole images per resolution class (``gate_compact_images``
+        with symmetrised CFG-pair scores and even capacities), each pair
+        running on the sub-composition's context.
         """
         hybrid = (deep_mode is not None and cache is not None
                   and cache.config.deep_compact_fraction is not None)
@@ -496,10 +502,6 @@ class UNet2DConditionModel(nn.Module):
             raise ValueError("deep_mode and cache are mutually exclusive "
                              "(set CacheConfig.deep_compact_fraction for "
                              "the hybrid, which returns all three)")
-        if deep_mode is not None and ctx is not None:
-            raise NotImplementedError(
-                "the deep cache on the patch path is not ported (ROADMAP "
-                "Queue 1 item 6)")
         if cache is not None and deep_mode is None:
             raise NotImplementedError(
                 "the block and compact cache modes are not ported (ROADMAP "
@@ -507,20 +509,36 @@ class UNet2DConditionModel(nn.Module):
         n_levels = len(self.cfg.block_out_channels)
         boundary = deep_boundary if deep_boundary is not None else n_levels - 1
         temb = self.time_embed(timesteps, added_cond, dtype=sample.dtype)
+        t_norm = timesteps.float() / 1000.0
         if ctx is not None:
             temb = ctx.broadcast_to_patches(temb)
+            t_norm = ctx.per_patch(t_norm)
         ehs = encoder_hidden_states
         caching = cache is not None and cache_state is not None
         gating = caching and deep_mode in ("shallow", "partial")
-        t_norm = timesteps.float() / 1000.0
+        if gating and ctx is not None:
+            # the gated images' canonical sub-composition: pair-coherent
+            # (even) capacities on the CFG-doubled meta
+            sub_ctx, caps = compact_context(
+                ctx.meta.patch_cells, ctx.meta.class_info,
+                cache.config.deep_compact_fraction, True,
+                ctx.image_id.device)
 
         def gated(key, x, body):
             st = cache_state.get(key) if caching else None
             if st is None:  # cache off, or a pair outside the hybrid layout
                 return body(x, temb, ehs, ctx)
             if not gating:  # full step: recompute, re-anchor the rows
-                y = body(x, temb, ehs)
+                y = body(x, temb, ehs, ctx)
                 cache.write_through(st, x, y)
+                return y
+            if ctx is not None:
+                y, _, _ = cache.gate_compact_images(
+                    key, x, t_norm, st,
+                    lambda x_s, gidx, imgs: body(x_s, temb[gidx], ehs[imgs],
+                                                 sub_ctx),
+                    ctx, caps, cfg_pair_offset=ctx.meta.i_pad // 2,
+                    two_level=False)
                 return y
 
             def fn(x_c, idx):

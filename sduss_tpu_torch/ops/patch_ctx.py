@@ -20,12 +20,15 @@ Patched equals dense per image to float tolerance
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from sduss_tpu_torch.ops.attention import masked_attention
 from sduss_tpu_torch.ops.gn_halo import gn_silu_haloed, group_sums
-from sduss_tpu_torch.ops.patching import PatchMeta, haloed
+from sduss_tpu_torch.ops.patching import PatchMeta, compact_submeta, haloed
 
 
 class PatchContext:
@@ -34,7 +37,9 @@ class PatchContext:
 
     Gathers clip the -1 slots of ``group_gather`` / ``class_gather`` to
     patch 0, as the JAX context does: a padded slot carries patch 0's data,
-    and the key mask keeps it out of every softmax.
+    and the key mask keeps it out of every softmax.  ``class_slots`` keeps
+    the -1 marks (``(ipc, g*g)`` per class), which the image gate reads;
+    ``patch_valid`` marks the real patches (bucket pads are False).
     """
 
     def __init__(self, meta: PatchMeta, device):
@@ -53,6 +58,35 @@ class PatchContext:
         self.class_pos = [dev(a, torch.long) for a in meta.class_pos]
         self.class_member = [dev(a, torch.bool) for a in meta.class_member]
         self.class_kv = [dev(a, torch.bool) for a in meta.class_kv]
+        self.class_slots = [dev(a.reshape(ipc, g * g), torch.long)
+                            for a, (g, ipc) in zip(meta.class_gather,
+                                                   meta.class_info)]
+        self.patch_valid = dev(meta.kv_mask.reshape(-1)[meta.patch_pos],
+                               torch.bool)
+        # (i_pad, p_pad) float32 one-hot of image_id: per-image sums as a
+        # product, in a fixed order (``index_add_`` adds with atomics on
+        # CUDA, in varying order)
+        self.image_onehot = (self.image_id[None, :] == torch.arange(
+            meta.i_pad, device=device)[:, None]).float()
+        self._real_rows = {}
+
+    def real_rows(self, caps):
+        """Rows of the image gate's sub-batch that hold real images, or
+        None when all do: per class, the first ``min(caps[ci], real
+        images)`` selected slots (real slots outrank the -inf pads).  The
+        sub-batch is class-major, ``caps[ci] * g*g`` rows a class."""
+        if caps not in self._real_rows:
+            rows, off = [], 0
+            for (g, _), kv, cap in zip(self.meta.class_info,
+                                       self.meta.class_kv, caps):
+                n = min(cap, int(kv[:, 0].sum())) * g * g
+                rows.append(np.arange(off, off + n))
+                off += cap * g * g
+            rows = np.concatenate(rows)
+            self._real_rows[caps] = (
+                None if len(rows) == off else
+                torch.from_numpy(rows).to(self.image_id.device))
+        return self._real_rows[caps]
 
     # -- time embedding -----------------------------------------------------
 
@@ -155,3 +189,13 @@ class PatchContext:
         k = attn.to_k(ehs)[self.image_id]
         v = attn.to_v(ehs)[self.image_id]
         return masked_attention(attn.to_q(h), k, v, attn.heads)
+
+
+@functools.lru_cache(maxsize=32)
+def compact_context(patch_cells: int, class_info, fraction: float,
+                    even: bool, device: torch.device):
+    """``(PatchContext, caps)`` of ``compact_submeta``'s sub-composition,
+    built once per sub-meta and device: its index tensors stay on the
+    device from one gated step to the next."""
+    sub, caps = compact_submeta(patch_cells, class_info, fraction, even)
+    return PatchContext(sub, device), caps

@@ -19,7 +19,9 @@ a patch-count bucket and ``I`` to an image-count bucket; padded patches
 belong to a dummy image slot, so they never touch a real image's
 statistics.  The index arrays go to the device once per step
 (``ops/patch_ctx.py``).  The JAX package's native C++ layout code gives
-the same arrays; the port builds them in Python.
+the same arrays; the port builds them in Python.  ``compact_submeta``
+gives the canonical sub-composition that the deep cache's image gate
+recomputes on a shallow step.
 
 Tensor helpers: ``split_latent`` / ``merge_patches`` keep the JAX layout
 (NHWC latents and patches); ``haloed`` works on NCHW patch activations,
@@ -66,6 +68,15 @@ class PatchMeta:
     class_pos: Tuple[np.ndarray, ...] = ()
     class_member: Tuple[np.ndarray, ...] = ()
     class_kv: Tuple[np.ndarray, ...] = ()
+
+    @property
+    def compile_key(self) -> Tuple:
+        """The composition's static shape: what the deep x compact hybrid's
+        composition-store signature keys on (JAX ``PatchMeta.compile_key``).
+        Two compositions with one key have the same buckets, slot width and
+        class layout."""
+        return (self.patch_cells, self.p_pad, self.i_pad, self.max_pp,
+                self.class_info)
 
 
 def _bucket(value: int, buckets: Sequence[int]) -> int:
@@ -167,6 +178,36 @@ def build_meta(grids: Tuple[int, ...], patch_cells: int,
         image_id=image_id, neighbors=neighbors, group_gather=group_gather,
         patch_pos=patch_pos, kv_mask=kv_mask, class_info=ci,
         class_gather=cg, class_pos=cp, class_member=cm, class_kv=ck)
+
+
+@functools.lru_cache(maxsize=256)
+def compact_submeta(patch_cells: int,
+                    class_info: Tuple[Tuple[int, int], ...],
+                    fraction: float, even: bool = False):
+    """The sub-composition of image-granular compact recompute.
+
+    Each gated step recomputes the ``round(ipc * fraction)`` most-drifted
+    images of every resolution class (at least one), gathered with all
+    their patches, so that per-image group norm, halos and grouped
+    attention are exact on the sub-batch.  ``even`` (the deep x compact
+    hybrid on the CFG-doubled meta) raises each capacity to even, at most
+    ``ipc``, so that symmetrised pair scores select both halves of an image
+    together.  The grids are class-major (largest class first), the order
+    in which the gate concatenates its per-class gathers, and the buckets
+    fit exactly: the sub-batch has no padding of its own.
+
+    Returns ``(sub_meta, caps)``, ``caps[ci]`` the image capacity of class
+    ``ci``; the same arguments return the same objects.
+    """
+    caps = [max(1, int(round(ipc * fraction))) for (_, ipc) in class_info]
+    if even:
+        caps = [min(ipc, c + (c % 2)) for (_, ipc), c in zip(class_info, caps)]
+    grids = []
+    for (g, _), c in zip(class_info, caps):
+        grids += [g] * c
+    n_p = sum(g * g for g in grids)
+    sub = build_meta(tuple(grids), patch_cells, (n_p,), (len(grids),))
+    return sub, tuple(caps)
 
 
 @functools.lru_cache(maxsize=256)

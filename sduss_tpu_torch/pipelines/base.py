@@ -22,15 +22,20 @@ the dense latent layout (``Request.sampler_state``); the mixed step slices
 it into patches like the latents and merges it back, so a request may move
 between dense and patched steps.
 
-The deep cache (``CacheConfig.mode == "deep"``) runs on the dense path of
-the UNet families: each step of a resolution group is full, shallow or
-partial (``_denoise_group_deep``), with the drift-adaptive refresh, the
-reuse-then-predict extrapolation, the row-granular warmup and the deep x
-compact hybrid's CFG-pair row caches, which live in a store keyed by the
-batch's composition (``_comp_state``).  Like the JAX package, the deep
-branch pads the batch to its bucket by repeating the last row, because the
-hybrid's gate capacity comes from the bucket.  The other cache modes, the
-caches on the patch path and the fused multi-step dispatch are not ported
+The deep cache (``CacheConfig.mode == "deep"``) runs on both paths of the
+UNet families.  On the dense path each step of a resolution group is full,
+shallow or partial (``_denoise_group_deep``), with the drift-adaptive
+refresh, the reuse-then-predict extrapolation, the row-granular warmup and
+the deep x compact hybrid's CFG-pair row caches, which live in a store
+keyed by the batch's composition (``_comp_state``).  Like the JAX package,
+the deep branch pads the batch to its bucket by repeating the last row,
+because the hybrid's gate capacity comes from the bucket.  On the patch
+path a mixed batch's step is full or shallow batch-wide
+(``_deep_mode_mixed``); the hybrid gates whole images per resolution class
+and keeps its rows, one per doubled patch, in a ``"unet_hybrid_mixed"``
+entry of the same store.  A request whose batch moves between the two
+paths holds a deep feature of the other layout, which forces a full step.
+The other cache modes and the fused multi-step dispatch are not ported
 yet.
 """
 
@@ -294,7 +299,7 @@ class BasePipeline:
         expiry = any(_expired(r) for r in reqs if not _warm_need(r))
         entry = None
         if cc.deep_compact_fraction is not None:
-            mk_state = self._hybrid_state_factory(res)
+            mk_state = self._hybrid_state_factory(res // self.vae_scale)
             if cc.deep_row_warmup:
                 # an admission seeds the new composition's rows from the
                 # previous one's survivors; an anchoring full is needed
@@ -493,17 +498,19 @@ class BasePipeline:
         cc = self.config.cache
         return ("hybrid", cc.deep_compact_fraction, cc.deep_boundary)
 
-    def _hybrid_state_factory(self, res):
-        """``mk_state(n_rows)``: zero row caches for every pair a shallow
-        step gates at ``res`` (``shallow_cache_layout``)."""
+    def _hybrid_state_factory(self, cells: int, n_rows=None):
+        """``mk_state(n)``: zero row caches for every pair a shallow step
+        gates on a ``cells``-wide latent or patch (``shallow_cache_layout``),
+        ``n`` rows, or ``n_rows`` when given (the patch path's rows are the
+        doubled patch batch, whatever the store asks)."""
         if self._cache_obj is None:
             self._cache_obj = BlockCache(self.config.cache)
         cache = self._cache_obj
         layout = self.bundle.denoiser.shallow_cache_layout(
-            res // self.vae_scale, self.config.cache.deep_boundary)
+            cells, self.config.cache.deep_boundary)
 
         def mk_state(n):
-            return {key: cache.init_rows(key, n, s, c_in, c_out,
+            return {key: cache.init_rows(key, n_rows or n, s, c_in, c_out,
                                          self.bundle.dtype, self.device)
                     for key, (s, c_in, c_out) in layout.items()}
 
@@ -610,9 +617,10 @@ class BasePipeline:
     def evict_finished_state(self, req_ids) -> None:
         """Drop the composition-state entries of any finished or aborted
         request: their keys hold the exact request-id tuple, so they can
-        never be used again.  With ``deep_row_warmup`` an anchored hybrid
-        entry's survivors keep their rows in a shrunk entry, so that a
-        finish does not cost the next composition an anchoring full."""
+        never be used again.  With ``deep_row_warmup`` an anchored dense
+        hybrid entry's survivors keep their rows in a shrunk entry, so that
+        a finish does not cost the next composition an anchoring full; a
+        patch-path entry (``"unet_hybrid_mixed"``) just goes."""
         ids = set(req_ids)
         if not ids:
             return
@@ -638,10 +646,18 @@ class BasePipeline:
         resolution) and padded to the patch bucket, and the patch context
         provides halo convs, per-image group norm and grouped attention.
         A resolution that does not divide into patches falls back to the
-        dense step.  The JAX package routes a composition whose compiled
-        program is not warm yet to the dense step for a while; eager
-        PyTorch compiles nothing, so the port always runs patched.
+        dense step, and so does a stateful sampler with a cache enabled (as
+        in the JAX package).  The JAX package routes a composition whose
+        compiled program is not warm yet to the dense step for a while;
+        eager PyTorch compiles nothing, so the port always runs patched.
+
+        With the deep cache the step is full or shallow for the whole batch
+        (``_deep_mode_mixed``); the hybrid's row caches live in the
+        ``"unet_hybrid_mixed"`` entry of this composition, and a fresh entry
+        forces an anchoring full step.
         """
+        if self.sampler.needs_state and self.config.cache.enabled:
+            return self.denoise_step(reqs_by_res)
         ordered: List[Request] = []
         for res in sorted(reqs_by_res):
             ordered.extend(reqs_by_res[res])
@@ -659,6 +675,17 @@ class BasePipeline:
         meta2 = patching.double_meta(grids, cells, tuple(sc.patch_buckets),
                                      tuple(sc.batch_buckets))
         dev = self.device
+        deep_mode = self._deep_mode_mixed(ordered, grids)
+        entry = None
+        if (deep_mode is not None
+                and self.config.cache.deep_compact_fraction is not None):
+            sig = (self._hybrid_sig() + ("mixed",) + meta.compile_key
+                   + meta2.compile_key)
+            entry = self._comp_state_entry(
+                "unet_hybrid_mixed", 0, ordered, meta.i_pad, sig,
+                self._hybrid_state_factory(cells, meta2.p_pad))
+            if not entry["anchored"]:
+                deep_mode = "full"  # the write-through anchors fresh rows
 
         x = torch.cat([patching.split_latent(r.latents, cells)
                        for r in ordered], dim=0)
@@ -693,33 +720,124 @@ class BasePipeline:
                                               ctx1, ctx2, state)
             self._scatter_sampler_state_mixed(ordered, grids, cells,
                                               new_state)
+        elif deep_mode is not None:
+            new_x, deep_out = self._deep_step_mixed(
+                deep_mode, x, t, coeffs, guidance, cond, ctx1, ctx2,
+                self._gather_deep_mixed(ordered, grids, meta, deep_mode),
+                entry)
+            self._scatter_deep_mixed(ordered, grids, meta, deep_mode,
+                                     deep_out)
         else:
             new_x = self._mixed_fn(x, t, coeffs, guidance, cond, ctx1, ctx2)
+        adaptive = deep_mode is not None and self.config.cache.deep_adaptive
         off = 0
         for r, g in zip(ordered, grids):
             n = g * g
+            prev = r.latents
             r.latents = patching.merge_patches(new_x[off:off + n], g)
             off += n
             r.sampler_table.advance()
             r.remain_steps -= 1
+            if adaptive:
+                # full: the reference is this step's input, the latent the
+                # deep features came from; shallow: this step's output
+                self._note_drift(r, deep_mode,
+                                 prev if deep_mode == "full" else r.latents)
 
-    def _mixed_fn(self, x, t, coeffs, guidance, cond, ctx1, ctx2, state=None):
+    def _mixed_fn(self, x, t, coeffs, guidance, cond, ctx1, ctx2, state=None,
+                  deep=None):
         """CFG duplicate -> scale -> patched model -> combine -> sampler
         step, per patch with its image's coefficients (rows go uncond
         block first, then cond, as in the JAX ``_make_mixed_fn``).  With a
         patch-sliced sampler ``state`` it returns ``(x, new_state)``: the
-        stateful update is element-wise, so it is exact per patch."""
+        stateful update is element-wise, so it is exact per patch.  With
+        ``deep`` (the UNet's deep-cache keywords) it returns ``(x,
+        deep_feature)``."""
         c0, c1 = coeffs[:, 0], coeffs[:, 1]  # per image (i_pad,)
         x2 = torch.cat([x, x], dim=0)
         t2 = torch.cat([t, t], dim=0)
         x2 = self.sampler.scale_model_input(x2, torch.cat([c0, c0])[ctx2.image_id])
-        uncond, text = self.denoiser_forward(x2, t2, cond, ctx=ctx2).chunk(2, dim=0)
+        out = self.denoiser_forward(x2, t2, cond, ctx=ctx2, **(deep or {}))
+        model_out, feature = (out[0], out[1]) if deep else (out, None)
+        uncond, text = model_out.chunk(2, dim=0)
         g = guidance[ctx1.image_id].reshape(-1, 1, 1, 1)
         noise_pred = uncond + g * (text - uncond)
         c0p, c1p = c0[ctx1.image_id], c1[ctx1.image_id]
         if state is not None:
             return self.sampler.step_with_state(x, noise_pred, c0p, c1p, state)
-        return self.sampler.step(x, noise_pred, c0p, c1p)
+        stepped = self.sampler.step(x, noise_pred, c0p, c1p)
+        return stepped if deep is None else (stepped, feature)
+
+    # -- the deep cache on the patch path ------------------------------------
+
+    def _deep_mode_mixed(self, ordered, grids):
+        """The batch-wide full/shallow decision of a mixed step, on the
+        host (None with the deep cache off).  Full when any request has no
+        deep feature, is at its interval cap or in warmup, holds a feature
+        of another layout (its batch was on the dense path) or (adaptive)
+        drifted past the threshold."""
+        if not self._deep_cache_active():
+            return None
+        interval, warmup, adaptive = self._deep_policy()
+        need_full = any(
+            r.deep_state is None or r.deep_age >= interval - 1
+            or r.sampler_table.step < warmup
+            or r.deep_state.shape[0] != 2 * g * g
+            or (adaptive and self._drift_exceeds(r))
+            for r, g in zip(ordered, grids))
+        return "full" if need_full else "shallow"
+
+    def _gather_deep_mixed(self, ordered, grids, meta, mode):
+        """A shallow step's deep input: each request's (predicted) feature
+        rows laid out like the doubled patch batch, ``[uncond | pad | cond
+        | pad]``, the pads zero.  None for a full step."""
+        if mode != "shallow":
+            return None
+        halves = ([], [])
+        for r, g in zip(ordered, grids):
+            n = g * g
+            dp = self._deep_predicted(r)
+            halves[0].append(dp[:n])
+            halves[1].append(dp[n:])
+        pad = meta.p_pad - sum(g * g for g in grids)
+        if pad:
+            z = halves[0][0].new_zeros((pad,) + tuple(halves[0][0].shape[1:]))
+            halves[0].append(z)
+            halves[1].append(z)
+        return torch.cat(halves[0] + halves[1])
+
+    def _scatter_deep_mixed(self, ordered, grids, meta, mode, deep_out):
+        """After a full step each request keeps its ``(2 g^2, C, s', s')``
+        rows of the new feature (uncond patches, then cond); a shallow
+        step ages them."""
+        off = 0
+        for r, g in zip(ordered, grids):
+            n = g * g
+            if mode == "full":
+                cond = meta.p_pad + off
+                new = torch.cat([deep_out[off:off + n],
+                                 deep_out[cond:cond + n]])
+                self._deep_update_slope(r, new)
+                r.deep_state = new
+                r.deep_age = 0
+            else:
+                r.deep_age += 1
+            off += n
+
+    def _deep_step_mixed(self, mode, x, t, coeffs, guidance, cond, ctx1,
+                         ctx2, deep, entry):
+        """One deep-mode step of the patch batch (with the hybrid's rows
+        when ``entry`` is given); returns ``(new_x, deep_feature)``.  A
+        full step anchors the entry."""
+        kwargs = dict(deep_mode=mode, deep_state=deep)
+        if entry is not None:
+            assert entry["anchored"] or mode == "full"
+            kwargs.update(cache=self._cache_obj, cache_state=entry["state"])
+        out = self._mixed_fn(x, t, coeffs, guidance, cond, ctx1, ctx2,
+                             deep=kwargs)
+        if entry is not None and mode == "full":
+            entry["anchored"] = True
+        return out
 
     # -- stateful sampler state on the patch path ---------------------------
 

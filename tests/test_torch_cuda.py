@@ -22,8 +22,8 @@ write zeros (finite) where a batch row has none.  K4 (gn_silu_halo) within
 float32 and round once), with exact zeros at image borders.  The patched
 step's moments and the fused op give the same bits on two calls with the
 same input.  The deep cache's row gate picks the same rows on the card as
-on the CPU, ties included, and a drift value reaches the host only once
-its event has completed.
+on the CPU, ties included, the patch path's image gate the same images,
+and a drift value reaches the host only once its event has completed.
 """
 
 from __future__ import annotations
@@ -408,6 +408,44 @@ def test_hybrid_gate_on_card_matches_cpu(cuda):
     assert (gy - cy).abs().max() <= 2 ** -6 * scale
     for k in cs:
         assert (gs[k] - cs[k]).abs().max() <= 2 ** -6 * cs[k].abs().max()
+
+
+@pytest.mark.cuda
+def test_image_gate_on_card_matches_cpu(cuda):
+    """gate_compact_images on SDXL's serving mix (768^2 + 3 x 1024^2,
+    CFG-doubled: 128 patch rows, the 1024^2 class with 2 pad slots) with
+    pair-symmetrised scores: the same images and patches, output and hits
+    on the card as on the CPU; the per-image sums are fixed-order."""
+    from sduss_tpu_torch.ops.patch_ctx import PatchContext, compact_context
+
+    sc = default_config("sdxl").scheduler
+    cells = sc.patch_size // 8
+    meta = tpatching.double_meta((3, 4, 4, 4), cells, tuple(sc.patch_buckets),
+                                 tuple(sc.batch_buckets))
+    cache = BlockCache(CacheConfig(max_hits=4, deep_compact_fraction=0.3))
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn(meta.p_pad, 16, cells, cells, generator=gen).to(
+        torch.bfloat16)
+    scale = 0.05 * (1 + torch.from_numpy(meta.image_id).float())
+    state = {"inp": (x.float() + scale.reshape(-1, 1, 1, 1) * torch.randn(
+                 x.shape, generator=gen)).to(torch.bfloat16),
+             "out": torch.zeros_like(x),
+             "hits": torch.randint(0, 4, (meta.p_pad,), generator=gen,
+                                   dtype=torch.int32)}
+    t = torch.rand(meta.p_pad, generator=gen)
+    got = {}
+    for dev in ("cpu", cuda):
+        ctx = PatchContext(meta, dev)
+        _, caps = compact_context(cells, meta.class_info, 0.3, True,
+                                  ctx.image_id.device)
+        st = {k: v.clone().to(dev) for k, v in state.items()}
+        y, st, stats = cache.gate_compact_images(
+            "k", x.to(dev), t.to(dev), st, lambda x_s, g, i: x_s * 2, ctx,
+            caps, cfg_pair_offset=meta.i_pad // 2, two_level=False)
+        got[str(dev)] = [a.cpu() for a in (stats["gather"], stats["images"],
+                                           y, st["hits"])]
+    for a, b in zip(got["cpu"], got["cuda"]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -258,21 +258,36 @@ def test_hybrid_unet_forward_equals_jax(sdxl3, predict):
         assert (hits == 0).sum() == 2 and hits[3] == hits[7] == 1
 
 
-@pytest.mark.parametrize("family,serving", [
-    ("sd15", True), ("sd15", False), ("sdxl", True), ("sdxl", False)])
-def test_engine_accepts_the_production_presets(family, serving):
+@pytest.mark.parametrize("family,serving,mixed", [
+    pytest.param(family, serving, mixed,
+                 id=f"{family}-{serving}" + ("-mixed" if mixed else ""))
+    for family in ("sd15", "sdxl") for serving in (True, False)
+    for mixed in (False, True)])
+def test_engine_accepts_the_production_presets(family, serving, mixed):
     """Each preset serves through ``generate``, which leaves no request's
-    cache state behind."""
+    cache state behind.  With mixed batches on (the default scheduler) a
+    64^2 and a 128^2 request at 64 px patches form one mixed batch a step,
+    which runs the patched deep path: at least one full and one shallow
+    step; with them off, one dense deep step a resolution."""
     config = default_config(family, dtype="float32", test_tiny=True)
-    config.scheduler.use_mixed_resolution = False
+    config.scheduler.use_mixed_resolution = mixed
+    config.scheduler.patch_size = 64
     config.cache = CacheConfig.production(family, serving=serving)
     pipe = DiffusionPipeline(config=config, device="cpu")
     inner = pipe.engine.worker.pipeline
     assert inner._deep_cache_active()
-    outs = pipe.generate(["a cat", "a dog"], resolution=64,
+    modes, step = [], inner._deep_step_mixed
+    inner._deep_step_mixed = lambda mode, *a: (modes.append(mode),
+                                               step(mode, *a))[1]
+    resolution = [64, 128] if mixed else 64
+    outs = pipe.generate(["a cat", "a dog"], resolution=resolution,
                          num_inference_steps=4, seed=0)
     assert all(o.finished and o.image.std() > 0 for o in outs)
     assert not inner._comp_state and not inner._deep_carry
+    if mixed:  # four steps, each one mixed batch on the patch path
+        assert len(modes) == 4 and "full" in modes and "shallow" in modes
+    else:
+        assert not modes
 
 
 def _refused(family="sdxl", **changes) -> Config:
@@ -289,11 +304,10 @@ def _refused(family="sdxl", **changes) -> Config:
 @pytest.mark.parametrize("config,item", [
     (_refused("sd3"), "item 5"),
     (_refused(cache__sd3_deep_span=(1, 4)), "item 5"),
-    (_refused(scheduler__use_mixed_resolution=True), "item 6"),
     (_refused(cache__mode="block"), "item 9"),
     (_refused(cache__mode="compact"), "item 9"),
     (_refused(scheduler__steps_per_dispatch=4), "item 3"),
-], ids=["sd3", "sd3-span", "mixed", "block", "compact", "multi-step"])
+], ids=["sd3", "sd3-span", "block", "compact", "multi-step"])
 def test_engine_refuses_what_is_not_ported(config, item):
     with pytest.raises(NotImplementedError, match=item):
         check_supported(config)
