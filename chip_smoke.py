@@ -81,16 +81,34 @@ Phases (any failure propagates and the script exits non-zero):
      512^2 on the dense path, joined by a 768^2 request after 4 steps, which
      flips their batch to the patched path with a full step, then shallow
      steps whose gate skips images; exact launches per path and mode;
- 12. print the kernels' JSON line, then the result line
+ 12. the serving front, with the SDXL bundle before it is freed:
+     ``entrypoints/api_server.py`` on its own event loop and thread in the
+     serving configuration (``production("sdxl", serving=True)``,
+     ``fcfs_mixed``, the background decode at its default); the port's
+     client sends 768^2 and 2 x 1024^2 requests together, 2 x 1024^2 a
+     second later, and aborts one of those while it denoises: answers,
+     PNGs, /health, /stats, /abort and /clear, a decode group on the
+     decode thread while DENOISING iterations go on, no hand kernel off
+     the engine's thread, exact launches per realized mode, latencies,
+     iteration times with and without a decode in flight, and the fp32
+     decode's measured bytes per pixel against the memory gate's; with
+     the SD-1.5 bundle, 3 x 512^2 with the background prepare
+     (``engine.async_prepare=True``: every prepare on its thread);
+ 13. print the kernels' JSON line, then the result line
      ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
 
+import asyncio
+import base64
+import collections
 import gc
 import json
 import subprocess
+import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -100,6 +118,9 @@ import torch.nn.functional as F
 from sduss_tpu_torch import configure_numerics
 from sduss_tpu_torch.cache.manager import BlockCache
 from sduss_tpu_torch.config import CacheConfig
+from sduss_tpu_torch.engine.async_engine import AsyncEngine
+from sduss_tpu_torch.engine.engine import Engine
+from sduss_tpu_torch.entrypoints import api_server, client
 from sduss_tpu_torch.entrypoints.offline import DiffusionPipeline, default_config
 from sduss_tpu_torch.models import mmdit
 from sduss_tpu_torch.models.registry import ModelBundle
@@ -119,7 +140,7 @@ from sduss_tpu_torch.ops.gn_halo import (gn_silu_halo, gn_silu_halo_reference,
                                          gn_silu_haloed, moments)
 from sduss_tpu_torch.ops.patch_ctx import PatchContext, compact_context
 from sduss_tpu_torch.pipelines.base import _state_nbytes
-from sduss_tpu_torch.request import Request, SamplingParams
+from sduss_tpu_torch.request import Request, SamplingParams, Stage
 
 # K1 against its plain version (float32 softmax(q k^T) v, rounded to bf16
 # once), on N(0, 1) bf16 inputs, relative to the output's scale:
@@ -1645,6 +1666,250 @@ def serve_sd15_mixed_deep(card: str, bundle: ModelBundle) -> dict:
     return got
 
 
+def decode_bytes_per_pixel(pipe, res: int, n: int) -> float:
+    """The transient of one decode group of ``n`` images at ``res``^2 on
+    the card: ``max_memory_allocated`` during the decode less the memory
+    allocated before it, over the group's pixels."""
+    lat = torch.randn((n, res // 8, res // 8, pipe.bundle.latent_channels),
+                      generator=torch.Generator("cuda").manual_seed(5),
+                      device="cuda", dtype=pipe.bundle.dtype)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    with torch.inference_mode():
+        pipe._decode_fn(lat).cpu()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - before) / (n * res * res)
+
+
+def wait_for(cond, what: str, timeout: float = 300.0) -> None:
+    deadline = time.time() + timeout
+    while not cond():
+        if time.time() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.001)
+
+
+def serve_http(card: str, bundle: ModelBundle) -> dict:
+    """The port served over HTTP (``entrypoints/api_server.py``) in the
+    serving configuration: SDXL, ``production("sdxl", serving=True)``,
+    ``fcfs_mixed`` with mixed patch batches, the background decode at its
+    default (``async_postprocess="auto"``).  The server runs on its own
+    event loop and thread; the port's client sends, from threads, A (768^2,
+    8 steps) with B and C (1024^2, 16 steps), whose mixed batch A leaves
+    first, so that its decode overlaps B's and C's steps; D (1024^2, 8
+    steps) and E (1024^2, 16 steps) about a second later, queued behind
+    them under FCFS; and /abort for E once it denoises.  Checks the
+    answers, PNGs, /health, /stats and /clear; that a decode group ran on
+    the decode thread while DENOISING iterations went on, that no hand
+    kernel launched off the engine's thread, and the launches per realized
+    mode.  Prints the latencies, the decode thread's ms per group, the
+    gate's decisions, the observed step times with and without a decode
+    in flight, the measured decode bytes per pixel and the peak memory."""
+    torch.cuda.reset_peak_memory_stats()
+    config = default_config("sdxl", dtype="bfloat16", seed=0)
+    config.cache = CacheConfig.production("sdxl", serving=True)
+    config.engine.collect_data = True
+    config.engine.collect_dir = "build/serve_http"
+    engine = Engine(config, "cuda", bundle=bundle)
+    pipe = engine.worker.pipeline
+    steps = spy_deep(pipe)
+    decodes, gates, observed = [], [], []
+    decode_group, overlap_ok = pipe._decode_group, pipe.post_overlap_ok
+    observe = engine.worker.scheduler.policy.observe_step_time
+
+    def spy_decode_group(reqs):
+        t0 = time.time()
+        decode_group(reqs)
+        decodes.append({"thread": threading.current_thread().name,
+                        "start": t0, "end": time.time(), "n": len(reqs),
+                        "res": reqs[0].resolution})
+
+    def spy_overlap_ok(by_res):
+        ok = overlap_ok(by_res)
+        gates.append(({r: len(v) for r, v in by_res.items()}, ok))
+        return ok
+
+    def spy_observe(reqs, ms):
+        observed.append((time.time(), ms, steps[-1]["path"],
+                         steps[-1].get("mode")))
+        return observe(reqs, ms)
+
+    launch_threads: collections.Counter = collections.Counter()
+    check = _build.check
+
+    def spy_check(lib, err, what):
+        launch_threads[threading.current_thread().name] += 1
+        return check(lib, err, what)
+
+    pipe._decode_group = spy_decode_group
+    pipe.post_overlap_ok = spy_overlap_ok
+    engine.worker.scheduler.policy.observe_step_time = spy_observe
+    aeng = AsyncEngine(config, engine=engine)
+    box, ready = {}, threading.Event()
+
+    def run_server():
+        async def main():
+            box["server"] = await api_server.build_server(aeng, "127.0.0.1", 0)
+            ready.set()
+            await box["server"].wait_closed()
+        asyncio.run(main())
+
+    server_thread = threading.Thread(target=run_server, name="http-server")
+    server_thread.start()
+    if not ready.wait(60):
+        raise AssertionError("the HTTP server did not start")
+    url = f"http://127.0.0.1:{box['server'].port}"
+    traffic = {"A": (768, 8), "B": (1024, 16), "C": (1024, 16),
+               "D": (1024, 8), "E": (1024, 16)}
+    answers = {}
+
+    def send(rid):
+        res, n = traffic[rid]
+        answers[rid] = client.post_json(url + "/generate", {
+            "prompt": f"an HTTP request {rid}", "resolution": res,
+            "num_inference_steps": n, "seed": ord(rid), "request_id": rid,
+            "guidance_scale": 5.0})
+
+    def start(rid):
+        th = threading.Thread(target=send, args=(rid,), name=f"client-{rid}")
+        th.start()
+        return th
+
+    _build.check = spy_check
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        # A, B and C join one batch with A the oldest, so that under FCFS
+        # A's decode starts while B and C still denoise: the engine's
+        # executor (which runs every add and step in order) is held until
+        # all three adds wait in it, A's first
+        gate = threading.Event()
+        aeng._executor.submit(gate.wait)
+        senders = []
+        for rid in "ABC":
+            senders.append(start(rid))
+            wait_for(lambda: rid in aeng._streams, f"{rid}'s arrival")
+        gate.set()
+        time.sleep(1.0)
+        senders += [start(rid) for rid in "DE"]
+        wait_for(lambda: getattr(engine.worker.scheduler.pool.get("E"),
+                                 "stage", None) is Stage.DENOISING,
+                 "E in DENOISING")
+        if client.post_json(url + "/abort", {"request_id": "E"}) \
+                != {"status": "aborted"}:
+            raise AssertionError("/abort failed")
+        for th in senders:
+            th.join(600)
+            if th.is_alive():
+                raise AssertionError(f"{th.name} did not return")
+        wall = time.perf_counter() - t0
+        got = read_counts()
+    finally:
+        _build.check = check
+    peak = torch.cuda.max_memory_allocated()
+    with urllib.request.urlopen(url + "/health", timeout=60) as resp:
+        health = json.loads(resp.read())
+    with urllib.request.urlopen(url + "/stats", timeout=60) as resp:
+        stats = json.loads(resp.read())
+    cleared = client.post_json(url + "/clear", {})
+    server_thread.join(120)
+
+    # the answers and their PNGs
+    for rid in "ABCD":
+        out = answers[rid]
+        res = traffic[rid][0]
+        if not out.get("finished") or out.get("aborted") or "error" in out:
+            raise AssertionError(f"request {rid}: {out}")
+        img = client.decode_png(base64.b64decode(out["image_base64"]))
+        if img.shape != (res, res, 3) or img.std() == 0:
+            raise AssertionError(f"bad PNG for {rid}: {img.shape}")
+        print(f"HTTP request {rid} {res}^2 x {traffic[rid][1]} steps: "
+              f"latency_s {out['latency_s']:.3f}, e2e_latency_s "
+              f"{out['e2e_latency_s']:.3f}, image mean {img.mean():.2f} "
+              f"std {img.std():.2f} [{card}]")
+    if not answers["E"].get("aborted") or answers["E"].get("finished"):
+        raise AssertionError(f"E was not aborted: {answers['E']}")
+    if health != {"status": "ok"} or cleared != {"status": "cleared"}:
+        raise AssertionError(f"/health {health}, /clear {cleared}")
+    if (stats["finished"], stats["aborted"]) != (4, 1) or not any(
+            d.get("platform") == "gpu" and d.get("bytes_limit")
+            for d in stats["devices"]):
+        raise AssertionError(f"/stats {stats}")
+    if server_thread.is_alive() or engine.has_unfinished_requests():
+        raise AssertionError("the server or the engine did not stop")
+
+    # the decode thread overlapped denoising
+    denoise_times = [e["time"] for e in engine.worker.schedule_log
+                     if e["stage"] == "denoising"]
+    overlapped = [d for d in decodes if d["thread"].startswith("post-")
+                  and any(d["start"] < t < d["end"] for t in denoise_times)]
+    t_first = min(denoise_times)
+    for d in decodes:
+        inside = sum(d["start"] < t < d["end"] for t in denoise_times)
+        print(f"decode group {d['n']} x {d['res']}^2 on {d['thread']}: "
+              f"{(d['end'] - d['start']) * 1e3:.2f} ms (host wall, the "
+              f"group's .cpu() included), from +"
+              f"{d['start'] - t_first:.3f} s, {inside} DENOISING "
+              f"iterations began inside it [{card}]")
+    print(f"post_overlap_ok decisions: {gates} (parameters "
+          f"{pipe.device_param_bytes() / 1e9:.3f} GB, card "
+          f"{pipe._bytes_limit() / 1e9:.3f} GB) [{card}]")
+    if not overlapped:
+        raise AssertionError(f"no decode group overlapped a DENOISING "
+                             f"iteration: {decodes}")
+    off_loop = {name: n for name, n in launch_threads.items()
+                if not name.startswith("engine-step")}
+    if off_loop:
+        raise AssertionError(f"hand kernels launched off the engine's "
+                             f"thread: {dict(launch_threads)}")
+
+    # the wall time of each DENOISING iteration (to the next logged
+    # iteration) and the step times fed to the policy, with and without a
+    # background decode in flight during them
+    spans = [(d["start"], d["end"]) for d in decodes
+             if d["thread"].startswith("post-")]
+
+    def during(a, b):
+        return any(s < b and a < e for s, e in spans)
+
+    log = [e["time"] for e in engine.worker.schedule_log]
+    walls: dict = {True: [], False: []}
+    for e, t_next in zip(engine.worker.schedule_log, log[1:]):
+        if e["stage"] == "denoising":
+            walls[during(e["time"], t_next)].append((t_next - e["time"]) * 1e3)
+    fed: dict = {True: [], False: []}
+    for t, ms, _, _ in observed:
+        fed[during(t - ms / 1e3, t)].append(ms)
+    for label, groups in (("iteration wall time", walls),
+                          ("step time fed to the policy", fed)):
+        print(f"{label}: " + "; ".join(
+            f"{'decode in flight' if k else 'no decode'} {len(v)} "
+            f"(mean {np.mean(v) if v else 0.0:.2f} ms, max "
+            f"{max(v, default=0.0):.2f})" for k, v in groups.items())
+            + f" [{card}]")
+
+    modes = report_deep(steps, "HTTP serving (SDXL serving preset)", card)
+    want = expected_launches(steps, bundle.denoiser.cfg)
+    print(f"HTTP serving: 5 requests in {wall:.3f} s; modes {modes}; "
+          f"launches {got} (expected {want}); launch threads "
+          f"{dict(launch_threads)}; max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB [{card}]")
+    if got != want:
+        raise AssertionError(f"HTTP serving launches {got} != {want}")
+
+    # the decode transient the memory gate assumes per pixel
+    bpp = {n: decode_bytes_per_pixel(pipe, 1024, n) for n in (1, 2)}
+    print(f"decode transient, SDXL fp32 VAE at 1024^2: "
+          + ", ".join(f"{n} image(s) {v:.1f} B/px" for n, v in bpp.items())
+          + f" (engine.decode_bytes_per_pixel "
+          f"{config.engine.decode_bytes_per_pixel:.0f}) [{card}]")
+    if max(bpp.values()) > config.engine.decode_bytes_per_pixel:
+        raise AssertionError(f"decode transient {bpp} B/px exceeds the "
+                             f"gate's {config.engine.decode_bytes_per_pixel}")
+    return got
+
+
 def reset_counts() -> None:
     flash_mha_fused.launches = flash_mha.launches = 0
     flash_mha_masked.launches = gn_silu_halo.launches = 0
@@ -1658,17 +1923,27 @@ def read_counts() -> dict:
 
 
 def serve_sd15(card: str, bundle: ModelBundle, mixed: bool, sampler: str,
-               steps: int, requests: list) -> dict:
+               steps: int, requests: list, async_prepare=False) -> dict:
     """SD-1.5 serving through ``DiffusionPipeline.generate``: the dense path
     (mixed batches off, one UNet forward per resolution group) or the
     default configuration (one patched forward per step).  Asserts the
     images, the DENOISING batches and the launches of K1, the masked kernel,
-    K4 and K5 that SD15_UNET gives for these requests."""
+    K4 and K5 that SD15_UNET gives for these requests.  ``async_prepare``:
+    also asserts that every prepare ran on the worker's prepare thread."""
     torch.cuda.reset_peak_memory_stats()
     config = default_config("sd15", dtype="bfloat16", seed=0, sampler=sampler)
     config.scheduler.use_mixed_resolution = mixed
     config.engine.collect_data = True
+    config.engine.async_prepare = async_prepare
     pipe = DiffusionPipeline(config=config, device="cuda", bundle=bundle)
+    prepare_threads = []
+    prepare = pipe.engine.worker.pipeline.prepare
+
+    def spy_prepare(reqs):
+        prepare_threads.append(threading.current_thread().name)
+        return prepare(reqs)
+
+    pipe.engine.worker.pipeline.prepare = spy_prepare
     if mixed and config.scheduler.policy != "fcfs_mixed":
         raise AssertionError("the default configuration is not the mixed path")
     cfg = bundle.denoiser.cfg
@@ -1719,11 +1994,15 @@ def serve_sd15(card: str, bundle: ModelBundle, mixed: bool, sampler: str,
     key = batches[0]
     path = "mixed" if mixed else "dense"
     print(f"SD-1.5 {path} serving ({sampler}, {steps} steps = {evals} "
-          f"evaluations): {len(outs)} requests in {wall:.3f} s; DENOISING "
-          f"batches {sorted(set(batches))} x {len(batches)}; launches {got} "
-          f"(expected {want})")
+          f"evaluations, async_prepare {async_prepare}): {len(outs)} "
+          f"requests in {wall:.3f} s; DENOISING batches "
+          f"{sorted(set(batches))} x {len(batches)}; launches {got} "
+          f"(expected {want}); prepare threads {prepare_threads}")
     if got != want:
         raise AssertionError(f"SD-1.5 {path} launches {got} != {want}")
+    if async_prepare and not all(name.startswith("prepare-")
+                                 for name in prepare_threads):
+        raise AssertionError(f"prepare ran on {prepare_threads}")
     step_gaps(log, key, f"SD-1.5 {path} {key} ({sampler})", card)
     peak = torch.cuda.max_memory_allocated()
 
@@ -1781,6 +2060,7 @@ def main() -> None:
     runs += serve_sdxl_deep(card, bundle)
     check_mixed_deep_invariant(bundle, card)
     runs += serve_sdxl_mixed_deep(card, bundle)
+    runs.append(serve_http(card, bundle))
     # free each bundle so each family's peak memory reads alone
     del bundle
     gc.collect()
@@ -1799,6 +2079,8 @@ def main() -> None:
                    SD15_MIXED_REQUESTS),
         serve_sd15(card, sd15, False, "ddim", SD15_SAMPLER_STEPS,
                    SD15_REQUESTS),
+        serve_sd15(card, sd15, False, "euler", STEPS, [512] * 3,
+                   async_prepare=True),
         serve_sd15_rowwarm(card, sd15),
         serve_sd15_mixed_deep(card, sd15),
     ]

@@ -332,7 +332,10 @@ class EngineConfig:
     hbm_bytes_fallback: float = 16e9
     # Serving-decode capacity gate: per-image transient bytes per pixel and
     # a margin, capping the decode group to what fits next to live state.
-    decode_bytes_per_pixel: float = 768.0
+    # 3073: the transient of SDXL's float32 VAE decode at 1024^2 on an
+    # H100 (3072.50 B/px, chip_smoke.py serve_http), the largest of the
+    # port's decodes; the JAX package's 768 was taken for a bf16 decode.
+    decode_bytes_per_pixel: float = 3073.0
     decode_hbm_margin: float = 1.5e9
 
 

@@ -5,9 +5,11 @@ One replica (``dp=1``) on an explicit ``torch.device``: the engine holds
 one ``Worker`` and hands it every waiting request (the JAX engine's
 dispatch over replicas comes back with ``dp > 1``).  ``step()``,
 ``add_request()``, ``abort_requests()`` and ``has_unfinished_requests()``
-keep the JAX engine's semantics.  There is no compilation cache and no
-prewarm program matrix: eager PyTorch compiles nothing ahead of a step
-(CUDA-graph capture is later work).
+keep the JAX engine's semantics; ``abort_requests`` also reaches requests
+parked in PREPARING or DECODING while a worker thread runs their stage.
+There is no compilation cache and no prewarm program matrix: eager PyTorch
+compiles nothing ahead of a step (CUDA-graph capture is later work), so
+``engine.prewarm`` raises.
 """
 
 from __future__ import annotations
@@ -37,9 +39,19 @@ def check_supported(config: Config) -> None:
     ``use_mixed_resolution``, mixed batches on the patch path, so each
     ``CacheConfig.production`` preset of those families runs as it is."""
     par, cc, sc = config.parallel, config.cache, config.scheduler
+    if config.model.model_path:
+        raise NotImplementedError("loading a checkpoint snapshot is not "
+                                  "ported yet (ROADMAP Queue 1 item 7); "
+                                  "weights are random")
+    if config.engine.prewarm:
+        raise NotImplementedError(
+            "engine.prewarm compiles the step programs ahead of serving; "
+            "eager PyTorch has no program to compile (step capture with "
+            "CUDA graphs is ROADMAP Queue 1 item 3)")
     if par.world_size != 1:
         raise NotImplementedError("multi-device serving is not ported "
-                                  "(dp = tp = sp = pp = 1)")
+                                  "(dp = tp = sp = pp = 1; ROADMAP Queue 1 "
+                                  "item 10)")
     if cc.enabled:
         if config.model.family == "sd3" or cc.sd3_deep_span is not None:
             raise NotImplementedError(
@@ -58,10 +70,13 @@ def check_supported(config: Config) -> None:
 class Engine:
     def __init__(self, config: Config, device: torch.device | str,
                  bundle: Optional[ModelBundle] = None):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device found; pass device='cpu' "
+                               "explicitly to run on the CPU")
         check_supported(config)
         configure_numerics()
         self.config = config
-        self.device = torch.device(device)
         pipe = build_pipeline(config, self.device, bundle=bundle)
         self.worker = Worker(0, pipe, config)
         self._waiting: List[Request] = []

@@ -13,19 +13,31 @@ denoise iteration the worker keeps a 1-element probe of the step output and
 past ``engine.max_inflight_steps`` probes reads the oldest with ``.item()``,
 which waits for that step.
 
-Every model of the bundle, the three SD3 text encoders included, stays on
-the card: the JAX package's ``encoders_on_host`` is a memory policy for a
-16 GB TPU chip that an 80 GB card does not need, so PREPARE runs on the
-device like the other stages.
+Prepare and postprocess may run on background threads, one thread each,
+as in the JAX worker: while a stage runs there its requests are parked in
+PREPARING or DECODING, invisible to the policies, and the loop keeps
+denoising.  ``engine.async_postprocess="auto"`` decodes in the background
+whenever no other decode group is in flight and the pipeline's memory
+estimate (``post_overlap_ok``) fits the decode next to a running step;
+otherwise the decode blocks the loop.  ``engine.async_prepare="auto"`` is
+synchronous: the JAX package backgrounds prepare only when its encoders
+live on the host (``encoders_on_host``, a memory policy for a 16 GB TPU
+chip), and every model of the port's bundle stays on the card.
 
-Prepare and postprocess run synchronously in this port.  The JAX worker's
-background prepare/decode threads (with the decode-overlap memory bound and
-the warm-daemon deferral) are not ported yet.
+Both threads issue their kernels to the same CUDA stream as the loop (a
+new thread starts on the device's default stream), so a decode's kernels
+interleave with the denoise steps' as XLA's do on one compute stream, and
+the memory peak stays the larger of the two, not their sum.  The
+composition-state store is touched only on the loop thread: a background
+decode's eviction and group sizing run there before it is submitted
+(``BasePipeline.plan_postprocess``).  An exception on a pool thread
+reaches the engine loop when the future is read.
 """
 
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import time
 from typing import Dict, List
 
@@ -34,15 +46,6 @@ from sduss_tpu_torch.request import Request, Stage
 from sduss_tpu_torch.scheduler import WorkerScheduler
 from sduss_tpu_torch.scheduler.policies import ScheduledBatch
 from sduss_tpu_torch.pipelines.base import BasePipeline
-
-_ASYNC_TODO = ("ROADMAP 'Queue 1' item 4: async prepare/postprocess with the "
-               "decode-overlap bound")
-
-
-def _check_sync(name: str, value) -> None:
-    """``"auto"`` resolves to synchronous in the port; True raises."""
-    if value != "auto" and value is not False:
-        raise ValueError(f"engine.{name}={value!r} is not ported yet ({_ASYNC_TODO})")
 
 
 class Worker:
@@ -53,13 +56,25 @@ class Worker:
         self.scheduler = WorkerScheduler(config.scheduler, pipeline.bundle.family,
                                          cache_config=config.cache,
                                          parallel_config=config.parallel)
-        _check_sync("async_prepare", config.engine.async_prepare)
-        _check_sync("async_postprocess", config.engine.async_postprocess)
         self.iteration = 0
         # Per-step schedule log, populated when engine.collect_data is on.
         self.schedule_log: List[Dict] = []
         # 1-element probes of in-flight denoise outputs (module docstring).
         self._inflight: collections.deque = collections.deque()
+        # "auto": prepare in the background exactly when the encoders live
+        # on the host, which they never do in the port (module docstring)
+        ap = config.engine.async_prepare
+        self._prepare_pool = (
+            concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix=f"prepare-{rank}")
+            if (False if ap == "auto" else bool(ap)) else None)
+        self._preparing: collections.deque = collections.deque()
+        app = config.engine.async_postprocess
+        self._post_pool = (
+            concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix=f"post-{rank}")
+            if (True if app == "auto" else bool(app)) else None)
+        self._posting: collections.deque = collections.deque()
 
     # -- request management --------------------------------------------------
 
@@ -86,16 +101,23 @@ class Worker:
 
     def step(self) -> List[Request]:
         """Run one scheduled iteration; return requests finished this step."""
+        self._poll_prepared(block=False)
+        done_async = self._poll_posted(block=False)
         batch = self.scheduler.schedule()
         if batch is None or batch.empty:
-            return []
+            # nothing schedulable but a prepare or decode in flight: block
+            # briefly on the oldest so the engine loop does not spin
+            if self._preparing:
+                self._poll_prepared(block=True)
+            elif self._posting:
+                done_async += self._poll_posted(block=True)
+            return done_async
         self.iteration += 1
         now = time.time()
         for req in batch.requests:
             if req.first_scheduled_time is None:
                 req.first_scheduled_time = now
-        if batch.requests:
-            self._execute(batch)
+        parked = self._execute(batch) if batch.requests else False
         if self.config.engine.collect_data:
             res_counts: Dict[int, int] = {}
             for r in batch.requests:
@@ -107,6 +129,23 @@ class Worker:
                 "predicted_step_ms": batch.requests[0].predicted_step_ms
                 if batch.requests else 0.0,
             })
+        if parked:
+            # _execute submitted the stage to a pool thread: park the
+            # requests until its future completes.  The batch's policy
+            # aborts finish now, since advance() is skipped.
+            if batch.stage is Stage.PREPARE:
+                self.scheduler.begin_prepare(batch)
+            else:
+                self.scheduler.begin_postprocess(batch)
+            aborted = list(batch.aborts)
+            if aborted:
+                now2 = time.time()
+                for req in aborted:
+                    req.finish_time = now2
+                    self.scheduler.pool.remove(req.request_id)
+                self.pipeline.evict_finished_state(
+                    [r.request_id for r in aborted])
+            return done_async + aborted
         finished = self.scheduler.advance(batch)
         for req in finished:
             req.finish_time = time.time()
@@ -115,14 +154,58 @@ class Worker:
             # finished or aborted request are unreachable; free them now
             self.pipeline.evict_finished_state(
                 [r.request_id for r in finished])
+        return done_async + finished
+
+    def _poll_posted(self, block: bool) -> List[Request]:
+        """Finish the requests whose background decode completed; with
+        ``block``, wait briefly on the oldest one in flight."""
+        finished: List[Request] = []
+        while self._posting:
+            fut, reqs = self._posting[0]
+            if not fut.done():
+                if not block:
+                    break
+                concurrent.futures.wait([fut], timeout=0.05)
+                if not fut.done():
+                    break
+            self._posting.popleft()
+            fut.result()  # a decode's exception reaches the engine loop
+            done = self.scheduler.finish_postprocess(reqs)
+            now = time.time()
+            for req in done:
+                req.finish_time = now
+            finished.extend(done)
+            block = False  # drain further completed futures without waiting
         return finished
 
-    def _execute(self, batch: ScheduledBatch) -> None:
+    def _poll_prepared(self, block: bool) -> None:
+        """Release the requests whose background prepare completed; with
+        ``block``, wait briefly on the oldest one in flight."""
+        while self._preparing:
+            fut, reqs = self._preparing[0]
+            if not fut.done():
+                if not block:
+                    return
+                concurrent.futures.wait([fut], timeout=0.05)
+                if not fut.done():
+                    return
+            self._preparing.popleft()
+            fut.result()  # a prepare's exception reaches the engine loop
+            self.scheduler.finish_prepare(reqs)
+            block = False  # drain further completed futures without waiting
+
+    def _execute(self, batch: ScheduledBatch) -> bool:
+        """Run the batch's stage; True when it went to a pool thread."""
         pipe = self.pipeline
         by_res: Dict[int, List[Request]] = {}
         for r in batch.requests:
             by_res.setdefault(r.resolution, []).append(r)
         if batch.stage is Stage.PREPARE:
+            if self._prepare_pool is not None:
+                fut = self._prepare_pool.submit(pipe.prepare,
+                                                list(batch.requests))
+                self._preparing.append((fut, list(batch.requests)))
+                return True
             pipe.prepare(batch.requests)
         elif batch.stage is Stage.DENOISING:
             t0 = time.perf_counter()
@@ -140,9 +223,19 @@ class Worker:
                     batch.requests, (time.perf_counter() - t0) * 1e3)
         elif batch.stage is Stage.POSTPROCESSING:
             self._drain_inflight()
+            # Background the decode only when no other decode group is in
+            # flight (one overlapped decode at a time) and the pipeline's
+            # estimate fits its transient next to a running denoise step;
+            # otherwise decode on the loop.
+            if (self._post_pool is not None and not self._posting
+                    and pipe.post_overlap_ok(by_res)):
+                fut = self._post_pool.submit(pipe.plan_postprocess(by_res))
+                self._posting.append((fut, list(batch.requests)))
+                return True
             pipe.postprocess(by_res)
         else:  # pragma: no cover
             raise ValueError(batch.stage)
+        return False
 
     def _throttle(self, latents) -> bool:
         """Bound the host's lead to engine.max_inflight_steps; True when a

@@ -34,10 +34,6 @@ class DiffusionPipeline:
     def __init__(self, model: str = "sd15", *, config: Optional[Config] = None,
                  device: torch.device | str = "cuda",
                  bundle: Optional[ModelBundle] = None, **kwargs):
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device found; pass device='cpu' "
-                               "explicitly to run on the CPU")
         if config is None:
             # the JAX entry point's keywords; what the port cannot serve
             # (model_path, dp > 1) raises in Engine

@@ -21,14 +21,12 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 def build_pipeline(config: Config, device, bundle: Optional[ModelBundle] = None) -> BasePipeline:
     """Random-init a bundle on ``device`` (unless one is given) and build the
-    family pipeline.  Loading checkpoints from disk is not ported yet."""
+    family pipeline.  Loading checkpoints from disk is not ported yet
+    (``engine.check_supported`` refuses ``model.model_path``)."""
     family = config.model.family
     if family not in PIPELINES:
         raise ValueError(f"family {family!r} not ported; ported: {sorted(PIPELINES)}")
     if bundle is None:
-        if config.model.model_path:
-            raise NotImplementedError("loading a checkpoint snapshot is not "
-                                      "ported yet; weights are random")
         bundle = ModelBundle(family, tiny=config.model.test_tiny,
                              dtype=DTYPES[config.model.dtype], device=device)
         bundle.init_random(seed=config.model.seed)

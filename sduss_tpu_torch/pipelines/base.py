@@ -42,6 +42,7 @@ yet.
 from __future__ import annotations
 
 import collections
+import functools
 from typing import Dict, List, Sequence
 
 import numpy as np
@@ -894,27 +895,101 @@ class BasePipeline:
 
     # -- stage 3: postprocess ------------------------------------------------
 
-    @torch.inference_mode()
     def postprocess(self, reqs_by_res: Dict[int, List[Request]]) -> None:
+        self.plan_postprocess(reqs_by_res)()
+
+    def plan_postprocess(self, reqs_by_res: Dict[int, List[Request]]):
+        """Free the requests' composition state and size the decode
+        groups on the calling thread, the only one that touches the
+        composition store; return the decode, which may run on any thread
+        (the worker's background decode)."""
         # these requests' composition-state entries can never be used
         # again: free them before the decode, the pipeline's memory peak
         self.evict_finished_state(
             {r.request_id for reqs in reqs_by_res.values() for r in reqs})
+        groups = []
         for res in sorted(reqs_by_res):
-            all_reqs = reqs_by_res[res]
-            # the latent output type skips the VAE decode entirely
-            for r in all_reqs:
-                if r.params.output_type == "latent":
-                    r.output = r.latents[0].float().cpu().numpy()
-            reqs = [r for r in all_reqs if r.params.output_type != "latent"]
+            reqs = [r for r in reqs_by_res[res]
+                    if r.params.output_type != "latent"]
             # full-res decode activations are the pipeline's memory peak
             chunk = max(self.config.scheduler.decode_batch, 1)
             if self._tiled(res // self.vae_scale):
                 # a tiled decode runs one image at a time, as in the JAX
                 # pipeline (base.py:2707-2713)
                 chunk = 1
-            for i in range(0, len(reqs), chunk):
-                self._decode_group(reqs[i:i + chunk])
+            chunk = min(chunk, self._decode_capacity_chunk(res))
+            groups += [reqs[i:i + chunk] for i in range(0, len(reqs), chunk)]
+        latent = [r for reqs in reqs_by_res.values() for r in reqs
+                  if r.params.output_type == "latent"]
+        return functools.partial(self._decode_groups, latent, groups)
+
+    @torch.inference_mode()
+    def _decode_groups(self, latent: List[Request],
+                       groups: List[List[Request]]) -> None:
+        # the latent output type skips the VAE decode entirely
+        for r in latent:
+            r.output = r.latents[0].float().cpu().numpy()
+        for reqs in groups:
+            self._decode_group(reqs)
+
+    def _bytes_limit(self) -> float:
+        """The device's memory: the card's total, or
+        ``engine.hbm_bytes_fallback`` on the CPU."""
+        if self.device.type == "cuda":
+            return float(torch.cuda.get_device_properties(
+                self.device).total_memory)
+        return float(self.config.engine.hbm_bytes_fallback)
+
+    def device_param_bytes(self) -> int:
+        """Bytes of the bundle's parameters and buffers, all of which live
+        on the device (the port keeps no encoder on the host)."""
+        seen = {}
+        for model in self.bundle.models.values():
+            for t in list(model.parameters()) + list(model.buffers()):
+                seen[t.data_ptr()] = t.numel() * t.element_size()
+        return sum(seen.values())
+
+    def _live_state_bytes(self) -> int:
+        return sum(_state_nbytes(e["state"])
+                   for e in list(self._comp_state.values()))
+
+    def post_overlap_ok(self, reqs_by_res) -> bool:
+        """May this postprocess run on the background thread while the
+        loop keeps denoising?  Overlap puts the decode transient next to a
+        denoise step's workspace, live sets that never coexist under a
+        synchronous decode; it is allowed only when the parameters, the
+        live composition state, one decode group
+        (``engine.decode_bytes_per_pixel`` x res^2 an image) and both
+        margins fit the device's memory.  No estimate: False (decode
+        synchronously)."""
+        try:
+            ec = self.config.engine
+            need = 0.0
+            for res, reqs in reqs_by_res.items():
+                chunk = min(max(self.config.scheduler.decode_batch, 1),
+                            max(len(reqs), 1))
+                per_img = float(ec.decode_bytes_per_pixel) * res * res
+                need = max(need, per_img * chunk)
+            head = (self._bytes_limit() - self.device_param_bytes()
+                    - self._live_state_bytes()
+                    - float(ec.prewarm_hbm_margin)
+                    - float(ec.decode_hbm_margin))
+            return head >= need
+        except Exception:  # noqa: BLE001 — no estimate: stay synchronous
+            return False
+
+    def _decode_capacity_chunk(self, res: int) -> int:
+        """Largest decode group at ``res`` whose transient fits next to the
+        parameters and the live composition state (other compositions'
+        row caches stay resident while a request decodes)."""
+        try:
+            ec = self.config.engine
+            head = (self._bytes_limit() - self.device_param_bytes()
+                    - self._live_state_bytes() - float(ec.decode_hbm_margin))
+            per_img = float(ec.decode_bytes_per_pixel) * res * res
+            return max(1, int(head // per_img)) if per_img > 0 else 1
+        except Exception:  # noqa: BLE001
+            return max(self.config.scheduler.decode_batch, 1)
 
     def _decode_group(self, reqs: List[Request]) -> None:
         latents = torch.cat([r.latents for r in reqs], dim=0)

@@ -23,7 +23,9 @@ float32 and round once), with exact zeros at image borders.  The patched
 step's moments and the fused op give the same bits on two calls with the
 same input.  The deep cache's row gate picks the same rows on the card as
 on the CPU, ties included, the patch path's image gate the same images,
-and a drift value reaches the host only once its event has completed.
+and a drift value reaches the host only once its event has completed.  A
+postprocess on the worker's decode thread gives the same images, bit for
+bit, as the same call on the main thread.
 """
 
 from __future__ import annotations
@@ -33,12 +35,15 @@ import torch
 
 from sduss_tpu_torch.cache.manager import BlockCache, top_k_stable
 from sduss_tpu_torch.config import CacheConfig
+from sduss_tpu_torch.engine.engine import Engine
 from sduss_tpu_torch.entrypoints.offline import default_config
+from sduss_tpu_torch.models.registry import ModelBundle
 from sduss_tpu_torch.ops import attention as tattn
 from sduss_tpu_torch.ops import flash as tflash
 from sduss_tpu_torch.ops import gn_halo as tgn
 from sduss_tpu_torch.ops import patching as tpatching
 from sduss_tpu_torch.pipelines.base import _DriftScalar
+from sduss_tpu_torch.request import Request, SamplingParams
 
 K1_MAX_REL = 2.0 ** -6
 K1_RMS_REL = 5e-3
@@ -454,3 +459,36 @@ def test_drift_scalar_is_read_after_its_event(cuda):
     scalar = _DriftScalar(value)
     torch.cuda.synchronize()
     assert scalar.is_ready() and float(scalar) == 0.0625
+
+
+@pytest.mark.cuda
+def test_decode_thread_matches_main_thread(cuda):
+    """The tiny SDXL bundle in bf16 (fp32 VAE): ``postprocess`` on the
+    main thread and the worker's background decode
+    (``plan_postprocess`` run on its decode pool) give the same images."""
+    bundle = ModelBundle("sdxl", tiny=True, dtype=torch.bfloat16, device=cuda)
+    bundle.init_random(seed=0)
+    config = default_config("sdxl", dtype="bfloat16", test_tiny=True)
+    engine = Engine(config, cuda, bundle=bundle)
+    pipe, gen = engine.worker.pipeline, torch.Generator(cuda).manual_seed(3)
+    assert engine.worker._post_pool is not None
+
+    def requests():
+        reqs = {}
+        for i, res in enumerate((64, 64, 128)):
+            r = Request(f"r{i}", SamplingParams(prompt="p", resolution=res))
+            r.latents = lat[i]
+            reqs.setdefault(res, []).append(r)
+        return reqs
+
+    lat = [torch.randn((1, res // 8, res // 8, 4), generator=gen,
+                       device=cuda, dtype=torch.bfloat16)
+           for res in (64, 64, 128)]
+    main = requests()
+    pipe.postprocess(main)
+    pooled = requests()
+    engine.worker._post_pool.submit(pipe.plan_postprocess(pooled)).result()
+    for res in main:
+        for a, b in zip(main[res], pooled[res]):
+            assert a.output.dtype == b.output.dtype
+            assert (a.output == b.output).all()

@@ -32,6 +32,7 @@ from sduss_tpu_torch.models import unet as tunet
 from sduss_tpu_torch.models.convert import jax_to_torch_state_dict
 from test_torch_deep_unet import ATOL, RTOL, make_inputs, nchw, torch_inputs
 from test_torch_models import np_params
+from test_torch_slice import torch_threads  # noqa: F401
 
 MAX_HITS = 4
 R, C_IN, C_OUT, S = 8, 6, 5, 4  # rows (4 CFG pairs), channels, side

@@ -46,7 +46,7 @@ from sduss_tpu_torch.entrypoints.offline import default_config
 from sduss_tpu_torch.models.convert import jax_to_torch_state_dict
 from sduss_tpu_torch.models.registry import ModelBundle
 from sduss_tpu_torch.request import SamplingParams
-from test_torch_slice import _np_init
+from test_torch_slice import _np_init, torch_threads  # noqa: F401
 
 RTOL = 2e-4
 ATOL = 5e-4

@@ -38,6 +38,7 @@ from sduss_tpu_torch.models import layers as tlayers
 from sduss_tpu_torch.ops import _build
 from sduss_tpu_torch.ops import attention as tattn
 from sduss_tpu_torch.ops import flash as tflash
+from test_torch_slice import torch_threads  # noqa: F401
 
 RTOL = 2e-4
 ATOL = 5e-4

@@ -22,6 +22,7 @@ from sduss_tpu.ops import patching as jpatching
 from sduss_tpu.ops.gn_halo import gn_silu_haloed as jax_gn_silu_haloed
 from sduss_tpu_torch.ops import _build
 from sduss_tpu_torch.ops import gn_halo as tgn
+from test_torch_slice import torch_threads  # noqa: F401
 
 F32_TOL = 1e-5
 BF16_MAX_REL = 2.0 ** -7

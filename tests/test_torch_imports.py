@@ -36,3 +36,23 @@ def test_port_imports_nothing_of_jax_or_sduss_tpu():
     assert proc.returncode == 0, proc.stderr
     # the walk found the package's modules (ops, models, scheduler, ...)
     assert int(proc.stdout.strip().splitlines()[-1]) >= 25
+
+
+def test_serving_front_needs_no_aiohttp_nor_pillow():
+    """The HTTP server and client run on the standard library: importing
+    them loads neither aiohttp nor PIL (the card's machine has neither),
+    nor jax or the JAX package."""
+    code = textwrap.dedent("""
+        import sys
+        import sduss_tpu_torch.entrypoints.api_server
+        import sduss_tpu_torch.entrypoints.client
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("aiohttp", "PIL", "jax",
+                                            "jaxlib", "sduss_tpu"))
+        assert not bad, bad
+        print("ok")
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"

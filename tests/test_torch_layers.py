@@ -16,6 +16,7 @@ import torch
 
 from sduss_tpu.models import layers as JL
 from sduss_tpu_torch.models import layers as TL
+from test_torch_slice import torch_threads  # noqa: F401
 
 RTOL = 2e-4
 ATOL = 5e-4

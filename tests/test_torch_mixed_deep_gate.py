@@ -35,6 +35,7 @@ from sduss_tpu_torch.cache.manager import BlockCache
 from sduss_tpu_torch.config import CacheConfig
 from sduss_tpu_torch.ops import patching as tpatching
 from sduss_tpu_torch.ops.patch_ctx import PatchContext, compact_context
+from test_torch_slice import torch_threads  # noqa: F401
 
 RTOL = 2e-4
 ATOL = 5e-4

@@ -51,7 +51,7 @@ from sduss_tpu_torch.models.convert import jax_to_torch_state_dict
 from sduss_tpu_torch.models.registry import ModelBundle
 from sduss_tpu_torch.pipelines import build_pipeline
 from sduss_tpu_torch.request import Request, SamplingParams
-from test_torch_slice import _np_init
+from test_torch_slice import _np_init, torch_threads  # noqa: F401
 
 RTOL = 2e-4
 ATOL = 5e-4

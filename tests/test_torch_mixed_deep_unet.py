@@ -45,6 +45,7 @@ from sduss_tpu_torch.models.convert import jax_to_torch_state_dict
 from sduss_tpu_torch.ops import patching as tpatching
 from sduss_tpu_torch.ops.patch_ctx import PatchContext
 from test_torch_models import np_params
+from test_torch_slice import torch_threads  # noqa: F401
 
 RTOL = 2e-4
 ATOL = 5e-4

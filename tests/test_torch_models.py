@@ -27,6 +27,7 @@ from sduss_tpu_torch.models import unet as tunet
 from sduss_tpu_torch.models import vae as tvae
 from sduss_tpu_torch.models.convert import jax_to_torch_state_dict
 from sduss_tpu_torch.ops import attention as tattn
+from test_torch_slice import torch_threads  # noqa: F401
 
 RTOL = 2e-4
 ATOL = 5e-4

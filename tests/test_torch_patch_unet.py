@@ -27,6 +27,7 @@ from sduss_tpu_torch.models.convert import jax_to_torch_state_dict
 from sduss_tpu_torch.ops import patching as tpatching
 from sduss_tpu_torch.ops.patch_ctx import PatchContext
 from test_torch_models import cross_attentions, np_params, spy_cross_short
+from test_torch_slice import torch_threads  # noqa: F401
 
 PATCH_BUCKETS = (4, 8, 16, 32, 64)
 IMAGE_BUCKETS = (2, 4, 8, 16)

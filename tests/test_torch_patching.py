@@ -17,6 +17,7 @@ import torch
 
 from sduss_tpu.ops import patching as jpatching
 from sduss_tpu_torch.ops import patching as tpatching
+from test_torch_slice import torch_threads  # noqa: F401
 
 PATCH_BUCKETS = (4, 8, 16, 32, 64)
 IMAGE_BUCKETS = (2, 4, 8, 16)

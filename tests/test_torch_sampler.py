@@ -23,6 +23,7 @@ from sduss_tpu.samplers.pndm import PNDMSampler as JaxPNDM
 from sduss_tpu_torch.pipelines.base import BasePipeline
 from sduss_tpu_torch.samplers import base as tbase
 from sduss_tpu_torch.samplers import get_sampler
+from test_torch_slice import torch_threads  # noqa: F401
 
 RTOL = 2e-4
 ATOL = 5e-4

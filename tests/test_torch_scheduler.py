@@ -20,6 +20,7 @@ from sduss_tpu import scheduler as jscheduler
 from sduss_tpu_torch import config as tconfig
 from sduss_tpu_torch import request as trequest
 from sduss_tpu_torch import scheduler as tscheduler
+from test_torch_slice import torch_threads  # noqa: F401
 
 T0 = 1_000_000.0
 TICK_S = 0.05

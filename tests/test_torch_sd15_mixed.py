@@ -21,6 +21,7 @@ from sduss_tpu.request import SamplingParams as JaxSamplingParams
 from sduss_tpu_torch.entrypoints.offline import DiffusionPipeline, default_config
 from test_torch_sd15_slice import (PROMPTS, assert_outputs_close,
                                    jax_pipeline, port_bundle)
+from test_torch_slice import torch_threads  # noqa: F401
 
 MIXED_RES = [64, 128, 192]
 STEPS = 2

@@ -33,6 +33,7 @@ from sduss_tpu_torch.models.registry import ModelBundle
 from sduss_tpu_torch.ops import patching as tpatching
 from sduss_tpu_torch.ops.patch_ctx import PatchContext
 from test_torch_models import cross_attentions, np_params, spy_cross_short
+from test_torch_slice import torch_threads  # noqa: F401
 
 RTOL = 2e-4
 ATOL = 5e-4

@@ -30,7 +30,7 @@ from sduss_tpu_torch.models.convert import jax_to_torch_state_dict
 from sduss_tpu_torch.models.registry import ModelBundle
 from sduss_tpu_torch.pipelines import build_pipeline
 from sduss_tpu_torch.pipelines.sd import StableDiffusionPipeline
-from test_torch_slice import _np_init
+from test_torch_slice import _np_init, torch_threads  # noqa: F401
 
 LATENT_RTOL = 1e-4
 PROMPTS = ["a red cat on a mat", "a lighthouse at dusk"]

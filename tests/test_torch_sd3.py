@@ -43,7 +43,7 @@ from sduss_tpu_torch.models.convert import jax_to_torch_state_dict
 from sduss_tpu_torch.models.registry import ModelBundle
 
 from test_torch_models import np_params
-from test_torch_slice import _np_init
+from test_torch_slice import _np_init, torch_threads  # noqa: F401
 
 RTOL = 2e-4
 ATOL = 5e-4

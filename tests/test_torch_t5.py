@@ -25,6 +25,7 @@ from sduss_tpu_torch.models import t5 as tt5
 from sduss_tpu_torch.models.convert import jax_to_torch_state_dict
 
 from test_torch_models import np_params
+from test_torch_slice import torch_threads  # noqa: F401
 
 RTOL = 2e-4
 ATOL = 5e-4
