@@ -14,8 +14,9 @@ Phases (any failure propagates and the script exits non-zero):
      (flash_mha_fused, SDXL's head dim 64 and SD-1.5's 40/80/160), K2a/K3b
      (flash_mha, at SD3.5-medium's joint and dual shapes, ragged and with
      kv_len < Lk), the masked flash attention K2b/K3a (flash_mha_masked,
-     SDXL and SD-1.5 patch groups and the SD3 token batch, including batch
-     rows with no valid key), K4 (gn_silu_halo, SDXL's patch sides and
+     SDXL and SD-1.5 patch groups and the SD3 token batches, including
+     batch rows with no valid key, and the SD3 fine token gate's shapes:
+     fewer queries than keys, off the query tile), K4 (gn_silu_halo, SDXL's patch sides and
      SD-1.5's s = 4; the patched step's moments and the fused op must
      repeat bit for bit) and K5
      (flash_cross_short: the text cross-attention of the dense and patch
@@ -44,7 +45,21 @@ Phases (any failure propagates and the script exits non-zero):
   8. SD3.5-medium mixed serving: [512, 1024, 1024] with the default
      configuration (one padded-token MMDiT step per iteration); check the
      mixed batches, the images and the masked launches; read the step time;
-  9. free the SD3 bundle; SD-1.5 (conv-projection UNet, CLIP-L, bf16 VAE;
+  9. SD3.5-medium's caches, with its bundle still loaded
+     (``serve_sd3_deep``): ``apply_tokens`` at 2 x 1024^2 (CFG, 4 rows) in
+     the span's full pass (equal to the plain forward within one bf16
+     ulp), its shallow pass (within 5e-2 of the full one) and each token
+     gate at fraction 1 (block, compact, fine with stale K/V; two steps,
+     within one ulp of the plain forward); 4 x 1024^2, 30 steps, under
+     ``CacheConfig.production("sd3", serving=False)`` (3 full, then 27
+     shallow steps) and cache-off: step ms per mode, their ratio, end to
+     end seconds, delta bytes, peak memory; ``production("sd3",
+     serving=True)`` under ``fcfs_mixed``: 512^2 x 12 steps and 2 x
+     1024^2 x 20, a 1024^2 request added after 4 steps, the 512^2 exit
+     costing exactly one full step and no finished request's state left;
+     2 x 1024^2, 8 steps, under each token mode; every step launching the
+     masked kernel exactly 37 times (2 on a shallow span step);
+ 10. free the SD3 bundle; SD-1.5 (conv-projection UNet, CLIP-L, bf16 VAE;
      random bf16 weights): the full-width UNet patched against dense on a
      256^2 + 512^2 + 768^2 batch, then four serving runs, each checking
      images, latents, the DENOISING batches and the exact launches of K1,
@@ -52,7 +67,7 @@ Phases (any failure propagates and the script exits non-zero):
      [512, 512, 768] with Euler, 8 steps; mixed [256, 512, 768] in the
      default configuration, Euler, 8 steps; the same mixed batch with PNDM
      (4 steps, 5 evaluations) and the dense one with DDIM (4 steps);
- 10. the deep cache (``CacheConfig.mode="deep"``, dense path): with the
+ 11. the deep cache (``CacheConfig.mode="deep"``, dense path): with the
      SDXL bundle, one full-width UNet forward at 1024^2 (2 requests, CFG)
      in ``deep_mode`` full (equal to the plain forward within one bf16
      ulp), shallow from that deep feature and partial with one selected
@@ -66,7 +81,7 @@ Phases (any failure propagates and the script exits non-zero):
      under ESyMReD: two 512^2 requests and a third added through
      ``Engine.add_request`` once they have taken 4 steps, 16 Euler steps,
      at least one partial step and exact K1/K5 launches per mode;
- 11. the deep cache on the mixed patch path: K4 at the gated
+ 12. the deep cache on the mixed patch path: K4 at the gated
      sub-compositions of SDXL's (768^2 + 3 x 1024^2: 50 patches) and
      SD-1.5's (4 x 512^2 + 768^2: 26 patches) shallow steps and the masked
      kernel at SD-1.5's (with the kernel checks of phase 3); the SDXL UNet's
@@ -81,7 +96,7 @@ Phases (any failure propagates and the script exits non-zero):
      512^2 on the dense path, joined by a 768^2 request after 4 steps, which
      flips their batch to the patched path with a full step, then shallow
      steps whose gate skips images; exact launches per path and mode;
- 12. the serving front, with the SDXL bundle before it is freed:
+ 13. the serving front, with the SDXL bundle before it is freed:
      ``entrypoints/api_server.py`` on its own event loop and thread in the
      serving configuration (``production("sdxl", serving=True)``,
      ``fcfs_mixed``, the background decode at its default); the port's
@@ -94,7 +109,7 @@ Phases (any failure propagates and the script exits non-zero):
      decode's measured bytes per pixel against the memory gate's; with
      the SD-1.5 bundle, 3 x 512^2 with the background prepare
      (``engine.async_prepare=True``: every prepare on its thread);
- 13. print the kernels' JSON line, then the result line
+ 14. print the kernels' JSON line, then the result line
      ``{"ok": true, "device": {...}}`` last.
 """
 
@@ -202,6 +217,10 @@ MASKED_SHAPES = [
     (3, 1000, 640, 10, None),  # random mask, ragged
     (8, 4429, 1536, 24, "joint"),  # SD3 joint: latent + 333 text keys
     (8, 4096, 1536, 24, "dual"),   # SD3 dual: latent keys only
+    # SD3's cached token steps on a uniform 4 x 1024^2 batch (a full or a
+    # shallow span step): every key valid
+    (8, 4429, 1536, 24, "joint-all"),
+    (8, 4096, 1536, 24, "dual-all"),
     # SD-1.5 mixed phase (256^2 + 512^2 + 768^2, CFG-doubled: classes of 2
     # images of 1, 4 and 9 patches of 32^2 latent cells), each group with
     # one more image slot that has no valid key:
@@ -279,6 +298,40 @@ MIXED_DEEP_STEPS = 12
 MIXED_SD15_FIRST = [512] * 4
 MIXED_SD15_ADMIT = 4
 MIXED_SD15_LATE = 768
+# SD3.5-medium's caches: the offline preset's trajectory (4 x 1024^2, 30
+# steps), the serving preset's run ((resolution, steps) of the first batch
+# and of the request added after SD3_SERVE_ADMIT steps), the token modes
+# (2 x 1024^2, 8 steps) and the gates at fraction 1 (every row or token)
+SD3_INVARIANT_RES = 1024
+SD3_SPAN_REQUESTS = [1024] * 4
+SD3_SPAN_STEPS = 30
+SD3_SERVE_FIRST = [(512, 12), (1024, 20), (1024, 20)]
+SD3_SERVE_LATE = (1024, 8)
+SD3_SERVE_ADMIT = 4
+SD3_TOKEN_STEPS = 8
+SD3_TOKEN_MODES = {
+    "block": dict(mode="block", max_hits=2),
+    "compact": dict(mode="compact", compact_fraction=0.5, max_hits=2),
+    "fine": dict(mode="compact", patch_fraction=0.5, max_hits=2),
+    "fine_stale_kv": dict(mode="compact", patch_fraction=0.5, max_hits=2,
+                          fine_stale_kv=True),
+}
+SD3_FULL_FRACTION = {
+    "block": dict(mode="block", mse_threshold=-1.0),
+    "compact": dict(mode="compact", compact_fraction=1.0),
+    "fine stale-KV": dict(mode="compact", patch_fraction=0.9999,
+                          fine_stale_kv=True),
+}
+# the masked kernel at the fine gate's shapes, 2 x 1024^2 (CFG 4 rows) at
+# patch_fraction 0.5: k_t = 2048 of 4096 latent queries, all keys; then
+# ragged: k_t = 2047 (off the query tile), a shorter request, a pad row
+# (B, Lq, Lk, D, H, kind)
+FINE_MASKED_SHAPES = [
+    (4, 2048 + SD3_CTX, 4096 + SD3_CTX, 1536, 24, "joint"),
+    (4, 2048, 4096, 1536, 24, "dual"),
+    (3, 2047 + SD3_CTX, 4096 + SD3_CTX, 1536, 24, "joint-ragged"),
+    (3, 2047, 4096, 1536, 24, "dual-ragged"),
+]
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
@@ -459,6 +512,8 @@ def masked_inputs(gen, shape):
         if tuple(mask.shape) != (b, length):
             raise AssertionError(f"SD3 token mask {tuple(mask.shape)} != "
                                  f"{(b, length)}")
+    elif dead in ("joint-all", "dual-all"):
+        mask = torch.ones(b, length, dtype=torch.bool, device=dev)
     elif dead is None:
         mask = torch.rand(b, length, generator=gen, device=dev) > 0.3
         mask[:, :64] = False   # a whole key tile masked
@@ -1013,10 +1068,14 @@ def build_sd3_bundle() -> ModelBundle:
     return bundle
 
 
-def sd3_attentions(bundle: ModelBundle) -> int:
+def sd3_attentions(bundle: ModelBundle, skip=(0, 0)) -> int:
     """Attention calls per MMDiT forward: one joint per block, one more per
-    dual block (24 + 13 for SD3.5-medium)."""
-    return sum(1 + blk.dual for blk in bundle.denoiser.transformer_blocks)
+    dual block (24 + 13 for SD3.5-medium), without the blocks ``lo <= i <
+    hi`` of ``skip`` (a shallow span step's)."""
+    lo, hi = skip
+    return sum(1 + blk.dual for i, blk in
+               enumerate(bundle.denoiser.transformer_blocks)
+               if not lo <= i < hi)
 
 
 def time_sd3_stages(pipe, card: str) -> None:
@@ -1150,6 +1209,392 @@ def serve_sd3_mixed(card: str, bundle: ModelBundle) -> int:
             raise AssertionError(f"bad SD3 mixed latents {o.image.shape}")
     print(f"max_memory_allocated {peak / 2**30:.2f} GiB (SD3 mixed) [{card}]")
     return got
+
+
+# -- SD3.5-medium's caches (the span-skip deep cache and the token caches) ---
+
+def sd3_steps_spy(pipe) -> list:
+    """Record every token-path step of the SD3 pipeline ``pipe``: CUDA
+    events around it, its realized deep mode and cache flags (from the
+    trunk call), the kernel launches it made, the request ids of its batch
+    and of every ``_sd3_state`` key after it, and the store's bytes.  The
+    decode checks that the final latents are finite."""
+    steps = []
+    mixed, trunk, decode = pipe.denoise_step_mixed, pipe._trunk_fn, \
+        pipe._decode_fn
+
+    def step(reqs_by_res):
+        before = read_counts()
+        rec = {"start": torch.cuda.Event(enable_timing=True),
+               "end": torch.cuda.Event(enable_timing=True),
+               "ids": tuple(r.request_id for res in sorted(reqs_by_res)
+                            for r in reqs_by_res[res]),
+               "min_step": min(r.sampler_table.step for rs in
+                               reqs_by_res.values() for r in rs)}
+        steps.append(rec)
+        rec["start"].record()
+        mixed(reqs_by_res)
+        rec["end"].record()
+        after = read_counts()
+        rec["launches"] = {k: after[k] - before[k] for k in after}
+        rec["store_ids"] = {i for key in pipe._sd3_state for i in key[2]}
+        rec["state_bytes"] = pipe._live_state_bytes()
+
+    def trunk_fn(*args, **kw):
+        steps[-1].update(mode=kw.get("deep_mode"),
+                         sync=kw.get("compact_sync", False),
+                         stale=kw.get("fine_kv_stale", False))
+        return trunk(*args, **kw)
+
+    def decode_fn(latents):
+        if not torch.isfinite(latents).all():
+            raise AssertionError("non-finite final latents")
+        return decode(latents)
+
+    pipe.denoise_step_mixed = step
+    pipe._trunk_fn = trunk_fn
+    pipe._decode_fn = decode_fn
+    return steps
+
+
+def sd3_step_ms(steps, key, label: str, card: str) -> dict:
+    """Mean CUDA-event ms of the recorded steps grouped by ``key(rec)``."""
+    torch.cuda.synchronize()
+    by: dict = {}
+    for rec in steps:
+        by.setdefault(key(rec), []).append(rec["start"].elapsed_time(rec["end"]))
+    for k, ms in sorted(by.items(), key=lambda kv: str(kv[0])):
+        print(f"SD3 step {label}, {k}: {len(ms)} steps, mean {np.mean(ms):.2f} "
+              f"ms (min {np.min(ms):.2f}, max {np.max(ms):.2f}; CUDA events) "
+              f"[{card}]")
+    return {k: float(np.mean(ms)) for k, ms in by.items()}
+
+
+def check_sd3_launches(steps, bundle: ModelBundle, label: str,
+                       span=(0, 0)) -> None:
+    """Every token-path step launches only the masked kernel, once per
+    attention of the blocks it runs: all 37 on a full or gated step, those
+    outside ``span`` (block 0's joint and dual attention under the
+    preset's 1:24) on a shallow one."""
+    for i, rec in enumerate(steps):
+        want = {"k1": 0, "flash_mha": 0, "k4": 0, "k5": 0,
+                "masked": sd3_attentions(bundle, span if rec["mode"] ==
+                                         "shallow" else (0, 0))}
+        if rec["launches"] != want:
+            raise AssertionError(f"{label} step {i} ({rec['mode']}) launched "
+                                 f"{rec['launches']}, not {want}")
+
+
+def check_sd3_deep_invariant(bundle: ModelBundle, card: str) -> None:
+    """SD3.5-medium's ``apply_tokens`` at 2 x 1024^2 (CFG: 4 rows of 4096
+    latent + 333 text tokens, bf16): the span-skip full pass against the
+    plain forward, the shallow pass from its delta against the full one,
+    and each token gate at fraction 1 (every row or token recomputed)
+    against the plain forward."""
+    tr = bundle.denoiser
+    dev = next(tr.parameters()).device
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(
+            bundle.dtype)
+
+    n = (SD3_INVARIANT_RES // 16) ** 2
+    tokens = rand(4, n, tr.cfg.dim)
+    mask = torch.ones(4, n, dtype=torch.bool, device=dev)
+    t = torch.tensor([700.0, 300.0, 700.0, 300.0], device=dev)
+    ehs, pooled = rand(4, SD3_CTX, tr.cfg.joint_attention_dim), \
+        rand(4, tr.cfg.pooled_projection_dim)
+    args = (tokens, mask, t, ehs, pooled)
+    span = CacheConfig.production("sd3").sd3_deep_span
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max()
+                / b.float().abs().max()).item()
+
+    errs = {}
+    with torch.inference_mode():
+        plain = tr.apply_tokens(*args)
+        full, deep = tr.apply_tokens(*args, deep_mode="full", deep_span=span)
+        shallow, _ = tr.apply_tokens(*args, deep_mode="shallow",
+                                     deep_span=span, deep_state=deep)
+        errs["span full vs plain"] = (rel(full, plain), DEEP_FULL_MAX_REL)
+        errs["span shallow vs full"] = (rel(shallow, full), PATCH_BOUND)
+        delta = _state_nbytes(deep)
+        del deep, full, shallow
+        row_valid = torch.ones(4, dtype=torch.bool, device=dev)
+        for name, kw in SD3_FULL_FRACTION.items():
+            cc = CacheConfig(enabled=True, **kw)
+            cache = BlockCache(cc)
+            fine = cc.mode == "compact" and cc.patch_fraction < 1.0
+            if fine:
+                state = {k: cache.init_token_rows_fine(
+                    k, 4, seq, dim, bundle.dtype, dev,
+                    kv_pairs=(2 if int(k[5:]) in tr.cfg.dual_attention_layers
+                              else 1) if cc.fine_stale_kv else 0)
+                    for k, (seq, dim) in tr.token_cache_layout(n).items()}
+            else:
+                state = {k: cache.init_token_rows(
+                    k, 4, seq, dim, bundle.dtype, dev,
+                    ctx_seq=SD3_CTX if cc.mode == "compact" else None)
+                    for k, (seq, dim) in tr.token_cache_layout(n).items()}
+            # two steps: the anchoring (sync) one, then the steady one
+            for step in range(2):
+                out = tr.apply_tokens(
+                    *args, cache=cache, cache_state=state, row_valid=row_valid,
+                    compact_sync=cc.mode == "compact" and step == 0,
+                    fine_kv_stale=cc.fine_stale_kv and step == 1)
+                errs[f"{name} gate at fraction 1, step {step} vs plain"] = (
+                    rel(out, plain), DEEP_FULL_MAX_REL)
+            print(f"SD3 {name} cache rows at 2 x 1024^2: "
+                  f"{_state_nbytes(state) / 1e9:.3f} GB [{card}]")
+            del state, out
+    print(f"SD3 span {span} delta at 2 x 1024^2 (CFG 4 rows): "
+          f"{delta / 1e6:.1f} MB [{card}]")
+    for name, (err, bnd) in errs.items():
+        print(f"SD3 MMDiT {name}: max err / max |ref| {err:.3e} (bound "
+              f"{bnd:.3e}) [{card}]")
+        if not (np.isfinite(err) and err <= bnd):
+            raise AssertionError(f"SD3 {name}: {err} > {bnd}")
+
+
+def serve_sd3_span(card: str, bundle: ModelBundle) -> list:
+    """4 x 1024^2 SD3.5-medium requests, 30 flow-match steps, under
+    ``CacheConfig.production("sd3", serving=False)`` (span 1:24, interval
+    30, warmup 3), then the same requests cache-off (the dense path)."""
+    prompts = [f"a photograph of place {i}, golden hour" for i in range(4)]
+    n_attn = sd3_attentions(bundle)
+    runs, walls = [], {}
+    for cache in (CacheConfig.production("sd3", serving=False), CacheConfig()):
+        torch.cuda.reset_peak_memory_stats()
+        config = default_config("sd3", dtype="bfloat16", seed=0)
+        config.engine.collect_data = True
+        config.cache = cache
+        pipe = DiffusionPipeline(config=config, device="cuda", bundle=bundle)
+        steps = sd3_steps_spy(pipe.engine.worker.pipeline)
+        reset_counts()
+        t0 = time.perf_counter()
+        outs = pipe.generate(prompts, resolution=SD3_SPAN_REQUESTS,
+                             num_inference_steps=SD3_SPAN_STEPS, seed=515)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_counts()
+        runs.append(got)
+        check_outputs(outs, SD3_SPAN_REQUESTS, card)
+        label = "on" if cache.enabled else "off"
+        walls[label] = wall
+        peak = torch.cuda.max_memory_allocated()
+        print(f"SD3 4 x 1024^2, {SD3_SPAN_STEPS} steps, cache {label}: end to "
+              f"end {wall:.3f} s, launches {got}, max_memory_allocated "
+              f"{peak / 2**30:.2f} GiB [{card}]")
+        if not cache.enabled:
+            if steps or got["flash_mha"] != n_attn * SD3_SPAN_STEPS:
+                raise AssertionError(f"SD3 cache-off run: {len(steps)} token "
+                                     f"steps, launches {got}")
+            continue
+        modes = [rec["mode"] for rec in steps]
+        want = ["full"] * cache.deep_warmup + ["shallow"] * (
+            SD3_SPAN_STEPS - cache.deep_warmup)
+        if modes != want:
+            raise AssertionError(f"SD3 span modes {modes} != {want}")
+        check_sd3_launches(steps, bundle, "SD3 span offline",
+                           cache.sd3_deep_span)
+        ms = sd3_step_ms(steps, lambda r: r["mode"], "4 x 1024^2 span 1:24",
+                         card)
+        print(f"SD3 span shallow/full step ratio {ms['shallow'] / ms['full']:.4f}"
+              f"; delta bytes {max(r['state_bytes'] for r in steps) / 1e6:.1f}"
+              f" MB [{card}]")
+    print(f"SD3 4 x 1024^2 end to end: span cache {walls['on']:.3f} s vs "
+          f"cache-off {walls['off']:.3f} s ({walls['off'] / walls['on']:.2f}x) "
+          f"[{card}]")
+    return runs
+
+
+def expected_sd3_modes(steps, interval: int, warmup: int) -> list:
+    """The span cache's modes for the recorded batches: full while a
+    composition has no delta (its first step), at the interval and in any
+    request's warmup (pipelines/sd3.py ``_sd3_deep_mode``)."""
+    out, ids, age = [], None, 0
+    for rec in steps:
+        full = (rec["ids"] != ids or age >= interval - 1
+                or rec["min_step"] < warmup)
+        ids = rec["ids"]
+        age = 0 if full else age + 1
+        out.append("full" if full else "shallow")
+    return out
+
+
+def serve_sd3_span_serving(card: str, bundle: ModelBundle) -> dict:
+    """``production("sd3", serving=True)`` under ``fcfs_mixed``: 512^2 x 12
+    steps and 2 x 1024^2 x 20 in one padded-token batch, and a fourth
+    1024^2 request (8 steps) added once they have taken 4 steps; FCFS runs
+    a batch to completion, so it is served after them.  When the 512^2
+    request leaves, the two 1024^2 requests form a new composition, whose
+    first step is full (past every warmup): exactly one extra full step."""
+    torch.cuda.reset_peak_memory_stats()
+    config = default_config("sd3", dtype="bfloat16", seed=0)
+    config.engine.collect_data = True
+    config.cache = CacheConfig.production("sd3", serving=True)
+    cc = config.cache
+    engine = DiffusionPipeline(config=config, device="cuda",
+                               bundle=bundle).engine
+    pipe = engine.worker.pipeline
+    steps = sd3_steps_spy(pipe)
+
+    def add(i, res, n):
+        return engine.add_request(f"sd3-serve-{i}", SamplingParams(
+            prompt=f"a serving prompt {i}", resolution=res,
+            num_inference_steps=n, seed=40 + i))
+
+    reset_counts()
+    t0 = time.perf_counter()
+    reqs = [add(i, res, n) for i, (res, n) in enumerate(SD3_SERVE_FIRST)]
+    outs = []
+    while engine.has_unfinished_requests():
+        if len(reqs) == 3 and reqs[0].sampler_table is not None \
+                and reqs[0].sampler_table.step >= SD3_SERVE_ADMIT:
+            reqs.append(add(3, *SD3_SERVE_LATE))
+        outs.extend(engine.step())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_counts()
+    outs.sort(key=lambda o: o.request_id)
+    check_outputs(outs, [r for r, _ in SD3_SERVE_FIRST] + [SD3_SERVE_LATE[0]],
+                  card)
+    modes = [rec["mode"] for rec in steps]
+    want = expected_sd3_modes(steps, cc.deep_interval, cc.deep_warmup)
+    comps = list(dict.fromkeys(rec["ids"] for rec in steps))
+    print(f"SD3 span serving: {len(outs)} requests in {wall:.3f} s; "
+          f"compositions {comps}; modes {modes}; launches {got} [{card}]")
+    if modes != want:
+        raise AssertionError(f"SD3 serving modes {modes} != {want}")
+    # the 1024^2 pair after the 512^2 request left: past warmup, so its one
+    # full step is the composition reset's
+    pair = [rec for rec in steps if rec["ids"] == comps[1]]
+    if len(comps) != 3 or [r["mode"] for r in pair].count("full") != 1 \
+            or pair[0]["mode"] != "full" or pair[0]["min_step"] < cc.deep_warmup:
+        raise AssertionError(f"composition reset: {comps}, "
+                             f"{[r['mode'] for r in pair]}")
+    for rec in steps:
+        if not rec["store_ids"] <= set(rec["ids"]):
+            raise AssertionError(f"a finished request's SD3 state is still "
+                                 f"held: {rec['store_ids']} after {rec['ids']}")
+    if pipe._sd3_state:
+        raise AssertionError(f"SD3 state left after serving: "
+                             f"{list(pipe._sd3_state)}")
+    check_sd3_launches(steps, bundle, "SD3 span serving", cc.sd3_deep_span)
+    sd3_step_ms(steps, lambda r: (len(r["ids"]), r["mode"]),
+                "serving (batch size, mode)", card)
+    print(f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB (SD3 span serving) [{card}]")
+    return got
+
+
+def serve_sd3_token_caches(card: str, bundle: ModelBundle) -> list:
+    """2 x 1024^2, 8 steps, under each token cache mode (a uniform batch
+    takes the token path): images, finite latents, the trunk flags each
+    step ran with, 37 masked launches a step and the step ms."""
+    runs = []
+    for name, kw in SD3_TOKEN_MODES.items():
+        torch.cuda.reset_peak_memory_stats()
+        config = default_config("sd3", dtype="bfloat16", seed=0)
+        config.cache = CacheConfig(enabled=True, **kw)
+        pipe = DiffusionPipeline(config=config, device="cuda", bundle=bundle)
+        steps = sd3_steps_spy(pipe.engine.worker.pipeline)
+        reset_counts()
+        t0 = time.perf_counter()
+        outs = pipe.generate([f"a token cache prompt {i}" for i in range(2)],
+                             resolution=[1024, 1024],
+                             num_inference_steps=SD3_TOKEN_STEPS, seed=77)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_counts()
+        runs.append(got)
+        check_outputs(outs, [1024, 1024], card)
+        flags = [("sync" if r["sync"] else "stale" if r["stale"] else "gated")
+                 for r in steps]
+        first = "sync" if config.cache.mode == "compact" and \
+            config.cache.patch_fraction >= 1.0 else "gated"
+        rest = "stale" if config.cache.fine_stale_kv else "gated"
+        if flags != [first] + [rest] * (SD3_TOKEN_STEPS - 1):
+            raise AssertionError(f"SD3 {name} steps {flags}")
+        check_sd3_launches(steps, bundle, f"SD3 {name}")
+        ms = sd3_step_ms(steps, lambda r: "sync" if r["sync"] else
+                         "stale" if r["stale"] else "gated",
+                         f"2 x 1024^2 {name}", card)
+        print(f"SD3 2 x 1024^2 {name}: {wall:.3f} s end to end, state "
+              f"{max(r['state_bytes'] for r in steps) / 1e9:.3f} GB, "
+              f"max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, step ms "
+              f"{ms} [{card}]")
+    return runs
+
+
+def check_masked_fine(card: str) -> dict:
+    """The masked kernel at the fine token gate's shapes (fewer queries
+    than keys) against its plain version, timed beside it, masked SDPA and
+    its bound; the ragged cases (``Lq`` off the query tile, a shorter
+    request, a pad row) are checked untimed."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    worst, times = 0.0, {}
+    for shape in FINE_MASKED_SHAPES:
+        b, lq, lk, d, h, kind = shape
+        ctx = SD3_CTX if kind.startswith("joint") else 0
+        q = torch.randn(b, lq, d, generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        k, v = (torch.randn(b, lk, d, generator=gen, device="cuda",
+                            dtype=torch.bfloat16) for _ in range(2))
+        mask = torch.ones(b, lk, dtype=torch.bool, device="cuda")
+        if kind.endswith("ragged"):
+            s_pad = lk - ctx
+            mask[0, s_pad // 4:s_pad] = False   # a 512^2 request's pad keys
+            mask[2, :s_pad] = False             # a bucket pad row
+        scale = 1.0 / np.sqrt(d // h)
+        out = flash_mha_masked(q, k, v, mask, h, scale)
+        ref = flash_mha_masked_reference(q, k, v, mask, h, scale)
+        torch.cuda.synchronize()
+        live = mask.any(dim=1)
+        if not torch.isfinite(out).all() or not (out[~live] == 0).all():
+            raise AssertionError(f"masked flash at {shape}: non-finite or a "
+                                 f"row with no valid key not zero")
+        err, max_rel, rms_rel = k1_errors(out[live], ref[live])
+        print(f"masked flash fine-gate {shape}: max_abs_err {err:.3e}, / "
+              f"max|plain| {max_rel:.3e} (bound {K1_MAX_REL:.3e}), rel RMS "
+              f"{rms_rel:.3e} (bound {K1_RMS_REL:.0e})")
+        if not (max_rel <= K1_MAX_REL and rms_rel <= K1_RMS_REL):
+            raise AssertionError(f"masked flash disagrees with its plain "
+                                 f"version at {shape}: {max_rel}, {rms_rel}")
+        worst = max(worst, err)
+        if kind.endswith("ragged"):
+            continue
+        p1 = cuda_ms(lambda: flash_mha_masked_reference(q, k, v, mask, h,
+                                                        scale), 3)
+        k1 = cuda_ms(lambda: flash_mha_masked(q, k, v, mask, h, scale), 10)
+        k2 = cuda_ms(lambda: flash_mha_masked(q, k, v, mask, h, scale), 10)
+        p2 = cuda_ms(lambda: flash_mha_masked_reference(q, k, v, mask, h,
+                                                        scale), 3)
+        lib = cuda_ms(lambda: sdpa(q, k, v, h, scale, mask), 10)
+        kms, pms = (k1 + k2) / 2, (p1 + p2) / 2
+        flops = 4.0 * d * lq * mask.sum().item()
+        bms, by = bound(flops, 2.0 * (2 * q.numel() + 2 * k.numel())
+                        + mask.numel())
+        print(f"masked time fine-gate {shape}: kernel {kms:.4f} ms "
+              f"({flops / kms / 1e9:.1f} TFLOP/s), plain {pms:.4f} ms, sdpa "
+              f"{lib:.4f} ms, bound {bms:.4f} ms ({by}) [{card}]")
+        times[shape] = {"ms": kms, "plain_ms": pms, "library_ms": lib,
+                        "bound_ms": bms, "bound_by": by}
+    return {"max_abs_err": worst, "times": times}
+
+
+def serve_sd3_deep(card: str, bundle: ModelBundle) -> list:
+    """The phase of SD3.5-medium's caches, with its bundle loaded."""
+    t0 = time.perf_counter()
+    check_sd3_deep_invariant(bundle, card)
+    runs = serve_sd3_span(card, bundle)
+    runs.append(serve_sd3_span_serving(card, bundle))
+    runs += serve_sd3_token_caches(card, bundle)
+    print(f"serve_sd3_deep: {time.perf_counter() - t0:.1f} s")
+    return runs
 
 
 def sd15_self_attention_keys(cfg, res: int) -> list:
@@ -2037,6 +2482,9 @@ def main() -> None:
     k1 = check_k1(card)
     k2a = check_k2a(card)
     masked = check_masked(card)
+    masked_fine = check_masked_fine(card)
+    masked["max_abs_err"] = max(masked["max_abs_err"],
+                                masked_fine["max_abs_err"])
     k4 = check_k4(card)
     k4_sd15 = check_k4(card, mixed_meta("sd15", SD15_MIXED_REQUESTS),
                        SD15_K4_SHAPES, seed=7)
@@ -2067,6 +2515,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     sd3 = build_sd3_bundle()
     runs += [serve_sd3(card, sd3), serve_sd3_mixed(card, sd3)]
+    runs += serve_sd3_deep(card, sd3)
     del sd3
     gc.collect()
     torch.cuda.empty_cache()

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of a deep-cache step goes in the PyTorch/CUDA port.
 
-    python3 scripts/profile_deep_step.py [--steps 3] [--mixed] [--out FILE]
+    python3 scripts/profile_deep_step.py [--steps 3] [--mixed | --sd3] [--out FILE]
 
 Needs one CUDA card.  Builds the full-width SDXL and SD-1.5 pipelines of
 ``sduss_tpu_torch`` (random bf16 weights from seed 0, TF32 off, dense
@@ -27,6 +27,16 @@ With ``--mixed``, one mixed batch a step (``denoise_step_mixed``):
   2. SD-1.5 4 x 512^2 + 768^2 (CFG: 64 patch rows) under
      ``production("sd15", serving=True)``: shallow (one 512^2 pair of four
      and the 768^2 pair recomputed) and full steps.
+
+With ``--sd3``, SD-3.5-medium's caches on its token path:
+
+  1. 4 x 1024^2 (CFG: 8 rows of 4096 latent + 333 text tokens) under
+     ``production("sd3", serving=False)`` (span 1:24): shallow steps (block
+     0, the embedding, the head and the sampler) and full steps (each
+     forced by an expired delta), and their ratio;
+  2. 2 x 1024^2 under each token cache mode (block; compact 0.5; fine 0.5,
+     with and without stale K/V): the steady step, after the first one
+     anchored the composition's rows.
 
 Each profiled mode is checked against the mode the pipeline ran.  The last
 line is a JSON object with every number; ``--out`` also writes it to a
@@ -151,12 +161,97 @@ def profile_mixed(family: str, steps: int, card: str) -> dict:
     return out
 
 
+SD3_TOKEN_MODES = {
+    "block": dict(mode="block", max_hits=2),
+    "compact": dict(mode="compact", compact_fraction=0.5, max_hits=2),
+    "fine": dict(mode="compact", patch_fraction=0.5, max_hits=2),
+    "fine_stale_kv": dict(mode="compact", patch_fraction=0.5, max_hits=2,
+                          fine_stale_kv=True),
+}
+
+
+def sd3_pipeline(cache: CacheConfig, bundle=None):
+    """The SD3 pipeline under ``cache`` and the list its trunk calls fill
+    with their mode: the deep mode, or "sync"/"stale"/"gated"."""
+    config = default_config("sd3", dtype="bfloat16", seed=0)
+    config.cache = cache
+    pipe = build_pipeline(config, torch.device("cuda"), bundle=bundle)
+    modes, trunk = [], pipe._trunk_fn
+
+    def spy(*args, **kw):
+        modes.append(kw.get("deep_mode") or (
+            "sync" if kw.get("compact_sync") else
+            "stale" if kw.get("fine_kv_stale") else "gated"))
+        return trunk(*args, **kw)
+
+    pipe._trunk_fn = spy
+    return pipe, modes
+
+
+def profile_sd3(steps: int, card: str) -> dict:
+    pipe, modes = sd3_pipeline(CacheConfig.production("sd3", serving=False))
+    reqs = prepared(pipe, 4, 1024, tag="sd3span")
+    for _ in range(pipe.config.cache.deep_warmup + 1):  # past the warmup
+        pipe.denoise_step({1024: reqs})
+
+    def shallow():
+        pipe.denoise_step({1024: reqs})
+
+    def full():
+        for entry in pipe._sd3_state.values():
+            entry["deep_age"] = 10 ** 6  # the interval expired
+        pipe.denoise_step({1024: reqs})
+
+    out = {}
+    for mode, fn in (("shallow", shallow), ("full", full)):
+        del modes[:]
+        prof = profile(fn, steps)
+        if set(modes) != {mode}:
+            raise AssertionError(f"sd3 span {mode} profile ran {modes}")
+        print(f"sd3 4 x 1024^2 span 1:24 {mode} step: wall "
+              f"{prof['wall_ms']:.2f} ms, device busy {prof['busy_ms']:.2f} "
+              f"ms ({prof['busy_ms'] / prof['wall_ms']:.1%}) [{card}]")
+        print_profile(prof)
+        out[f"span_{mode}"] = prof
+    out["span_shallow_full_ratio"] = (out["span_shallow"]["wall_ms"]
+                                      / out["span_full"]["wall_ms"])
+    out["span_delta_bytes"] = pipe._live_state_bytes()
+    print(f"sd3 span shallow/full wall ratio "
+          f"{out['span_shallow_full_ratio']:.4f}; delta "
+          f"{out['span_delta_bytes'] / 1e6:.1f} MB [{card}]")
+    bundle = pipe.bundle
+    del pipe, reqs
+    for name, kw in SD3_TOKEN_MODES.items():
+        torch.cuda.empty_cache()
+        pipe, modes = sd3_pipeline(CacheConfig(enabled=True, **kw), bundle)
+        reqs = prepared(pipe, 2, 1024, tag=f"sd3{name}")
+        for _ in range(2):  # anchor (sync) the composition's rows
+            pipe.denoise_step({1024: reqs})
+        want = "stale" if kw.get("fine_stale_kv") else "gated"
+        del modes[:]
+        prof = profile(lambda: pipe.denoise_step({1024: reqs}), steps)
+        if set(modes) != {want}:
+            raise AssertionError(f"sd3 {name} profile ran {modes}")
+        prof["state_bytes"] = pipe._live_state_bytes()
+        print(f"sd3 2 x 1024^2 {name} step: wall {prof['wall_ms']:.2f} ms, "
+              f"device busy {prof['busy_ms']:.2f} ms "
+              f"({prof['busy_ms'] / prof['wall_ms']:.1%}), rows "
+              f"{prof['state_bytes'] / 1e9:.3f} GB [{card}]")
+        print_profile(prof)
+        out[name] = prof
+        del pipe, reqs
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=3,
                     help="timed steps per measurement")
-    ap.add_argument("--mixed", action="store_true",
-                    help="profile the mixed patch path's deep steps")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--mixed", action="store_true",
+                      help="profile the mixed patch path's deep steps")
+    mode.add_argument("--sd3", action="store_true",
+                      help="profile SD-3.5-medium's span and token caches")
     ap.add_argument("--out", type=Path, help="also write the JSON here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -164,9 +259,12 @@ def main() -> None:
     configure_numerics()
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
-    result = {"card": card, "path": "mixed" if args.mixed else "dense"}
+    result = {"card": card, "path": "sd3" if args.sd3 else
+              "mixed" if args.mixed else "dense"}
+    if args.sd3:
+        result["sd3"] = profile_sd3(args.steps, card)
     run = profile_mixed if args.mixed else profile_modes
-    for family in CELLS:
+    for family in () if args.sd3 else CELLS:
         t0 = time.perf_counter()
         result[family] = run(family, args.steps, card)
         print(f"{family} done in {time.perf_counter() - t0:.1f} s")

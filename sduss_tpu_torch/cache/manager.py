@@ -1,34 +1,46 @@
-"""Row gates of the deep x compact hybrid (counterpart of the parts of
-sduss_tpu/cache/manager.py that the UNet deep cache runs).
+"""Learned per-block output cache gates (counterpart of
+sduss_tpu/cache/manager.py).
 
 Per gated block, per step, recompute only the most-drifted rows of the
-batch and splice cached outputs into the rest: ``gate_compact`` selects
-rows, ``gate_compact_pairs`` selects CFG pairs (both halves of an image
+batch and splice cached outputs into the rest: ``gate`` (mode "block")
+recomputes every row and keeps the cached output where the drift is
+small, ``gate_compact`` gathers the top rows into a sub-batch,
+``gate_compact_pairs`` selects CFG pairs (both halves of an image
 recompute together) and, on the patch path, ``gate_compact_images``
 selects whole images per resolution class (patch rows couple through
-per-image group norm, halos and attention).  The drift score is the
-relative MSE of a row's input against its input at its last recompute, or
-a trained per-block logistic over ``[rel_mse, t, hits]`` loaded from
-``CacheConfig.classifier_path``; a row left unselected for ``max_hits``
-gated steps outranks every other.
+per-image group norm, halos and attention).  On the MMDiT's token rows
+``gate_tokens_fine`` selects tokens: each row recomputes its most-drifted
+tokens through the block and the rest skip the block's residual update.
+The drift score is the relative MSE of a row's (or token's) input against
+its input at its last recompute, or a trained per-block logistic over
+``[rel_mse, t, hits]`` loaded from ``CacheConfig.classifier_path``; a row
+left unselected for ``max_hits`` gated steps outranks every other.
 
-State per gated block key, NCHW like the port's activations::
+State per gated block key, NCHW like the port's UNet activations (the
+MMDiT's rows are ``(R, S, D)`` tokens)::
 
     {"inp":  (R, C_in, s, s)   block input at the last recompute,
-     "out":  (R, C_out, s, s)  block output at the last recompute,
+     "out":  (R, C_out, s, s)  block output at the last recompute (the
+                               MMDiT's compact rows: {"x": (R, S, D),
+                               "c": (R, Lc, D)}, both streams),
      "hits": (R,) int32        gated steps since the last recompute,
      # with CacheConfig.compact_predict (reuse-then-predict):
-     "slope": (R, C_out, s, s) output velocity per step,
+     "slope": like "out"       output velocity per step,
      "seen":  (R,) bool        the row has been recomputed once}
+
+The fine token gate keeps ``inp`` and per-token ``hits`` ``(R, S)`` (no
+output: a skipped token keeps its value) and, with
+``CacheConfig.fine_stale_kv``, the block's post-norm K/V rows (``k``,
+``v``, and ``k2``, ``v2`` for a dual block).
 
 The JAX package returns new state pytrees; the port updates the state in
 place, so the old and the new state are never held together (at SDXL
 1024^2, bucket 8, the rows are 2.35 GB).  The selection stays on the
 device: no gate reads a value back to the host.
 
-Not ported: mode "block" (``gate``), the two-level rows of
-``gate_compact_images`` (``patch_fraction < 1``, mode "compact") and the
-MMDiT token variants (ROADMAP Queue 1 items 5 and 9).
+Not ported: the two-level rows of ``gate_compact_images``
+(``patch_fraction < 1``, mode "compact" on the UNet patch path; ROADMAP
+Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -42,16 +54,31 @@ from sduss_tpu_torch.config import CacheConfig
 
 
 def top_k_stable(scores: torch.Tensor, k: int) -> torch.Tensor:
-    """Indices of the ``k`` largest scores, the lowest index first among
-    equal ones, as ``jax.lax.top_k`` orders them.  Ties are the normal case
-    here: forced rows all score ``1e6 + rel - threshold``, and float32 at
-    1e6 has a 0.0625 ulp.  ``torch.topk`` promises no order among ties."""
-    return torch.sort(scores, descending=True, stable=True).indices[:k]
+    """Indices of the ``k`` largest scores along the last axis, the lowest
+    index first among equal ones, as ``jax.lax.top_k`` orders them.  Ties
+    are the normal case here: forced rows all score ``1e6 + rel -
+    threshold``, float32 at 1e6 has a 0.0625 ulp, and padded tokens all
+    score -inf.  ``torch.topk`` promises no order among ties."""
+    return torch.sort(scores, dim=-1, descending=True,
+                      stable=True).indices[..., :k]
 
 
 def _rows(v: torch.Tensor, ndim: int) -> torch.Tensor:
     """A per-row vector shaped to broadcast over ``ndim``-dim rows."""
     return v.reshape((-1,) + (1,) * (ndim - 1))
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over matching leaves of tensors or flat dicts of tensors (the
+    MMDiT's compact rows cache ``{"x", "c"}``)."""
+    if isinstance(trees[0], dict):
+        return {k: fn(*(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def _token_index(sel: torch.Tensor, dim: int) -> torch.Tensor:
+    """``(B, k)`` token indices expanded over a feature axis of ``dim``."""
+    return sel[..., None].expand(-1, -1, dim)
 
 
 class BlockCache:
@@ -90,9 +117,48 @@ class BlockCache:
         row's first recompute, whose previous output is the zeros init,
         never sets a slope."""
         if self.config.compact_predict:
-            state["slope"] = torch.zeros_like(state["out"])
+            state["slope"] = _tree_map(torch.zeros_like, state["out"])
             state["seen"] = torch.zeros(state["hits"].shape, dtype=torch.bool,
                                         device=state["hits"].device)
+
+    def init_token_rows(self, key: str, n_rows: int, seq: int, dim: int,
+                        dtype=torch.bfloat16, device=None,
+                        ctx_seq=None) -> dict:
+        """Fresh cache rows for MMDiT token sequences ``(R, S, D)``; with
+        ``ctx_seq`` (mode "compact") ``out`` also caches the context
+        stream: ``{"x": (R, S, D), "c": (R, ctx_seq, D)}``."""
+        out = torch.zeros((n_rows, seq, dim), dtype=dtype, device=device)
+        if ctx_seq is not None:
+            out = {"x": out, "c": torch.zeros((n_rows, ctx_seq, dim),
+                                              dtype=dtype, device=device)}
+        state = {
+            "inp": torch.zeros((n_rows, seq, dim), dtype=dtype, device=device),
+            "out": out,
+            "hits": torch.full((n_rows,), self.config.max_hits,
+                               dtype=torch.int32, device=device),
+        }
+        self._add_predict_state(state)
+        return state
+
+    def init_token_rows_fine(self, key: str, n_rows: int, seq: int, dim: int,
+                             dtype=torch.bfloat16, device=None,
+                             kv_pairs: int = 0) -> dict:
+        """State of the per-token gate (``gate_tokens_fine``): the drift
+        reference and per-token hit counts; with ``kv_pairs`` (1, or 2 for
+        a dual-attention block; ``fine_stale_kv``) the merged-heads,
+        post-qk-norm K/V rows that unselected tokens reuse."""
+        st = {
+            "inp": torch.zeros((n_rows, seq, dim), dtype=dtype, device=device),
+            "hits": torch.full((n_rows, seq), self.config.max_hits,
+                               dtype=torch.int32, device=device),
+        }
+        for i in range(kv_pairs):
+            sfx = "" if i == 0 else "2"
+            st[f"k{sfx}"] = torch.zeros((n_rows, seq, dim), dtype=dtype,
+                                        device=device)
+            st[f"v{sfx}"] = torch.zeros((n_rows, seq, dim), dtype=dtype,
+                                        device=device)
+        return st
 
     # -- decision ----------------------------------------------------------
 
@@ -112,6 +178,12 @@ class BlockCache:
             score = rel - self.config.mse_threshold
         return score, rel
 
+    def _recompute_mask(self, key: str, x, state_k, t_norm):
+        """(R,) bool, True where the block must be recomputed: the drift
+        score is positive or the row is at ``max_hits``."""
+        score, rel = self._drift_logit(key, x, state_k, t_norm)
+        return (score > 0.0) | (state_k["hits"] >= self.config.max_hits), rel
+
     def _scores(self, key: str, x, state_k, t_norm):
         """(R,) float32 drift ranking; forced rows (hits >= max_hits) rank
         first."""
@@ -121,17 +193,44 @@ class BlockCache:
 
     # -- gates -------------------------------------------------------------
 
-    def gate_compact(self, key: str, x, t_norm, state_k: dict,
-                     compute_fn: Callable, n_active: int, row_valid=None):
+    def gate(self, key: str, x, t_norm, state_k, compute_fn: Callable):
+        """Mode "block": run ``compute_fn(x)`` on every row and keep the
+        cached output where the row need not be recomputed (an exact
+        splice, no compute saved).  ``state_k`` None: plain compute.
+        Returns ``(y, state_k, stats)``; the state's ``inp``, ``out`` and
+        ``hits`` are replaced, and, as the JAX gate's new state has only
+        those three, ``slope``/``seen`` are dropped."""
+        if state_k is None:
+            return compute_fn(x), None, None
+        fresh, rel = self._recompute_mask(key, x, state_k, t_norm)
+        y_new = compute_fn(x)
+        y = torch.where(_rows(fresh, y_new.dim()), y_new,
+                        state_k["out"].to(y_new.dtype))
+        state_k["inp"] = torch.where(_rows(fresh, x.dim()), x,
+                                     state_k["inp"].to(x.dtype))
+        state_k["out"] = y
+        state_k["hits"] = torch.where(fresh, 0, state_k["hits"] + 1).to(
+            torch.int32)
+        state_k.pop("slope", None)
+        state_k.pop("seen", None)
+        return y, state_k, {"fresh": fresh, "rel_mse": rel}
+
+    def gate_compact(self, key: str, x, t_norm, state_k, compute_fn: Callable,
+                     n_active: int, row_valid=None):
         """Recompute the ``n_active`` highest-scoring rows, gathered into a
         sub-batch, and splice cached outputs into the rest.
 
         ``compute_fn(x_gathered, idx)`` gathers its own row-aligned side
-        inputs (temb, text context) by ``idx``; rows must be independent
-        under it (dense image rows).  ``row_valid`` marks real rows: the
-        batch bucket's pad rows rank last.  Returns ``(y, state_k,
-        stats)``; ``state_k`` is updated in place.
+        inputs (temb, text context) by ``idx`` and returns a tensor or a
+        flat dict of tensors (the MMDiT's ``{"x", "c"}``) matching
+        ``state_k["out"]``; rows must be independent under it.
+        ``row_valid`` marks real rows: the batch bucket's pad rows rank
+        last.  ``state_k`` None: every row, in order.  Returns ``(y,
+        state_k, stats)``; ``state_k`` is updated in place.
         """
+        if state_k is None:
+            return compute_fn(x, torch.arange(x.shape[0],
+                                              device=x.device)), None, None
         scores = self._scores(key, x, state_k, t_norm)
         if row_valid is not None:
             scores = torch.where(row_valid, scores, -torch.inf)
@@ -235,26 +334,72 @@ class BlockCache:
         ``(fresh - cached) / (hits + 1)`` once it has been seen.  Without
         prediction the spliced output is the updated ``out`` rows
         themselves: nothing writes them until this key's next gate.
+        ``out`` and ``y_c`` may be flat dicts of tensors (leaf by leaf).
         Returns the spliced output."""
         m = float(self.config.compact_predict or 0.0)
         predict = m != 0.0 and "slope" in state_k
         hits, out = state_k["hits"], state_k["out"]
         y = None
         if predict:
-            k = _rows((hits + 1).float(), out.dim())
-            y = (out.float() + m * k * state_k["slope"].float()).to(y_c.dtype)
-            y.index_copy_(0, idx, y_c)
-            gap = _rows((hits[idx] + 1).float(), y_c.dim())
-            slope = (y_c.float() - out[idx].float()) / gap
-            slope = torch.where(_rows(state_k["seen"][idx], y_c.dim()),
-                                slope, 0.0)
-            state_k["slope"].index_copy_(0, idx, slope.to(out.dtype))
+            k = (hits + 1).float()
+            gap = (hits[idx] + 1).float()
+            seen = state_k["seen"][idx]
+
+            def extrapolate(o, s, f):
+                p = (o.float() + m * _rows(k, o.dim()) * s.float()).to(f.dtype)
+                return p.index_copy_(0, idx, f)
+
+            def new_slope(s, o, f):
+                sl = (f.float() - o[idx].float()) / _rows(gap, f.dim())
+                sl = torch.where(_rows(seen, f.dim()), sl, 0.0)
+                s.index_copy_(0, idx, sl.to(s.dtype))
+
+            y = _tree_map(extrapolate, out, state_k["slope"], y_c)
+            _tree_map(new_slope, state_k["slope"], out, y_c)
             state_k["seen"][idx] = True
         state_k["inp"].index_copy_(0, idx, x_c.to(state_k["inp"].dtype))
-        out.index_copy_(0, idx, y_c.to(out.dtype))
+        _tree_map(lambda o, f: o.index_copy_(0, idx, f.to(o.dtype)), out, y_c)
         hits.add_(1)
         hits[idx] = 0
         return out if y is None else y
+
+    def gate_tokens_fine(self, key: str, x, t_norm, state_k: dict,
+                         compute_fn: Callable, k_t: int, token_valid=None):
+        """Per-token compaction of a residual token block (the MMDiT):
+        each row recomputes its ``k_t`` most-drifted tokens through the
+        block and the rest skip the block's residual updates, which for a
+        residual block is the reuse itself (no output cache).
+
+        ``x`` ``(B, S, D)``; ``t_norm`` ``(B,)``; ``token_valid`` ``(B,
+        S)`` bool marks real tokens (padded ones score -inf).
+        ``compute_fn(sel)`` runs the block with its queries and FF at
+        ``sel`` ``(B, k_t)`` and returns its full output streams.  The
+        state's ``inp`` and ``hits`` are updated in place; K/V rows
+        (``fine_stale_kv``) are the block's to write.  Returns ``(out,
+        state_k, stats)``.
+        """
+        xf = x.float()
+        rel = ((xf - state_k["inp"].float()).square().mean(dim=-1)
+               / (xf.square().mean(dim=-1) + 1e-8))                # (B, S)
+        hits = state_k["hits"]
+        clf = self.classifiers.get(key)
+        if clf is not None:
+            w_mse, w_t, w_hits, bias = [float(v) for v in clf]
+            score = (w_mse * rel + w_t * t_norm[:, None]
+                     + w_hits * hits.float() + bias)
+        else:
+            score = rel - self.config.mse_threshold
+        score = score + (hits >= self.config.max_hits).float() * 1e6
+        if token_valid is not None:
+            score = torch.where(token_valid, score, -torch.inf)
+        sel = top_k_stable(score, k_t)                              # (B, k_t)
+        out = compute_fn(sel)
+        idx = _token_index(sel, x.shape[-1])
+        state_k["inp"].scatter_(1, idx, x.gather(1, idx).to(
+            state_k["inp"].dtype))
+        hits.add_(1)
+        hits.scatter_(1, sel, 0)
+        return out, state_k, {"sel": sel}
 
     def write_through(self, state_k: dict, x, y) -> None:
         """A full step's update of a gated pair: every row recomputed, so

@@ -192,7 +192,9 @@ class SchedulerConfig:
 class CacheConfig:
     """Learned per-block output cache settings.  The port serves
     ``mode="deep"`` on the dense and the mixed patch path of sd15 and
-    sdxl; the Engine refuses the other modes and SD3's caches."""
+    sdxl, and every SD3 cache (``sd3_deep_span`` and the token modes
+    "block" and "compact") on SD3's token path; the Engine refuses the
+    UNet families' "block" and "compact"."""
 
     enabled: bool = False
     # "block": per-patch masked recompute splice;

@@ -32,12 +32,21 @@ from sduss_tpu_torch.pipelines import build_pipeline
 
 def check_supported(config: Config) -> None:
     """Raise, when the Engine is built, for configurations whose code paths
-    are not ported yet, naming the ROADMAP item that ports them.  Of the
-    caches, the deep cache (``mode="deep"``, with its adaptive refresh,
-    prediction, row warmup and CFG-pair hybrid) is served on both paths of
-    the UNet families (sd15, sdxl): dense batches and, with
+    are not ported yet, naming the ROADMAP item that ports them.
+
+    Of the caches, the UNet families (sd15, sdxl) serve the deep cache
+    (``mode="deep"``, with its adaptive refresh, prediction, row warmup and
+    CFG-pair hybrid) on both paths: dense batches and, with
     ``use_mixed_resolution``, mixed batches on the patch path, so each
-    ``CacheConfig.production`` preset of those families runs as it is."""
+    ``CacheConfig.production`` preset of those families runs as it is;
+    their modes "block" and "compact" are not ported.  SD3 serves every
+    cache of the JAX package on its token path: the span-skip deep cache
+    (``sd3_deep_span``, both ``production("sd3")`` presets) and the token
+    caches, modes "block" and "compact" (the per-token fine gate at
+    ``patch_fraction < 1``, with ``fine_stale_kv``), alone or together.
+    As in JAX, an SD3 config with ``mode="deep"`` and no ``sd3_deep_span``
+    mints no cache at all, and the UNet families ignore
+    ``sd3_deep_span``."""
     par, cc, sc = config.parallel, config.cache, config.scheduler
     if config.model.model_path:
         raise NotImplementedError("loading a checkpoint snapshot is not "
@@ -52,15 +61,10 @@ def check_supported(config: Config) -> None:
         raise NotImplementedError("multi-device serving is not ported "
                                   "(dp = tp = sp = pp = 1; ROADMAP Queue 1 "
                                   "item 10)")
-    if cc.enabled:
-        if config.model.family == "sd3" or cc.sd3_deep_span is not None:
-            raise NotImplementedError(
-                "the SD3 caches (token caches, sd3_deep_span) are not ported "
-                "(ROADMAP Queue 1 item 5)")
-        if cc.mode != "deep":
-            raise NotImplementedError(
-                f"cache mode {cc.mode!r} is not ported; the deep cache is "
-                "(ROADMAP Queue 1 item 9)")
+    if cc.enabled and config.model.family != "sd3" and cc.mode != "deep":
+        raise NotImplementedError(
+            f"cache mode {cc.mode!r} of the UNet families is not ported; "
+            "the deep cache is (ROADMAP Queue 1 item 9)")
     if sc.steps_per_dispatch != 1:
         raise NotImplementedError("fused multi-step dispatch is not ported "
                                   "(steps_per_dispatch=1; ROADMAP Queue 1 "

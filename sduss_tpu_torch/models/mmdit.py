@@ -7,8 +7,11 @@ per-head qk RMS norm and dual self-attention in the first 13 layers.  Two
 forwards, as in the JAX model: ``forward`` (dense, one resolution per
 call) and ``apply_tokens`` (the mixed-resolution path: per-request latent
 tokens right-padded to a shared length and masked in attention through
-``MMDiTMaskCtx``).  The JAX model's token caches (block, compact, fine
-stale-KV) and the span-skip deep cache are not ported.
+``MMDiTMaskCtx``), both through one trunk that also runs the JAX model's
+caches: the span-skip deep cache (``deep_mode``/``deep_span``/
+``deep_state``) and the per-block token caches of ``cache/manager.py``
+(mode "block", request-granular "compact" and the per-token fine gate
+with its stale K/V rows).
 
 Every attention goes through ``ops.attention.masked_attention``: at
 SD-3.5-medium's width (D = 1536) the unmasked joint and dual attention of
@@ -142,17 +145,22 @@ class JointAttention(nn.Module):
         b, s, _ = x.shape
         return x.reshape(b, s, self.cfg.num_heads, self.cfg.head_dim)
 
-    def qkv(self, x, prefix: str = ""):
-        """Projected, per-head qk-normed ``(B, S, H, hd)`` q, k, v."""
-        if prefix:
-            pq, pk, pv = self.add_q_proj, self.add_k_proj, self.add_v_proj
-        else:
-            pq, pk, pv = self.to_q, self.to_k, self.to_v
-        q, k, v = self._heads(pq(x)), self._heads(pk(x)), self._heads(pv(x))
+    def q(self, x, prefix: str = ""):
+        """Projected, per-head qk-normed ``(B, S, H, hd)`` queries."""
+        q = self._heads((self.add_q_proj if prefix else self.to_q)(x))
+        return getattr(self, f"norm_{prefix}q")(q) if self.cfg.qk_norm else q
+
+    def kv(self, x, prefix: str = ""):
+        """Projected ``(B, S, H, hd)`` keys (qk-normed) and values."""
+        pk, pv = ((self.add_k_proj, self.add_v_proj) if prefix
+                  else (self.to_k, self.to_v))
+        k = self._heads(pk(x))
         if self.cfg.qk_norm:
-            q = getattr(self, f"norm_{prefix}q")(q)
             k = getattr(self, f"norm_{prefix}k")(k)
-        return q, k, v
+        return k, self._heads(pv(x))
+
+    def qkv(self, x, prefix: str = ""):
+        return (self.q(x, prefix),) + self.kv(x, prefix)
 
 
 class GELUProj(nn.Module):
@@ -190,15 +198,30 @@ class JointTransformerBlock(nn.Module):
         if dual:
             self.attn2 = JointAttention(cfg, joint=False)
 
-    def forward(self, x, c, temb, ctx=None):
-        """One joint block (mmdit.py:214-370 without the cache arguments):
-        ``x`` (B, S, D) latent tokens, ``c`` (B, Lc, D) context tokens.
-        Returns ``(x, c)``; the last block returns ``(x, None)``."""
+    def forward(self, x, c, temb, ctx=None, tok_sel=None, kv_state=None,
+                kv_stale: bool = False, kv_out=None):
+        """One joint block (mmdit.py:214-370): ``x`` (B, S, D) latent
+        tokens, ``c`` (B, Lc, D) context tokens.  Returns ``(x, c)``; the
+        last block returns ``(x, None)``.
+
+        ``tok_sel`` (B, k_t): the fine token gate's selection — attention
+        queries and the FF run only on these latent tokens and their
+        residual updates scatter back; K/V and the context stream stay
+        full, so the attention context is exact.  ``kv_state``
+        (``fine_stale_kv``): the merged-heads, post-qk-norm K/V rows
+        (``k``, ``v``, ``k2``, ``v2``) of the previous step.  With
+        ``kv_stale`` only the selected tokens run the norm, modulation
+        and to_k/to_v, and their rows are written into ``kv_state``'s
+        (in place when the dtypes agree) while the rest keep the previous
+        step's; without it K/V are computed full.  Either way the rows
+        used go into ``kv_out``.  Exact at a selection of every token.
+        """
         silu_t = _silu_f32(temb)
         mods = self.norm1.linear(silu_t).chunk(9 if self.dual else 6, dim=-1)
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mods[:6]
-        xn = _layer_norm(x)
-        x_mod = _modulate(xn, shift_msa, scale_msa)
+        stale = kv_state is not None and tok_sel is not None and kv_stale
+        # with stale K/V only the selected tokens are normalised
+        xn = _layer_norm(_gather_tokens(x, tok_sel) if stale else x)
 
         cmods = self.norm1_context.linear(silu_t)
         cn = _layer_norm(c)
@@ -211,7 +234,23 @@ class JointTransformerBlock(nn.Module):
              c_shift_mlp, c_scale_mlp, c_gate_mlp) = cmods.chunk(6, dim=-1)
             c_mod = _modulate(cn, c_shift_msa, c_scale_msa)
 
-        q, k, v = self.attn.qkv(x_mod)
+        def latent_qkv(attn, x_mod, names):
+            if stale:   # x_mod holds the selected tokens
+                q, k_s, v_s = attn.qkv(x_mod)
+                k, v = (attn._heads(_scatter_tokens(kv_state[n].to(x.dtype),
+                                                    tok_sel, t))
+                        for n, t in zip(names, (k_s, v_s)))
+            else:
+                q = attn.q(_gather_tokens(x_mod, tok_sel))
+                k, v = attn.kv(x_mod)
+            if kv_state is not None and kv_out is not None:
+                b = x.shape[0]
+                kv_out[names[0]] = k.reshape(b, -1, self.cfg.dim)
+                kv_out[names[1]] = v.reshape(b, -1, self.cfg.dim)
+            return q, k, v
+
+        q, k, v = latent_qkv(self.attn, _modulate(xn, shift_msa, scale_msa),
+                             ("k", "v"))
         cq, ck, cv = self.attn.qkv(c_mod, "added_")
         s_q = q.shape[1]
         # joint sequence [latent ; context], split back at s_q
@@ -219,21 +258,48 @@ class JointTransformerBlock(nn.Module):
                               torch.cat([k, ck], dim=1),
                               torch.cat([v, cv], dim=1), ctx)
         x_attn, c_attn = attn_out[:, :s_q], attn_out[:, s_q:]
-        x = x + gate_msa[:, None] * self.attn.to_out[0](x_attn)
+        x = _add_tokens(x, tok_sel,
+                        gate_msa[:, None] * self.attn.to_out[0](x_attn))
 
         if self.dual:
             shift2, scale2, gate2 = mods[6:]
-            q2, k2, v2 = self.attn2.qkv(_modulate(xn, shift2, scale2))
+            q2, k2, v2 = latent_qkv(self.attn2, _modulate(xn, shift2, scale2),
+                                    ("k2", "v2"))
             out2 = _attention(q2, k2, v2, ctx)
-            x = x + gate2[:, None] * self.attn2.to_out[0](out2)
+            x = _add_tokens(x, tok_sel,
+                            gate2[:, None] * self.attn2.to_out[0](out2))
 
-        x_ff = _modulate(_layer_norm(x), shift_mlp, scale_mlp)
-        x = x + gate_mlp[:, None] * self.ff(x_ff)
+        x_ff = _modulate(_layer_norm(_gather_tokens(x, tok_sel)), shift_mlp,
+                         scale_mlp)
+        x = _add_tokens(x, tok_sel, gate_mlp[:, None] * self.ff(x_ff))
         if self.last:
             return x, None
         c = c + c_gate_msa[:, None] * self.attn.to_add_out(c_attn)
         c_ff = _modulate(_layer_norm(c), c_shift_mlp, c_scale_mlp)
         return x, c + c_gate_mlp[:, None] * self.ff_context(c_ff)
+
+
+def _gather_tokens(x, sel):
+    """``x[b, sel[b]]`` for every row: ``(B, S, ...)`` -> ``(B, k, ...)``;
+    ``sel`` None: ``x``."""
+    if sel is None:
+        return x
+    idx = sel.reshape(sel.shape + (1,) * (x.dim() - 2))
+    return x.gather(1, idx.expand(sel.shape + x.shape[2:]))
+
+
+def _scatter_tokens(rows, sel, vals):
+    """``rows`` with ``rows[b, sel[b]] = vals[b]`` (written in place)."""
+    vals = vals.reshape(rows.shape[0], sel.shape[1], -1).to(rows.dtype)
+    return rows.scatter_(1, sel[..., None].expand_as(vals), vals)
+
+
+def _add_tokens(x, sel, delta):
+    """``x + delta``, or with a token selection ``x`` with ``delta`` added
+    at ``sel`` (a new tensor)."""
+    if sel is None:
+        return x + delta
+    return x.scatter_add(1, sel[..., None].expand_as(delta), delta)
 
 
 def _attention(q, k, v, ctx=None):
@@ -323,11 +389,113 @@ class SD3Transformer2DModel(nn.Module):
 
     # -- trunk and head ------------------------------------------------------
 
-    def trunk(self, x, c, temb, ctx=None):
-        for blk in self.transformer_blocks:
-            x, c2 = blk(x, c, temb, ctx=ctx)
-            c = c2 if c2 is not None else c
-        return self.head(x, temb)
+    def trunk(self, x, c, temb, ctx=None, cache=None, cache_state=None,
+              t_norm=None, row_valid=None, fine_kv_stale: bool = False,
+              compact_sync: bool = False, deep_mode=None, deep_span=None,
+              deep_state=None):
+        """Joint blocks + head over token sequences (mmdit.py:409-572).
+
+        ``cache``/``cache_state``: the per-block token caches over the
+        latent stream, by ``cache.config.mode``: "block" (``gate``: every
+        row computed, cached outputs kept where the drift is small),
+        "compact" (``gate_compact``: the ``compact_fraction`` most-drifted
+        rows of the batch recomputed, both streams cached; every row with
+        ``compact_sync``, the step that anchors a fresh state) and, with
+        ``patch_fraction < 1``, the per-token gate (``gate_tokens_fine``,
+        its stale K/V with ``fine_kv_stale``).  ``cache_state`` is updated
+        in place; ``row_valid`` marks real rows, ``t_norm`` is t / 1000.
+
+        ``deep_mode`` "full"/"shallow" with ``deep_span`` (lo, hi): the
+        span-skip deep cache.  A full pass runs every block and emits the
+        span's residual delta ``{"dx": x_hi - x_lo}`` (plus the context
+        ``"c"`` at ``hi`` when the span is interior); a shallow pass skips
+        blocks ``lo <= i < hi`` and splices ``deep_state`` in at ``hi``
+        (before the head when ``hi`` is the last).  The head always
+        modulates with the current ``temb``.  Gated blocks outside the
+        span run as usual; skipped ones leave their cache rows untouched.
+
+        Returns the output tokens, and with ``deep_mode`` ``(tokens,
+        deep_out)``: the fresh delta of a full pass, ``deep_state`` of a
+        shallow one.
+        """
+        cfg = self.cfg
+        deep = deep_mode is not None
+        if deep:
+            lo, hi = deep_span
+            if not (0 <= lo < hi <= cfg.num_layers):
+                raise ValueError(f"deep_span {deep_span} out of range for "
+                                 f"{cfg.num_layers} blocks")
+            if deep_mode == "shallow" and deep_state is None:
+                raise ValueError("shallow deep_mode needs deep_state")
+            x_lo, deep_out = None, deep_state
+        caching = cache is not None and cache_state is not None
+        mode = cache.config.mode if caching else None
+        fine = mode == "compact" and cache.config.patch_fraction < 1.0
+        if fine:
+            # per-token gate: each token is one 2x2 latent patch
+            k_t = max(1, round(x.shape[1] * cache.config.patch_fraction))
+            token_valid = None if ctx is None else ctx.token_mask
+        elif mode == "compact":
+            n_active = (x.shape[0] if compact_sync else
+                        max(1, round(x.shape[0] * cache.config.compact_fraction)))
+        for i, blk in enumerate(self.transformer_blocks):
+            if deep:
+                if deep_mode == "full" and i == lo:
+                    x_lo = x
+                if i == hi:
+                    if deep_mode == "full":
+                        # a compact gate's c is its state's row: copy it
+                        deep_out = {"dx": x - x_lo}
+                        if hi < cfg.num_layers:
+                            deep_out["c"] = c.clone() if caching else c
+                    else:
+                        x = x + deep_state["dx"].to(x.dtype)
+                        if "c" in deep_state:
+                            c = deep_state["c"].to(c.dtype)
+                if deep_mode == "shallow" and lo <= i < hi:
+                    continue
+            key = f"block{i}"
+            st = cache_state.get(key) if caching else None
+            if st is None:
+                x, c2 = blk(x, c, temb, ctx=ctx)
+            elif fine:
+                kv = {n: st[n] for n in ("k", "v", "k2", "v2") if n in st}
+
+                def block_fn(sel, blk=blk, x=x, c=c, st=st, kv=kv):
+                    return blk(x, c, temb, ctx=ctx, tok_sel=sel,
+                               kv_state=kv or None, kv_stale=fine_kv_stale,
+                               kv_out=st)
+
+                (x, c2), _, _ = cache.gate_tokens_fine(
+                    key, x, t_norm, st, block_fn, k_t, token_valid=token_valid)
+            elif mode == "compact":
+                def block_fn(x_c, idx, blk=blk, c=c):
+                    y, c2 = blk(x_c, c[idx], temb[idx],
+                                ctx=None if ctx is None else ctx.gather(idx))
+                    return {"x": y, "c": c[idx] if c2 is None else c2}
+
+                out, _, _ = cache.gate_compact(key, x, t_norm, st, block_fn,
+                                               n_active, row_valid=row_valid)
+                x, c2 = out["x"], out["c"]
+            else:
+                c_holder = [c]
+
+                def block_fn(x_in, blk=blk, c_holder=c_holder):
+                    y, c2 = blk(x_in, c_holder[0], temb, ctx=ctx)
+                    c_holder[0] = c_holder[0] if c2 is None else c2
+                    return y
+
+                x, _, _ = cache.gate(key, x, t_norm, st, block_fn)
+                c2 = c_holder[0]
+            c = c if c2 is None else c2
+
+        if deep and hi == cfg.num_layers:
+            if deep_mode == "full":
+                deep_out = {"dx": x - x_lo}
+            else:
+                x = x + deep_state["dx"].to(x.dtype)
+        out = self.head(x, temb)
+        return (out, deep_out) if deep else out
 
     def head(self, x, temb):
         """Final AdaLN modulation ([scale, shift]) + projection."""
@@ -344,12 +512,16 @@ class SD3Transformer2DModel(nn.Module):
                                                    cfg.out_channels)
 
     def forward(self, latents, timesteps, encoder_hidden_states,
-                pooled_projections):
+                pooled_projections, cache=None, cache_state=None,
+                fine_kv_stale: bool = False, deep_mode=None, deep_span=None,
+                deep_state=None):
         """Dense forward: ``(B, H, W, C)`` latents -> velocity ``(B, H, W, C)``.
 
         ``timesteps`` ``(B,)``; ``encoder_hidden_states`` ``(B, L,
         joint_attention_dim)`` CLIP+T5 features; ``pooled_projections``
-        ``(B, pooled_projection_dim)``.
+        ``(B, pooled_projection_dim)``.  The cache and deep arguments are
+        :meth:`trunk`'s (mmdit.py:583-618); with ``deep_mode`` returns
+        ``(velocity, deep_out)``.
         """
         ps = self.cfg.patch_size
         hp, wp = latents.shape[1] // ps, latents.shape[2] // ps
@@ -357,23 +529,44 @@ class SD3Transformer2DModel(nn.Module):
         temb = self.time_text_embed_fn(timesteps, pooled_projections,
                                        latents.dtype)
         c = self.context_embedder(encoder_hidden_states.to(latents.dtype))
-        return self.unpatchify(self.trunk(x, c, temb), hp, wp)
+        out = self.trunk(x, c, temb, cache=cache, cache_state=cache_state,
+                         t_norm=timesteps.float() / 1000.0,
+                         fine_kv_stale=fine_kv_stale, deep_mode=deep_mode,
+                         deep_span=deep_span, deep_state=deep_state)
+        if deep_mode is not None:
+            return self.unpatchify(out[0], hp, wp), out[1]
+        return self.unpatchify(out, hp, wp)
+
+    def token_cache_layout(self, seq: int) -> Dict[str, tuple]:
+        """Cache-row layout of the token path: block key -> (seq, dim)."""
+        return {f"block{i}": (seq, self.cfg.dim)
+                for i in range(self.cfg.num_layers)}
 
     def apply_tokens(self, tokens, token_mask, timesteps,
-                     encoder_hidden_states, pooled_projections):
+                     encoder_hidden_states, pooled_projections, cache=None,
+                     cache_state=None, row_valid=None,
+                     fine_kv_stale: bool = False, compact_sync: bool = False,
+                     deep_mode=None, deep_span=None, deep_state=None):
         """Mixed-resolution forward over padded token rows
-        (mmdit.py:625-653 without caches).
+        (mmdit.py:625-653).
 
         tokens: ``(B, S_pad, dim)`` embedded latent tokens, right-padded per
         request; token_mask: ``(B, S_pad)`` bool, True at real tokens.
         Returns ``(B, S_pad, ps*ps*C)``; rows past a request's tokens are
-        garbage that the caller slices off.
+        garbage that the caller slices off.  The cache and deep arguments
+        are :meth:`trunk`'s; with ``deep_mode`` returns ``(tokens,
+        deep_out)``.
         """
         temb = self.time_text_embed_fn(timesteps, pooled_projections,
                                        tokens.dtype)
         c = self.context_embedder(encoder_hidden_states.to(tokens.dtype))
         return self.trunk(tokens, c, temb,
-                          ctx=MMDiTMaskCtx(token_mask, c.shape[1]))
+                          ctx=MMDiTMaskCtx(token_mask, c.shape[1]),
+                          cache=cache, cache_state=cache_state,
+                          t_norm=timesteps.float() / 1000.0,
+                          row_valid=row_valid, fine_kv_stale=fine_kv_stale,
+                          compact_sync=compact_sync, deep_mode=deep_mode,
+                          deep_span=deep_span, deep_state=deep_state)
 
 
 class MMDiTMaskCtx:
@@ -392,6 +585,10 @@ class MMDiTMaskCtx:
         b = token_mask.shape[0]
         self.joint_mask = torch.cat(
             [self.token_mask, self.token_mask.new_ones((b, ctx_len))], dim=1)
+
+    def gather(self, idx):
+        """The context of the rows ``idx`` (a compact gate's sub-batch)."""
+        return MMDiTMaskCtx(self.token_mask[idx], self.ctx_len)
 
     def mmdit_attention(self, q, k, v, num_heads: int):
         s_lat = self.token_mask.shape[1]

@@ -35,8 +35,9 @@ path a mixed batch's step is full or shallow batch-wide
 and keeps its rows, one per doubled patch, in a ``"unet_hybrid_mixed"``
 entry of the same store.  A request whose batch moves between the two
 paths holds a deep feature of the other layout, which forces a full step.
-The other cache modes and the fused multi-step dispatch are not ported
-yet.
+The SD3 pipeline runs its own caches on its token path
+(``pipelines/sd3.py``).  The UNet families' cache modes "block" and
+"compact" and the fused multi-step dispatch are not ported yet.
 """
 
 from __future__ import annotations
@@ -72,10 +73,14 @@ def _latent_drift(new, ref):
     return d.square().mean() / (ref.float().square().mean() + 1e-12)
 
 
-def _state_nbytes(state: dict) -> int:
-    """Bytes held by a composition-state entry's ``{key: {leaf: tensor}}``."""
-    return sum(v.numel() * v.element_size()
-               for st in state.values() for v in st.values())
+def _state_nbytes(tree) -> int:
+    """Bytes held by the tensors of a composition-state tree (nested dicts
+    of tensors; other leaves hold none)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(_state_nbytes(v) for v in tree.values())
+    return 0
 
 
 class _DriftScalar:

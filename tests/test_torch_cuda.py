@@ -206,6 +206,39 @@ def test_masked_matches_plain(cuda, b, lq, lk, d, heads, dead_rows):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["joint", "dual"])
+@pytest.mark.parametrize("s_pad,k_t", [(1024, 517), (4096, 2047)])
+def test_masked_fine_gate_shapes(cuda, kind, s_pad, k_t):
+    """The fine token gate's attention: fewer queries than keys, ``Lq`` off
+    the query tile.  Joint: the ``k_t`` selected latent tokens + 333 text
+    queries against ``s_pad`` latent + 333 text keys; dual: ``k_t``
+    against ``s_pad``.  Row 0 is a shorter request (its padded keys
+    masked), row 1 full, row 2 a bucket pad row with no valid latent key
+    (dual: no valid key at all, so its output is zeros)."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    ctx = 333 if kind == "joint" else 0
+    b, d, heads = 3, 1536, 24
+    q = _randn(gen, b, k_t + ctx, d, device=cuda)
+    k, v = (_randn(gen, b, s_pad + ctx, d, device=cuda) for _ in range(2))
+    mask = torch.zeros(b, s_pad + ctx, dtype=torch.bool, device=cuda)
+    mask[0, :s_pad // 4] = True
+    mask[1, :s_pad] = True
+    mask[:, s_pad:] = True       # text keys always take part
+    before = tflash.flash_mha_masked.launches
+    out = tflash.flash_mha_masked(q, k, v, mask, heads, 0.125)
+    ref = tflash.flash_mha_masked_reference(q, k, v, mask, heads, 0.125)
+    torch.cuda.synchronize()
+    assert tflash.flash_mha_masked.launches == before + 1
+    assert out.shape == q.shape and torch.isfinite(out).all()
+    live = mask.any(dim=1)
+    assert live.tolist() == [True, True, kind == "joint"]
+    assert (out[~live] == 0).all()
+    diff, ref = (out[live].float() - ref[live].float()), ref[live].float()
+    assert diff.abs().max().item() <= K1_MAX_REL * ref.abs().max().item()
+    assert (diff.norm() / ref.norm()).item() <= K1_RMS_REL
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("hd", [40, 64])
 @pytest.mark.parametrize("pattern", ["last", "alt"])
 def test_masked_ring_edges(cuda, pattern, hd):

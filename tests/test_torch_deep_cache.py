@@ -303,8 +303,9 @@ def _refused(family="sdxl", **changes) -> Config:
 
 
 @pytest.mark.parametrize("config,item", [
-    (_refused("sd3"), "item 5"),
-    (_refused(cache__sd3_deep_span=(1, 4)), "item 5"),
+    # SD3's caches are served; what its presets still cannot combine with
+    (_refused("sd3", scheduler__steps_per_dispatch=4), "item 3"),
+    (_refused("sd3", parallel__dp=2), "item 10"),
     (_refused(cache__mode="block"), "item 9"),
     (_refused(cache__mode="compact"), "item 9"),
     (_refused(scheduler__steps_per_dispatch=4), "item 3"),
