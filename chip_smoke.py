@@ -105,11 +105,31 @@ Phases (any failure propagates and the script exits non-zero):
      PNGs, /health, /stats, /abort and /clear, a decode group on the
      decode thread while DENOISING iterations go on, no hand kernel off
      the engine's thread, exact launches per realized mode, latencies,
-     iteration times with and without a decode in flight, and the fp32
+     iteration times with and without a decode in flight, and the bf16
      decode's measured bytes per pixel against the memory gate's; with
      the SD-1.5 bundle, 3 x 512^2 with the background prepare
      (``engine.async_prepare=True``: every prepare on its thread);
- 14. print the kernels' JSON line, then the result line
+ 14. ``vae_dtype``, with the SDXL bundle before the serving front: the
+     same two 1024^2 latents decoded under "auto" (bf16 on the card,
+     SDXL's force_upcast VAE included) and "float32", finite uint8
+     images within 3 counts of each other on average, the decode times
+     and the bf16 decode's bytes per pixel (the serving front's memory
+     gate then runs on the bf16 decode);
+ 15. the loader and the safety checker, with the SD-1.5 bundle: the bundle
+     written as a bf16 diffusers snapshot (the script's own safetensors
+     writer, no tokenizer directories) and served from it through
+     ``DiffusionPipeline(model_path=...)``, 2 x 512^2 x 8 Euler steps,
+     bitwise equal to the in-memory bundle's images, exact K1/K5
+     launches; then with ``safety_checker_path="random"`` (ViT-L/14,
+     float32): the checker's embeddings on the card against the CPU,
+     unflagged images equal to the unchecked ones, a flagged image all
+     zero, the checker's ms per decode group;
+ 16. ESyMReD's stage profiles: the SDXL bundle rebuilt by
+     ``scheduler/profiler.py`` fits a profile (512/768/1024, decode
+     batches up to 4) and a predictor on the card, every value finite and
+     positive; the committed ``scheduler/h100/`` files load; 3 SDXL
+     requests served under ESyMReD with the fresh profile and predictor;
+ 17. print the kernels' JSON line, then the result line
      ``{"ok": true, "device": {...}}`` last.
 """
 
@@ -120,7 +140,11 @@ import base64
 import collections
 import gc
 import json
+import os
+import shutil
+import struct
 import subprocess
+import tempfile
 import threading
 import time
 import urllib.request
@@ -139,6 +163,7 @@ from sduss_tpu_torch.entrypoints import api_server, client
 from sduss_tpu_torch.entrypoints.offline import DiffusionPipeline, default_config
 from sduss_tpu_torch.models import mmdit
 from sduss_tpu_torch.models.registry import ModelBundle
+from sduss_tpu_torch.models.safety_checker import SafetyChecker
 from sduss_tpu_torch.models import unet as unet_mod
 from sduss_tpu_torch.models.unet import BasicTransformerBlock
 from sduss_tpu_torch.models import layers
@@ -154,8 +179,12 @@ from sduss_tpu_torch.ops.flash import (flash_cross_short,
 from sduss_tpu_torch.ops.gn_halo import (gn_silu_halo, gn_silu_halo_reference,
                                          gn_silu_haloed, moments)
 from sduss_tpu_torch.ops.patch_ctx import PatchContext, compact_context
+from sduss_tpu_torch.pipelines import build_pipeline
 from sduss_tpu_torch.pipelines.base import _state_nbytes
 from sduss_tpu_torch.request import Request, SamplingParams, Stage
+from sduss_tpu_torch.scheduler.predictor import LatencyPredictor
+from sduss_tpu_torch.scheduler.profiler import Profiler
+from sduss_tpu_torch.scheduler.profiles import StageProfile
 
 # K1 against its plain version (float32 softmax(q k^T) v, rounded to bf16
 # once), on N(0, 1) bf16 inputs, relative to the output's scale:
@@ -332,6 +361,19 @@ FINE_MASKED_SHAPES = [
     (3, 2047 + SD3_CTX, 4096 + SD3_CTX, 1536, 24, "joint-ragged"),
     (3, 2047, 4096, 1536, 24, "dual-ragged"),
 ]
+# vae_dtype: SDXL's bf16 ("auto" on the card) and float32 decodes of the
+# same latents within 3 uint8 counts on average (JAX
+# tests/test_pipelines.py:138); the safety checker's image embeddings on
+# the card (float32, TF32 off) within 1e-3 relative of the CPU's
+VAE_DTYPE_MEAN_COUNTS = 3.0
+CHECKER_REL = 1e-3
+SNAPSHOT_REQUESTS = [512, 512]
+# the ESyMReD stage profile fitted in the run (SDXL, max_post_batch 4) and
+# the files the profiler CLI fitted on an H100 (sduss_tpu_torch/scheduler/h100)
+PROFILE_RES = (512, 768, 1024)
+PROFILE_POST_BATCH = 4
+PROFILE_REQUESTS = [512, 768, 1024]
+H100_PROFILES = "sduss_tpu_torch/scheduler/h100"
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
@@ -2345,7 +2387,8 @@ def serve_http(card: str, bundle: ModelBundle) -> dict:
 
     # the decode transient the memory gate assumes per pixel
     bpp = {n: decode_bytes_per_pixel(pipe, 1024, n) for n in (1, 2)}
-    print(f"decode transient, SDXL fp32 VAE at 1024^2: "
+    print(f"decode transient, SDXL {pipe.bundle.param_dtype('vae')} VAE at "
+          f"1024^2: "
           + ", ".join(f"{n} image(s) {v:.1f} B/px" for n, v in bpp.items())
           + f" (engine.decode_bytes_per_pixel "
           f"{config.engine.decode_bytes_per_pixel:.0f}) [{card}]")
@@ -2353,6 +2396,273 @@ def serve_http(card: str, bundle: ModelBundle) -> dict:
         raise AssertionError(f"decode transient {bpp} B/px exceeds the "
                              f"gate's {config.engine.decode_bytes_per_pixel}")
     return got
+
+
+def check_vae_dtype(card: str, bundle: ModelBundle) -> None:
+    """SDXL's decode of the same two 1024^2 latents under ``vae_dtype``
+    "auto" (bf16 on the card, SDXL's force_upcast VAE included) and
+    "float32": finite uint8 images within VAE_DTYPE_MEAN_COUNTS of each
+    other on average; the decode times of one and two images and the
+    bf16 decode's transient bytes per pixel.  The shared bundle's VAE is
+    cast by each pipeline built on it, so the last one built here is
+    "auto" again."""
+    lat = torch.randn((2, 128, 128, 4), generator=torch.Generator("cuda")
+                      .manual_seed(11), device="cuda", dtype=torch.bfloat16)
+    images, ms, bpp = {}, {}, {}
+    for mode, want in (("float32", torch.float32), ("auto", torch.bfloat16)):
+        config = default_config("sdxl", dtype="bfloat16", seed=0)
+        config.model.vae_dtype = mode
+        pipe = build_pipeline(config, "cuda", bundle=bundle)
+        vae = pipe.bundle.models["vae"]
+        if pipe.bundle.param_dtype("vae") != want or any(
+                p.dtype != want for p in vae.parameters()):
+            raise AssertionError(f"vae_dtype {mode!r}: the VAE is not {want}")
+        with torch.inference_mode():
+            images[mode] = pipe._decode_fn(lat).cpu().numpy()
+            ms[mode] = {n: cuda_ms(lambda: pipe._decode_fn(lat[:n]), 3)
+                        for n in (1, 2)}
+        if mode == "auto":
+            bpp = {n: decode_bytes_per_pixel(pipe, 1024, n) for n in (1, 2)}
+    for mode, img in images.items():
+        if img.dtype != np.uint8 or img.shape != (2, 1024, 1024, 3) \
+                or img.std() == 0:
+            raise AssertionError(f"bad {mode} decode {img.dtype} {img.shape}")
+    diff = np.abs(images["auto"].astype(np.int32)
+                  - images["float32"].astype(np.int32))
+    print(f"SDXL VAE decode at 1024^2: bf16 (vae_dtype auto) "
+          + ", ".join(f"{n} image(s) {v:.2f} ms" for n, v in ms["auto"].items())
+          + "; float32 "
+          + ", ".join(f"{n} image(s) {v:.2f} ms" for n, v in ms["float32"].items())
+          + f"; bf16 vs float32 mean |diff| {diff.mean():.4f} counts (max "
+          f"{diff.max()}, bound {VAE_DTYPE_MEAN_COUNTS}); bf16 decode transient "
+          + ", ".join(f"{n} image(s) {v:.1f} B/px" for n, v in bpp.items())
+          + f" [{card}]")
+    if not diff.mean() < VAE_DTYPE_MEAN_COUNTS:
+        raise AssertionError(f"bf16 and float32 decodes differ by "
+                             f"{diff.mean()} counts on average")
+
+
+def write_safetensors(tensors: dict, path: str) -> None:
+    """A safetensors file of bf16 tensors: an 8-byte little-endian header
+    length, the JSON header (padded with spaces to 8 bytes), the raw
+    bytes."""
+    header, blobs, off = {}, [], 0
+    for name, t in tensors.items():
+        raw = t.detach().to("cpu", torch.bfloat16).contiguous() \
+            .view(torch.uint8).numpy()
+        header[name] = {"dtype": "BF16", "shape": list(t.shape),
+                        "data_offsets": [off, off + raw.nbytes]}
+        blobs.append(raw)
+        off += raw.nbytes
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for raw in blobs:
+            f.write(memoryview(raw))
+
+
+def write_snapshot(bundle: ModelBundle, root: str) -> None:
+    """The bundle as a diffusers snapshot: ``model_index.json`` and one
+    directory of bf16 safetensors per component; no tokenizer
+    directories, so the loader falls back to its hash stub."""
+    with open(os.path.join(root, "model_index.json"), "w") as f:
+        json.dump({"_class_name": "StableDiffusionPipeline"}, f)
+    for name, model in bundle.models.items():
+        os.makedirs(os.path.join(root, name))
+        write_safetensors(model.state_dict(), os.path.join(
+            root, name, "diffusion_pytorch_model.safetensors"))
+
+
+def serve_sd15_snapshot(card: str, bundle: ModelBundle) -> dict:
+    """The full-width SD-1.5 bundle written as a diffusers snapshot (bf16,
+    so the round trip is exact) and served from it through
+    ``DiffusionPipeline(model_path=...)``: 2 x 512^2, 8 Euler steps, the
+    images bitwise equal to the same requests served from the in-memory
+    bundle, and the launches of K1 and K5 one dense forward's a step.  Then
+    served again with ``safety_checker_path="random"`` (ViT-L/14, float32):
+    the checker's image embeddings on the card within CHECKER_REL of the
+    same checker on the CPU; no flag with the random concepts, so the
+    images equal the unchecked ones; with concept 0 set to image 0's
+    embedding (its threshold halfway to image 1's cosine), image 0 flagged
+    and all zero and every unflagged image equal to the unchecked run; the
+    checker's ms per decode group."""
+    prompts = ["a lighthouse on a cliff at dusk", "a bowl of ramen"]
+    kw = dict(resolution=SNAPSHOT_REQUESTS, num_inference_steps=STEPS,
+              seed=1234)
+    per_forward = deep_launches(bundle.denoiser.cfg, 512)["full"]
+    want = {"k1": per_forward["k1"] * STEPS, "flash_mha": 0, "masked": 0,
+            "k4": 0, "k5": per_forward["k5"] * STEPS}
+    total = dict.fromkeys(want, 0)
+
+    def serve(pipe, label, flagged_ok=False):
+        reset_counts()
+        outs = pipe.generate(prompts, **kw)
+        torch.cuda.synchronize()
+        got = read_counts()
+        # a flagged image is all zero: check_outputs takes the others
+        check_outputs([o for o in outs if not (flagged_ok and o.nsfw_flagged)],
+                      [r for o, r in zip(outs, SNAPSHOT_REQUESTS)
+                       if not (flagged_ok and o.nsfw_flagged)], card)
+        if got != want:
+            raise AssertionError(f"{label} launches {got} != {want}")
+        for k in total:
+            total[k] += got[k]
+        return outs
+
+    config = default_config("sd15", dtype="bfloat16", seed=0)
+    ref = serve(DiffusionPipeline(config=config, device="cuda", bundle=bundle),
+                "SD-1.5 in memory")
+    os.makedirs("build", exist_ok=True)
+    root = tempfile.mkdtemp(prefix="sd15_snapshot_", dir="build")
+    try:
+        t0 = time.perf_counter()
+        write_snapshot(bundle, root)
+        t_write = time.perf_counter() - t0
+        config = default_config("sd15", dtype="bfloat16", seed=0)
+        config.model.model_path = root
+        t0 = time.perf_counter()
+        snap = DiffusionPipeline(config=config, device="cuda")
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        outs = serve(snap, "SD-1.5 from the snapshot")
+        same = [np.array_equal(o.image, r.image) for o, r in zip(outs, ref)]
+        size = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, files in os.walk(root) for f in files)
+        print(f"SD-1.5 snapshot ({size / 1e9:.3f} GB bf16): written in "
+              f"{t_write:.1f} s, loaded in {t_load:.1f} s; {len(outs)} x "
+              f"512^2 x {STEPS} "
+              f"steps bitwise equal to the in-memory bundle's: {same}; "
+              f"launches {want} a run [{card}]")
+        if not all(same):
+            raise AssertionError("the snapshot's images differ from the "
+                                 "in-memory bundle's")
+    finally:
+        shutil.rmtree(root)
+
+    config.model.safety_checker_path = "random"
+    checked = DiffusionPipeline(config=config, device="cuda",
+                                bundle=snap.engine.worker.pipeline.bundle)
+    t0 = time.perf_counter()
+    checker = checked.engine.worker.pipeline._safety_checker()
+    t_init = time.perf_counter() - t0
+    group_ms = []
+    check = checker.check
+
+    def spy_check(images):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = check(images)
+        torch.cuda.synchronize()
+        group_ms.append((len(images), (time.perf_counter() - t0) * 1e3))
+        return out
+
+    checker.check = spy_check
+    plain = np.stack([r.image for r in ref])
+    cpu = SafetyChecker(device="cpu")
+    cpu.init_random(seed=config.model.seed)
+    emb = checker.image_embeds(plain).cpu()
+    emb_cpu = cpu.image_embeds(plain)
+    rel = ((emb - emb_cpu).abs().max() / emb_cpu.abs().max()).item()
+    print(f"safety checker (ViT-L/14, float32; random weights drawn in "
+          f"{t_init:.1f} s): image_embeds card vs CPU max err / max |CPU| "
+          f"{rel:.3e} (bound {CHECKER_REL:.0e}) [{card}]")
+    if not rel <= CHECKER_REL:
+        raise AssertionError(f"checker embeddings card vs CPU {rel}")
+
+    def serve_checked(label):
+        outs = serve(checked, label, flagged_ok=True)
+        flags = [o.nsfw_flagged for o in outs]
+        for o, r in zip(outs, ref):
+            if o.image.shape != r.image.shape or o.image.dtype != np.uint8:
+                raise AssertionError(f"{label}: bad image {o.image.shape}")
+            if o.nsfw_flagged and o.image.any():
+                raise AssertionError(f"{label}: a flagged image is not zero")
+            if not o.nsfw_flagged and not np.array_equal(o.image, r.image):
+                raise AssertionError(f"{label}: an unflagged image changed")
+        return flags
+
+    random_flags = serve_checked("SD-1.5 with the random checker")
+    unit = emb / emb.norm(dim=-1, keepdim=True)
+    cos01 = float(unit[0] @ unit[1])
+    with torch.inference_mode():
+        checker.concepts["concept_embeds"][0] = emb[0].to("cuda")
+        checker.concepts["concept_embeds_weights"][0] = (1.0 + cos01) / 2
+    set_flags = serve_checked("SD-1.5 with concept 0 = image 0")
+    print(f"safety checker flags: random concepts {random_flags}; concept 0 "
+          f"= image 0's embedding (cosine to image 1 {cos01:.4f}) "
+          f"{set_flags}; check ms per decode group "
+          + ", ".join(f"{n} x 512^2 {t:.2f}" for n, t in group_ms)
+          + f" [{card}]")
+    if any(random_flags) or not set_flags[0]:
+        raise AssertionError(f"checker flags {random_flags} {set_flags}")
+    return total
+
+
+def profile_h100(card: str) -> dict:
+    """ESyMReD's stage profile and latency predictor fitted on the card
+    (``scheduler/profiler.py``): SDXL at PROFILE_RES with
+    PROFILE_POST_BATCH, every value finite and > 0, standalone denoising
+    50 x the step; the committed H100 files load into ``StageProfile`` and
+    ``LatencyPredictor``; then 3 SDXL requests served under ESyMReD with the
+    fresh profile and predictor (uint8 images).  Returns the launches of
+    the profiling and of the serving run."""
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="profile_", dir="build")
+    try:
+        prof = Profiler("sdxl", resolutions=PROFILE_RES, device="cuda")
+        bundle = prof.pipe.bundle  # random bf16 weights, drawn on the card
+        reset_counts()
+        profile = prof.build_profile(max_post_batch=PROFILE_POST_BATCH)
+        pred_path = os.path.join(root, "predictor.npz")
+        prof.fit_predictor(pred_path)
+        torch.cuda.synchronize()
+        got = read_counts()
+        values = [v for t in profile["standalone"].values() for v in t.values()]
+        values += list(profile["step_latency"].values())
+        values += [v for t in profile["post_batch_latency"].values() for v in t]
+        if not all(np.isfinite(v) and v > 0 for v in values):
+            raise AssertionError(f"bad profile {profile}")
+        for res, s in profile["step_latency"].items():
+            if profile["standalone"]["denoising"][res] != 50.0 * s:
+                raise AssertionError(f"standalone denoise at {res} is not "
+                                     f"50 x the step")
+        print(f"SDXL stage profile on the card (seconds): "
+              f"{json.dumps(profile)}; profiling launches {got} [{card}]")
+
+        for family in ("sd15", "sdxl", "sd3"):
+            with open(os.path.join(H100_PROFILES,
+                                   f"profile_{family}.json")) as f:
+                sp = StageProfile(**json.load(f))
+            lp = LatencyPredictor.load(os.path.join(
+                H100_PROFILES, f"predictor_{family}.npz"), sp)
+            counts = [1] * len(lp.resolutions)
+            if not (lp.predict(counts) > 0 and sp.e2e_ddl_s(
+                    lp.resolutions[-1]) > 0):
+                raise AssertionError(f"bad H100 files for {family}")
+
+        config = default_config("sdxl", dtype="bfloat16", seed=0)
+        config.scheduler.policy = "esymred"
+        config.scheduler.stage_latency_overrides = profile
+        config.scheduler.predictor_path = pred_path
+        pipe = DiffusionPipeline(config=config, device="cuda", bundle=bundle)
+        policy = pipe.engine.worker.scheduler.policy
+        if policy.profile.step_latency != profile["step_latency"] \
+                or policy.predictor.weights is None:
+            raise AssertionError("ESyMReD did not take the fitted profile")
+        reset_counts()
+        outs = pipe.generate(["a cat", "a lighthouse", "a bowl of ramen"],
+                             resolution=PROFILE_REQUESTS,
+                             num_inference_steps=STEPS, seed=99)
+        torch.cuda.synchronize()
+        served = read_counts()
+        check_outputs(outs, PROFILE_REQUESTS, card)
+        print(f"SDXL under ESyMReD with the fitted profile: launches "
+              f"{served}; phase {time.perf_counter() - t0:.1f} s [{card}]")
+    finally:
+        shutil.rmtree(root)
+    return {k: got[k] + served[k] for k in got}
 
 
 def reset_counts() -> None:
@@ -2465,6 +2775,7 @@ def serve_sd15(card: str, bundle: ModelBundle, mixed: bool, sampler: str,
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
+    t_start = time.perf_counter()
     configure_numerics()
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
@@ -2508,6 +2819,7 @@ def main() -> None:
     runs += serve_sdxl_deep(card, bundle)
     check_mixed_deep_invariant(bundle, card)
     runs += serve_sdxl_mixed_deep(card, bundle)
+    check_vae_dtype(card, bundle)
     runs.append(serve_http(card, bundle))
     # free each bundle so each family's peak memory reads alone
     del bundle
@@ -2532,10 +2844,16 @@ def main() -> None:
                    async_prepare=True),
         serve_sd15_rowwarm(card, sd15),
         serve_sd15_mixed_deep(card, sd15),
+        serve_sd15_snapshot(card, sd15),
     ]
+    del sd15
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs.append(profile_h100(card))
     # launches: the sum over the serving paths, each read just after its run
     launches = {key: sum(r[key] for r in runs) for key in runs[0]}
     print(f"launches on the serving paths: {launches}")
+    print(f"chip_smoke ran {time.perf_counter() - t_start:.1f} s [{card}]")
 
     kernels = [
         ("flash_mha_fused", "sduss_tpu_torch/csrc/flash_fused.cu",

@@ -19,8 +19,9 @@ import torch
 def configure_numerics() -> None:
     """Set the float32 matmul/conv precision of CUDA math, in one place.
 
-    TF32 is OFF for both cuBLAS matmuls and cuDNN convolutions, so the
-    fp32 VAE decode is true float32 (TF32 keeps ~3 decimal digits; cuDNN
+    TF32 is OFF for both cuBLAS matmuls and cuDNN convolutions, so a
+    float32 VAE decode (``vae_dtype="float32"``) and the float32 safety
+    checker are true float32 (TF32 keeps ~3 decimal digits; cuDNN
     convolutions default to it).  bf16 work (the UNet, the text encoders
     and the hand-written attention kernel) is unaffected.  Turning TF32 on
     for speed is a later, measured change.

@@ -334,10 +334,14 @@ class EngineConfig:
     hbm_bytes_fallback: float = 16e9
     # Serving-decode capacity gate: per-image transient bytes per pixel and
     # a margin, capping the decode group to what fits next to live state.
-    # 3073: the transient of SDXL's float32 VAE decode at 1024^2 on an
-    # H100 (3072.50 B/px, chip_smoke.py serve_http), the largest of the
-    # port's decodes; the JAX package's 768 was taken for a bf16 decode.
-    decode_bytes_per_pixel: float = 3073.0
+    # 3585: the transient of SDXL's bf16 VAE decode at 1024^2 on an H100
+    # (3584.4 B/px for one and two images, chip_smoke.py
+    # check_vae_dtype), the largest of the port's decodes.  The JAX
+    # package's 768 comes from XLA, which fuses the decoder's group norms;
+    # the port's eager group norm keeps float32 copies of the largest
+    # activation (its moments and affine run in float32), so its bf16
+    # decode peaks above the float32 one (3072.50 B/px).
+    decode_bytes_per_pixel: float = 3585.0
     decode_hbm_margin: float = 1.5e9
 
 

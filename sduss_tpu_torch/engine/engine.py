@@ -48,10 +48,6 @@ def check_supported(config: Config) -> None:
     mints no cache at all, and the UNet families ignore
     ``sd3_deep_span``."""
     par, cc, sc = config.parallel, config.cache, config.scheduler
-    if config.model.model_path:
-        raise NotImplementedError("loading a checkpoint snapshot is not "
-                                  "ported yet (ROADMAP Queue 1 item 7); "
-                                  "weights are random")
     if config.engine.prewarm:
         raise NotImplementedError(
             "engine.prewarm compiles the step programs ahead of serving; "

@@ -36,7 +36,7 @@ class DiffusionPipeline:
                  bundle: Optional[ModelBundle] = None, **kwargs):
         if config is None:
             # the JAX entry point's keywords; what the port cannot serve
-            # (model_path, dp > 1) raises in Engine
+            # (dp > 1) raises in Engine
             config = default_config(model, **{
                 k: v for k, v in kwargs.items()
                 if k in ("model_path", "dtype", "seed", "test_tiny",

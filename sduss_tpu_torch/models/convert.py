@@ -1,7 +1,8 @@
 """JAX parameter tree -> diffusers/transformers state dict (pure numpy).
 
 The exact inverse of sduss_tpu/models/convert.py's ``convert_unet``,
-``convert_clip``, ``convert_vae``, ``convert_mmdit`` and ``convert_t5``:
+``convert_clip``, ``convert_clip_vision``, ``convert_vae``,
+``convert_mmdit`` and ``convert_t5``:
 matmul kernels ``(in, out)`` go back
 to torch's ``(out, in)``, conv kernels HWIO back to OIHW, and every tensor
 gets its diffusers name again.  A UNet transformer's ``proj_in`` /
@@ -122,6 +123,32 @@ def clip_state_dict(p) -> StateDict:
     return sd
 
 
+def clip_vision_state_dict(p) -> StateDict:
+    """Inverse of ``convert_clip_vision`` (convert.py:68-93): transformers'
+    ``CLIPVisionModelWithProjection`` names, ``pre_layrnorm`` spelt as
+    transformers spells it."""
+    pre = "vision_model."
+    sd: StateDict = {
+        pre + "embeddings.class_embedding": np.asarray(p["class_embedding"]),
+        pre + "embeddings.position_embedding.weight":
+            np.asarray(p["position_embedding"]),
+    }
+    _dense(sd, pre + "embeddings.patch_embedding", p["patch_embedding"])
+    _norm(sd, pre + "pre_layrnorm", p["pre_layernorm"])
+    _norm(sd, pre + "post_layernorm", p["post_layernorm"])
+    _dense(sd, "visual_projection", p["visual_projection"])
+    for i, lyr in enumerate(p["layers"]):
+        lp = f"{pre}encoder.layers.{i}"
+        _norm(sd, f"{lp}.layer_norm1", lyr["ln1"])
+        _norm(sd, f"{lp}.layer_norm2", lyr["ln2"])
+        for jax_name, hf in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"),
+                             ("out", "out_proj")):
+            _dense(sd, f"{lp}.self_attn.{hf}", lyr[jax_name])
+        _dense(sd, f"{lp}.mlp.fc1", lyr["fc1"])
+        _dense(sd, f"{lp}.mlp.fc2", lyr["fc2"])
+    return sd
+
+
 def vae_state_dict(p) -> StateDict:
     sd: StateDict = {}
     for part in ("encoder", "decoder"):
@@ -200,6 +227,7 @@ def t5_state_dict(p) -> StateDict:
 
 
 _BY_ROLE = {"unet": unet_state_dict, "clip": clip_state_dict,
+            "clip_vision": clip_vision_state_dict,
             "vae": vae_state_dict, "transformer": mmdit_state_dict,
             "t5": t5_state_dict}
 
@@ -208,8 +236,9 @@ def jax_to_torch_state_dict(family_role: str, params) -> StateDict:
     """Convert one component's JAX parameter tree (numpy leaves).
 
     ``family_role`` is ``"unet"``, ``"transformer"`` (the SD3 MMDiT),
-    ``"vae"``, ``"t5"``/``"text_encoder_3"`` or a CLIP role (``"clip"``,
-    ``"text_encoder"``, ``"text_encoder_2"``).
+    ``"vae"``, ``"t5"``/``"text_encoder_3"``, ``"clip_vision"`` (the
+    image tower) or a CLIP role (``"clip"``, ``"text_encoder"``,
+    ``"text_encoder_2"``).
     """
     # text_encoder_3 (T5) first: every other text_encoder* role is CLIP
     if family_role == "text_encoder_3":
@@ -223,5 +252,5 @@ def jax_to_torch_state_dict(family_role: str, params) -> StateDict:
     except KeyError:
         raise ValueError(f"no converter for {family_role!r}; roles: unet, "
                          f"transformer, vae, t5/text_encoder_3, "
-                         f"clip/text_encoder*") from None
+                         f"clip_vision, clip/text_encoder*") from None
     return fn(params)

@@ -2,15 +2,16 @@
 sduss_tpu/models/registry.py, loader.py and utils.random_params).
 
 A ``ModelBundle`` holds one family's ``nn.Module``s on one device, in one
-serving dtype (the VAE follows the JAX ``_vae_dtype`` rule: bf16 on the
-card, float32 on the CPU, and float32 always for SDXL's force_upcast VAE),
-and its tokenizers.  Every component stays on the device: the JAX
+serving dtype (the VAE in the dtype ``ModelConfig.vae_dtype`` asks for,
+by the JAX ``_vae_dtype`` rule), and its tokenizers.  Every component
+stays on the device: the JAX
 package's ``encoders_on_host`` is a memory policy for a 16 GB TPU chip,
 and the full SD3 bundle (~16 GB bf16, T5-XXL ~9.5 GB of it) fits an 80 GB
 card next to its activations.  Weights
 come from :meth:`ModelBundle.init_random` (seeded, generated on the device)
-or :meth:`ModelBundle.load_state_dicts` (diffusers-named arrays, e.g. the
-JAX package's parameters through ``models/convert.py``).
+or :meth:`ModelBundle.load_state_dicts` (diffusers-named tensors: a
+snapshot's, through ``models/loader.py``, or the JAX package's parameters
+through ``models/convert.py``).
 """
 
 from __future__ import annotations
@@ -99,11 +100,23 @@ class StubTokenizer:
                 "attention_mask": np.asarray(mask, np.int32)}
 
 
-def _fan_in_init(module: nn.Module, gen: torch.Generator) -> None:
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _check_vae_dtype(vae_dtype: str) -> None:
+    if vae_dtype not in ("auto", *DTYPES):
+        raise ValueError(f"vae_dtype {vae_dtype!r}: expected 'auto', "
+                         f"'bfloat16' or 'float32'")
+
+
+def fan_in_init(module: nn.Module, gen: torch.Generator) -> None:
     """The JAX ``init`` distributions: U(+-1/sqrt(fan_in)) kernels, zero
-    biases, unit/zero norm affines (layers.py conv_init/linear_init)."""
+    biases, unit/zero norm affines (layers.py conv_init/linear_init) and
+    N(0, 0.02) embedding tables."""
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
+        if isinstance(m, nn.Embedding):
+            m.weight.normal_(0.0, 0.02, generator=gen)
+        elif isinstance(m, (nn.Conv2d, nn.Linear)):
             fan_in = m.weight[0].numel()
             bound = 1.0 / math.sqrt(fan_in)
             m.weight.uniform_(-bound, bound, generator=gen)
@@ -120,11 +133,14 @@ class ModelBundle:
 
     def __init__(self, family: str, tiny: bool = False,
                  dtype: torch.dtype = torch.bfloat16,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda",
+                 vae_dtype: str = "auto"):
         self.family = family
         self.spec = SPECS[family]
         self.dtype = dtype
         self.device = torch.device(device)
+        _check_vae_dtype(vae_dtype)
+        self.vae_dtype = vae_dtype
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device found; pass device='cpu' "
                                "explicitly to run on the CPU")
@@ -212,17 +228,28 @@ class ModelBundle:
     def param_dtype(self, name: str) -> torch.dtype:
         """Serving dtype of a component.  The VAE follows the JAX
         ``_vae_dtype`` rule (base.py:2813-2821) with the card in the TPU's
-        place: bf16 on the card, float32 on the CPU; a force_upcast VAE
-        (SDXL) stays float32 everywhere."""
+        place: "bfloat16" and "float32" force their dtype; "auto" is bf16
+        on the card for every family, SDXL's force_upcast VAE included
+        (bf16 has float32's exponent range, so the fp16 overflow that
+        force_upcast guards against cannot happen), and float32 on the
+        CPU."""
         if name == "vae":
-            if (self.models["vae"].cfg.force_upcast
-                    or self.device.type == "cpu"):
-                return torch.float32
-            return torch.bfloat16
+            if self.vae_dtype == "auto":
+                return (torch.bfloat16 if self.device.type == "cuda"
+                        else torch.float32)
+            return DTYPES[self.vae_dtype]
         return self.dtype
 
-    def _materialize(self, name: str) -> nn.Module:
-        m = self.models[name].to(self.param_dtype(name))
+    def set_vae_dtype(self, vae_dtype: str) -> None:
+        """Serve the VAE in ``vae_dtype`` from now on; a VAE that already
+        holds weights is cast once (a bundle handed to a pipeline)."""
+        _check_vae_dtype(vae_dtype)
+        self.vae_dtype = vae_dtype
+        self.models["vae"].to(self.param_dtype("vae"))
+
+    def _materialize(self, name: str,
+                     dtype: Optional[torch.dtype] = None) -> nn.Module:
+        m = self.models[name].to(dtype or self.param_dtype(name))
         m = m.to_empty(device=self.device).requires_grad_(False).eval()
         self.models[name] = m
         return m
@@ -234,35 +261,69 @@ class ModelBundle:
         Every tensor of the denoiser and text encoders is N(0, 0.02), as
         ``sduss_tpu.utils.random_params`` makes them; the VAE takes the
         fan-in init of the JAX ``init`` (which the JAX package uses for the
-        SDXL VAE), so random-weight images have contrast.  The numbers
-        differ from JAX's (another generator); tests that compare the two
-        packages load JAX's weights with :meth:`load_state_dicts` instead.
+        SDXL VAE), so random-weight images have contrast.  The VAE is drawn
+        in float32 and then cast, so one seed gives one VAE under every
+        ``vae_dtype`` (JAX casts its float32 VAE at the decode).  The
+        numbers differ from JAX's (another generator); tests that compare
+        the two packages load JAX's weights with :meth:`load_state_dicts`
+        instead.
         """
         for i, name in enumerate(sorted(self.models)):
-            m = self._materialize(name)
             gen = torch.Generator(device=self.device).manual_seed(seed + i)
             if name == "vae":
-                _fan_in_init(m, gen)
+                m = self._materialize(name, torch.float32)
+                fan_in_init(m, gen)
+                m.to(self.param_dtype(name))
             else:
+                m = self._materialize(name)
                 for p in m.parameters():
                     p.normal_(0.0, 0.02, generator=gen)
 
     @torch.no_grad()
-    def load_state_dicts(self, state_dicts: Mapping[str, Mapping[str, np.ndarray]]) -> None:
-        """Load diffusers-named arrays for every component (strict).
+    def load_state_dicts(self, state_dicts: Mapping[str, Mapping]) -> None:
+        """Load every component from diffusers-named arrays or tensors.
 
-        The VAE's encoder and quant_conv tensors are dropped: the port
-        carries only the decoder.
+        Each component takes exactly its module's keys (see
+        :func:`select_state_dict`): a checkpoint's extra tensors, such as
+        the VAE encoder and quant_conv (the port carries only the
+        decoder), are ignored, and a missing one raises.
         """
         missing = set(self.models) - set(state_dicts)
         if missing:
             raise KeyError(f"no state dict for {sorted(missing)}")
-        for name, sd in state_dicts.items():
-            m = self._materialize(name)
-            if name == "vae":
-                sd = {k: v for k, v in sd.items()
-                      if not k.startswith(("encoder.", "quant_conv."))}
-            dtype = self.param_dtype(name)
-            m.load_state_dict({k: torch.from_numpy(np.array(v, np.float32))
-                               .to(dtype) for k, v in sd.items()},
-                              strict=True)
+        for name in self.models:
+            self.load_component(name, state_dicts[name])
+
+    @torch.no_grad()
+    def load_component(self, name: str, sd: Mapping) -> None:
+        """Load one component (see :meth:`load_state_dicts`)."""
+        m = self._materialize(name)
+        m.load_state_dict(select_state_dict(name, m.state_dict(), sd,
+                                            self.param_dtype(name)),
+                          strict=True)
+
+
+def select_state_dict(component: str, keys, sd: Mapping,
+                      dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """Exactly ``keys`` (a module's state-dict keys) from ``sd`` (numpy
+    arrays or tensors), upcast to float32 and cast to ``dtype``.
+
+    A checkpoint's tensors that the module lacks are ignored, as the JAX
+    converters ignore them (the VAE encoder, CLIP's ``position_ids``, T5's
+    tied ``encoder.embed_tokens.weight``); a key the module needs and the
+    checkpoint lacks raises a ``KeyError`` naming the component.  float16
+    and bfloat16 go through float32 first, as the JAX loader's ``_to_jnp``
+    upcasts them.
+    """
+    keys = list(keys)
+    missing = [k for k in keys if k not in sd]
+    if missing:
+        raise KeyError(f"{component}: {len(missing)} of {len(keys)} tensors "
+                       f"missing from the checkpoint, first {missing[:5]}")
+
+    def f32(v):
+        if isinstance(v, torch.Tensor):
+            return v.float()
+        return torch.from_numpy(np.array(v, np.float32))
+
+    return {k: f32(sd[k]).to(dtype) for k in keys}

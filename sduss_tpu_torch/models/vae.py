@@ -169,8 +169,8 @@ class AutoencoderKL(nn.Module):
     def decode(self, latents):
         """Scaled NHWC latents ``(B, h, w, C)`` -> NHWC images in [-1, 1].
 
-        Computes in the module's parameter dtype (float32 for SDXL's
-        force_upcast VAE and on the CPU, bf16 otherwise).
+        Computes in the module's parameter dtype (``ModelConfig.vae_dtype``:
+        bf16 on the card and float32 on the CPU unless set).
         """
         return self._decode_core(self._scale_in(latents))
 

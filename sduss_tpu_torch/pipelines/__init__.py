@@ -2,12 +2,12 @@
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
-import torch
-
 from sduss_tpu_torch.config import Config
-from sduss_tpu_torch.models.registry import ModelBundle
+from sduss_tpu_torch.models.loader import load_bundle
+from sduss_tpu_torch.models.registry import DTYPES, ModelBundle
 from sduss_tpu_torch.pipelines.base import BasePipeline
 from sduss_tpu_torch.pipelines.sd import StableDiffusionPipeline
 from sduss_tpu_torch.pipelines.sd3 import StableDiffusion3Pipeline
@@ -16,18 +16,24 @@ from sduss_tpu_torch.pipelines.sdxl import StableDiffusionXLPipeline
 PIPELINES = {"sd15": StableDiffusionPipeline,
              "sdxl": StableDiffusionXLPipeline,
              "sd3": StableDiffusion3Pipeline}
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def build_pipeline(config: Config, device, bundle: Optional[ModelBundle] = None) -> BasePipeline:
-    """Random-init a bundle on ``device`` (unless one is given) and build the
-    family pipeline.  Loading checkpoints from disk is not ported yet
-    (``engine.check_supported`` refuses ``model.model_path``)."""
+    """Load the family's weights on ``device`` (unless a bundle is given)
+    and build its pipeline.  The weights come from the diffusers snapshot
+    at ``model.model_path``, or at ``model.model`` when that is a
+    directory, as in the JAX package; seeded random ones otherwise.  A
+    given bundle's VAE is cast to ``model.vae_dtype`` once here."""
     family = config.model.family
     if family not in PIPELINES:
         raise ValueError(f"family {family!r} not ported; ported: {sorted(PIPELINES)}")
+    mc = config.model
     if bundle is None:
-        bundle = ModelBundle(family, tiny=config.model.test_tiny,
-                             dtype=DTYPES[config.model.dtype], device=device)
-        bundle.init_random(seed=config.model.seed)
+        snapshot = mc.model_path or (mc.model if os.path.isdir(mc.model)
+                                     else None)
+        bundle = load_bundle(family, snapshot=snapshot, tiny=mc.test_tiny,
+                             dtype=DTYPES[mc.dtype], seed=mc.seed,
+                             device=device, vae_dtype=mc.vae_dtype)
+    else:
+        bundle.set_vae_dtype(mc.vae_dtype)
     return PIPELINES[family](bundle, config)

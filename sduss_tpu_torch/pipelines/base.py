@@ -10,7 +10,8 @@
                            patched UNet forward (the mixed patch path; the
                            SD3 pipeline's padded-token step overrides it).
 * ``postprocess``        — VAE decode to uint8 images (or the final latents),
-                           tiled for SD3 as in the JAX pipeline.
+                           tiled for SD3 as in the JAX pipeline, then the
+                           safety checker when one is configured.
 
 The dense path runs batches at their real size: eager PyTorch has no
 compile cache to key.  The patch path pads the patch and image counts to
@@ -53,9 +54,15 @@ from sduss_tpu_torch.cache.manager import BlockCache
 from sduss_tpu_torch.config import Config, bucket_for
 from sduss_tpu_torch.request import Request
 from sduss_tpu_torch.models.registry import ModelBundle
+from sduss_tpu_torch.models.safety_checker import SafetyChecker
 from sduss_tpu_torch.ops import patching
 from sduss_tpu_torch.ops.patch_ctx import PatchContext
 from sduss_tpu_torch.samplers import gather_coeffs, gather_timesteps, get_sampler
+
+# tokenizer arguments of every text encode: a snapshot's transformers
+# tokenizers pad and truncate to max_length only when asked (the stub
+# always does), as in the JAX pipelines
+_PAD = {"padding": "max_length", "truncation": True}
 
 
 def _pad_batch(arr: torch.Tensor, target: int) -> torch.Tensor:
@@ -126,6 +133,7 @@ class BasePipeline:
         self._comp_state: collections.OrderedDict = collections.OrderedDict()
         self._deep_carry: collections.OrderedDict = collections.OrderedDict()
         self._cache_obj = None
+        self._safety_obj = None
 
     # -- family hooks --------------------------------------------------------
 
@@ -999,8 +1007,32 @@ class BasePipeline:
     def _decode_group(self, reqs: List[Request]) -> None:
         latents = torch.cat([r.latents for r in reqs], dim=0)
         images = self._decode_fn(latents).cpu().numpy()
+        checker = self._safety_checker()
+        if checker is not None:
+            images, flags = checker.check(images)
+            for req, flagged in zip(reqs, flags):
+                req.nsfw_flagged = flagged
         for i, req in enumerate(reqs):
             req.output = images[i]
+
+    def _safety_checker(self):
+        """The lazy safety checker of ``ModelConfig.safety_checker_path``
+        (JAX base.py:2796-2811): "random" is random weights from the
+        model seed, a directory the stock ``safety_checker/`` component.
+        Built at the first decode, it lives outside the bundle, so
+        ``device_param_bytes`` does not count it, as in JAX."""
+        path = self.config.model.safety_checker_path
+        if not path:
+            return None
+        if self._safety_obj is None:
+            checker = SafetyChecker(tiny=self.config.model.test_tiny,
+                                    device=self.device)
+            if path == "random":
+                checker.init_random(seed=self.config.model.seed)
+            else:
+                checker.load(path)
+            self._safety_obj = checker
+        return self._safety_obj
 
     def _tiled(self, latent_hw: int) -> bool:
         """Does a latent this wide take the tiled decode?  (SD3: 64-cell
@@ -1009,8 +1041,9 @@ class BasePipeline:
         return bool(tile) and latent_hw > tile
 
     def _decode_fn(self, latents):
-        """VAE decode in the VAE's dtype (bf16 on the card, float32 on the
-        CPU and for SDXL) -> uint8; tiled where :meth:`_tiled` says so."""
+        """VAE decode in the VAE's dtype (``ModelConfig.vae_dtype``; "auto"
+        is bf16 on the card, float32 on the CPU) -> uint8; tiled where
+        :meth:`_tiled` says so."""
         vae = self.bundle.models["vae"]
         if self._tiled(latents.shape[1]):
             mc = self.config.model

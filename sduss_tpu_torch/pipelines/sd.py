@@ -7,7 +7,7 @@ from typing import Dict, List
 
 import torch
 
-from sduss_tpu_torch.pipelines.base import BasePipeline
+from sduss_tpu_torch.pipelines.base import _PAD, BasePipeline
 
 
 class StableDiffusionPipeline(BasePipeline):
@@ -18,10 +18,10 @@ class StableDiffusionPipeline(BasePipeline):
         tok = self.bundle.tokenizers["tokenizer"]
         # the last hidden state of CLIP-L; no pooled output, no time ids
         emb, _ = self._encode_clip("text_encoder",
-                                   tok(prompts, max_length=77)["input_ids"],
+                                   tok(prompts, max_length=77, **_PAD)["input_ids"],
                                    penultimate=False)
         nemb, _ = self._encode_clip("text_encoder",
-                                    tok(negatives, max_length=77)["input_ids"],
+                                    tok(negatives, max_length=77, **_PAD)["input_ids"],
                                     penultimate=False)
         return [{"embeds": emb[i:i + 1], "neg_embeds": nemb[i:i + 1]}
                 for i in range(len(prompts))]

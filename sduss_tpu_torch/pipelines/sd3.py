@@ -39,7 +39,7 @@ import torch
 
 from sduss_tpu_torch.cache.manager import BlockCache
 from sduss_tpu_torch.config import bucket_for
-from sduss_tpu_torch.pipelines.base import BasePipeline, _state_nbytes
+from sduss_tpu_torch.pipelines.base import _PAD, BasePipeline, _state_nbytes
 from sduss_tpu_torch.samplers import gather_coeffs, gather_timesteps
 
 
@@ -90,13 +90,14 @@ class StableDiffusion3Pipeline(BasePipeline):
         # ONE batched pass over prompts + negatives (sd3.py:101-106)
         texts = list(prompts) + list(negatives)
         e1, p1 = self._encode_clip(
-            "text_encoder", tok1(texts, max_length=77)["input_ids"],
+            "text_encoder", tok1(texts, max_length=77, **_PAD)["input_ids"],
             penultimate=True)
         e2, p2 = self._encode_clip(
-            "text_encoder_2", tok2(texts, max_length=77)["input_ids"],
+            "text_encoder_2", tok2(texts, max_length=77, **_PAD)["input_ids"],
             penultimate=True)
-        t3 = tok3(texts, max_length=self.T5_SEQ_LEN)
-        e3 = self._encode_t5(t3["input_ids"], t3["attention_mask"])
+        t3 = tok3(texts, max_length=self.T5_SEQ_LEN, **_PAD)
+        e3 = self._encode_t5(np.asarray(t3["input_ids"]),
+                             np.asarray(t3["attention_mask"]))
         clip = torch.cat([e1, e2], dim=-1).float()
         # CLIP features zero-padded to the T5 width, then joined along the
         # sequence: 77 + 256 = 333 tokens

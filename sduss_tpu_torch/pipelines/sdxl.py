@@ -8,7 +8,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from sduss_tpu_torch.pipelines.base import BasePipeline
+from sduss_tpu_torch.pipelines.base import _PAD, BasePipeline
 
 
 class StableDiffusionXLPipeline(BasePipeline):
@@ -20,8 +20,8 @@ class StableDiffusionXLPipeline(BasePipeline):
         tok2 = self.bundle.tokenizers["tokenizer_2"]
 
         def enc(texts):
-            ids1 = tok1(texts, max_length=77)["input_ids"]
-            ids2 = tok2(texts, max_length=77)["input_ids"]
+            ids1 = tok1(texts, max_length=77, **_PAD)["input_ids"]
+            ids2 = tok2(texts, max_length=77, **_PAD)["input_ids"]
             # penultimate hidden states of both encoders; pooled from enc 2
             e1, _ = self._encode_clip("text_encoder", ids1, penultimate=True)
             e2, pooled = self._encode_clip("text_encoder_2", ids2,

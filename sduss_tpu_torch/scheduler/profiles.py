@@ -3,8 +3,9 @@
 Rebuilds the reference's esymred.json + sm_util_*.csv profile tables
 (sduss/worker/scheduler/configs/esymred.json:1-48, ESyMReD.py:105-119) as one
 typed structure.  Defaults below are the reference config's anchors; a
-profile JSON the SchedulerConfig points at replaces them (the port's own
-stage profiler is not written yet).
+profile JSON the SchedulerConfig points at replaces them.  The port's
+profiler (``scheduler/profiler.py``) measures them on the card; the files
+it fitted on an H100 are in ``scheduler/h100/``.
 """
 
 from __future__ import annotations

@@ -496,7 +496,7 @@ def test_drift_scalar_is_read_after_its_event(cuda):
 
 @pytest.mark.cuda
 def test_decode_thread_matches_main_thread(cuda):
-    """The tiny SDXL bundle in bf16 (fp32 VAE): ``postprocess`` on the
+    """The tiny SDXL bundle in bf16 (bf16 VAE): ``postprocess`` on the
     main thread and the worker's background decode
     (``plan_postprocess`` run on its decode pool) give the same images."""
     bundle = ModelBundle("sdxl", tiny=True, dtype=torch.bfloat16, device=cuda)
@@ -525,3 +525,30 @@ def test_decode_thread_matches_main_thread(cuda):
         for a, b in zip(main[res], pooled[res]):
             assert a.output.dtype == b.output.dtype
             assert (a.output == b.output).all()
+
+
+@pytest.mark.cuda
+def test_vae_auto_is_bf16_for_sdxl_on_card(cuda):
+    """``vae_dtype="auto"`` serves SDXL's force_upcast VAE in bf16 on the
+    card (JAX ``_vae_dtype``: bf16 on the accelerator for every family);
+    "float32" forces float32.  Both decodes give uint8 images within 3
+    counts of each other on average."""
+    bundle = ModelBundle("sdxl", tiny=True, dtype=torch.bfloat16, device=cuda)
+    bundle.init_random(seed=0)
+    assert bundle.models["vae"].cfg.force_upcast
+    assert all(p.dtype == torch.bfloat16
+               for p in bundle.models["vae"].parameters())
+    lat = torch.randn((2, 16, 16, 4), generator=torch.Generator(cuda)
+                      .manual_seed(1), device=cuda)
+    images = {}
+    for mode in ("auto", "float32"):
+        config = default_config("sdxl", dtype="bfloat16", test_tiny=True)
+        config.model.vae_dtype = mode
+        pipe = Engine(config, cuda, bundle=bundle).worker.pipeline
+        assert pipe.bundle.param_dtype("vae") == (
+            torch.bfloat16 if mode == "auto" else torch.float32)
+        with torch.inference_mode():
+            images[mode] = pipe._decode_fn(lat).cpu()
+        assert images[mode].dtype == torch.uint8
+    diff = (images["auto"].int() - images["float32"].int()).abs().float()
+    assert diff.mean().item() < 3.0

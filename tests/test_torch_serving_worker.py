@@ -305,11 +305,12 @@ def test_device_param_bytes_match_jax(gate_pipes):
         for m in tpipe.bundle.models.values() for p in m.parameters())
 
 
-@pytest.mark.parametrize("bpp", [768.0, 3073.0])
+@pytest.mark.parametrize("bpp", [768.0, 3073.0, 3585.0])
 @pytest.mark.parametrize("live", [0, 3 << 20])
 def test_decode_gates_match_jax(gate_pipes, live, bpp, monkeypatch):
-    """At the same constants (the JAX default and the port's, measured on
-    the card), parameter bytes and live state."""
+    """At the same constants (the JAX default, and the port's for a
+    float32 and a bf16 SDXL decode, measured on the card), parameter bytes
+    and live state."""
     jpipe, tpipe = gate_pipes
     monkeypatch.setattr(jpipe, "device_param_bytes", tpipe.device_param_bytes)
     for pipe in (jpipe, tpipe):

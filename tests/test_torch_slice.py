@@ -216,8 +216,11 @@ def test_unported_configs_raise(section, field, value):
 ])
 def test_unported_entry_kwargs_raise(kwargs):
     """The JAX entry point's keywords reach the config, so what the port
-    cannot serve raises instead of serving random weights or one replica."""
-    with pytest.raises(NotImplementedError):
+    cannot serve raises instead of serving random weights or one replica:
+    a snapshot that is not there, and dp > 1."""
+    error = FileNotFoundError if "model_path" in kwargs \
+        else NotImplementedError
+    with pytest.raises(error):
         DiffusionPipeline("sdxl", device="cpu", dtype="float32",
                           test_tiny=True, **kwargs)
 
