@@ -96,7 +96,23 @@ Phases (any failure propagates and the script exits non-zero):
      512^2 on the dense path, joined by a 768^2 request after 4 steps, which
      flips their batch to the patched path with a full step, then shallow
      steps whose gate skips images; exact launches per path and mode;
- 13. the serving front, with the SDXL bundle before it is freed:
+ 13. the UNet families' block and compact caches, with the SDXL bundle:
+     SDXL's serving mix (768^2 + 3 x 1024^2, 8 steps) cache-off and in mode
+     "block" at threshold -1 (the latents equal, bitwise or within 2^-7),
+     then with the committed classifiers while one 1024^2 request leaves
+     after 4 steps (fresh share per step, hits within max_hits, images);
+     4 x 1024^2 on the dense path cache-off, under mode "compact" at 0.5
+     (a sync step, then 4 of 8 rows a gated pair: K1's rows a launch) and
+     at 1.0 (equal to cache-off); the mix under "compact" at 1.0 (equal to
+     cache-off), 0.5 and 0.5 with two-level rows at ``patch_fraction`` 0.5
+     (K5 at 36 rows); step ms per mode from CUDA events and launches per
+     step equal to cache-off's in every run; the kernels checked at these
+     shapes in phase 3 (K1 at 4 rows, the masked kernel and K4 on the
+     compact sub-composition, K5 at 36 rows); ``cache.train.main`` at
+     512/768/1024 x 6 steps (11 classifiers) and a block step on its npz;
+     ``api_server.main --use-cache`` in modes "block" and "compact"
+     (768^2 + 1024^2 over HTTP as one mixed batch, every gate called);
+ 14. the serving front, with the SDXL bundle before it is freed:
      ``entrypoints/api_server.py`` on its own event loop and thread in the
      serving configuration (``production("sdxl", serving=True)``,
      ``fcfs_mixed``, the background decode at its default); the port's
@@ -109,13 +125,13 @@ Phases (any failure propagates and the script exits non-zero):
      decode's measured bytes per pixel against the memory gate's; with
      the SD-1.5 bundle, 3 x 512^2 with the background prepare
      (``engine.async_prepare=True``: every prepare on its thread);
- 14. ``vae_dtype``, with the SDXL bundle before the serving front: the
+ 15. ``vae_dtype``, with the SDXL bundle before the serving front: the
      same two 1024^2 latents decoded under "auto" (bf16 on the card,
      SDXL's force_upcast VAE included) and "float32", finite uint8
      images within 3 counts of each other on average, the decode times
      and the bf16 decode's bytes per pixel (the serving front's memory
      gate then runs on the bf16 decode);
- 15. the loader and the safety checker, with the SD-1.5 bundle: the bundle
+ 16. the loader and the safety checker, with the SD-1.5 bundle: the bundle
      written as a bf16 diffusers snapshot (the script's own safetensors
      writer, no tokenizer directories) and served from it through
      ``DiffusionPipeline(model_path=...)``, 2 x 512^2 x 8 Euler steps,
@@ -124,12 +140,12 @@ Phases (any failure propagates and the script exits non-zero):
      float32): the checker's embeddings on the card against the CPU,
      unflagged images equal to the unchecked ones, a flagged image all
      zero, the checker's ms per decode group;
- 16. ESyMReD's stage profiles: the SDXL bundle rebuilt by
+ 17. ESyMReD's stage profiles: the SDXL bundle rebuilt by
      ``scheduler/profiler.py`` fits a profile (512/768/1024, decode
      batches up to 4) and a predictor on the card, every value finite and
      positive; the committed ``scheduler/h100/`` files load; 3 SDXL
      requests served under ESyMReD with the fresh profile and predictor;
- 17. print the kernels' JSON line, then the result line
+ 18. print the kernels' JSON line, then the result line
      ``{"ok": true, "device": {...}}`` last.
 """
 
@@ -142,6 +158,7 @@ import gc
 import json
 import os
 import shutil
+import socket
 import struct
 import subprocess
 import tempfile
@@ -155,6 +172,7 @@ import torch
 import torch.nn.functional as F
 
 from sduss_tpu_torch import configure_numerics
+from sduss_tpu_torch.cache import train as cache_train
 from sduss_tpu_torch.cache.manager import BlockCache
 from sduss_tpu_torch.config import CacheConfig
 from sduss_tpu_torch.engine.async_engine import AsyncEngine
@@ -167,6 +185,7 @@ from sduss_tpu_torch.models.safety_checker import SafetyChecker
 from sduss_tpu_torch.models import unet as unet_mod
 from sduss_tpu_torch.models.unet import BasicTransformerBlock
 from sduss_tpu_torch.models import layers
+from sduss_tpu_torch.ops import attention as attention_mod
 from sduss_tpu_torch.ops.attention import FLASH_MIN_KV
 from sduss_tpu_torch.ops import _build, patching
 from sduss_tpu_torch.ops.flash import (flash_cross_short,
@@ -221,8 +240,13 @@ K1_SHAPES = [        # (B, Lq, Lk, D, H)
     (2, 500, 129, 1280, 8),     # the same at hd 160
     (2, 500, 193, 1280, 8),
 ]
-# timed beside the plain version and SDPA: SDXL's two and SD-1.5's three
-K1_TIMED = K1_SHAPES[:2] + K1_SHAPES[4:7]
+# the dense compact cache's gated steps (4 x 1024^2 at fraction 0.5: 4 of
+# the 8 CFG rows at levels 1 and 2)
+K1_COMPACT_SHAPES = [(4, 4096, 4096, 640, 10), (4, 1024, 1024, 1280, 20)]
+K1_SHAPES += K1_COMPACT_SHAPES
+# timed beside the plain version and SDPA: SDXL's two and SD-1.5's three,
+# and the dense compact cache's two
+K1_TIMED = K1_SHAPES[:2] + K1_SHAPES[4:7] + K1_COMPACT_SHAPES
 # K2a/K3b (flash_mha) at SD3.5-medium's width, CFG pair at 1024^2:
 # (B, Lq, Lk, D, H, kv_len); kv_len None = Lk.  Same bounds as K1.
 K2A_SHAPES = [
@@ -270,6 +294,13 @@ MASKED_SHAPES = [
     # shallow spine (level 0) has no attention
     (2, 9216, 320, 8, 0),      # 768^2 class of the sub-composition
     (2, 4096, 320, 8, 0),      # 512^2 class of the sub-composition
+    # mode "compact" on SDXL's serving mix at fraction 0.5: the non-even
+    # sub-composition holds 4 of 8 1024^2 slots and 1 of 2 768^2 ones
+    # (exact fit, no dead rows), levels 1 and 2
+    (4, 4096, 640, 10, 0),
+    (4, 1024, 1280, 20, 0),
+    (1, 2304, 640, 10, 0),
+    (1, 576, 1280, 20, 0),
 ]
 # masked cases that are checked but not timed (no serving shape)
 MASKED_UNTIMED = (None, "last", "alt")
@@ -278,6 +309,14 @@ SD15_K4_SHAPES = [(4, 1280)]  # SD-1.5 level 3: the side without a template
 # K4 on the gated sub-composition of a shallow step (level 0 of SDXL and
 # SD-1.5: the resnets' norm1 inputs of 320, 640 and 960 channels)
 SUB_K4_SHAPES = [(32, 320), (32, 640), (32, 960)]
+# K4 on mode "compact"'s sub-composition of SDXL's serving mix (the gated
+# pairs of levels 1 and 2: 640 channels, an up pair's 1920-channel concat,
+# 1280 at level 2)
+COMPACT_K4_SHAPES = [(16, 640), (16, 1920), (8, 1280)]
+# the two-level compact rows' text cross-attention: k_q of the compact
+# sub-composition's 73 patches at patch_fraction 0.5 (serve_sdxl_compact
+# checks it)
+TWO_LEVEL_ROWS = 36
 # K5 (flash_cross_short) at scripts/bench_cross_kernel.py's text
 # cross-attention shapes (B, Lq, Lk, D, H), the serving paths' own (dense
 # CFG pairs; per-patch K/V of the patch path: B = patches), then edge cases:
@@ -295,12 +334,16 @@ K5_SHAPES = [
     (32, 1024, 77, 320, 8),     # SD-1.5 patch batch, level 0, hd 40
     (32, 64, 77, 1280, 8),      # SD-1.5 patch batch, level 2, hd 160
     (4, 64, 64, 1280, 8),       # SD-1.5 512^2 mid-block self-attention
+    # two-level compact rows on SDXL's serving mix (fraction 0.5,
+    # patch_fraction 0.5): k_q = 36 of the sub-composition's 73 patches
+    (TWO_LEVEL_ROWS, 256, 77, 640, 10),    # level 1
+    (TWO_LEVEL_ROWS, 64, 77, 1280, 20),    # level 2
     (2, 1000, 256, 1280, 8),    # hd 160, the longest key sequence
     (2, 300, 129, 640, 10),     # a second key chunk with one key
     (3, 100, 5, 640, 8),        # ragged query tile, one key tile
     (2, 50, 1, 320, 8),         # one key, hd 40
 ]
-K5_TIMED = K5_SHAPES[:11]
+K5_TIMED = K5_SHAPES[:13]
 REQUESTS = [1024, 1024, 768]
 MIXED_REQUESTS = [768, 1024, 1024, 1024]
 SD3_REQUESTS = [1024, 1024, 768]
@@ -327,6 +370,18 @@ MIXED_DEEP_STEPS = 12
 MIXED_SD15_FIRST = [512] * 4
 MIXED_SD15_ADMIT = 4
 MIXED_SD15_LATE = 768
+# The UNet families' block and compact caches (SDXL's serving mix): the
+# latents at threshold -1 (block) and fraction 1 (compact) against
+# cache-off (one bf16 ulp at their scale); the committed classifiers; the
+# request that leaves the mix early; the dense compact batch; the
+# classifier training's resolutions and steps
+CACHE_MAX_REL = 2.0 ** -7
+SDXL_CLASSIFIERS = "exp/cache_classifiers_sdxl_v5e.npz"
+CACHE_SHORT_STEPS = 4
+COMPACT_DENSE = [1024] * 4
+COMPACT_FRACTION = 0.5
+TRAIN_RES = (512, 768, 1024)
+TRAIN_STEPS = 6
 # SD3.5-medium's caches: the offline preset's trajectory (4 x 1024^2, 30
 # steps), the serving preset's run ((resolution, steps) of the first batch
 # and of the request added after SD3_SERVE_ADMIT steps), the token modes
@@ -2094,6 +2149,484 @@ def serve_sdxl_mixed_deep(card: str, bundle: ModelBundle) -> list:
     return runs
 
 
+# -- the UNet families' block and compact caches ------------------------------
+
+def compact_sub_meta():
+    """Mode "compact"'s sub-composition of SDXL's serving mix (its doubled
+    meta) at COMPACT_FRACTION (non-even capacities)."""
+    meta = mixed_meta("sdxl", MIXED_REQUESTS)
+    return patching.compact_submeta(meta.patch_cells, meta.class_info,
+                                    COMPACT_FRACTION, False)[0]
+
+
+def spy_cache_steps(pipe) -> list:
+    """Record every denoise step of ``pipe``: a mixed step (path "mixed",
+    its resolution classes, mode "step") or a dense group step (path
+    "dense"; mode "sync" or "gated" for a compact step, else "off"), CUDA
+    events around it, and in mode "block" the gates' fresh share over the
+    real patch rows and the largest hit count of the requests' rows (both
+    on the device, read after the run).  Also checks that the final
+    latents entering the VAE decode are finite."""
+    steps = []
+    mixed, group, plain, decode = (pipe.denoise_step_mixed,
+                                   pipe._denoise_group_compact,
+                                   pipe._denoise_fn, pipe._decode_fn)
+    cache = pipe._block_cache()
+    valid = [None]
+    if cache is not None and pipe.config.cache.mode == "block":
+        gate = cache.gate
+
+        def spy_gate(key, x, t_norm, state_k, fn):
+            y, st, stats = gate(key, x, t_norm, state_k, fn)
+            v = valid[0]
+            steps[-1]["fresh"].append((stats["fresh"] & v).sum() / v.sum())
+            return y, st, stats
+
+        cache.gate = spy_gate
+
+    def timed(fn, rec, *args):
+        rec.update(start=torch.cuda.Event(enable_timing=True),
+                   end=torch.cuda.Event(enable_timing=True), fresh=[])
+        steps.append(rec)
+        rec["start"].record()
+        out = fn(*args)
+        rec["end"].record()
+        return out
+
+    def step_mixed(reqs_by_res):
+        ordered = [r for res in sorted(reqs_by_res) for r in reqs_by_res[res]]
+        sc = pipe.config.scheduler
+        cells = sc.patch_size // 8
+        meta2 = patching.double_meta(
+            tuple(r.resolution // 8 // cells for r in ordered), cells,
+            tuple(sc.patch_buckets), tuple(sc.batch_buckets))
+        valid[0] = torch.from_numpy(
+            meta2.kv_mask.reshape(-1)[meta2.patch_pos]).cuda()
+        out = timed(mixed, {"path": "mixed", "mode": "step",
+                            "classes": len(reqs_by_res)}, reqs_by_res)
+        rows = [v["hits"].max() for r in ordered
+                for v in (r.cache_rows or {}).values()]
+        steps[-1]["hits"] = torch.stack(rows).max() if rows else None
+        return out
+
+    def group_compact(reqs, *args):
+        ids = tuple(r.request_id for r in reqs)
+        sync = not any(e["anchored"] for k, e in pipe._comp_state.items()
+                       if k[0] == "unet_compact" and k[3] == ids)
+        return timed(group, {"path": "dense", "res": reqs[0].resolution,
+                             "mode": "sync" if sync else "gated"}, reqs, *args)
+
+    def plain_fn(latents, *args):
+        return timed(plain, {"path": "dense", "res": 8 * latents.shape[1],
+                             "mode": "off"}, latents, *args)
+
+    def decode_fn(latents):
+        if not torch.isfinite(latents).all():
+            raise AssertionError("non-finite final latents")
+        return decode(latents)
+
+    pipe.denoise_step_mixed = step_mixed
+    pipe._denoise_group_compact = group_compact
+    pipe._denoise_fn = plain_fn
+    pipe._decode_fn = decode_fn
+    return steps
+
+
+def spy_rows(module, name: str, rows: list) -> callable:
+    """Record the batch rows of every call of ``module.<name>`` (the
+    attention dispatcher's kernel entry); returns the undo."""
+    real = getattr(module, name)
+
+    def spy(q, *args, **kw):
+        rows.append(q.shape[0])
+        return real(q, *args, **kw)
+
+    setattr(module, name, spy)
+    return lambda: setattr(module, name, real)
+
+
+def serve_cache_run(card: str, bundle: ModelBundle, cache: CacheConfig,
+                    resolutions, steps, output_type="latent", mixed=True):
+    """Serve ``resolutions`` (``steps`` a request) through the engine under
+    ``cache``; returns (outputs in request order, recorded steps, launches,
+    end to end seconds)."""
+    config = default_config("sdxl", dtype="bfloat16", seed=0)
+    config.scheduler.use_mixed_resolution = mixed
+    config.cache = cache
+    pipe = DiffusionPipeline(config=config, device="cuda", bundle=bundle)
+    rec = spy_cache_steps(pipe.engine.worker.pipeline)
+    engine = pipe.engine
+    prompts = ["a red fox in snow", "a harbor at night, long exposure",
+               "a watercolor of a mountain lake", "a robot reading a book"]
+    reset_counts()
+    t0 = time.perf_counter()
+    for i, (res, n) in enumerate(zip(resolutions, steps)):
+        engine.add_request(f"c{i}", SamplingParams(
+            prompt=prompts[i % len(prompts)], negative_prompt="blurry",
+            resolution=res, num_inference_steps=n, guidance_scale=5.0,
+            seed=77 + i, output_type=output_type))
+    outs = []
+    while engine.has_unfinished_requests():
+        outs += engine.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_counts()
+    outs.sort(key=lambda o: int(o.request_id[1:]))
+    return outs, rec, got, wall
+
+
+def cache_launches(rec, cfg) -> dict:
+    """The launches the recorded steps make, each as a cache-off step of
+    its path: a gated pair runs its body once, on whatever rows."""
+    want = {"k1": 0, "flash_mha": 0, "masked": 0, "k4": 0, "k5": 0}
+    for r in rec:
+        per = (mixed_launches(cfg, r["classes"])["off"] if r["path"] == "mixed"
+               else deep_launches(cfg, r["res"])["full"])
+        for k, n in per.items():
+            want[k] += n
+    return want
+
+
+def step_ms(rec, label: str, card: str) -> dict:
+    """Mean ms per mode of the recorded steps (CUDA events), printed."""
+    torch.cuda.synchronize()
+    by_mode: dict = {}
+    for r in rec:
+        by_mode.setdefault(r["mode"], []).append(
+            r["start"].elapsed_time(r["end"]))
+    out = {}
+    for mode, ms in sorted(by_mode.items()):
+        out[mode] = float(np.mean(ms))
+        print(f"cache step {label}, {mode}: {len(ms)} steps, mean "
+              f"{out[mode]:.2f} ms (min {np.min(ms):.2f}, max "
+              f"{np.max(ms):.2f}; CUDA events) [{card}]")
+    return out
+
+
+def latents_close(got, want, label: str, card: str) -> None:
+    """Final latents within CACHE_MAX_REL of max |want|; prints whether
+    they are bitwise equal."""
+    errs = [float(np.abs(g.image.astype(np.float32)
+                         - w.image.astype(np.float32)).max()
+                  / np.abs(w.image.astype(np.float32)).max())
+            for g, w in zip(got, want)]
+    same = all(np.array_equal(g.image, w.image) for g, w in zip(got, want))
+    print(f"{label} vs cache-off: max err / max |off| per request "
+          f"{[f'{e:.3e}' for e in errs]} (bound {CACHE_MAX_REL:.3e}); "
+          f"bitwise equal: {same} [{card}]")
+    if not all(np.isfinite(e) and e <= CACHE_MAX_REL for e in errs):
+        raise AssertionError(f"{label} disagrees with cache-off: {errs}")
+
+
+def serve_sdxl_block(card: str, bundle: ModelBundle) -> tuple:
+    """Mode "block" on SDXL's serving mix (768^2 + 3 x 1024^2, STEPS
+    steps, one mixed batch a step): at threshold -1 every row recomputes,
+    so the latents equal cache-off's; then the committed classifiers with
+    one 1024^2 request leaving after CACHE_SHORT_STEPS steps (the rows
+    follow the change): fresh share per step, hits within ``max_hits``,
+    uint8 images.  Launches per step equal cache-off's in every run.
+    Returns (launches of each run, cache-off latents, cache-off step
+    ms)."""
+    t0 = time.perf_counter()
+    cfg = bundle.denoiser.cfg
+    n = len(MIXED_REQUESTS)
+    runs, result = [], {}
+    for label, cache in (("off", CacheConfig()),
+                         ("block at threshold -1",
+                          CacheConfig(enabled=True, mse_threshold=-1.0))):
+        outs, rec, got, wall = serve_cache_run(card, bundle, cache,
+                                               MIXED_REQUESTS, [STEPS] * n)
+        want = cache_launches(rec, cfg)
+        ms = step_ms(rec, f"SDXL mixed {label}", card)
+        print(f"SDXL mixed, cache {label}: {len(rec)} steps in {wall:.3f} s, "
+              f"launches {got} (expected {want}) [{card}]")
+        if got != want or len(rec) != STEPS:
+            raise AssertionError(f"SDXL {label} launches {got} != {want}")
+        if cache.enabled and min(float(f) for r in rec
+                                 for f in r["fresh"]) < 1.0:
+            raise AssertionError("threshold -1 reused a row")
+        runs.append(got)
+        result[label] = (outs, ms)
+    latents_close(result["block at threshold -1"][0], result["off"][0],
+                  "SDXL mixed block at threshold -1", card)
+
+    cache = CacheConfig(enabled=True, classifier_path=SDXL_CLASSIFIERS)
+    steps = [STEPS] * (n - 1) + [CACHE_SHORT_STEPS]
+    outs, rec, got, wall = serve_cache_run(card, bundle, cache,
+                                           MIXED_REQUESTS, steps, "np")
+    check_outputs(outs, MIXED_REQUESTS, card)
+    want = cache_launches(rec, cfg)
+    ms = step_ms(rec, "SDXL mixed block, classifiers", card)
+    fresh = [round(float(torch.stack(r["fresh"]).mean()), 4) for r in rec
+             if r["fresh"]]
+    hits = max(int(r["hits"]) for r in rec if r.get("hits") is not None)
+    print(f"SDXL mixed block with {SDXL_CLASSIFIERS}: requests {steps} steps, "
+          f"{len(rec)} mixed steps ({[r['classes'] for r in rec]} classes) "
+          f"in {wall:.3f} s; fresh share of the real rows per step {fresh}; "
+          f"max hits {hits} (max_hits {cache.max_hits}); launches {got} "
+          f"(expected {want}) [{card}]")
+    if (got != want or hits > cache.max_hits or len(rec) != STEPS
+            or len(fresh) != STEPS):
+        raise AssertionError(f"SDXL block with classifiers: launches {got} "
+                             f"vs {want}, hits {hits}, {len(rec)} steps")
+    runs.append(got)
+    print(f"serve_sdxl_block phase {time.perf_counter() - t0:.1f} s [{card}]")
+    return runs, result["off"][0], result["off"][1]
+
+
+def serve_sdxl_compact(card: str, bundle: ModelBundle, off_latents,
+                       off_ms) -> list:
+    """Mode "compact": 4 x 1024^2 on the dense path at COMPACT_FRACTION (a
+    sync step at full capacity, then 4 of 8 CFG rows a gated pair), its
+    cache-off run and the same at fraction 1 (equal to cache-off); SDXL's
+    serving mix at COMPACT_FRACTION with ``patch_fraction`` 1.0 and 0.5
+    (two-level rows), and at fraction 1 against the mix's cache-off
+    latents.  Step ms per mode from CUDA events, K1's rows a launch on the
+    dense path and K5's under two-level rows; launches per step equal
+    cache-off's."""
+    t0 = time.perf_counter()
+    cfg = bundle.denoiser.cfg
+    runs, dense = [], {}
+    nd = len(COMPACT_DENSE)
+    for label, cache in (
+            ("off", CacheConfig()),
+            (f"compact {COMPACT_FRACTION}",
+             CacheConfig(enabled=True, mode="compact",
+                         compact_fraction=COMPACT_FRACTION)),
+            ("compact 1.0", CacheConfig(enabled=True, mode="compact",
+                                        compact_fraction=1.0))):
+        k1_rows = []
+        undo = spy_rows(attention_mod, "flash_mha_fused", k1_rows)
+        try:
+            outs, rec, got, wall = serve_cache_run(
+                card, bundle, cache, COMPACT_DENSE, [STEPS] * nd, mixed=False)
+        finally:
+            undo()
+        want = cache_launches(rec, cfg)
+        ms = step_ms(rec, f"SDXL dense 4 x 1024^2 {label}", card)
+        per_launch = collections.Counter(k1_rows)
+        print(f"SDXL dense 4 x 1024^2, cache {label}: modes "
+              f"{[r['mode'] for r in rec]} in {wall:.3f} s; K1 rows a launch "
+              f"{dict(per_launch)}; launches {got} (expected {want}) [{card}]")
+        if got != want or len(rec) != STEPS:
+            raise AssertionError(f"dense {label} launches {got} != {want}")
+        if label == f"compact {COMPACT_FRACTION}":
+            gated = int(2 * nd * COMPACT_FRACTION)
+            n_k1 = deep_launches(cfg, 1024)["full"]["k1"]
+            if (per_launch != {2 * nd: n_k1, gated: n_k1 * (STEPS - 1)}
+                    or [r["mode"] for r in rec]
+                    != ["sync"] + ["gated"] * (STEPS - 1)):
+                raise AssertionError(f"dense compact rows {per_launch}")
+            print(f"SDXL dense compact {COMPACT_FRACTION}: gated step "
+                  f"{ms['gated']:.2f} ms = {ms['gated'] / dense['off'][1]['off']:.3f} "
+                  f"x cache-off's {dense['off'][1]['off']:.2f} ms; sync step "
+                  f"{ms['sync']:.2f} ms [{card}]")
+        runs.append(got)
+        dense[label] = (outs, ms)
+    latents_close(dense["compact 1.0"][0], dense["off"][0],
+                  "SDXL dense compact at fraction 1", card)
+
+    n = len(MIXED_REQUESTS)
+    k_q = max(1, round(compact_sub_meta().p_pad * 0.5))
+    mixed = {}
+    for label, cache in (
+            ("compact 1.0", CacheConfig(enabled=True, mode="compact",
+                                        compact_fraction=1.0)),
+            (f"compact {COMPACT_FRACTION}",
+             CacheConfig(enabled=True, mode="compact",
+                         compact_fraction=COMPACT_FRACTION)),
+            (f"compact {COMPACT_FRACTION} two-level 0.5",
+             CacheConfig(enabled=True, mode="compact",
+                         compact_fraction=COMPACT_FRACTION,
+                         patch_fraction=0.5))):
+        k5_rows = []
+        undo = spy_rows(attention_mod, "flash_cross_short", k5_rows)
+        try:
+            outs, rec, got, wall = serve_cache_run(card, bundle, cache,
+                                                   MIXED_REQUESTS,
+                                                   [STEPS] * n)
+        finally:
+            undo()
+        want = cache_launches(rec, cfg)
+        ms = step_ms(rec, f"SDXL mixed {label}", card)
+        print(f"SDXL mixed, cache {label}: {len(rec)} steps in {wall:.3f} s, "
+              f"step {ms['step']:.2f} ms = {ms['step'] / off_ms['step']:.3f} x "
+              f"cache-off's {off_ms['step']:.2f} ms; K5 rows a launch "
+              f"{dict(collections.Counter(k5_rows))}; launches {got} "
+              f"(expected {want}) [{card}]")
+        if got != want or len(rec) != STEPS:
+            raise AssertionError(f"mixed {label} launches {got} != {want}")
+        if "two-level" in label and (k_q not in k5_rows or (
+                cfg == unet_mod.SDXL_UNET and k_q != TWO_LEVEL_ROWS)):
+            raise AssertionError(f"two-level K5 rows {set(k5_rows)}, k_q "
+                                 f"{k_q} (checked at {TWO_LEVEL_ROWS})")
+        if not all(np.isfinite(o.image).all() for o in outs):
+            raise AssertionError(f"non-finite latents under {label}")
+        runs.append(got)
+        mixed[label] = (outs, ms["step"])
+    latents_close(mixed["compact 1.0"][0], off_latents,
+                  "SDXL mixed compact at fraction 1", card)
+    one, two = (mixed[f"compact {COMPACT_FRACTION}"][1],
+                mixed[f"compact {COMPACT_FRACTION} two-level 0.5"][1])
+    print(f"SDXL mixed two-level 0.5 step {two:.2f} ms = {two / one:.3f} x "
+          f"the one-level compact step {one:.2f} ms [{card}]")
+    print(f"serve_sdxl_compact phase {time.perf_counter() - t0:.1f} s "
+          f"[{card}]")
+    return runs
+
+
+def train_classifiers(card: str, bundle: ModelBundle) -> list:
+    """``cache.train.main`` in this process on the card: SDXL (its own
+    random bf16 bundle from seed 0), TRAIN_STEPS steps at each of
+    TRAIN_RES, one request a collection pass, into a temporary file: one
+    (4,) classifier per gated pair of ``cache_layout``, every weight
+    finite, and launches per traced step equal to cache-off's one-class
+    mixed step; then a block-mode mixed step that loads them."""
+    t0 = time.perf_counter()
+    cfg = bundle.denoiser.cfg
+    root = tempfile.mkdtemp(prefix="train_", dir="build")
+    try:
+        path = os.path.join(root, "classifiers.npz")
+        reset_counts()
+        fitted = cache_train.main(
+            ["--family", "sdxl", "--steps", str(TRAIN_STEPS), "--resolutions"]
+            + [str(r) for r in TRAIN_RES] + ["--out", path])
+        torch.cuda.synchronize()
+        got = read_counts()
+        keys = set(bundle.denoiser.cache_layout(32, 1))
+        loaded = np.load(path)
+        want = {k: n * TRAIN_STEPS * len(TRAIN_RES)
+                for k, n in mixed_launches(cfg, 1)["off"].items()}
+        print(f"classifier training (SDXL, {TRAIN_STEPS} steps at "
+              f"{TRAIN_RES}): {len(fitted)} blocks in "
+              f"{time.perf_counter() - t0:.1f} s; launches {got} (expected "
+              f"{want}); weights " + ", ".join(
+                  f"{k} {np.round(loaded[k], 4).tolist()}"
+                  for k in sorted(loaded.files)) + f" [{card}]")
+        if (set(loaded.files) != keys
+                or (cfg == unet_mod.SDXL_UNET and len(keys) != 11)
+                or not all(loaded[k].shape == (4,)
+                           and np.isfinite(loaded[k]).all() for k in keys)):
+            raise AssertionError(f"fitted classifiers {loaded.files}")
+        if got != want:
+            raise AssertionError(f"training launches {got} != {want}")
+        cache = CacheConfig(enabled=True, classifier_path=path)
+        outs, rec, served, _ = serve_cache_run(card, bundle, cache,
+                                               [768, 1024], [2, 2])
+        if not all(np.isfinite(o.image).all() for o in outs) or len(rec) != 2:
+            raise AssertionError("block step with the fitted classifiers")
+        print(f"block mode with the fitted classifiers: {len(rec)} mixed "
+              f"steps of 768^2 + 1024^2, finite latents, fresh share "
+              f"{[round(float(torch.stack(r['fresh']).mean()), 4) for r in rec]}"
+              f"; launches {served}; phase {time.perf_counter() - t0:.1f} s "
+              f"[{card}]")
+    finally:
+        shutil.rmtree(root)
+    return [got, served]
+
+def serve_api_cache(card: str) -> list:
+    """The HTTP entry point under the UNet caches:
+    ``python -m sduss_tpu_torch.entrypoints.api_server --model sdxl
+    --use-cache [--cache-mode compact]``, its ``main`` on a thread of this
+    process (its own random bf16 SDXL bundle from seed 0), a 768^2 and a
+    1024^2 request (STEPS steps each) held until both have arrived, so
+    that they denoise as one mixed batch: PNG answers of the right size,
+    the mode's gate called on every step, then /clear closes the server.
+    Returns each mode's launches."""
+    made, runs = {}, []
+
+    class Recorded(AsyncEngine):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            made["engine"] = self
+
+    for mode in ("block", "compact"):
+        t0 = time.perf_counter()
+        made.clear()
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        argv = ["--model", "sdxl", "--use-cache", "--cache-mode", mode,
+                "--device", "cuda", "--host", "127.0.0.1", "--port",
+                str(port)]
+        server = threading.Thread(target=api_server.main, args=(argv,),
+                                  name="api-server")
+        api_server.AsyncEngine = Recorded
+        reset_counts()
+        try:
+            server.start()
+            wait_for(lambda: "engine" in made, "the async engine", 300)
+            url = f"http://127.0.0.1:{port}"
+
+            def up():
+                try:
+                    with urllib.request.urlopen(url + "/health", timeout=5):
+                        return True
+                except OSError:
+                    return False
+
+            wait_for(up, "the HTTP server", 300)
+            aeng = made["engine"]
+            calls = collections.Counter()
+            cache = aeng.engine.worker.pipeline._block_cache()
+            for name in ("gate", "gate_compact_images"):
+                real = getattr(cache, name)
+
+                def spy(*args, _real=real, _name=name, **kw):
+                    calls[_name] += 1
+                    return _real(*args, **kw)
+
+                setattr(cache, name, spy)
+            gate = threading.Event()
+            aeng._executor.submit(gate.wait)
+            answers, senders = {}, []
+            for rid, res in (("a", 768), ("b", 1024)):
+                def send(rid=rid, res=res):
+                    answers[rid] = client.post_json(url + "/generate", {
+                        "prompt": f"an HTTP request {rid}", "resolution": res,
+                        "num_inference_steps": STEPS, "seed": ord(rid),
+                        "request_id": rid, "guidance_scale": 5.0})
+                senders.append(threading.Thread(target=send))
+                senders[-1].start()
+                wait_for(lambda rid=rid: rid in aeng._streams, f"{rid}'s "
+                         f"arrival")
+            gate.set()
+            for th in senders:
+                th.join(600)
+            got = read_counts()
+            cleared = client.post_json(url + "/clear", {})
+            server.join(120)
+        finally:
+            api_server.AsyncEngine = AsyncEngine
+        for rid, res in (("a", 768), ("b", 1024)):
+            out = answers.get(rid, {})
+            if not out.get("finished") or "error" in out:
+                raise AssertionError(f"{mode}: request {rid}: {out}")
+            img = client.decode_png(base64.b64decode(out["image_base64"]))
+            if img.shape != (res, res, 3) or img.std() == 0:
+                raise AssertionError(f"{mode}: bad PNG for {rid}")
+        want = "gate" if mode == "block" else "gate_compact_images"
+        n_gated = len(cache_layout_keys())
+        print(f"api_server --use-cache --cache-mode {mode}: 768^2 + 1024^2 x "
+              f"{STEPS} steps answered in {time.perf_counter() - t0:.1f} s "
+              f"(server start included); gate calls {dict(calls)} "
+              f"({n_gated} pairs a mixed step); launches {got}; /clear "
+              f"{cleared} [{card}]")
+        if (calls[want] != n_gated * STEPS or cleared != {"status": "cleared"}
+                or server.is_alive()):
+            raise AssertionError(f"api_server {mode}: gate calls {calls}, "
+                                 f"/clear {cleared}")
+        runs.append(got)
+    return runs
+
+
+def cache_layout_keys() -> list:
+    """The gated pairs of SDXL's ``cache_layout`` at the default
+    ``min_level``, on a 256-px patch."""
+    with torch.device("meta"):
+        unet = unet_mod.UNet2DConditionModel(unet_mod.SDXL_UNET)
+    return list(unet.cache_layout(32, CacheConfig().min_level))
+
 def serve_sd15_mixed_deep(card: str, bundle: ModelBundle) -> dict:
     """``production("sd15", serving=True)`` under ESyMReD: 4 x 512^2
     requests take dense deep steps, then a 768^2 request joins their batch,
@@ -2806,8 +3339,12 @@ def main() -> None:
     k4_sub_sd15 = check_k4(card, sub_meta("sd15", MIXED_SD15_FIRST
                                           + [MIXED_SD15_LATE]),
                            SUB_K4_SHAPES, seed=9)
+    # mode "compact"'s sub-composition of SDXL's serving mix
+    k4_compact = check_k4(card, compact_sub_meta(), COMPACT_K4_SHAPES,
+                          seed=10)
     k4["max_abs_err"] = max(k4["max_abs_err"], k4_sd15["max_abs_err"],
-                            k4_sub["max_abs_err"], k4_sub_sd15["max_abs_err"])
+                            k4_sub["max_abs_err"], k4_sub_sd15["max_abs_err"],
+                            k4_compact["max_abs_err"])
     k5 = check_k5(card)
     check_block()
     check_sd3_block()
@@ -2819,6 +3356,11 @@ def main() -> None:
     runs += serve_sdxl_deep(card, bundle)
     check_mixed_deep_invariant(bundle, card)
     runs += serve_sdxl_mixed_deep(card, bundle)
+    block_runs, off_latents, off_ms = serve_sdxl_block(card, bundle)
+    runs += block_runs
+    runs += serve_sdxl_compact(card, bundle, off_latents, off_ms)
+    runs += train_classifiers(card, bundle)
+    runs += serve_api_cache(card)
     check_vae_dtype(card, bundle)
     runs.append(serve_http(card, bundle))
     # free each bundle so each family's peak memory reads alone

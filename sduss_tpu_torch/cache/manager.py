@@ -36,11 +36,9 @@ output: a skipped token keeps its value) and, with
 The JAX package returns new state pytrees; the port updates the state in
 place, so the old and the new state are never held together (at SDXL
 1024^2, bucket 8, the rows are 2.35 GB).  The selection stays on the
-device: no gate reads a value back to the host.
-
-Not ported: the two-level rows of ``gate_compact_images``
-(``patch_fraction < 1``, mode "compact" on the UNet patch path; ROADMAP
-Queue 1 item 9).
+device: no gate reads a value back to the host.  Where a JAX gate
+scatters out-of-range indices, which XLA drops, the port writes only the
+rows known on the host to be real (``index_copy_`` drops nothing).
 """
 
 from __future__ import annotations
@@ -275,18 +273,21 @@ class BlockCache:
         ``i_pad`` on the CFG-doubled meta) symmetrises each image's score
         with its CFG partner's, so that even caps select both halves
         together.  Capacity beyond a class's real images selects pad slots,
-        whose rows write nowhere.  ``two_level`` with ``patch_fraction < 1``
-        (mode "compact") is not ported.
+        whose rows write nowhere.
+
+        ``two_level`` with ``patch_fraction < 1``: inside the
+        sub-composition only the ``k_q = max(1, round(p_sub *
+        patch_fraction))`` most-drifted real patch rows (pad rows rank
+        -inf) run the pair's transformer tail, ``compute_fn(x_sub,
+        gather_idx, sel_images, tok_sel)`` returns those rows only, and
+        only they are written; the other rows of the gathered images keep
+        their cached outputs and count a hit.
 
         The state's ``inp``/``out``/``hits`` are updated in place; like the
         JAX gate, whose returned state has only those three, it drops
         ``slope``/``seen``, so ``compact_predict`` has no effect here.
         Returns ``(y, state_k, stats)``, ``y`` the updated ``out`` rows.
         """
-        if two_level and self.config.patch_fraction < 1.0:
-            raise NotImplementedError(
-                "two-level patch rows (patch_fraction < 1, cache mode "
-                "'compact') are not ported (ROADMAP Queue 1 item 9)")
         scores = self._scores(key, x, state_k, t_norm)
         valid = ctx.patch_valid
         num = ctx.image_onehot @ torch.where(valid, scores, 0.0)
@@ -309,13 +310,30 @@ class BlockCache:
         sel_imgs = torch.cat(images)
         src = gidx.clamp(min=0)
         x_sub = x[src]
-        y_sub = compute_fn(x_sub, src, sel_imgs)
+        stats = {"gather": gidx, "images": sel_imgs}
         # real slots score finite, pads -inf, so a class's selection holds
         # its real images first: the rows to write are known on the host
         rows = ctx.real_rows(caps)
-        sidx, x_w, y_w = gidx, x_sub, y_sub
-        if rows is not None:
-            sidx, x_w, y_w = gidx[rows], x_sub[rows], y_sub[rows]
+        if two_level and self.config.patch_fraction < 1.0:
+            p_sub = gidx.shape[0]
+            k_q = max(1, int(round(p_sub * self.config.patch_fraction)))
+            scores_sub = scores[src]
+            if rows is not None:
+                ok = torch.zeros(p_sub, dtype=torch.bool, device=x.device)
+                scores_sub = torch.where(ok.index_fill_(0, rows, True),
+                                         scores_sub, -torch.inf)
+            tok_sel = top_k_stable(scores_sub, k_q)
+            y_w = compute_fn(x_sub, src, sel_imgs, tok_sel)
+            # the real rows outrank the -inf pads: the first ones selected
+            n_real = k_q if rows is None else min(k_q, len(rows))
+            tok_w = tok_sel[:n_real]
+            sidx, x_w, y_w = gidx[tok_w], x_sub[tok_w], y_w[:n_real]
+            stats["tok_sel"] = tok_sel
+        else:
+            y_w = compute_fn(x_sub, src, sel_imgs)
+            sidx, x_w = gidx, x_sub
+            if rows is not None:
+                sidx, x_w, y_w = gidx[rows], x_sub[rows], y_w[rows]
         out, hits = state_k["out"], state_k["hits"]
         state_k["inp"].index_copy_(0, sidx, x_w.to(state_k["inp"].dtype))
         out.index_copy_(0, sidx, y_w.to(out.dtype))
@@ -323,8 +341,7 @@ class BlockCache:
         hits.index_fill_(0, sidx, 0)
         state_k.pop("slope", None)
         state_k.pop("seen", None)
-        return (out.to(y_sub.dtype), state_k,
-                {"gather": gidx, "images": sel_imgs})
+        return out.to(y_w.dtype), state_k, stats
 
     def _compact_splice(self, state_k: dict, x_c, y_c, idx):
         """Scatter the fresh rows into the cached outputs and the state.

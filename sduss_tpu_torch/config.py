@@ -190,11 +190,12 @@ class SchedulerConfig:
 
 @dataclass
 class CacheConfig:
-    """Learned per-block output cache settings.  The port serves
-    ``mode="deep"`` on the dense and the mixed patch path of sd15 and
-    sdxl, and every SD3 cache (``sd3_deep_span`` and the token modes
-    "block" and "compact") on SD3's token path; the Engine refuses the
-    UNet families' "block" and "compact"."""
+    """Learned per-block output cache settings.  The port serves every
+    mode of the JAX package: for sd15 and sdxl ``mode="deep"`` on the dense
+    and the mixed patch path, "block" on the patch path (the dense path
+    runs it cache-off, as JAX does) and "compact" on both; for SD3
+    ``sd3_deep_span`` and the token modes "block" and "compact" on its
+    token path."""
 
     enabled: bool = False
     # "block": per-patch masked recompute splice;

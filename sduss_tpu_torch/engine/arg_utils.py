@@ -3,9 +3,8 @@ sduss_tpu/engine/arg_utils.py).
 
 The JAX package's flags with its defaults, plus ``--device``.  Flags of
 paths the port does not serve yet (``--dp``/``--tp``/``--sp`` above 1,
-the UNet families' cache modes other than ``deep``, ``--prewarm``) parse
-as there and are refused by ``engine.check_supported`` when the Engine is
-built.
+``--prewarm``) parse as there and are refused by
+``engine.check_supported`` when the Engine is built.
 """
 
 from __future__ import annotations

@@ -34,20 +34,23 @@ def check_supported(config: Config) -> None:
     """Raise, when the Engine is built, for configurations whose code paths
     are not ported yet, naming the ROADMAP item that ports them.
 
-    Of the caches, the UNet families (sd15, sdxl) serve the deep cache
-    (``mode="deep"``, with its adaptive refresh, prediction, row warmup and
-    CFG-pair hybrid) on both paths: dense batches and, with
-    ``use_mixed_resolution``, mixed batches on the patch path, so each
+    Every cache of the JAX package is served.  The UNet families (sd15,
+    sdxl) run the deep cache (``mode="deep"``, with its adaptive refresh,
+    prediction, row warmup and CFG-pair hybrid) on dense batches and, with
+    ``use_mixed_resolution``, on the patch path, so each
     ``CacheConfig.production`` preset of those families runs as it is;
-    their modes "block" and "compact" are not ported.  SD3 serves every
-    cache of the JAX package on its token path: the span-skip deep cache
+    mode "block" on the patch path (on the dense path it is cache-off, as
+    in JAX), and mode "compact" on both paths, with two-level patch rows at
+    ``patch_fraction < 1``.  SD3 serves the span-skip deep cache
     (``sd3_deep_span``, both ``production("sd3")`` presets) and the token
     caches, modes "block" and "compact" (the per-token fine gate at
-    ``patch_fraction < 1``, with ``fine_stale_kv``), alone or together.
-    As in JAX, an SD3 config with ``mode="deep"`` and no ``sd3_deep_span``
-    mints no cache at all, and the UNet families ignore
-    ``sd3_deep_span``."""
-    par, cc, sc = config.parallel, config.cache, config.scheduler
+    ``patch_fraction < 1``, with ``fine_stale_kv``), alone or together, on
+    its token path.  As in JAX, an SD3 config with ``mode="deep"`` and no
+    ``sd3_deep_span`` mints no cache at all, and the UNet families ignore
+    ``sd3_deep_span``.  What is refused: ``engine.prewarm`` and
+    ``steps_per_dispatch`` above 1 (item 3) and more than one device (item
+    10)."""
+    par, sc = config.parallel, config.scheduler
     if config.engine.prewarm:
         raise NotImplementedError(
             "engine.prewarm compiles the step programs ahead of serving; "
@@ -57,10 +60,6 @@ def check_supported(config: Config) -> None:
         raise NotImplementedError("multi-device serving is not ported "
                                   "(dp = tp = sp = pp = 1; ROADMAP Queue 1 "
                                   "item 10)")
-    if cc.enabled and config.model.family != "sd3" and cc.mode != "deep":
-        raise NotImplementedError(
-            f"cache mode {cc.mode!r} of the UNet families is not ported; "
-            "the deep cache is (ROADMAP Queue 1 item 9)")
     if sc.steps_per_dispatch != 1:
         raise NotImplementedError("fused multi-step dispatch is not ported "
                                   "(steps_per_dispatch=1; ROADMAP Queue 1 "

@@ -7,8 +7,12 @@ take the deep cache's modes (``deep_mode`` full / shallow at
 ``deep_boundary``; partial on the dense path) and, with them, the deep x
 compact hybrid's gating (``cache`` a ``cache.manager.BlockCache``): CFG
 pairs of rows on the dense path, whole images per resolution class on the
-patch path.  The block and compact cache modes are not ported.
-With a ``ctx`` every 3x3
+patch path.  Without a deep mode a ``cache`` gates every pair of
+``cache_layout`` by its ``CacheConfig.mode``: "block" recomputes every
+row and splices cached outputs where the drift is small, "compact"
+recomputes the most-drifted image rows (dense) or whole images per
+resolution class, and with ``patch_fraction < 1`` only their most-drifted
+patch rows' transformer tail (patch path).  With a ``ctx`` every 3x3
 convolution, group norm, self/cross-attention and upsample goes through the
 context, as the JAX ``_gn`` / ``_gn_silu_conv`` / ``_conv`` /
 ``_self_attention`` / ``_cross_attention`` / ``_upsample_2x`` seam does.
@@ -172,10 +176,12 @@ class Attention(nn.Module):
         self.to_out = nn.ModuleList([nn.Linear(query_dim, query_dim),
                                      nn.Identity()])
 
-    def forward(self, h, context=None, ctx=None):
+    def forward(self, h, context=None, ctx=None, rows=None):
+        """``rows`` (patch batch only): ``h`` holds just these patch rows,
+        whose images' text K/V the cross-attention takes."""
         if ctx is not None:  # patch batch: grouped self / gathered cross
             out = (ctx.self_attention(self, h) if context is None
-                   else ctx.cross_attention(self, h, context))
+                   else ctx.cross_attention(self, h, context, rows=rows))
             return self.to_out[0](out)
         kv = h if context is None else context
         # self-attention routes to kernel K1, 77-token cross-attention to K5
@@ -213,12 +219,22 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = L.LayerNorm(dim)
         self.ff = FeedForward(dim)
 
-    def forward(self, h, ehs, ctx=None):
+    def forward(self, h, ehs, ctx=None, tok_sel=None):
         """h: (N, S, C) tokens; ehs: (N, 77, context_dim) text context (per
-        image, ``(I_pad, 77, D)``, with a patch ``ctx``)."""
+        image, ``(I_pad, 77, D)``, with a patch ``ctx``).
+
+        ``tok_sel`` (patch path, two-level compact rows): self-attention
+        over every row, then cross-attention and the feed-forward on the
+        selected rows only, written back so that the next block's
+        self-attention sees them; the other rows serve only as keys."""
         h = h + self.attn1(self.norm1(h), ctx=ctx)
-        h = h + self.attn2(self.norm2(h), ehs, ctx=ctx)
-        return h + self.ff(self.norm3(h))
+        if tok_sel is None:
+            h = h + self.attn2(self.norm2(h), ehs, ctx=ctx)
+            return h + self.ff(self.norm3(h))
+        hs = h[tok_sel]
+        hs = hs + self.attn2(self.norm2(hs), ehs, ctx=ctx, rows=tok_sel)
+        hs = hs + self.ff(self.norm3(hs))
+        return h.index_copy(0, tok_sel, hs)
 
 
 class Transformer2DModel(nn.Module):
@@ -248,13 +264,18 @@ class Transformer2DModel(nn.Module):
         return F.linear(h, layer.weight.reshape(layer.weight.shape[0], -1),
                         layer.bias)
 
-    def forward(self, x, ehs, ctx=None):
+    def forward(self, x, ehs, ctx=None, tok_sel=None):
+        """``tok_sel``: the blocks' two-level rows (see
+        ``BasicTransformerBlock``); the output holds only those rows."""
         n, c, hh, ww = x.shape
         h = self.norm(x) if ctx is None else ctx.group_norm(self.norm, x)
         h = self._project(self.proj_in, h.permute(0, 2, 3, 1).reshape(
             n, hh * ww, c))
         for blk in self.transformer_blocks:
-            h = blk(h, ehs, ctx=ctx)
+            h = blk(h, ehs, ctx=ctx, tok_sel=tok_sel)
+        if tok_sel is not None:
+            h, x = h[tok_sel], x[tok_sel]
+            n = h.shape[0]
         h = self._project(self.proj_out, h)
         return h.reshape(n, hh, ww, c).permute(0, 3, 1, 2) + x
 
@@ -376,7 +397,40 @@ class UNet2DConditionModel(nn.Module):
         return emb
 
 
-    # -- the deep cache (dense path) ------------------------------------------
+    # -- the caches' gated pairs ----------------------------------------------
+
+    def cache_layout(self, cells: int, min_level: int = 1) -> dict:
+        """Gated-pair layout of the block and compact caches: every resnet
+        (+ transformer) pair and the mid block at levels >= ``min_level``,
+        ``key -> (s, c_in, c_out)``, ``s`` the pair's side on a ``cells``
+        wide latent or patch and ``c_in`` counting an up pair's skip
+        concat."""
+        cfg = self.cfg
+        bo = cfg.block_out_channels
+        n_levels = len(bo)
+        layout = {}
+        out_ch = bo[0]
+        for i in range(n_levels):
+            in_ch, out_ch = out_ch, bo[i]
+            if i < min_level:
+                continue
+            for j in range(cfg.layers_per_block):
+                layout[f"down{i}.{j}"] = (cells >> i, in_ch if j == 0
+                                          else out_ch, out_ch)
+        if n_levels - 1 >= min_level:
+            layout["mid"] = (cells >> (n_levels - 1), bo[-1], bo[-1])
+        rev = list(reversed(bo))
+        for i in range(n_levels):
+            lvl = n_levels - 1 - i
+            if lvl < min_level:
+                continue
+            prev_out = bo[-1] if i == 0 else rev[i - 1]
+            for j in range(cfg.layers_per_block + 1):
+                res_in = prev_out if j == 0 else rev[i]
+                skip_ch = bo[max(lvl - 1, 0)] \
+                    if j == cfg.layers_per_block else bo[lvl]
+                layout[f"up{i}.{j}"] = (cells >> lvl, res_in + skip_ch, rev[i])
+        return layout
 
     def shallow_cache_layout(self, cells: int,
                              boundary: Optional[int] = None) -> dict:
@@ -410,20 +464,27 @@ class UNet2DConditionModel(nn.Module):
     @staticmethod
     def _pair(blk, j):
         """Resnet ``j`` of a block and its transformer (if the level has
-        one) as the ``(x, temb, ehs)`` body a gated pair computes."""
+        one) as the ``(x, temb, ehs)`` body a gated pair computes; with
+        ``tok_sel`` it returns only those rows (a transformer runs its
+        tail on them alone)."""
         res = blk.resnets[j]
         attn = blk.attentions[j] if len(blk.attentions) else None
 
-        def body(x, temb, ehs, ctx=None):
+        def body(x, temb, ehs, ctx=None, tok_sel=None):
             y = res(x, temb, ctx=ctx)
-            return y if attn is None else attn(y, ehs, ctx=ctx)
+            if attn is not None:
+                return attn(y, ehs, ctx=ctx, tok_sel=tok_sel)
+            return y if tok_sel is None else y[tok_sel]
         return body
 
-    def _mid(self, h, temb, ehs, ctx=None):
+    def _mid(self, h, temb, ehs, ctx=None, tok_sel=None):
+        """The mid block; with ``tok_sel`` computed in full (its last conv
+        needs every patch's halo) and those rows returned."""
         mid = self.mid_block
         h = mid.resnets[0](h, temb, ctx=ctx)
         h = mid.attentions[0](h, ehs, ctx=ctx)
-        return mid.resnets[1](h, temb, ctx=ctx)
+        h = mid.resnets[1](h, temb, ctx=ctx)
+        return h if tok_sel is None else h[tok_sel]
 
     def _deep_tail(self, h, temb, ehs, boundary: int):
         """The ops a full pass runs between the partial capture point (the
@@ -455,7 +516,7 @@ class UNet2DConditionModel(nn.Module):
                 added_cond=None, ctx=None, cache=None, cache_state=None,
                 deep_mode: Optional[str] = None, deep_state=None,
                 deep_boundary: Optional[int] = None, row_valid=None,
-                deep_sel=None):
+                deep_sel=None, compact_sync: bool = False):
         """sample: (B, H, W, C) NHWC; timesteps: (B,); ehs: (B, 77, D).
 
         With a patch ``ctx``: sample is the ``(P, s, s, C)`` patch batch and
@@ -481,12 +542,33 @@ class UNet2DConditionModel(nn.Module):
         With a mode it returns ``(out, deep_feature)``; with the hybrid's
         ``cache`` and ``cache_state`` as well (``cache.config.
         deep_compact_fraction`` set) ``(out, deep_feature, cache_state)``:
-        full steps write every gated pair's rows through, and the state is
-        updated in place.  Dense shallow and partial steps gate the pairs by
-        CFG pairs (``row_valid`` marks real rows); patched shallow steps
-        gate whole images per resolution class (``gate_compact_images``
-        with symmetrised CFG-pair scores and even capacities), each pair
-        running on the sub-composition's context.
+        full steps write every gated pair's rows through.  Dense shallow
+        and partial steps gate the pairs by CFG pairs (``row_valid`` marks
+        real rows); patched shallow steps gate whole images per resolution
+        class (``gate_compact_images`` with symmetrised CFG-pair scores and
+        even capacities), each pair running on the sub-composition's
+        context.
+
+        Without a mode, ``cache`` and ``cache_state`` (rows of
+        ``cache_layout``) gate each pair by ``cache.config.mode`` and it
+        returns ``(out, cache_state)``:
+
+        - ``"block"``: ``cache.gate`` computes every row and keeps the
+          cached output where the drift score says reuse (the pipeline
+          passes a cache in this mode only on the patch path);
+        - ``"compact"``, dense: ``gate_compact`` recomputes the
+          ``max(1, round(B * compact_fraction))`` most-drifted rows
+          (``row_valid`` marks real rows), every row under
+          ``compact_sync``, the anchoring step of fresh rows;
+        - ``"compact"``, patched: ``gate_compact_images`` recomputes whole
+          images in the non-even sub-composition of ``compact_fraction``
+          and, at ``patch_fraction < 1``, runs the transformer tail of
+          only the most-drifted patch rows there (``tok_sel``).
+
+        A pair whose key is not in ``cache_state`` (a level below
+        ``min_level``) is computed plainly.  The gates update each pair's
+        state dict in place, where the JAX apply returns a new state: the
+        old and the new rows are never held together.
         """
         hybrid = (deep_mode is not None and cache is not None
                   and cache.config.deep_compact_fraction is not None)
@@ -502,10 +584,6 @@ class UNet2DConditionModel(nn.Module):
             raise ValueError("deep_mode and cache are mutually exclusive "
                              "(set CacheConfig.deep_compact_fraction for "
                              "the hybrid, which returns all three)")
-        if cache is not None and deep_mode is None:
-            raise NotImplementedError(
-                "the block and compact cache modes are not ported (ROADMAP "
-                "Queue 1 item 9)")
         n_levels = len(self.cfg.block_out_channels)
         boundary = deep_boundary if deep_boundary is not None else n_levels - 1
         temb = self.time_embed(timesteps, added_cond, dtype=sample.dtype)
@@ -515,44 +593,70 @@ class UNet2DConditionModel(nn.Module):
             t_norm = ctx.per_patch(t_norm)
         ehs = encoder_hidden_states
         caching = cache is not None and cache_state is not None
-        gating = caching and deep_mode in ("shallow", "partial")
-        if gating and ctx is not None:
+        cc = cache.config if caching else None
+        # the row regime of a gated pair: "write" (the hybrid's full step),
+        # "rows" (dense top-K rows), "images" (patched whole images) or
+        # "block" (every row, spliced)
+        if not caching:
+            regime = None
+        elif hybrid:
+            regime = ("write" if deep_mode == "full"
+                      else "rows" if ctx is None else "images")
+        elif cc.mode == "compact":
+            regime = "rows" if ctx is None else "images"
+        else:
+            regime = "block"
+        if regime == "rows":
+            frac = cc.deep_compact_fraction if hybrid else cc.compact_fraction
+            n_active = max(1, round(sample.shape[0] * frac))
+            if compact_sync and not hybrid:
+                n_active = sample.shape[0]  # anchor every fresh row
+        two_level = False
+        if regime == "images":
             # the gated images' canonical sub-composition: pair-coherent
-            # (even) capacities on the CFG-doubled meta
+            # (even) capacities on the CFG-doubled meta under the hybrid
             sub_ctx, caps = compact_context(
                 ctx.meta.patch_cells, ctx.meta.class_info,
-                cache.config.deep_compact_fraction, True,
-                ctx.image_id.device)
+                cc.deep_compact_fraction if hybrid else cc.compact_fraction,
+                hybrid, ctx.image_id.device)
+            two_level = not hybrid and cc.patch_fraction < 1.0
 
         def gated(key, x, body):
             st = cache_state.get(key) if caching else None
-            if st is None:  # cache off, or a pair outside the hybrid layout
+            if st is None:  # cache off, or a pair outside the layout
                 return body(x, temb, ehs, ctx)
-            if not gating:  # full step: recompute, re-anchor the rows
+            if regime == "write":  # full step: recompute, re-anchor the rows
                 y = body(x, temb, ehs, ctx)
                 cache.write_through(st, x, y)
                 return y
-            if ctx is not None:
+            if regime == "block":
+                y, _, _ = cache.gate(key, x, t_norm, st,
+                                     lambda xx: body(xx, temb, ehs, ctx))
+                return y
+            if regime == "images":
+                if two_level:
+                    def fn(x_s, gidx, imgs, sel):
+                        return body(x_s, temb[gidx], ehs[imgs], sub_ctx,
+                                    tok_sel=sel)
+                else:
+                    def fn(x_s, gidx, imgs):
+                        return body(x_s, temb[gidx], ehs[imgs], sub_ctx)
                 y, _, _ = cache.gate_compact_images(
-                    key, x, t_norm, st,
-                    lambda x_s, gidx, imgs: body(x_s, temb[gidx], ehs[imgs],
-                                                 sub_ctx),
-                    ctx, caps, cfg_pair_offset=ctx.meta.i_pad // 2,
-                    two_level=False)
+                    key, x, t_norm, st, fn, ctx, caps,
+                    cfg_pair_offset=ctx.meta.i_pad // 2 if hybrid else None,
+                    two_level=two_level)
                 return y
 
             def fn(x_c, idx):
                 return body(x_c, temb[idx], ehs[idx])
 
-            frac = cache.config.deep_compact_fraction
-            if cache.config.deep_compact_pairwise:
+            if hybrid and cc.deep_compact_pairwise:
                 y, _, _ = cache.gate_compact_pairs(
                     key, x, t_norm, st, fn,
                     max(1, round(x.shape[0] // 2 * frac)), row_valid=row_valid)
             else:
-                y, _, _ = cache.gate_compact(
-                    key, x, t_norm, st, fn,
-                    max(1, round(x.shape[0] * frac)), row_valid=row_valid)
+                y, _, _ = cache.gate_compact(key, x, t_norm, st, fn, n_active,
+                                             row_valid=row_valid)
             return y
 
         shallow = deep_mode in ("shallow", "partial")
@@ -586,8 +690,7 @@ class UNet2DConditionModel(nn.Module):
             h = deep_state.to(h.dtype)
             deep_feature = deep_state
         else:
-            h = gated("mid", h, lambda x, temb_l, ehs_l, ctx_l=None:
-                      self._mid(x, temb_l, ehs_l, ctx_l))
+            h = gated("mid", h, self._mid)
 
         first_shallow_up = n_levels - boundary
         for i, blk in enumerate(self.up_blocks):
@@ -606,7 +709,7 @@ class UNet2DConditionModel(nn.Module):
             h = ctx.gn_silu_conv(self.conv_norm_out, self.conv_out, h)
         out = h.permute(0, 2, 3, 1).contiguous()
         if deep_mode is None:
-            return out
+            return (out, cache_state) if caching else out
         if caching:
             return out, deep_feature, cache_state
         return out, deep_feature

@@ -12,7 +12,8 @@ the port's layout; token runs are ``(P, s*s, C)``.
                   kernel K4 (ops/gn_halo.py), then the conv at padding 0
   self_attention  patches gathered into per-image groups per resolution
                   class, one masked attention per class (kernel K2b/K3a)
-  cross_attention per-image text K/V gathered to the patches (kernel K5)
+  cross_attention per-image text K/V gathered to the patches, or to a
+                  subset of patch rows (kernel K5)
 
 Patched equals dense per image to float tolerance
 (tests/test_torch_patch_unet.py).
@@ -184,10 +185,15 @@ class PatchContext:
             out = torch.where(self.class_member[ci][:, None, None], rows, out)
         return out
 
-    def cross_attention(self, attn, h, ehs) -> torch.Tensor:
-        """h: (P, s^2, C); ehs: (I_pad, L, D) per-image text context."""
-        k = attn.to_k(ehs)[self.image_id]
-        v = attn.to_v(ehs)[self.image_id]
+    def cross_attention(self, attn, h, ehs, rows=None) -> torch.Tensor:
+        """h: (P, s^2, C); ehs: (I_pad, L, D) per-image text context.
+
+        ``rows``: ``h`` holds only these patch rows (the two-level compact
+        rows, ``CacheConfig.patch_fraction``), whose images' K/V they
+        take."""
+        image_id = self.image_id if rows is None else self.image_id[rows]
+        k = attn.to_k(ehs)[image_id]
+        v = attn.to_v(ehs)[image_id]
         return masked_attention(attn.to_q(h), k, v, attn.heads)
 
 

@@ -36,9 +36,15 @@ path a mixed batch's step is full or shallow batch-wide
 and keeps its rows, one per doubled patch, in a ``"unet_hybrid_mixed"``
 entry of the same store.  A request whose batch moves between the two
 paths holds a deep feature of the other layout, which forces a full step.
-The SD3 pipeline runs its own caches on its token path
-(``pipelines/sd3.py``).  The UNet families' cache modes "block" and
-"compact" and the fused multi-step dispatch are not ported yet.
+The block and compact caches (modes "block" and "compact") gate every
+pair of the UNet's ``cache_layout``.  On the patch path each request keeps
+its rows, two per patch (uncond, then cond), in ``Request.cache_rows``;
+they are gathered into the doubled patch batch each step and scattered
+back, so rows follow membership changes.  On the dense path mode "block"
+is cache-off, as in the JAX package, and mode "compact" keeps its rows in
+a ``"unet_compact"`` entry of the composition store, anchored by one step
+at full capacity.  The SD3 pipeline runs its own caches on its token path
+(``pipelines/sd3.py``).  The fused multi-step dispatch is not ported yet.
 """
 
 from __future__ import annotations
@@ -149,9 +155,10 @@ class BasePipeline:
         CFG-concatenated by the implementation.  Patched: latents_in is the
         doubled patch batch, t is per image (already doubled), cond per
         image, and ctx the doubled batch's ``PatchContext``.  ``deep``
-        passes the UNet's deep-cache keywords through (``deep_mode``,
+        passes the UNet's cache keywords through (``deep_mode``,
         ``deep_state``, ``deep_sel``, ``cache``, ``cache_state``,
-        ``row_valid``), with ``deep_boundary`` from the cache config.
+        ``row_valid``, ``compact_sync``), with ``deep_boundary`` from the
+        cache config.
         """
         raise NotImplementedError
 
@@ -200,7 +207,7 @@ class BasePipeline:
         cond = {key: torch.cat([r.conditioning[key] for r in reqs], dim=0)
                 for key in reqs[0].conditioning}
         # the JAX branch order: a stateful sampler first (PNDM runs without
-        # the deep cache, in both packages), then the deep cache
+        # the caches, in both packages), then the deep cache, then compact
         if self.sampler.needs_state:
             self._init_sampler_state(reqs)
             state = {key: torch.cat([r.sampler_state[key] for r in reqs])
@@ -213,6 +220,9 @@ class BasePipeline:
         elif self._deep_cache_active():
             new_latents = self._denoise_group_deep(reqs, latents, t, coeffs,
                                                    guidance, cond)
+        elif self._compact_cache_active():
+            new_latents = self._denoise_group_compact(reqs, latents, t,
+                                                      coeffs, guidance, cond)
         else:
             new_latents = self._denoise_fn(latents, t, coeffs, guidance, cond)
         for i, req in enumerate(reqs):
@@ -253,6 +263,53 @@ class BasePipeline:
             latents, t, coeffs, guidance,
             lambda lat_in, t2: self.denoiser_forward(lat_in, t2, cond))
         return noise_pred, c0, c1
+
+    # -- the compact cache on the dense path (CacheConfig.mode "compact") ---
+
+    def _compact_cache_active(self) -> bool:
+        return (self.config.cache.enabled
+                and self.config.cache.mode == "compact"
+                and hasattr(self.bundle.denoiser, "cache_layout"))
+
+    def _denoise_group_compact(self, reqs, latents, t, coeffs, guidance,
+                               cond):
+        """One compact-cache step of a resolution group; returns the
+        bucket's new latents.  Rows are whole images (CFG-doubled,
+        ``[uncond x bb | cond x bb]``), independent under every pair, so
+        each gated pair recomputes its most-drifted rows and splices cached
+        outputs into the rest; the batch's pad rows rank last.  The rows
+        live in the composition's ``"unet_compact"`` entry; a fresh entry's
+        first step runs at full capacity (``compact_sync``) to anchor
+        them."""
+        res = reqs[0].resolution
+        bb = bucket_for(len(reqs), self.config.scheduler.batch_buckets)
+        latents, t, coeffs, guidance = (_pad_batch(a, bb) for a in
+                                        (latents, t, coeffs, guidance))
+        cond = {key: _pad_batch(a, bb) for key, a in cond.items()}
+        cache = self._block_cache()
+        cc = self.config.cache
+        layout = self.bundle.denoiser.cache_layout(res // self.vae_scale,
+                                                   cc.min_level)
+
+        def mk_state(n):
+            return {key: cache.init_rows(key, n, s, c_in, c_out,
+                                         self.bundle.dtype, self.device)
+                    for key, (s, c_in, c_out) in layout.items()}
+
+        sig = (type(cache).__name__, cc.min_level, cc.compact_fraction)
+        entry = self._comp_state_entry("unet_compact", res, reqs, bb, sig,
+                                       mk_state)
+        row_valid = torch.zeros(bb, dtype=torch.bool, device=self.device)
+        row_valid[:len(reqs)] = True
+        kwargs = dict(cache=cache, cache_state=entry["state"],
+                      row_valid=torch.cat([row_valid, row_valid]),
+                      compact_sync=not entry["anchored"])
+        noise_pred, c0, c1, _ = self._cfg_step(
+            latents, t, coeffs, guidance,
+            lambda lat_in, t2: self.denoiser_forward(lat_in, t2, cond,
+                                                     **kwargs))
+        entry["anchored"] = True
+        return self.sampler.step(latents, noise_pred, c0, c1)
 
     # -- the deep cache on the dense path (CacheConfig.mode "deep") ----------
 
@@ -668,7 +725,9 @@ class BasePipeline:
         With the deep cache the step is full or shallow for the whole batch
         (``_deep_mode_mixed``); the hybrid's row caches live in the
         ``"unet_hybrid_mixed"`` entry of this composition, and a fresh entry
-        forces an anchoring full step.
+        forces an anchoring full step.  With the block or compact cache
+        the requests' rows are gathered into the batch and scattered back
+        (``_gather_cache_state``).
         """
         if self.sampler.needs_state and self.config.cache.enabled:
             return self.denoise_step(reqs_by_res)
@@ -727,22 +786,31 @@ class BasePipeline:
                 (meta.i_pad - arr.shape[0],) + arr.shape[1:])], dim=0)
 
         ctx1, ctx2 = PatchContext(meta, dev), PatchContext(meta2, dev)
-        if self.sampler.needs_state:
-            state = self._gather_sampler_state_mixed(ordered, grids, cells,
-                                                     meta.p_pad)
-            new_x, new_state = self._mixed_fn(x, t, coeffs, guidance, cond,
-                                              ctx1, ctx2, state)
-            self._scatter_sampler_state_mixed(ordered, grids, cells,
-                                              new_state)
-        elif deep_mode is not None:
+        # the JAX branch order: the deep cache (with or without the
+        # hybrid), a stateful sampler, cache-off, then the block cache
+        cache = self._block_cache()
+        if deep_mode is not None:
             new_x, deep_out = self._deep_step_mixed(
                 deep_mode, x, t, coeffs, guidance, cond, ctx1, ctx2,
                 self._gather_deep_mixed(ordered, grids, meta, deep_mode),
                 entry)
             self._scatter_deep_mixed(ordered, grids, meta, deep_mode,
                                      deep_out)
-        else:
+        elif self.sampler.needs_state:
+            state = self._gather_sampler_state_mixed(ordered, grids, cells,
+                                                     meta.p_pad)
+            new_x, new_state = self._mixed_fn(x, t, coeffs, guidance, cond,
+                                              ctx1, ctx2, state)
+            self._scatter_sampler_state_mixed(ordered, grids, cells,
+                                              new_state)
+        elif cache is None:
             new_x = self._mixed_fn(x, t, coeffs, guidance, cond, ctx1, ctx2)
+        else:
+            state = self._gather_cache_state(ordered, grids, meta, cells)
+            new_x, _ = self._mixed_fn(x, t, coeffs, guidance, cond, ctx1,
+                                      ctx2, deep=dict(cache=cache,
+                                                      cache_state=state))
+            self._scatter_cache_state(ordered, grids, meta, state)
         adaptive = deep_mode is not None and self.config.cache.deep_adaptive
         off = 0
         for r, g in zip(ordered, grids):
@@ -765,8 +833,9 @@ class BasePipeline:
         block first, then cond, as in the JAX ``_make_mixed_fn``).  With a
         patch-sliced sampler ``state`` it returns ``(x, new_state)``: the
         stateful update is element-wise, so it is exact per patch.  With
-        ``deep`` (the UNet's deep-cache keywords) it returns ``(x,
-        deep_feature)``."""
+        ``deep`` (the UNet's cache keywords) it returns ``(x, second
+        output)``: the deep feature, or the cache state without a deep
+        mode."""
         c0, c1 = coeffs[:, 0], coeffs[:, 1]  # per image (i_pad,)
         x2 = torch.cat([x, x], dim=0)
         t2 = torch.cat([t, t], dim=0)
@@ -781,6 +850,68 @@ class BasePipeline:
             return self.sampler.step_with_state(x, noise_pred, c0p, c1p, state)
         stepped = self.sampler.step(x, noise_pred, c0p, c1p)
         return stepped if deep is None else (stepped, feature)
+
+    # -- the block and compact caches' rows on the patch path ----------------
+
+    def _block_cache(self):
+        """The gates of modes "block" and "compact" for a UNet, or None
+        (the SD3 pipeline's token caches read the same ``_cache_obj``)."""
+        cc = self.config.cache
+        if not cc.enabled or cc.mode not in ("block", "compact"):
+            return None
+        if not hasattr(self.bundle.denoiser, "cache_layout"):
+            return None
+        if self._cache_obj is None:
+            self._cache_obj = BlockCache(cc)
+        return self._cache_obj
+
+    def _gather_cache_state(self, ordered, grids, meta, cells) -> dict:
+        """Each request's rows, laid out like the doubled patch batch
+        (``[uncond | pad | cond | pad]``, the pads fresh rows).  A request
+        keeps ``2 g^2`` rows a pair, its uncond patches then its cond ones;
+        missing rows and rows of another patch grid are initialised
+        anew."""
+        cache = self._block_cache()
+        layout = self.bundle.denoiser.cache_layout(
+            cells, self.config.cache.min_level)
+        dtype, dev = self.bundle.dtype, self.device
+        first = next(iter(layout))
+        for r, g in zip(ordered, grids):
+            rows = r.cache_rows
+            if (rows is None or first not in rows
+                    or rows[first]["inp"].shape[0] != 2 * g * g):
+                r.cache_rows = {
+                    key: cache.init_rows(key, 2 * g * g, s, c_in, c_out,
+                                         dtype, dev)
+                    for key, (s, c_in, c_out) in layout.items()}
+        pad = meta.p_pad - sum(g * g for g in grids)
+        state = {}
+        for key, (s, c_in, c_out) in layout.items():
+            halves = ([], [])
+            for r, g in zip(ordered, grids):
+                rows = r.cache_rows[key]
+                halves[0].append({k: a[:g * g] for k, a in rows.items()})
+                halves[1].append({k: a[g * g:] for k, a in rows.items()})
+            if pad:
+                fresh = cache.init_rows(key, pad, s, c_in, c_out, dtype, dev)
+                halves[0].append(fresh)
+                halves[1].append(fresh)
+            parts = halves[0] + halves[1]
+            state[key] = {k: torch.cat([p[k] for p in parts])
+                          for k in parts[0]}
+        return state
+
+    def _scatter_cache_state(self, ordered, grids, meta, state) -> None:
+        """The batch's updated rows back to each request (inverse of
+        :meth:`_gather_cache_state`)."""
+        for key, entry in state.items():
+            off = 0
+            for r, g in zip(ordered, grids):
+                n, c = g * g, meta.p_pad + off
+                r.cache_rows[key] = {
+                    k: torch.cat([a[off:off + n], a[c:c + n]])
+                    for k, a in entry.items()}
+                off += n
 
     # -- the deep cache on the patch path ------------------------------------
 

@@ -437,11 +437,25 @@ def test_cli_config_matches_jax(argv):
 ])
 def test_unported_flags_raise(flags):
     """What the port does not serve raises, and so does a snapshot that
-    is not there."""
+    is not there; ``--use-cache`` in modes "block" and "compact" serves
+    (one mixed step of finite latents through the cache)."""
     p = argparse.ArgumentParser()
     add_engine_args(p)
     config = config_from_args(p.parse_args(
         ["--test-tiny", "--dtype", "float32"] + flags))
+    if "--use-cache" in flags:
+        config.scheduler.patch_size = 64
+        engine = Engine(config, "cpu")
+        for i, res in enumerate((64, 128)):  # a mixed batch
+            engine.add_request(f"c{i}", SamplingParams(
+                prompt="a cat", resolution=res, num_inference_steps=1,
+                seed=i, output_type="latent"))
+        outs = []
+        while engine.has_unfinished_requests():
+            outs += engine.step()
+        assert engine.worker.pipeline._cache_obj is not None
+        assert all(o.finished and np.isfinite(o.image).all() for o in outs)
+        return
     error = FileNotFoundError if "--model-path" in flags \
         else NotImplementedError
     with pytest.raises(error):

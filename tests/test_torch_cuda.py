@@ -25,7 +25,8 @@ same input.  The deep cache's row gate picks the same rows on the card as
 on the CPU, ties included, the patch path's image gate the same images,
 and a drift value reaches the host only once its event has completed.  A
 postprocess on the worker's decode thread gives the same images, bit for
-bit, as the same call on the main thread.
+bit, as the same call on the main thread.  The block cache at threshold -1
+serves cache-off's latents and launches.
 """
 
 from __future__ import annotations
@@ -356,6 +357,9 @@ def test_patched_moments_and_k4_repeat_bitwise(cuda):
     (4, 4096, 77, 640, 10),    # SDXL level 1, dense pair with CFG
     (128, 256, 77, 640, 10),   # SDXL patch path: per-patch K/V, level 1
     (128, 64, 77, 1280, 20),   # SDXL patch path, level 2
+    # two-level compact rows on SDXL's serving mix: k_q = 36 patch rows
+    (36, 256, 77, 640, 10),    # level 1
+    (36, 64, 77, 1280, 20),    # level 2
     (4, 4096, 77, 320, 8),     # SD-1.5 level 0, hd 40
     (32, 1024, 77, 320, 8),    # SD-1.5 patch path, level 0
     (32, 64, 77, 1280, 8),     # SD-1.5 patch path, level 2, hd 160
@@ -533,9 +537,13 @@ def test_vae_auto_is_bf16_for_sdxl_on_card(cuda):
     card (JAX ``_vae_dtype``: bf16 on the accelerator for every family);
     "float32" forces float32.  Both decodes give uint8 images within 3
     counts of each other on average."""
+    import dataclasses
+
     bundle = ModelBundle("sdxl", tiny=True, dtype=torch.bfloat16, device=cuda)
     bundle.init_random(seed=0)
-    assert bundle.models["vae"].cfg.force_upcast
+    # the tiny configs' VAE (both packages') has no force_upcast; SDXL's has
+    vae = bundle.models["vae"]
+    vae.cfg = dataclasses.replace(vae.cfg, force_upcast=True)
     assert all(p.dtype == torch.bfloat16
                for p in bundle.models["vae"].parameters())
     lat = torch.randn((2, 16, 16, 4), generator=torch.Generator(cuda)
@@ -552,3 +560,52 @@ def test_vae_auto_is_bf16_for_sdxl_on_card(cuda):
         assert images[mode].dtype == torch.uint8
     diff = (images["auto"].int() - images["float32"].int()).abs().float()
     assert diff.mean().item() < 3.0
+
+
+@pytest.mark.cuda
+def test_block_cache_at_threshold_minus_one_equals_cache_off(cuda):
+    """Mode "block" at ``mse_threshold=-1`` recomputes every row: a small
+    UNet with the kernels' head dim 64 (the tiny configs' 32 has no
+    instantiation), bf16, two patched forwards of a 2 x 2 + 1 x 1 patch
+    batch (CFG-doubled) from fresh rows, gives the plain forward's output
+    within one bf16 ulp at its scale and launches the same kernels."""
+    from sduss_tpu_torch.models import unet as tunet
+    from sduss_tpu_torch.ops.patch_ctx import PatchContext
+
+    cfg = tunet.UNetConfig(block_out_channels=(64, 128),
+                           down_block_has_attn=(False, True),
+                           layers_per_block=1, transformer_layers=(0, 1),
+                           num_heads=(1, 2), cross_attention_dim=64,
+                           use_linear_projection=True)
+    torch.manual_seed(0)
+    unet = tunet.UNet2DConditionModel(cfg).to(cuda, torch.bfloat16).eval()
+    meta = tpatching.double_meta((2, 1), 8, (8, 16), (2, 4))
+    ctx = PatchContext(meta, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    ehs = _randn(gen, meta.i_pad, 77, 64, device=cuda)
+    cache = BlockCache(CacheConfig(enabled=True, mse_threshold=-1.0))
+    state = {k: cache.init_rows(k, meta.p_pad, s, ci, co, torch.bfloat16,
+                                cuda)
+             for k, (s, ci, co) in unet.cache_layout(8, 1).items()}
+
+    def counts():
+        return (tflash.flash_mha_masked.launches, tgn.gn_silu_halo.launches,
+                tflash.flash_cross_short.launches)
+
+    for step in range(2):
+        x = _randn(gen, meta.p_pad, 8, 8, 4, device=cuda)
+        t = torch.full((meta.i_pad,), 900.0 - 300 * step, device=cuda)
+        with torch.inference_mode():
+            c0 = counts()
+            plain = unet(x, t, ehs, ctx=ctx)
+            c1 = counts()
+            out, st = unet(x, t, ehs, ctx=ctx, cache=cache, cache_state=state)
+            c2 = counts()
+        torch.cuda.synchronize()
+        assert st is state and all((v["hits"] == 0).all()
+                                   for v in state.values())
+        assert [b - a for a, b in zip(c0, c1)] == [b - a for a, b in
+                                                   zip(c1, c2)]
+        assert min(b - a for a, b in zip(c0, c1)) > 0
+        err = (out.float() - plain.float()).abs().max().item()
+        assert err <= 2.0 ** -7 * plain.float().abs().max().item()

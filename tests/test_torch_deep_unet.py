@@ -189,5 +189,3 @@ def test_invalid_deep_combinations_raise(models):
     _, _, port, inp = models
     with pytest.raises(ValueError, match="partial"):
         port_apply(port, inp, deep_mode="partial", deep_boundary=1)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        port_apply(port, inp, cache=object(), cache_state={})

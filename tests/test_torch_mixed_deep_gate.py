@@ -217,11 +217,29 @@ def test_gate_without_pair_offset_matches_jax(predict):
 
 
 def test_two_level_rows_are_not_ported():
+    """Two-level rows (``patch_fraction`` 0.5) serve through the gate: the
+    body gets the ``k_q`` selected rows of the sub-batch and returns them,
+    and only those rows are written (tests/test_torch_block_cache.py holds
+    them against JAX)."""
     meta, _ = metas((2, 1))
     x, state, *_ = make_case(meta, 7, False)
     cache = BlockCache(CacheConfig(patch_fraction=0.5))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        cache.gate_compact_images(
-            "k", torch.from_numpy(x), torch.zeros(meta.p_pad),
-            {k: torch.from_numpy(v) for k, v in state.items()},
-            lambda *a: None, PatchContext(meta, "cpu"), (2, 2))
+    state = {k: torch.from_numpy(v) for k, v in state.items()}
+    hits = state["hits"].clone()
+    got = {}
+
+    def body(x_s, gidx, imgs, sel):
+        got["p_sub"], got["k_q"] = x_s.shape[0], sel.shape[0]
+        return x_s[sel][:, :C_OUT] * 2.0
+
+    y, st, stats = cache.gate_compact_images(
+        "k", torch.from_numpy(x), torch.zeros(meta.p_pad), state, body,
+        PatchContext(meta, "cpu"), (2, 2))
+    assert got["k_q"] == max(1, round(got["p_sub"] * 0.5))
+    written = stats["gather"][stats["tok_sel"]]
+    assert (st["hits"][written] == 0).all()
+    rest = torch.ones(meta.p_pad, dtype=torch.bool)
+    rest[written] = False
+    assert torch.equal(st["hits"][rest], hits[rest] + 1)
+    torch.testing.assert_close(y[written], 2.0 * torch.from_numpy(
+        x)[written][:, :C_OUT])

@@ -203,10 +203,21 @@ def test_cuda_device_required_by_default():
     ("scheduler", "steps_per_dispatch", 4),
 ])
 def test_unported_configs_raise(section, field, value):
+    """What the port does not serve raises when the pipeline is built; the
+    block cache (``cache.enabled``, mode "block" by default) serves: one
+    mixed step of finite latents through the cache."""
     config = default_config("sdxl", dtype="float32", test_tiny=True)
     setattr(getattr(config, section), field, value)
-    with pytest.raises(NotImplementedError):
-        DiffusionPipeline(config=config, device="cpu")
+    if section != "cache":
+        with pytest.raises(NotImplementedError):
+            DiffusionPipeline(config=config, device="cpu")
+        return
+    config.scheduler.patch_size = 64
+    pipe = DiffusionPipeline(config=config, device="cpu")
+    outs = pipe.generate(["a cat", "a dog"], resolution=[64, 128],
+                         num_inference_steps=1, seed=0, output_type="latent")
+    assert pipe.engine.worker.pipeline._cache_obj is not None
+    assert all(o.finished and np.isfinite(o.image).all() for o in outs)
 
 
 @pytest.mark.parametrize("kwargs", [
