@@ -145,7 +145,28 @@ Phases (any failure propagates and the script exits non-zero):
      batches up to 4) and a predictor on the card, every value finite and
      positive; the committed ``scheduler/h100/`` files load; 3 SDXL
      requests served under ESyMReD with the fresh profile and predictor;
- 18. print the kernels' JSON line, then the result line
+ 18. fused multi-step dispatch (``steps_per_dispatch``): each of these
+     serves the same requests through ``Engine`` twice, chunks replayed
+     from captured step graphs after ``Engine.prewarm`` and then one step a
+     dispatch, and checks the final latents within 2^-7 of max |per-step|
+     (printing whether they are bitwise equal), the realized deep mode of
+     every step, the launches (equal between the runs and to the per-mode
+     counts above), that serving after prewarm captured no graph and that
+     the row state after prewarm and after serving stays within
+     ``comp_state_bytes``; prints each mode's step ms under both
+     dispatches (CUDA events), the prewarm seconds and the graph memory:
+     with the SDXL bundle, the mix
+     768^2 + 3 x 1024^2 under ``production("sdxl", serving=True)`` (12
+     steps, chunks of 6 on the patch path); with the SD3 bundle, 4 x
+     1024^2 under ``production("sd3", serving=True)`` (16 steps, chunks of
+     8, the first entering mid-interval); both also time a replayed full
+     step; with the SD-1.5 bundle, 2 x 512^2 cache-off (24 steps, chunks
+     of 6; the dispatch window's wall and CUDA-event ms a step, and the
+     wall and device-busy ms a step of one profiled round, chunked and
+     per-step) and ``production("sd15", serving=True)`` under ESyMReD
+     (buckets 2 and 4 prewarmed; 3 x 512^2 and a fourth after 6 steps,
+     chunks of 3: hybrid partial chunks);
+ 19. print the kernels' JSON line, then the result line
      ``{"ok": true, "device": {...}}`` last.
 """
 
@@ -154,6 +175,7 @@ from __future__ import annotations
 import asyncio
 import base64
 import collections
+import copy
 import gc
 import json
 import os
@@ -200,6 +222,7 @@ from sduss_tpu_torch.ops.gn_halo import (gn_silu_halo, gn_silu_halo_reference,
 from sduss_tpu_torch.ops.patch_ctx import PatchContext, compact_context
 from sduss_tpu_torch.pipelines import build_pipeline
 from sduss_tpu_torch.pipelines.base import _state_nbytes
+from sduss_tpu_torch.pipelines.graphs import unique_nbytes
 from sduss_tpu_torch.request import Request, SamplingParams, Stage
 from sduss_tpu_torch.scheduler.predictor import LatencyPredictor
 from sduss_tpu_torch.scheduler.profiler import Profiler
@@ -429,6 +452,19 @@ PROFILE_RES = (512, 768, 1024)
 PROFILE_POST_BATCH = 4
 PROFILE_REQUESTS = [512, 768, 1024]
 H100_PROFILES = "sduss_tpu_torch/scheduler/h100"
+# Fused multi-step dispatch: chunked (captured step graphs) against
+# per-step latents within one bf16 ulp at their scale; SD-1.5 dense 512^2
+# x 2 (24 steps) and the serving preset (3 x 512^2, a fourth after 6
+# steps: chunks of 3 keep the admission at the same step under both
+# dispatches), SDXL's mix (12 steps) and SD3 4 x 1024^2 (16 steps, chunks
+# of 8: the first enters mid-interval)
+CHUNK_MAX_REL = 2.0 ** -7
+CHUNK_K = 6
+CHUNK_SD15_STEPS = 24
+CHUNK_SD15_K = 3
+CHUNK_SD15_ADMIT = 6
+CHUNK_SD3_K = 8
+CHUNK_SD3_STEPS = 16
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
@@ -3198,6 +3234,384 @@ def profile_h100(card: str) -> dict:
     return {k: got[k] + served[k] for k in got}
 
 
+# -- fused multi-step dispatch: chunks replayed from captured step graphs --
+
+def spy_dispatch(pipe) -> list:
+    """Record every per-step dispatch of ``pipe`` (CUDA events around it,
+    its requests' count) and every chunk (its steps); the per-step modes
+    come from ``pipe.step_modes``, the chunk steps' events from
+    ``pipe.graphs.events``."""
+    recs, depth = [], [0]
+    for name in ("denoise_step", "denoise_step_mixed"):
+        fn = getattr(pipe, name)
+
+        def step(by_res, fn=fn):
+            if depth[0]:  # SD3's cached step goes on to the token path
+                return fn(by_res)
+            rec = {"start": torch.cuda.Event(enable_timing=True),
+                   "end": torch.cuda.Event(enable_timing=True), "steps": 1,
+                   "n_modes": len(pipe.step_modes)}
+            depth[0] += 1
+            rec["start"].record()
+            try:
+                fn(by_res)
+            finally:
+                depth[0] -= 1
+            rec["end"].record()
+            rec["mode"] = (pipe.step_modes[-1] if len(pipe.step_modes)
+                           > rec["n_modes"] else "off")
+            recs.append(rec)
+        setattr(pipe, name, step)
+    for name in ("denoise_chunk", "denoise_chunk_mixed"):
+        fn = getattr(pipe, name)
+
+        def chunk(by_res, k, fn=fn):
+            ok = fn(by_res, k)
+            if ok:
+                recs.append({"steps": k, "chunk": True})
+            return ok
+        setattr(pipe, name, chunk)
+    return recs
+
+
+def check_row_budget(pipe, cfg, label: str, after: str) -> int:
+    """The row state (composition stores and step-set row buffers) within
+    ``comp_state_bytes``, or held by one step set alone (the newest is
+    always kept); returns its bytes."""
+    rows = pipe._row_state_bytes()
+    if (rows > cfg.cache.comp_state_bytes
+            and len(pipe.graphs.row_states()) > 1):
+        raise AssertionError(f"{label}: {rows} bytes of row state after "
+                             f"{after}, over comp_state_bytes "
+                             f"{cfg.cache.comp_state_bytes:.0f}")
+    return rows
+
+
+def chunk_window(pipe, comp: dict, k: int, reps: int, chunked: bool,
+                 card: str) -> dict:
+    """Dispatch cost at one composition ``{res: count}``, the worker's
+    throttle aside: ``reps`` chunks of ``k`` steps (kinds already
+    captured) or ``reps * k`` per-step steps on fresh requests; wall ms
+    and CUDA-event ms a step, then one more round under torch.profiler:
+    the device-busy ms a step (the union of kernel spans) and the wall ms
+    a step of that same round, whose ratio is the busy share."""
+    reqs = [Request(f"window-{res}-{i}-{chunked}", SamplingParams(
+        prompt="a timing prompt", resolution=res,
+        num_inference_steps=2 * reps * k + k, seed=i))
+            for res, n in sorted(comp.items()) for i in range(n)]
+    pipe.prepare(reqs)
+    by_res = {}
+    for r in reqs:
+        by_res.setdefault(r.resolution, []).append(r)
+    mixed = len(by_res) > 1
+
+    def round_():
+        if chunked:
+            ok = (pipe.denoise_chunk_mixed(by_res, k) if mixed
+                  else pipe.denoise_chunk(by_res, k))
+            if not ok:
+                raise AssertionError(f"chunk ineligible at {comp}")
+        else:
+            for _ in range(k):
+                (pipe.denoise_step_mixed if mixed else pipe.denoise_step)(
+                    by_res)
+
+    round_()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps - 1):
+        round_()
+    end.record()
+    torch.cuda.synchronize()
+    n = (reps - 1) * k
+    wall = (time.perf_counter() - t0) * 1e3 / n
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        round_()
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3 / k
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy = None
+    if spans:
+        busy_us, cur_s, cur_e = 0.0, *spans[0]
+        for s, e in spans[1:]:
+            if s > cur_e:
+                busy_us += cur_e - cur_s
+                cur_s, cur_e = s, e
+            else:
+                cur_e = max(cur_e, e)
+        busy = (busy_us + cur_e - cur_s) / 1e3 / k
+        if busy > prof_wall:
+            raise AssertionError(
+                f"dispatch window {comp}: device busy {busy:.3f} ms a step "
+                f"exceeds the profiled round's wall {prof_wall:.3f} ms")
+    out = {"wall_ms": wall, "event_ms": start.elapsed_time(end) / n,
+           "busy_ms": busy, "profiled_wall_ms": prof_wall}
+    print(f"dispatch window {comp} {'chunks of ' + str(k) if chunked else 'per-step'}: "
+          f"wall {wall:.2f} ms a step, CUDA events {out['event_ms']:.2f} ms; "
+          f"profiled round: wall {prof_wall:.2f} ms a step, device busy "
+          + (f"{busy:.2f} ms ({busy / prof_wall:.1%} of its wall)"
+             if busy is not None
+             else "not measured (the profiler saw no kernel)")
+          + f" [{card}]")
+    return out
+
+
+def replay_full(pipe, comp: dict, k: int, label: str, card: str) -> None:
+    """One chunk of fresh requests at ``comp`` whose first step is an
+    interval's full: the warmup's per-step steps, then every age (the SD3
+    delta's too) set to ``deep_interval - 1``, as at an expiry.  Prints the
+    CUDA-event ms of each replayed kind; captures nothing new."""
+    reqs = [Request(f"replay-{res}-{i}", SamplingParams(
+        prompt="a replay prompt", resolution=res,
+        num_inference_steps=pipe.config.cache.deep_warmup + k, seed=i))
+            for res, n in sorted(comp.items()) for i in range(n)]
+    pipe.prepare(reqs)
+    by_res = {}
+    for r in reqs:
+        by_res.setdefault(r.resolution, []).append(r)
+    mixed = len(by_res) > 1
+    for _ in range(pipe.config.cache.deep_warmup):
+        (pipe.denoise_step_mixed if mixed else pipe.denoise_step)(by_res)
+    itv = pipe.config.cache.deep_interval
+    for r in reqs:
+        r.deep_age = itv - 1
+    for entry in getattr(pipe, "_sd3_state", {}).values():
+        entry["deep_age"] = itv - 1
+    captures, pipe.graphs.events = pipe.graphs.captures, []
+    if not (pipe.denoise_chunk_mixed if mixed else pipe.denoise_chunk)(
+            by_res, k):
+        raise AssertionError(f"{label}: the replay chunk is ineligible")
+    torch.cuda.synchronize()
+    if pipe.graphs.captures != captures:
+        raise AssertionError(f"{label}: the replay chunk captured a graph")
+    by: dict = {}
+    for kind, start, end in pipe.graphs.events:
+        by.setdefault(kind, []).append(start.elapsed_time(end))
+    pipe.graphs.events = None
+    if "full" not in by:
+        raise AssertionError(f"{label}: no full step in the replay chunk")
+    for kind, ms in sorted(by.items()):
+        print(f"{label} replayed {kind}: {len(ms)} steps, mean "
+              f"{np.mean(ms):.2f} ms (min {np.min(ms):.2f}, max "
+              f"{np.max(ms):.2f}; CUDA events) [{card}]")
+
+
+def serve_chunked(card: str, bundle: ModelBundle, label: str, config,
+                  first, late=None, k: int = CHUNK_K, prewarm=None,
+                  per_step=None, window=None, full=None) -> list:
+    """The same requests served through ``Engine`` twice, each dispatch
+    a chunk of up to ``k`` steps replayed from captured step graphs (after
+    ``engine.prewarm(**prewarm)``), then one step at a time.  ``first``:
+    (resolution, steps) of the first requests; ``late``: (after, (res,
+    steps)), a request added once the first has taken ``after`` steps.
+    Checks each request's final latents within CHUNK_MAX_REL of max |ref|
+    (printing whether they are bitwise equal), the realized deep mode of
+    every step, the launches (equal between the runs and to
+    ``per_step(mode)`` summed over the steps), and that serving after
+    prewarm captured no new graph; prints the prewarm seconds, the graph
+    memory, each mode's CUDA-event ms a step under both dispatches and
+    the end-to-end seconds, and the graph memory beside the per-step
+    run's peak memory above its start (the eager steps' workspace).
+    ``window``: also time the dispatch cost at that composition
+    (:func:`chunk_window`); ``full``: time a replayed full step there
+    (:func:`replay_full`).  Returns both runs' launches."""
+    runs = {}
+    for spd in (k, 1):
+        cfg = copy.deepcopy(config)
+        cfg.scheduler.steps_per_dispatch = spd
+        cfg.engine.prewarm = spd > 1
+        gc.collect()
+        torch.cuda.empty_cache()
+        engine = Engine(cfg, "cuda", bundle=bundle)
+        pipe = engine.worker.pipeline
+        rec = {}
+        if spd > 1:
+            torch.cuda.synchronize()
+            r0 = torch.cuda.memory_reserved()
+            rec["prewarm_s"] = engine.prewarm(**prewarm)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            rec["graph_bytes"] = torch.cuda.memory_reserved() - r0
+            rec["buffer_bytes"] = unique_nbytes(pipe.graphs.buffers())
+            rec["captures"] = pipe.graphs.captures
+            rec["capture_s"] = pipe.graphs.capture_s
+            rec["row_bytes"] = check_row_budget(pipe, cfg, label, "prewarm")
+            pipe.graphs.events = []
+        pipe.step_modes = []
+        dispatches = spy_dispatch(pipe)
+        reset_counts()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        reqs, outs = [], []
+        for i, (res, steps) in enumerate(first):
+            reqs.append(engine.add_request(f"chunk-{i}", SamplingParams(
+                prompt=f"a chunked prompt {i}", resolution=res,
+                num_inference_steps=steps, seed=i, output_type="latent")))
+        while engine.has_unfinished_requests():
+            if (late is not None and len(reqs) == len(first)
+                    and reqs[0].sampler_table is not None
+                    and reqs[0].sampler_table.step >= late[0]):
+                res, steps = late[1]
+                reqs.append(engine.add_request(
+                    f"chunk-{len(first)}", SamplingParams(
+                        prompt="a late prompt", resolution=res,
+                        num_inference_steps=steps, seed=len(first),
+                        output_type="latent")))
+            outs.extend(engine.step())
+        torch.cuda.synchronize()
+        rec["wall_s"] = time.perf_counter() - t0
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        rec["launches"] = read_counts()
+        rec["modes"] = list(pipe.step_modes)
+        rec["latents"] = {o.request_id: o.image for o in outs}
+        rec["steps"] = sum(d["steps"] for d in dispatches)
+        rec["chunks"] = [d["steps"] for d in dispatches if d.get("chunk")]
+        by_mode: dict = {}
+        for d in dispatches:
+            if not d.get("chunk"):
+                by_mode.setdefault(d["mode"], []).append(
+                    d["start"].elapsed_time(d["end"]))
+        rec["per_step_ms"] = {m: float(np.mean(v)) for m, v in by_mode.items()}
+        chunk_ms: dict = {}
+        for kind, s, e in pipe.graphs.events or ():
+            name = kind if isinstance(kind, str) else kind[0]
+            chunk_ms.setdefault(name, []).append(s.elapsed_time(e))
+        rec["chunk_ms"] = {m: float(np.mean(v)) for m, v in chunk_ms.items()}
+        if spd > 1:
+            check_row_budget(pipe, cfg, label, "serving")
+            if pipe.graphs.captures != rec["captures"]:
+                raise AssertionError(
+                    f"{label}: serving after prewarm captured "
+                    f"{pipe.graphs.captures - rec['captures']} new graphs")
+            if not rec["chunks"]:
+                raise AssertionError(f"{label}: no chunk ran")
+            if window is not None:
+                pipe.graphs.events = None
+                rec["window"] = {c: chunk_window(pipe, window, k, 4, c, card)
+                                 for c in (True, False)}
+            if full is not None:
+                replay_full(pipe, full, k, label, card)
+        runs[spd] = rec
+        del engine, pipe
+    chunked, stepped = runs[k], runs[1]
+    bitwise = True
+    for rid, ref in stepped["latents"].items():
+        got = chunked["latents"][rid]
+        if got.shape != ref.shape or not np.isfinite(got).all():
+            raise AssertionError(f"{label}: bad latents {rid} {got.shape}")
+        err = float(np.abs(got - ref).max())
+        bitwise &= err == 0.0
+        if err > CHUNK_MAX_REL * float(np.abs(ref).max()):
+            raise AssertionError(f"{label}: {rid} chunked latents {err:.3e} "
+                                 f"off per-step (max |ref| "
+                                 f"{np.abs(ref).max():.3e})")
+    if chunked["modes"] != stepped["modes"]:
+        raise AssertionError(f"{label}: modes {chunked['modes']} != "
+                             f"per-step {stepped['modes']}")
+    want = {"k1": 0, "flash_mha": 0, "masked": 0, "k4": 0, "k5": 0}
+    for mode in stepped["modes"] or ["off"] * stepped["steps"]:
+        for key, n in per_step(mode).items():
+            want[key] += n
+    if not chunked["launches"] == stepped["launches"] == want:
+        raise AssertionError(f"{label}: launches chunked "
+                             f"{chunked['launches']}, per-step "
+                             f"{stepped['launches']}, expected {want}")
+    print(f"{label}: chunks {chunked['chunks']} of {chunked['steps']} steps; "
+          f"latents bitwise equal to per-step: {bitwise}; modes "
+          f"{collections.Counter(chunked['modes'])}; launches "
+          f"{chunked['launches']}; end to end {chunked['wall_s']:.3f} s "
+          f"chunked, {stepped['wall_s']:.3f} s per-step; prewarm "
+          f"{chunked['prewarm_s']:.1f} s, {chunked['captures']} graphs "
+          f"captured in {chunked['capture_s']:.2f} s, "
+          f"graph memory {chunked['graph_bytes'] / 2**20:.1f} MiB (step-set "
+          f"buffers {chunked['buffer_bytes'] / 2**20:.1f} MiB, row state "
+          f"after prewarm {chunked['row_bytes'] / 2**20:.1f} MiB) against the "
+          f"per-step run's peak {stepped['peak_bytes'] / 2**20:.1f} MiB "
+          f"above its start [{card}]")
+    for mode in sorted(set(chunked["chunk_ms"]) | set(stepped["per_step_ms"])):
+        c, s = chunked["chunk_ms"].get(mode), stepped["per_step_ms"].get(mode)
+        print(f"{label} step {mode}: chunked (graph replays) "
+              + ("-" if c is None else f"{c:.2f}")
+              + " ms, per-step " + ("-" if s is None else f"{s:.2f}")
+              + f" ms (CUDA events) [{card}]")
+    return [chunked["launches"], stepped["launches"]]
+
+
+def serve_sd15_chunked(card: str, bundle: ModelBundle) -> list:
+    """SD-1.5 dense 512^2 x 2, cache off, chunks of CHUNK_K, with the
+    dispatch window; then ``production("sd15", serving=True)`` under
+    ESyMReD: 3 x 512^2 and a fourth admitted after CHUNK_SD15_ADMIT steps
+    (hybrid_partial chunks, the admission's warmup as partial steps)."""
+    cfg = bundle.denoiser.cfg
+    per = deep_launches(cfg, 512)
+    config = default_config("sd15", dtype="bfloat16", seed=0)
+    config.scheduler.use_mixed_resolution = False
+    runs = serve_chunked(
+        card, bundle, "SD-1.5 dense 512^2 x 2, chunked", config,
+        [(512, CHUNK_SD15_STEPS)] * 2, prewarm=dict(
+            resolutions=(512,), buckets=(2,)),
+        per_step=lambda mode: {**per["full"], "flash_mha": 0, "masked": 0,
+                               "k4": 0},
+        window={512: 2})
+    config = default_config("sd15", dtype="bfloat16", seed=0)
+    config.scheduler.use_mixed_resolution = False
+    config.scheduler.policy = "esymred"
+    config.scheduler.slo_scale = 1e4
+    config.cache = CacheConfig.production("sd15", serving=True)
+    runs += serve_chunked(
+        card, bundle, "SD-1.5 serving preset, chunked", config,
+        [(512, DEEP_SD15_STEPS)] * 3,
+        late=(CHUNK_SD15_ADMIT, (512, DEEP_SD15_STEPS - CHUNK_SD15_ADMIT)),
+        k=CHUNK_SD15_K, prewarm=dict(resolutions=(512,), buckets=(2, 4)),
+        per_step=lambda mode: {**per[mode], "flash_mha": 0, "masked": 0,
+                               "k4": 0})
+    return runs
+
+
+def serve_sdxl_chunked(card: str, bundle: ModelBundle) -> list:
+    """SDXL's mix 768^2 + 3 x 1024^2 under ``production("sdxl",
+    serving=True)``: mixed-path chunks (the masked kernel, K4 and K5
+    replayed), the composition prewarmed."""
+    config = default_config("sdxl", dtype="bfloat16", seed=0)
+    config.cache = CacheConfig.production("sdxl", serving=True)
+    per = mixed_launches(bundle.denoiser.cfg, 2)
+    return serve_chunked(
+        card, bundle, "SDXL mix 768^2 + 3 x 1024^2, chunked", config,
+        [(r, MIXED_DEEP_STEPS) for r in MIXED_REQUESTS],
+        prewarm=dict(resolutions=(), buckets=(), steps=4,
+                     compositions=[{768: 1, 1024: 3}]),
+        per_step=lambda mode: per[mode], full={768: 1, 1024: 3})
+
+
+def serve_sd3_chunked(card: str, bundle: ModelBundle) -> list:
+    """SD3.5-medium 4 x 1024^2 under ``production("sd3", serving=True)``
+    (span 1:24, interval 16): chunks of CHUNK_SD3_K, the first entering
+    mid-interval, on the token path."""
+    config = default_config("sd3", dtype="bfloat16", seed=0)
+    config.cache = CacheConfig.production("sd3", serving=True)
+    span = config.cache.sd3_deep_span
+    return serve_chunked(
+        card, bundle, "SD3 4 x 1024^2 span 1:24, chunked", config,
+        [(1024, CHUNK_SD3_STEPS)] * 4, k=CHUNK_SD3_K,
+        prewarm=dict(resolutions=(1024,), buckets=(4,), steps=4),
+        full={1024: 4},
+        per_step=lambda mode: {
+            "k1": 0, "flash_mha": 0, "k4": 0, "k5": 0,
+            "masked": sd3_attentions(bundle, span if mode == "shallow"
+                                     else (0, 0))})
+
+
 def reset_counts() -> None:
     flash_mha_fused.launches = flash_mha.launches = 0
     flash_mha_masked.launches = gn_silu_halo.launches = 0
@@ -3356,6 +3770,7 @@ def main() -> None:
     runs += serve_sdxl_deep(card, bundle)
     check_mixed_deep_invariant(bundle, card)
     runs += serve_sdxl_mixed_deep(card, bundle)
+    runs += serve_sdxl_chunked(card, bundle)
     block_runs, off_latents, off_ms = serve_sdxl_block(card, bundle)
     runs += block_runs
     runs += serve_sdxl_compact(card, bundle, off_latents, off_ms)
@@ -3370,6 +3785,7 @@ def main() -> None:
     sd3 = build_sd3_bundle()
     runs += [serve_sd3(card, sd3), serve_sd3_mixed(card, sd3)]
     runs += serve_sd3_deep(card, sd3)
+    runs += serve_sd3_chunked(card, sd3)
     del sd3
     gc.collect()
     torch.cuda.empty_cache()
@@ -3385,6 +3801,7 @@ def main() -> None:
         serve_sd15(card, sd15, False, "euler", STEPS, [512] * 3,
                    async_prepare=True),
         serve_sd15_rowwarm(card, sd15),
+        *serve_sd15_chunked(card, sd15),
         serve_sd15_mixed_deep(card, sd15),
         serve_sd15_snapshot(card, sd15),
     ]

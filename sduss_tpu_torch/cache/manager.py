@@ -373,11 +373,11 @@ class BlockCache:
 
             y = _tree_map(extrapolate, out, state_k["slope"], y_c)
             _tree_map(new_slope, state_k["slope"], out, y_c)
-            state_k["seen"][idx] = True
+            state_k["seen"].index_fill_(0, idx, True)
         state_k["inp"].index_copy_(0, idx, x_c.to(state_k["inp"].dtype))
         _tree_map(lambda o, f: o.index_copy_(0, idx, f.to(o.dtype)), out, y_c)
         hits.add_(1)
-        hits[idx] = 0
+        hits.index_fill_(0, idx, 0)
         return out if y is None else y
 
     def gate_tokens_fine(self, key: str, x, t_norm, state_k: dict,

@@ -145,10 +145,10 @@ class SchedulerConfig:
     policy: str = "fcfs_mixed"  # fcfs_single|fcfs_mixed|orca_resbyres|orca_round_robin|esymred
     max_batch_size: int = 12
     # Fused multi-step dispatch: when > 1, a stable denoising batch runs up
-    # to this many sampler steps per host dispatch.  Admissions and aborts
-    # then act at chunk boundaries.  Ineligible configurations (stateful
-    # samplers, adaptive deep refresh, stale-KV, mixed batches) fall back
-    # to per-step dispatch.
+    # to this many sampler steps per host dispatch (on the card, replays of
+    # captured step graphs).  Admissions and aborts then act at chunk
+    # boundaries.  Ineligible configurations (stateful samplers, adaptive
+    # deep refresh, stale-KV, SD3 mixed batches) step once per dispatch.
     steps_per_dispatch: int = 1
     # Mixed-resolution patch batching.
     use_mixed_resolution: bool = True
@@ -309,7 +309,8 @@ class EngineConfig:
     """Front-end engine + dispatcher settings."""
 
     dispatcher_policy: str = "greedy"
-    # Warm every step program at startup (no effect in the eager port).
+    # Warm every step kind at startup (Engine.prewarm): the kernels are
+    # built and, with steps_per_dispatch > 1, the step graphs captured.
     prewarm: bool = False
     # Max denoise steps the host may dispatch ahead of the device (see
     # engine/worker.py module docstring).  0 disables throttling.

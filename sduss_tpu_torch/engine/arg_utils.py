@@ -2,9 +2,9 @@
 sduss_tpu/engine/arg_utils.py).
 
 The JAX package's flags with its defaults, plus ``--device``.  Flags of
-paths the port does not serve yet (``--dp``/``--tp``/``--sp`` above 1,
-``--prewarm``) parse as there and are refused by
-``engine.check_supported`` when the Engine is built.
+paths the port does not serve yet (``--dp``/``--tp``/``--sp`` above 1)
+parse as there and are refused by ``engine.check_supported`` when the
+Engine is built.
 """
 
 from __future__ import annotations
@@ -74,8 +74,8 @@ def add_engine_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     g.add_argument("--dispatcher-policy", type=str, default="greedy")
     g.add_argument("--collect-data", action="store_true")
     g.add_argument("--prewarm", action="store_true",
-                   help="warm every step program before serving (refused: "
-                        "eager PyTorch has none)")
+                   help="build the kernels and capture the step graphs "
+                        "before serving (Engine.prewarm)")
     return parser
 
 

@@ -65,6 +65,10 @@ class AsyncEngine:
                  device: torch.device | str = "cuda"):
         self.config = config
         self.engine = engine or Engine(config, device)
+        if config.engine.prewarm:
+            # blocking by design: serving starts with the kernels built and
+            # the step graphs captured (Engine.prewarm)
+            self.engine.prewarm()
         self._streams: Dict[str, AsyncStream] = {}
         self._loop_task: Optional[asyncio.Task] = None
         self._executor = ThreadPoolExecutor(max_workers=1,

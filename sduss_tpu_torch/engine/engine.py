@@ -7,27 +7,32 @@ dispatch over replicas comes back with ``dp > 1``).  ``step()``,
 ``add_request()``, ``abort_requests()`` and ``has_unfinished_requests()``
 keep the JAX engine's semantics; ``abort_requests`` also reaches requests
 parked in PREPARING or DECODING while a worker thread runs their stage.
-There is no compilation cache and no prewarm program matrix: eager PyTorch
-compiles nothing ahead of a step (CUDA-graph capture is later work), so
-``engine.prewarm`` raises.
+There is no compilation cache: eager PyTorch compiles nothing ahead of a
+step.  ``prewarm`` builds the kernels and, with ``steps_per_dispatch >
+1``, captures the step graphs that chunks replay (``pipelines/graphs.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import csv
+import gc
 import os
 import time
-from typing import List, Optional, Sequence, Set
+from typing import Dict, List, Optional, Sequence, Set
 
 import torch
 
 from sduss_tpu_torch.config import Config
+from sduss_tpu_torch.logger import init_logger
 from sduss_tpu_torch.metrics import EngineStats
 from sduss_tpu_torch.request import Request, RequestOutput, SamplingParams, Stage
 from sduss_tpu_torch import configure_numerics
 from sduss_tpu_torch.engine.worker import Worker
 from sduss_tpu_torch.models.registry import ModelBundle
 from sduss_tpu_torch.pipelines import build_pipeline
+
+logger = init_logger(__name__)
 
 
 def check_supported(config: Config) -> None:
@@ -47,23 +52,14 @@ def check_supported(config: Config) -> None:
     ``patch_fraction < 1``, with ``fine_stale_kv``), alone or together, on
     its token path.  As in JAX, an SD3 config with ``mode="deep"`` and no
     ``sd3_deep_span`` mints no cache at all, and the UNet families ignore
-    ``sd3_deep_span``.  What is refused: ``engine.prewarm`` and
-    ``steps_per_dispatch`` above 1 (item 3) and more than one device (item
-    10)."""
-    par, sc = config.parallel, config.scheduler
-    if config.engine.prewarm:
-        raise NotImplementedError(
-            "engine.prewarm compiles the step programs ahead of serving; "
-            "eager PyTorch has no program to compile (step capture with "
-            "CUDA graphs is ROADMAP Queue 1 item 3)")
-    if par.world_size != 1:
+    ``sd3_deep_span``.  ``steps_per_dispatch`` above 1 runs fused
+    multi-step chunks (captured step graphs on the card) and
+    ``engine.prewarm`` warms them.  What is refused: more than one device
+    (item 10)."""
+    if config.parallel.world_size != 1:
         raise NotImplementedError("multi-device serving is not ported "
                                   "(dp = tp = sp = pp = 1; ROADMAP Queue 1 "
                                   "item 10)")
-    if sc.steps_per_dispatch != 1:
-        raise NotImplementedError("fused multi-step dispatch is not ported "
-                                  "(steps_per_dispatch=1; ROADMAP Queue 1 "
-                                  "item 3)")
 
 
 class Engine:
@@ -139,6 +135,210 @@ class Engine:
             outputs.append(out)
         return outputs
 
+    # -- prewarm -------------------------------------------------------------
+
+    def prewarm(self, resolutions: Optional[Sequence[int]] = None,
+                buckets: Optional[Sequence[int]] = None,
+                steps: Optional[int] = None,
+                compositions: Optional[Sequence[Dict[int, int]]] = None
+                ) -> float:
+        """Warm every (resolution x batch bucket) step ahead of serving
+        with throwaway requests (JAX engine.py:141-199); returns the
+        elapsed seconds and resets the engine's stats.
+
+        Each pair up to ``max_batch_size`` runs ``steps`` per-step steps
+        (with a deep or span cache, by default enough for the full and the
+        shallow kinds: warmup + interval + 1), releases its state and
+        decodes.  Then, pair by pair, with ``steps_per_dispatch > 1`` a
+        second set of requests runs to its end in chunks, capturing each
+        step kind its trajectory reaches (``_prewarm_chunk``), and with the
+        row warmup the partial kinds of every row bucket below the batch's
+        (``_prewarm_partial``); the step sets keep their rows and graphs
+        for serving as far as ``comp_state_bytes`` allows.
+        ``compositions``, mixed batches ``{res: count}``, run the patch
+        path and its chunks; none is enumerated here (JAX's "auto" is not
+        ported).  ``resolutions`` and ``buckets`` default to the config's;
+        an empty list warms no uniform batch.  The adaptive refresh's drift
+        threshold is pinned at inf, so that both kinds run.  A bucket whose
+        state does not fit the card (:meth:`_bucket_fits`), or that runs
+        out of memory, caps ``max_batch_size`` at the previous bucket."""
+        if isinstance(compositions, str):
+            raise NotImplementedError(
+                "compositions='auto' (enumerate_mixed_compositions) is not "
+                "ported: pass the mixed batches to warm as a list")
+        t0 = time.time()
+        cc = self.config.cache
+        interval = max(cc.deep_max_interval if cc.deep_adaptive
+                       else cc.deep_interval, 1)
+        if steps is None:
+            steps = 2
+            if cc.enabled and (cc.mode == "deep"
+                               or cc.sd3_deep_span is not None):
+                steps = cc.deep_warmup + interval + 1
+        saved = cc.deep_drift_threshold
+        if cc.enabled and cc.mode == "deep" and cc.deep_adaptive:
+            cc.deep_drift_threshold = float("inf")
+        try:
+            self._prewarm_inner(
+                self.config.model.resolutions if resolutions is None
+                else resolutions, buckets, steps, compositions or ())
+        finally:
+            cc.deep_drift_threshold = saved
+        self.stats = EngineStats()
+        dt = time.time() - t0
+        logger.info("prewarm: %.1f s, %d step graphs captured", dt,
+                    self.worker.pipeline.graphs.captures)
+        return dt
+
+    def _prewarm_inner(self, res_list, buckets, steps: int,
+                       compositions) -> None:
+        """Two passes over (resolution x bucket): first the per-step steps
+        and the decode of each pair, each decode after a release, so that
+        no row state sits beside it; then the chunks and partial steps,
+        whose step sets keep their row buffers and graphs for serving
+        within ``comp_state_bytes`` (those runs end with their throwaway
+        requests' eviction, not a release, which would drop the sets)."""
+        sc, cc = self.config.scheduler, self.config.cache
+        pipe = self.worker.pipeline
+        bks = [b for b in (sc.batch_buckets if buckets is None else buckets)
+               if b <= sc.max_batch_size]
+        for res in res_list:
+            for b in bks:
+                if b > sc.max_batch_size:
+                    break  # capped at a smaller resolution
+                if not self._bucket_fits(pipe, res, b):
+                    self._cap(res, b, bks, "does not fit the card")
+                    break
+                with self._oom_caps(res, b, bks):
+                    reqs = _throwaway(pipe, f"prewarm-{res}-{b}", {res: b},
+                                      steps)
+                    by_res = {res: reqs}
+                    for _ in range(steps):
+                        pipe.denoise_step(by_res)
+                    for r in reqs:
+                        r.stage = Stage.POSTPROCESSING
+                    # the decode is the memory peak: no row state beside it
+                    pipe.release_serving_state()
+                    pipe.postprocess(by_res)
+                if b > sc.max_batch_size:
+                    break
+        partial = (cc.enabled and cc.mode == "deep" and cc.deep_row_warmup
+                   and hasattr(pipe.bundle.denoiser, "_deep_tail"))
+        if sc.steps_per_dispatch > 1 or partial:
+            for res in res_list:
+                for b in [b for b in bks if b <= sc.max_batch_size]:
+                    with self._oom_caps(res, b, bks):
+                        if sc.steps_per_dispatch > 1:
+                            self._prewarm_chunk(pipe, res, b)
+                        if partial:
+                            self._prewarm_partial(pipe, res, b)
+                    if b > sc.max_batch_size:
+                        break
+        k = sc.steps_per_dispatch
+        itv = max(cc.deep_interval, 1) if cc.enabled else 1
+        for comp in compositions:
+            by_res: Dict[int, List[Request]] = {}
+            reqs = _throwaway(pipe, "prewarm-mix", comp, steps + itv + k + 2)
+            for r in reqs:
+                by_res.setdefault(r.resolution, []).append(r)
+            for _ in range(steps):
+                pipe.denoise_step_mixed(by_res)
+            if k > 1:
+                _drive(by_res, pipe.denoise_chunk_mixed,
+                       pipe.denoise_step_mixed, k)
+            pipe.evict_finished_state([r.request_id for r in reqs])
+
+    def _cap(self, res: int, b: int, bks, why: str) -> None:
+        """Cap ``max_batch_size`` below bucket ``b``."""
+        sc = self.config.scheduler
+        prev = max((x for x in bks if x < b), default=1)
+        logger.warning("prewarm: res %d bucket %d %s: max_batch_size capped "
+                       "at %d", res, b, why, prev)
+        sc.max_batch_size = min(sc.max_batch_size, prev)
+
+    @contextlib.contextmanager
+    def _oom_caps(self, res: int, b: int, bks):
+        """A bucket that runs out of the card's memory caps
+        ``max_batch_size`` below it and releases the serving state."""
+        try:
+            yield
+        except torch.cuda.OutOfMemoryError:
+            self._cap(res, b, bks, "ran out of memory")
+            self.worker.pipeline.release_serving_state()
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    def _device_bytes(self) -> float:
+        """The card's memory (``torch.cuda.mem_get_info``), or
+        ``engine.hbm_bytes_fallback`` on the CPU."""
+        if self.device.type == "cuda":
+            return float(torch.cuda.mem_get_info(self.device)[1])
+        return float(self.config.engine.hbm_bytes_fallback)
+
+    def _bucket_fits(self, pipe, res: int, bucket: int) -> bool:
+        """Prewarm's capacity gate (JAX engine.py:229-259): the parameters,
+        the row state held now (the composition stores and the step sets'
+        row buffers), the bucket's composition state (from the layouts'
+        shapes, nothing allocated) and ``prewarm_hbm_margin`` must fit the
+        card.  With ``steps_per_dispatch > 1`` the bucket's state counts
+        twice: a composition's fresh rows are copied into its step set's
+        buffer when that buffer already holds an earlier one's
+        (``pipelines/graphs.py``)."""
+        need = pipe.estimate_serving_state_bytes(res, bucket)
+        if not need:
+            return True
+        if self.config.scheduler.steps_per_dispatch > 1:
+            need *= 2
+        total = (pipe.device_param_bytes() + pipe._row_state_bytes() + need
+                 + float(self.config.engine.prewarm_hbm_margin))
+        return total <= self._device_bytes()
+
+    def _prewarm_chunk(self, pipe, res: int, b: int) -> None:
+        """Throwaway requests of (res, b) run to their end in chunks of
+        ``steps_per_dispatch`` (per-step where a chunk is not eligible, as
+        the worker serves them), long enough for an interval's full inside
+        a chunk (JAX engine.py:261-291 stops at the first chunk: its one
+        program holds every kind, a step graph holds one)."""
+        cc = self.config.cache
+        k = self.config.scheduler.steps_per_dispatch
+        n_steps = k + max(cc.deep_interval, 1) + max(cc.deep_warmup, 0) + 2
+        reqs = _throwaway(pipe, f"prewarm-chunk-{res}-{b}", {res: b}, n_steps)
+        if not _drive({res: reqs}, pipe.denoise_chunk, pipe.denoise_step, k):
+            logger.info("prewarm: no chunk is eligible at res %d bucket %d "
+                        "under this configuration", res, b)
+        pipe.evict_finished_state([r.request_id for r in reqs])
+
+    def _prewarm_partial(self, pipe, res: int, b: int) -> None:
+        """The row warmup's partial steps of (res, b), one per power-of-two
+        row bucket kb < b (JAX engine.py:293-335): past the warmup, the
+        deep features of kb requests are dropped before a dispatch, as an
+        admission leaves them; with ``steps_per_dispatch > 1`` that
+        dispatch is a chunk, capturing the partial kind."""
+        cc = self.config.cache
+        k = self.config.scheduler.steps_per_dispatch
+        kbs = []
+        kb = 1
+        while kb < b:
+            kbs.append(kb)
+            kb *= 2
+        if not kbs or max(cc.deep_interval, 1) <= 1:
+            return
+        warm = max(cc.deep_warmup, 0)
+        reqs = _throwaway(pipe, f"prewarm-partial-{res}-{b}", {res: b},
+                          warm + 1 + len(kbs) * max(k, 1))
+        by_res = {res: reqs}
+        for _ in range(warm + 1):
+            pipe.denoise_step(by_res)
+        for kb in kbs:
+            for j, r in enumerate(reqs):
+                if j < kb:
+                    r.deep_state = None
+                r.deep_age = 0
+            n = min(k, min(r.remain_steps for r in reqs))
+            if not (n > 1 and pipe.denoise_chunk(by_res, n)):
+                pipe.denoise_step(by_res)
+        pipe.evict_finished_state([r.request_id for r in reqs])
+
     # -- data collection -----------------------------------------------------
 
     def dump_data(self, out_dir: Optional[str] = None) -> None:
@@ -155,3 +355,29 @@ class Engine:
                 w = csv.DictWriter(f, fieldnames=list(log[0]))
                 w.writeheader()
                 w.writerows(log)
+
+
+def _throwaway(pipe, prefix: str, comp: Dict[int, int], steps: int):
+    """Prepared DENOISING requests, ``comp[res]`` at each resolution."""
+    reqs = [Request(f"{prefix}-{res}-{i}", SamplingParams(
+                prompt="", resolution=res, num_inference_steps=steps, seed=0))
+            for res, count in sorted(comp.items()) for i in range(count)]
+    pipe.prepare(reqs)
+    for r in reqs:
+        r.stage = Stage.DENOISING
+    return reqs
+
+
+def _drive(by_res, chunk, step, k: int) -> bool:
+    """Run the requests to their end as the worker would: chunks of up to
+    ``k`` steps, one step where a chunk is not eligible.  True when a
+    chunk ran."""
+    reqs = [r for rs in by_res.values() for r in rs]
+    ran = False
+    while min(r.remain_steps for r in reqs) > 0:
+        n = min(k, min(r.remain_steps for r in reqs))
+        if n > 1 and chunk(by_res, n):
+            ran = True
+        else:
+            step(by_res)
+    return ran

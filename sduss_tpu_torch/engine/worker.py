@@ -1,11 +1,16 @@
 """Per-replica worker (counterpart of sduss_tpu/engine/worker.py).
 
 One engine iteration = one scheduled stage execution: PREPARE, one
-DENOISING step, or POSTPROCESSING, chosen by the port's copy of the
+DENOISING dispatch, or POSTPROCESSING, chosen by the port's copy of the
 scheduler (``sduss_tpu_torch.scheduler``).  A DENOISING batch that mixes
 resolutions runs as one forward (``denoise_step_mixed``: a patched UNet
 for SDXL, a padded-token MMDiT for SD3) when
-``scheduler.use_mixed_resolution`` is on.
+``scheduler.use_mixed_resolution`` is on.  With
+``scheduler.steps_per_dispatch`` k > 1 a dispatch first tries a chunk of
+``min(k, remain_steps)`` steps (``denoise_chunk``, or
+``denoise_chunk_mixed`` for a mixed batch), as the JAX worker does
+(worker.py:238-257), and steps once where the chunk is not eligible; the
+policy's step-time feedback divides the dispatch by its steps.
 
 PyTorch launches CUDA work asynchronously, so, as
 in the JAX worker, the host's lead over the device is bounded: after each
@@ -75,6 +80,9 @@ class Worker:
                 max_workers=1, thread_name_prefix=f"post-{rank}")
             if (True if app == "auto" else bool(app)) else None)
         self._posting: collections.deque = collections.deque()
+        if config.scheduler.steps_per_dispatch > 1:
+            # a step-graph capture never races a background decode
+            pipeline.graphs.before_capture = self._wait_posted
 
     # -- request management --------------------------------------------------
 
@@ -178,6 +186,11 @@ class Worker:
             block = False  # drain further completed futures without waiting
         return finished
 
+    def _wait_posted(self) -> None:
+        """Wait for the decodes in flight on the post thread (their
+        results are read later, by ``_poll_posted``)."""
+        concurrent.futures.wait([fut for fut, _ in self._posting])
+
     def _poll_prepared(self, block: bool) -> None:
         """Release the requests whose background prepare completed; with
         ``block``, wait briefly on the oldest one in flight."""
@@ -209,7 +222,18 @@ class Worker:
             pipe.prepare(batch.requests)
         elif batch.stage is Stage.DENOISING:
             t0 = time.perf_counter()
-            if batch.mixed and self.config.scheduler.use_mixed_resolution:
+            mixed = batch.mixed and self.config.scheduler.use_mixed_resolution
+            k = min(self.config.scheduler.steps_per_dispatch,
+                    min(r.remain_steps for r in batch.requests))
+            steps_run = 1
+            # fused multi-step dispatch: k steps in one dispatch, tables and
+            # latents advanced by k, scheduling at chunk boundaries; an
+            # ineligible configuration returns False and steps once
+            if k > 1 and (pipe.denoise_chunk_mixed(by_res, k) if mixed
+                          else not batch.mixed
+                          and pipe.denoise_chunk(by_res, k)):
+                steps_run = k
+            elif mixed:
                 pipe.denoise_step_mixed(by_res)
             else:
                 pipe.denoise_step(by_res)
@@ -220,7 +244,8 @@ class Worker:
                 # saturated: wall time per iteration tracks device time,
                 # so feed the realized step time back to the policy
                 self.scheduler.policy.observe_step_time(
-                    batch.requests, (time.perf_counter() - t0) * 1e3)
+                    batch.requests,
+                    (time.perf_counter() - t0) * 1e3 / steps_run)
         elif batch.stage is Stage.POSTPROCESSING:
             self._drain_inflight()
             # Background the decode only when no other decode group is in

@@ -44,14 +44,20 @@ back, so rows follow membership changes.  On the dense path mode "block"
 is cache-off, as in the JAX package, and mode "compact" keeps its rows in
 a ``"unet_compact"`` entry of the composition store, anchored by one step
 at full capacity.  The SD3 pipeline runs its own caches on its token path
-(``pipelines/sd3.py``).  The fused multi-step dispatch is not ported yet.
+(``pipelines/sd3.py``).
+
+Fused multi-step dispatch (``SchedulerConfig.steps_per_dispatch``):
+``denoise_chunk`` (dense) and ``denoise_chunk_mixed`` (patch path) run k
+steps in one dispatch with the JAX package's eligibility rules and
+in-chunk schedules, from the same per-step bodies; on the card each step
+replays a captured CUDA graph of its kind (``pipelines/graphs.py``).
 """
 
 from __future__ import annotations
 
 import collections
 import functools
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -62,7 +68,9 @@ from sduss_tpu_torch.request import Request
 from sduss_tpu_torch.models.registry import ModelBundle
 from sduss_tpu_torch.models.safety_checker import SafetyChecker
 from sduss_tpu_torch.ops import patching
-from sduss_tpu_torch.ops.patch_ctx import PatchContext
+from sduss_tpu_torch.ops.patch_ctx import PatchContext, compact_context
+from sduss_tpu_torch.pipelines.graphs import (StepGraphs, keep_leaves,
+                                              store, unique_nbytes)
 from sduss_tpu_torch.samplers import gather_coeffs, gather_timesteps, get_sampler
 
 # tokenizer arguments of every text encode: a snapshot's transformers
@@ -77,6 +85,13 @@ def _pad_batch(arr: torch.Tensor, target: int) -> torch.Tensor:
     if b == target:
         return arr
     return torch.cat([arr, arr[-1:].expand((target - b,) + arr.shape[1:])])
+
+
+def _split_tc(tc: torch.Tensor, n_t: int, n_c: Optional[int] = None):
+    """A ``"tc"`` row of :meth:`BasePipeline._step_rows` -> ``(t (n_t,),
+    coeffs (n_c, 2))``, contiguous views."""
+    n_c = n_t if n_c is None else n_c
+    return tc[:n_t], tc[n_t:n_t + 2 * n_c].view(n_c, 2)
 
 
 def _latent_drift(new, ref):
@@ -140,6 +155,10 @@ class BasePipeline:
         self._deep_carry: collections.OrderedDict = collections.OrderedDict()
         self._cache_obj = None
         self._safety_obj = None
+        # the captured step graphs of fused multi-step dispatch, and, when
+        # a caller sets it to a list, the deep mode of every step run
+        self.graphs = StepGraphs(self.device)
+        self.step_modes = None
 
     # -- family hooks --------------------------------------------------------
 
@@ -194,18 +213,24 @@ class BasePipeline:
             if reqs_by_res[res]:
                 self._denoise_group(reqs_by_res[res])
 
-    def _denoise_group(self, reqs: List[Request]) -> None:
-        tables = [r.sampler_table for r in reqs]
-        dev = self.device
+    def _group_batch(self, reqs: List[Request]):
+        """``(latents, guidance, cond)`` of a dense batch, request rows in
+        order."""
         latents = torch.cat([r.latents for r in reqs], dim=0)
-        t = torch.from_numpy(gather_timesteps(tables)).to(dev)
-        coeffs = torch.from_numpy(gather_coeffs(tables)).to(dev)
         guidance = torch.tensor(
             [r.params.guidance_scale if r.params.guidance_scale is not None
              else self.spec.default_guidance for r in reqs],
-            dtype=torch.float32, device=dev)
+            dtype=torch.float32, device=self.device)
         cond = {key: torch.cat([r.conditioning[key] for r in reqs], dim=0)
                 for key in reqs[0].conditioning}
+        return latents, guidance, cond
+
+    def _denoise_group(self, reqs: List[Request]) -> None:
+        tables = [r.sampler_table for r in reqs]
+        dev = self.device
+        latents, guidance, cond = self._group_batch(reqs)
+        t = torch.from_numpy(gather_timesteps(tables)).to(dev)
+        coeffs = torch.from_numpy(gather_coeffs(tables)).to(dev)
         # the JAX branch order: a stateful sampler first (PNDM runs without
         # the caches, in both packages), then the deep cache, then compact
         if self.sampler.needs_state:
@@ -299,17 +324,29 @@ class BasePipeline:
         sig = (type(cache).__name__, cc.min_level, cc.compact_fraction)
         entry = self._comp_state_entry("unet_compact", res, reqs, bb, sig,
                                        mk_state)
-        row_valid = torch.zeros(bb, dtype=torch.bool, device=self.device)
-        row_valid[:len(reqs)] = True
-        kwargs = dict(cache=cache, cache_state=entry["state"],
+        out = self._compact_step(latents, t, coeffs, guidance, cond,
+                                 entry["state"], self._row_valid(len(reqs), bb),
+                                 sync=not entry["anchored"])
+        entry["anchored"] = True
+        return out
+
+    def _compact_step(self, latents, t, coeffs, guidance, cond, state,
+                      row_valid, sync: bool):
+        """One compact-cache step of the padded batch over the rows
+        ``state``; ``row_valid`` (bb,) marks the real rows, ``sync`` runs
+        every row (the anchoring step)."""
+        kwargs = dict(cache=self._block_cache(), cache_state=state,
                       row_valid=torch.cat([row_valid, row_valid]),
-                      compact_sync=not entry["anchored"])
+                      compact_sync=sync)
         noise_pred, c0, c1, _ = self._cfg_step(
             latents, t, coeffs, guidance,
             lambda lat_in, t2: self.denoiser_forward(lat_in, t2, cond,
                                                      **kwargs))
-        entry["anchored"] = True
         return self.sampler.step(latents, noise_pred, c0, c1)
+
+    def _row_valid(self, b: int, n: int) -> torch.Tensor:
+        """(n,) bool: True at the batch's ``b`` real rows."""
+        return torch.arange(n, device=self.device) < b
 
     # -- the deep cache on the dense path (CacheConfig.mode "deep") ----------
 
@@ -431,9 +468,17 @@ class BasePipeline:
             sel = np.full((kb,), need[0], np.int64)
             sel[:len(need)] = need
             sel = torch.from_numpy(sel).to(self.device)
+        self._record_mode(mode)
+        if entry is not None:
+            # an un-anchored entry forces mode "full" above, whose
+            # write-through anchors every gated pair's rows
+            assert entry["anchored"] or mode == "full"
         new_latents, deep_out = self._deep_step(
-            mode, reqs, bb, latents, t, coeffs, guidance, cond, deep, entry,
+            mode, self._row_valid(len(reqs), bb), latents, t, coeffs,
+            guidance, cond, deep, None if entry is None else entry["state"],
             sel)
+        if entry is not None and mode == "full":
+            entry["anchored"] = True
         refreshed = (set(range(len(reqs))) if mode == "full"
                      else need_set if mode == "partial" else set())
         for i, r in enumerate(reqs):
@@ -457,21 +502,16 @@ class BasePipeline:
             self._deep_carry_put(carry_key, deep_out, reqs)
         return new_latents
 
-    def _deep_step(self, mode, reqs, bb, latents, t, coeffs, guidance, cond,
-                   deep, entry, sel):
+    def _deep_step(self, mode, row_valid, latents, t, coeffs, guidance,
+                   cond, deep, state, sel):
         """One deep-mode step of the padded batch: CFG forward in ``mode``
-        (with the hybrid's row caches when ``entry`` is given: CFG-doubled
-        rows ``[uncond x bb | cond x bb]``, pad rows masked out of the
-        gates) and the sampler update.  Returns ``(new_latents,
-        deep_feature)``; a full step anchors the hybrid entry."""
+        (with the hybrid's row caches ``state`` when given: CFG-doubled
+        rows ``[uncond x bb | cond x bb]``, the pad rows, False in
+        ``row_valid``, masked out of the gates) and the sampler update.
+        Returns ``(new_latents, deep_feature)``."""
         kwargs = dict(deep_mode=mode, deep_state=deep, deep_sel=sel)
-        if entry is not None:
-            # an un-anchored entry forces mode "full" upstream, whose
-            # write-through anchors every gated pair's rows
-            assert entry["anchored"] or mode == "full"
-            row_valid = torch.zeros(bb, dtype=torch.bool, device=self.device)
-            row_valid[:len(reqs)] = True
-            kwargs.update(cache=self._cache_obj, cache_state=entry["state"],
+        if state is not None:
+            kwargs.update(cache=self._cache_obj, cache_state=state,
                           row_valid=torch.cat([row_valid, row_valid]))
 
         def call(lat_in, t2):
@@ -480,8 +520,6 @@ class BasePipeline:
 
         noise_pred, c0, c1, deep_out = self._cfg_step(
             latents, t, coeffs, guidance, call)
-        if entry is not None and mode == "full":
-            entry["anchored"] = True
         return self.sampler.step(latents, noise_pred, c0, c1), deep_out
 
     def _deep_carry_get(self, key, reqs):
@@ -669,21 +707,43 @@ class BasePipeline:
         self._trim_comp_state()
 
     def _trim_comp_state(self) -> None:
-        """Evict the oldest entries past ``comp_state_lru`` entries or
-        ``comp_state_bytes`` bytes, always keeping the newest."""
+        """Evict the oldest entries past ``comp_state_lru`` entries, then
+        keep the row state within ``comp_state_bytes``
+        (:meth:`_trim_row_state`)."""
         store = self._comp_state
         lru = max(int(self.config.cache.comp_state_lru), 1)
         while len(store) > lru:
             store.popitem(last=False)
+        self._trim_row_state(store)
+
+    def _trim_row_state(self, store) -> None:
+        """Keep the row state, the composition stores' and the step sets'
+        buffers together (:meth:`_row_state_bytes`), within
+        ``comp_state_bytes``: first drop the oldest step sets whose rows
+        no live entry holds (their graphs go with them; the newest set
+        stays), then the oldest entries of ``store``, always keeping its
+        newest."""
         budget = float(self.config.cache.comp_state_bytes)
-        while (len(store) > 1 and sum(_state_nbytes(e["state"])
-                                      for e in store.values()) > budget):
+        while self._row_state_bytes() > budget:
+            if self.graphs.drop_idle(self._entry_live):
+                continue
+            if len(store) <= 1:
+                break
             store.popitem(last=False)
 
+    def _live_entries(self) -> list:
+        """The composition stores' entries."""
+        return list(self._comp_state.values())
+
+    def _entry_live(self, entry: dict) -> bool:
+        return any(entry is e for e in self._live_entries())
+
     def release_serving_state(self) -> None:
-        """Drop every composition's row caches and deep carry."""
+        """Drop every composition's row caches and deep carry, and the
+        step sets holding row state, with their graphs."""
         self._comp_state.clear()
         self._deep_carry.clear()
+        self.graphs.drop_rows()
 
     def evict_finished_state(self, req_ids) -> None:
         """Drop the composition-state entries of any finished or aborted
@@ -760,11 +820,7 @@ class BasePipeline:
             if not entry["anchored"]:
                 deep_mode = "full"  # the write-through anchors fresh rows
 
-        x = torch.cat([patching.split_latent(r.latents, cells)
-                       for r in ordered], dim=0)
-        if x.shape[0] < meta.p_pad:
-            x = torch.cat([x, x.new_zeros((meta.p_pad - x.shape[0],)
-                                          + x.shape[1:])], dim=0)
+        x, guidance, cond = self._patch_batch(ordered, meta, cells)
 
         # per-image rows padded to i_pad (coefficients with 1.0, so the pad
         # slots' sampler math stays finite)
@@ -776,24 +832,21 @@ class BasePipeline:
         tables = [r.sampler_table for r in ordered]
         t = pad_i(gather_timesteps(tables))
         coeffs = pad_i(gather_coeffs(tables), fill=1.0)
-        guidance = pad_i(np.asarray(
-            [r.params.guidance_scale if r.params.guidance_scale is not None
-             else self.spec.default_guidance for r in ordered], np.float32))
-        cond = {}
-        for key in ordered[0].conditioning:
-            arr = torch.cat([r.conditioning[key] for r in ordered], dim=0)
-            cond[key] = torch.cat([arr, arr.new_zeros(
-                (meta.i_pad - arr.shape[0],) + arr.shape[1:])], dim=0)
 
         ctx1, ctx2 = PatchContext(meta, dev), PatchContext(meta2, dev)
         # the JAX branch order: the deep cache (with or without the
         # hybrid), a stateful sampler, cache-off, then the block cache
         cache = self._block_cache()
         if deep_mode is not None:
+            self._record_mode(deep_mode)
+            if entry is not None:
+                assert entry["anchored"] or deep_mode == "full"
             new_x, deep_out = self._deep_step_mixed(
                 deep_mode, x, t, coeffs, guidance, cond, ctx1, ctx2,
                 self._gather_deep_mixed(ordered, grids, meta, deep_mode),
-                entry)
+                None if entry is None else entry["state"])
+            if entry is not None and deep_mode == "full":
+                entry["anchored"] = True
             self._scatter_deep_mixed(ordered, grids, meta, deep_mode,
                                      deep_out)
         elif self.sampler.needs_state:
@@ -825,6 +878,25 @@ class BasePipeline:
                 # deep features came from; shallow: this step's output
                 self._note_drift(r, deep_mode,
                                  prev if deep_mode == "full" else r.latents)
+
+    def _patch_batch(self, ordered, meta, cells: int):
+        """``(x, guidance, cond)`` of a patch batch: the requests' patches,
+        patch-major, zero-padded to ``meta.p_pad``; guidance and
+        conditioning per image, zero-padded to ``meta.i_pad``."""
+        x = torch.cat([patching.split_latent(r.latents, cells)
+                       for r in ordered], dim=0)
+        x = torch.cat([x, x.new_zeros((meta.p_pad - x.shape[0],)
+                                      + x.shape[1:])], dim=0)
+        guidance = np.zeros((meta.i_pad,), np.float32)
+        guidance[:len(ordered)] = [
+            r.params.guidance_scale if r.params.guidance_scale is not None
+            else self.spec.default_guidance for r in ordered]
+        cond = {}
+        for key in ordered[0].conditioning:
+            arr = torch.cat([r.conditioning[key] for r in ordered], dim=0)
+            cond[key] = torch.cat([arr, arr.new_zeros(
+                (meta.i_pad - arr.shape[0],) + arr.shape[1:])], dim=0)
+        return x, torch.from_numpy(guidance).to(self.device), cond
 
     def _mixed_fn(self, x, t, coeffs, guidance, cond, ctx1, ctx2, state=None,
                   deep=None):
@@ -970,19 +1042,14 @@ class BasePipeline:
             off += n
 
     def _deep_step_mixed(self, mode, x, t, coeffs, guidance, cond, ctx1,
-                         ctx2, deep, entry):
+                         ctx2, deep, state):
         """One deep-mode step of the patch batch (with the hybrid's rows
-        when ``entry`` is given); returns ``(new_x, deep_feature)``.  A
-        full step anchors the entry."""
+        ``state`` when given); returns ``(new_x, deep_feature)``."""
         kwargs = dict(deep_mode=mode, deep_state=deep)
-        if entry is not None:
-            assert entry["anchored"] or mode == "full"
-            kwargs.update(cache=self._cache_obj, cache_state=entry["state"])
-        out = self._mixed_fn(x, t, coeffs, guidance, cond, ctx1, ctx2,
-                             deep=kwargs)
-        if entry is not None and mode == "full":
-            entry["anchored"] = True
-        return out
+        if state is not None:
+            kwargs.update(cache=self._cache_obj, cache_state=state)
+        return self._mixed_fn(x, t, coeffs, guidance, cond, ctx1, ctx2,
+                              deep=kwargs)
 
     # -- stateful sampler state on the patch path ---------------------------
 
@@ -1036,6 +1103,476 @@ class BasePipeline:
             r.sampler_state = {key: self._sampler_state_from_patches(
                 a[off:off + n], g, cells) for key, a in new_state.items()}
             off += n
+
+    # -- fused multi-step dispatch (SchedulerConfig.steps_per_dispatch) -----
+
+    def _record_mode(self, mode) -> None:
+        if self.step_modes is not None:
+            self.step_modes.append(mode)
+
+    def _run_chunk(self, sset, per_step: dict, kinds, make_step) -> None:
+        """A chunk's steps on the step set ``sset``: before step j each
+        ``per_step`` table's row j (device, ``(k, ...)``) goes into the
+        buffer of its name, then the step of ``kinds[j]`` runs
+        (``pipelines/graphs.py``)."""
+        for name, rows in per_step.items():
+            sset.load(name, rows[0])
+        for j, kind in enumerate(kinds):
+            if j:
+                for name, rows in per_step.items():
+                    sset.bufs[name].copy_(rows[j])
+            sset.run(kind, make_step(kind))
+
+    def _step_rows(self, tables, k: int, n_t: int, n_c: int,
+                   repeat: bool) -> torch.Tensor:
+        """``(k, n_t + 2 n_c)`` float32 on the device: the chunk's steps'
+        timesteps, padded to ``n_t`` rows, then their ``[coeff_t,
+        coeff_next]`` rows, padded to ``n_c``.  Pads repeat the last row
+        (``repeat``, the dense path) or are 0 and 1 (the patch path); split
+        with :func:`_split_tc`."""
+        ts = np.stack([tb.timesteps[tb.step:tb.step + k] for tb in tables],
+                      1).astype(np.float32)
+        cs = np.stack([tb.coeffs[tb.step:tb.step + k, :2] for tb in tables],
+                      1).astype(np.float32)
+
+        def pad(a, n, fill):
+            if a.shape[1] == n:
+                return a
+            extra = (np.repeat(a[:, -1:], n - a.shape[1], 1) if repeat else
+                     np.full((k, n - a.shape[1]) + a.shape[2:], fill,
+                             np.float32))
+            return np.concatenate([a, extra], 1)
+
+        rows = np.concatenate([pad(ts, n_t, 0.0),
+                               pad(cs, n_c, 1.0).reshape(k, -1)], 1)
+        return torch.from_numpy(rows).to(self.device)
+
+    def _finish_chunk(self, ordered, k: int) -> None:
+        for r in ordered:
+            for _ in range(k):
+                r.sampler_table.advance()
+            r.remain_steps -= k
+        # the chunk's set is the newest: older sets' rows may go
+        self._trim_row_state(self._state_store())
+
+    def _state_store(self):
+        """The composition store whose entries a chunk's trim may evict."""
+        return self._comp_state
+
+    @torch.inference_mode()
+    def denoise_chunk(self, reqs_by_res: Dict[int, List[Request]],
+                      k: int) -> bool:
+        """Run ``k`` sampler steps of a uniform dense batch in one dispatch
+        (JAX base.py:525-747): on the card k replays of captured step
+        graphs, on the CPU k eager steps on the same buffers.  True when
+        the chunk ran (tables and latents advanced by ``k``), False when
+        the configuration is not eligible, exactly where JAX refuses: the
+        worker then runs the per-step path.
+
+        Modes: ``dense``; ``compact`` once its entry is anchored; ``deep``
+        and ``hybrid`` from a full boundary, step j full when ``j % itv ==
+        0``; with ``deep_row_warmup`` ``partial`` and ``hybrid_partial``,
+        whose steps follow :meth:`_plan_partial_chunk` (0 shallow, 1
+        partial over the planned rows, 2 full).  The drift-adaptive refresh
+        and ``deep_predict`` decide on the host each step: refused.  The
+        dense mode runs the real batch like the per-step dense step; the
+        others pad it to its bucket, as theirs do.  One difference from
+        JAX: a ``hybrid_partial`` entry created here with more fresh pairs
+        than the gate's capacity is marked un-anchored before the refusal,
+        so the per-step path runs the anchoring full it would have run
+        (JAX's per-step path finds the entry made and skips it)."""
+        ordered = [r for res in sorted(reqs_by_res) for r in reqs_by_res[res]]
+        if not ordered or k <= 1:
+            return False
+        cc = self.config.cache
+        if (len({r.resolution for r in ordered}) != 1
+                or self.sampler.needs_state
+                or any(r.remain_steps < k for r in ordered)):
+            return False
+        res = ordered[0].resolution
+        b = len(ordered)
+        bb = bucket_for(b, self.config.scheduler.batch_buckets)
+        itv = max(cc.deep_interval, 1)
+        mode, entry, plan = "dense", None, None
+        if cc.enabled and cc.mode == "deep":
+            if cc.deep_adaptive or cc.deep_predict:
+                return False
+            if cc.deep_row_warmup and itv > 1:
+                plan = self._plan_partial_chunk(ordered, k, itv, bb)
+                if plan is None:
+                    return False
+                mode = "partial"
+                if cc.deep_compact_fraction is not None:
+                    mode = "hybrid_partial"
+                    entry, fresh = self._hybrid_entry_carry(
+                        res, ordered, bb, self._hybrid_sig(),
+                        self._hybrid_state_factory(res // self.vae_scale))
+                    frac = cc.deep_compact_fraction
+                    cap = (max(1, round(bb * frac)) if cc.deep_compact_pairwise
+                           else max(1, round(2 * bb * frac)) // 2)
+                    if fresh > cap:
+                        entry["anchored"] = False
+                    if not entry["anchored"]:
+                        return False  # the per-step anchoring full first
+            else:
+                if any(r.sampler_table.step < cc.deep_warmup
+                       for r in ordered):
+                    return False
+                mode = ("hybrid" if cc.deep_compact_fraction is not None
+                        else "deep")
+                # the chunk starts where the per-step path runs a full
+                # (lockstep ages from j = 0), from dense-layout features
+                shapes = {None if r.deep_state is None
+                          else tuple(r.deep_state.shape) for r in ordered}
+                if (None in shapes or len(shapes) != 1
+                        or next(iter(shapes))[0] != 2):
+                    return False
+                if not any(r.deep_age + 1 >= itv for r in ordered):
+                    return False
+                if mode == "hybrid":
+                    entry = self._comp_state_entry(
+                        "unet_hybrid", res, ordered, bb, self._hybrid_sig(),
+                        self._hybrid_state_factory(res // self.vae_scale))
+        elif cc.enabled and cc.mode == "compact":
+            if not self._compact_cache_active():
+                return False
+            cache = self._block_cache()
+            layout = self.bundle.denoiser.cache_layout(
+                res // self.vae_scale, cc.min_level)
+
+            def mk_state(n):
+                return {key: cache.init_rows(key, n, s, c_in, c_out,
+                                             self.bundle.dtype, self.device)
+                        for key, (s, c_in, c_out) in layout.items()}
+
+            entry = self._comp_state_entry(
+                "unet_compact", res, ordered, bb,
+                (type(cache).__name__, cc.min_level, cc.compact_fraction),
+                mk_state)
+            if not entry["anchored"]:
+                return False  # the anchoring sync step runs per-step
+            mode = "compact"
+        elif cc.enabled:
+            return False  # mode "block" on the dense path: per-step only
+
+        n = b if mode == "dense" else bb
+        # one step set for the modes that share their steps' buffers
+        family = {"partial": "deep", "hybrid_partial": "hybrid"}.get(mode,
+                                                                     mode)
+        sig = (self._hybrid_sig() if family == "hybrid" else
+               (cc.compact_fraction, cc.min_level) if family == "compact"
+               else None)
+        sset = self.graphs.step_set(("unet", family, res, n, sig))
+        dev = self.device
+        latents, guidance, cond = self._group_batch(ordered)
+        sset.load("lat", _pad_batch(latents, n))
+        sset.load("guid", _pad_batch(guidance, n))
+        sset.load("cond", {key: _pad_batch(a, n) for key, a in cond.items()})
+        sset.load("row_valid", self._row_valid(b, n))
+        per_step = {"tc": self._step_rows(
+            [r.sampler_table for r in ordered], k, n, n, repeat=True)}
+        if entry is not None:
+            sset.adopt("state", entry, self._entry_live)
+        deep_modes = mode not in ("dense", "compact")
+        carry_key = (res, bb, tuple(r.request_id for r in ordered))
+        if mode in ("deep", "hybrid"):
+            # the batch-form carry [uncond x bb | cond x bb]; the j = 0
+            # full overwrites it
+            states = [r.deep_state for r in ordered]
+            states += [states[-1]] * (bb - b)
+            sset.load("deep", torch.cat([s[0:1] for s in states]
+                                        + [s[1:2] for s in states]))
+            kinds = ["full" if j % itv == 0 else "shallow" for j in range(k)]
+        elif deep_modes:
+            sel, act, final_age, kb = plan
+            carry = self._deep_carry_get(carry_key, ordered)
+            if carry is None:
+                # zeros for rows awaiting their first refresh: sel[0]
+                # holds them, and the scatter writes them before any read
+                want = self._deep_state_shape(res)
+                dtype = self.bundle.dtype
+                states = [r.deep_state if r.deep_state is not None
+                          and tuple(r.deep_state.shape) == want
+                          else torch.zeros(want, dtype=dtype, device=dev)
+                          for r in ordered]
+                states += [states[-1]] * (bb - b)
+                carry = torch.cat([s[0:1] for s in states]
+                                  + [s[1:2] for s in states])
+            sset.load("deep", carry)
+            per_step[f"sel{kb}"] = torch.from_numpy(
+                sel.astype(np.int64)).to(dev)
+            kinds = [("shallow", "partial", "full")[a] if a != 1
+                     else ("partial", kb) for a in act]
+        else:
+            kinds = [mode] * k
+
+        def make_step(kind):
+            def step(bufs):
+                t, c = _split_tc(bufs["tc"], n)
+                args = (bufs["lat"], t, c, bufs["guid"], bufs["cond"])
+                state = bufs.get("state")
+                if kind == "dense":
+                    store(bufs["lat"], self._denoise_fn(*args))
+                    return
+                if kind == "compact":
+                    store(bufs["lat"], keep_leaves(
+                        state, lambda: self._compact_step(
+                            *args, state, bufs["row_valid"], sync=False)))
+                    return
+                dmode, sel = ((kind[0], bufs[f"sel{kind[1]}"])
+                              if isinstance(kind, tuple) else (kind, None))
+                lat, deep = self._deep_step(
+                    dmode, bufs["row_valid"], *args,
+                    None if dmode == "full" else bufs["deep"], state, sel)
+                store(bufs["lat"], lat)
+                store(bufs["deep"], deep)
+            return step
+
+        self._run_chunk(sset, per_step, kinds, make_step)
+        if deep_modes:
+            for kind in kinds:
+                self._record_mode(kind if isinstance(kind, str) else kind[0])
+        if entry is not None:
+            entry["anchored"] = True
+        lat = sset.bufs["lat"]
+        deep = sset.bufs.get("deep") if deep_modes else None
+        for i, r in enumerate(ordered):
+            r.latents = lat[i:i + 1].clone()
+            if deep_modes:
+                r.deep_state = torch.stack([deep[i], deep[bb + i]])
+                r.deep_age = (final_age[i] if plan is not None
+                              else (k - 1) % itv)
+                r.deep_slope = None
+        self._finish_chunk(ordered, k)
+        if deep_modes and cc.deep_row_warmup:
+            # after the update: the identities the next decision sees
+            self._deep_carry_put(carry_key, deep.clone(), ordered)
+        return True
+
+    def _plan_partial_chunk(self, ordered, k: int, itv: int, bb: int):
+        """The host's row-refresh plan of a k-step partial chunk (JAX
+        base.py:1414-1482): ages and warmup evolve deterministically inside
+        the window, so each step's per-step decision is known ahead.  Step
+        j refreshes ``sel[j]``, its warmup rows (a missing or other-layout
+        feature, or a step before ``deep_warmup``), padded to ``kb`` with
+        copies of the first (``act[j] = 1``); a step where an incumbent's
+        interval expires runs a batch-wide full (``act[j] = 2``, every age
+        reset); a step with no need runs shallow (0).  Returns ``(sel (k,
+        kb), act (k,), final ages, kb)``, or None when the window's needs
+        reach the bucket."""
+        warmup = max(self.config.cache.deep_warmup, 0)
+        b = len(ordered)
+        want = self._deep_state_shape(ordered[0].resolution)
+        missing0 = [r.deep_state is None or tuple(r.deep_state.shape) != want
+                    for r in ordered]
+        age0 = [r.deep_age for r in ordered]
+        step0 = [r.sampler_table.step for r in ordered]
+
+        def plan(record):
+            age, missing = list(age0), list(missing0)
+            max_need = 1
+            sel = np.zeros((k, record or 1), np.int32)
+            act = np.zeros((k,), np.int32)
+            for j in range(k):
+                need = [i for i in range(b)
+                        if missing[i] or step0[i] + j < warmup]
+                need_set = set(need)
+                if any(age[i] >= itv - 1 for i in range(b)
+                       if i not in need_set):
+                    act[j] = 2
+                    age, missing = [0] * b, [False] * b
+                    continue
+                if need:
+                    act[j] = 1
+                    max_need = max(max_need, len(need))
+                    if record:
+                        row = need + [need[0]] * (record - len(need))
+                        sel[j] = row[:record]
+                for i in range(b):
+                    if i in need_set:
+                        age[i], missing[i] = 0, False
+                    else:
+                        age[i] += 1
+            return sel, act, age, max_need
+
+        max_need = plan(0)[3]
+        kb = 1
+        while kb < max_need:
+            kb *= 2
+        if kb >= bb:
+            return None
+        sel, act, final_age, _ = plan(kb)
+        return sel, act, final_age, kb
+
+    @torch.inference_mode()
+    def denoise_chunk_mixed(self, reqs_by_res: Dict[int, List[Request]],
+                            k: int) -> bool:
+        """Run ``k`` steps of a mixed-resolution patch batch in one dispatch
+        (JAX base.py:2010-2334); the composition is pinned for the chunk.
+        True when it ran, False where JAX refuses: a stateful sampler, a
+        request with fewer than ``k`` steps, a resolution that does not
+        divide into patches, the adaptive refresh or ``deep_predict``,
+        warmup, ages out of lockstep, or an un-anchored hybrid entry with
+        no full due now (peeked before it is created, so that the per-step
+        path runs its anchoring full).
+
+        Modes: ``dense``; ``cached`` (modes "block"/"compact": the
+        requests' rows gathered once, threaded through the chunk and
+        scattered back); ``deep`` and ``hybrid`` at any interval phase:
+        step j is full when ``(j + off) % itv == 0``, ``off = (a0 + 1) %
+        itv``, with ``a0 = itv - 1`` when a batch-wide full is due now
+        (the carry starts as zeros, written before any read) and the
+        requests' common age otherwise."""
+        ordered: List[Request] = []
+        for res in sorted(reqs_by_res):
+            ordered.extend(reqs_by_res[res])
+        if not ordered or k <= 1:
+            return False
+        if (self.sampler.needs_state
+                or any(r.remain_steps < k for r in ordered)):
+            return False
+        sc, cc = self.config.scheduler, self.config.cache
+        cells = sc.patch_size // self.vae_scale
+        grids = []
+        for r in ordered:
+            hw = r.latent_hw(self.vae_scale)
+            if hw % cells != 0:
+                return False
+            grids.append(hw // cells)
+        grids = tuple(grids)
+        cache = self._block_cache()
+        mode, itv, need_full, a0 = "dense", 1, False, 0
+        if self._deep_cache_active():
+            if cc.deep_adaptive or cc.deep_predict:
+                return False
+            interval, warmup, _ = self._deep_policy()
+            itv = max(interval, 1)
+            if any(r.sampler_table.step < warmup for r in ordered):
+                return False
+            need_full = self._deep_mode_mixed(ordered, grids) == "full"
+            if need_full:
+                a0 = itv - 1
+            else:
+                ages = {r.deep_age for r in ordered}
+                if len(ages) != 1:
+                    return False
+                a0 = ages.pop()
+            mode = "hybrid" if cc.deep_compact_fraction is not None else "deep"
+        elif cache is not None:
+            mode = "cached"
+        elif cc.enabled:
+            return False
+        meta = patching.build_meta(grids, cells, tuple(sc.patch_buckets),
+                                   tuple(sc.batch_buckets))
+        meta2 = patching.double_meta(grids, cells, tuple(sc.patch_buckets),
+                                     tuple(sc.batch_buckets))
+        dev = self.device
+        entry = None
+        sig = None
+        if mode == "hybrid":
+            sig = (self._hybrid_sig() + ("mixed",) + meta.compile_key
+                   + meta2.compile_key)
+            peeked = self._comp_state.get(
+                ("unet_hybrid_mixed", 0, meta.i_pad,
+                 tuple(r.request_id for r in ordered), sig))
+            if not need_full and (peeked is None or not peeked["anchored"]):
+                return False
+            entry = self._comp_state_entry(
+                "unet_hybrid_mixed", 0, ordered, meta.i_pad, sig,
+                self._hybrid_state_factory(cells, meta2.p_pad))
+        sset = self.graphs.step_set(("mixed", mode, meta.compile_key,
+                                     meta2.compile_key, sig))
+        if "ctx" not in sset.bufs:
+            # the contexts (and the gates' sub-context) the graphs read:
+            # held here, so that no lru cache frees them under a graph
+            ctx2 = PatchContext(meta2, dev)
+            sub = None
+            if mode == "hybrid" or (mode == "cached"
+                                    and cc.mode == "compact"):
+                sub = compact_context(
+                    meta2.patch_cells, meta2.class_info,
+                    cc.deep_compact_fraction if mode == "hybrid"
+                    else cc.compact_fraction, mode == "hybrid",
+                    ctx2.image_id.device)
+            sset.bufs["ctx"] = (PatchContext(meta, dev), ctx2, sub)
+        ctx1, ctx2, _ = sset.bufs["ctx"]
+
+        x, guidance, cond = self._patch_batch(ordered, meta, cells)
+        sset.load("x", x)
+        sset.load("guid", guidance)
+        sset.load("cond", cond)
+        per_step = {"tc": self._step_rows([r.sampler_table for r in ordered],
+                                          k, meta.i_pad, meta.i_pad,
+                                          repeat=False)}
+        deep_modes = mode in ("deep", "hybrid")
+        if deep_modes:
+            if need_full:
+                shape = self._deep_state_shape(sc.patch_size)
+                sset.load("deep", torch.zeros(
+                    (2 * meta.p_pad,) + shape[1:], dtype=self.bundle.dtype,
+                    device=dev))
+            else:
+                sset.load("deep", self._gather_deep_mixed(
+                    ordered, grids, meta, "shallow"))
+            if entry is not None:
+                sset.adopt("state", entry, self._entry_live)
+            off = (a0 + 1) % itv
+            kinds = ["full" if (j + off) % itv == 0 else "shallow"
+                     for j in range(k)]
+        elif mode == "cached":
+            sset.load("state", self._gather_cache_state(ordered, grids, meta,
+                                                        cells))
+            kinds = ["cached"] * k
+        else:
+            kinds = ["dense"] * k
+
+        def make_step(kind):
+            def step(bufs):
+                t, c = _split_tc(bufs["tc"], meta.i_pad)
+                args = (bufs["x"], t, c, bufs["guid"], bufs["cond"], ctx1,
+                        ctx2)
+                state = bufs.get("state")
+                if kind == "dense":
+                    store(bufs["x"], self._mixed_fn(*args))
+                elif kind == "cached":
+                    new_x, _ = keep_leaves(state, lambda: self._mixed_fn(
+                        *args, deep=dict(cache=cache, cache_state=state)))
+                    store(bufs["x"], new_x)
+                else:
+                    new_x, deep = keep_leaves(
+                        state, lambda: self._deep_step_mixed(
+                            kind, *args,
+                            bufs["deep"] if kind == "shallow" else None,
+                            state))
+                    store(bufs["x"], new_x)
+                    store(bufs["deep"], deep)
+            return step
+
+        self._run_chunk(sset, per_step, kinds, make_step)
+        new_x = sset.bufs["x"]
+        if deep_modes:
+            for kind in kinds:
+                self._record_mode(kind)
+            fulls = [j for j, kind in enumerate(kinds) if kind == "full"]
+            final_age = (k - 1 - fulls[-1]) if fulls else a0 + k
+            if entry is not None and fulls:
+                entry["anchored"] = True
+            deep = sset.bufs["deep"]
+        elif mode == "cached":
+            self._scatter_cache_state(ordered, grids, meta, sset.bufs["state"])
+        pos = 0
+        for r, g in zip(ordered, grids):
+            n = g * g
+            r.latents = patching.merge_patches(new_x[pos:pos + n], g).clone()
+            if deep_modes:
+                r.deep_state = torch.cat([
+                    deep[pos:pos + n],
+                    deep[meta.p_pad + pos:meta.p_pad + pos + n]])
+                r.deep_age = final_age
+                r.deep_slope = None
+            pos += n
+        self._finish_chunk(ordered, k)
+        return True
 
     # -- stage 3: postprocess ------------------------------------------------
 
@@ -1093,9 +1630,43 @@ class BasePipeline:
                 seen[t.data_ptr()] = t.numel() * t.element_size()
         return sum(seen.values())
 
+    def estimate_serving_state_bytes(self, res: int, bucket: int) -> int:
+        """Bytes of the composition state a uniform (res, bucket) dense
+        step mints: the hybrid's or the compact cache's rows, built by the
+        same ``init_rows`` on the meta device (shape math only, nothing
+        allocated; JAX base.py:866-910).  0 when it mints none."""
+        cc = self.config.cache
+        if not cc.enabled or not hasattr(self.bundle.denoiser, "cache_layout"):
+            return 0
+        cells = res // self.vae_scale
+        if cc.mode == "deep" and cc.deep_compact_fraction is not None:
+            layout = self.bundle.denoiser.shallow_cache_layout(
+                cells, cc.deep_boundary)
+        elif cc.mode == "compact":
+            layout = self.bundle.denoiser.cache_layout(cells, cc.min_level)
+        else:
+            return 0
+        cache = self._cache_obj or BlockCache(cc)
+        meta = torch.device("meta")
+        return _state_nbytes({
+            key: cache.init_rows(key, 2 * bucket, s, c_in, c_out,
+                                 self.bundle.dtype, meta)
+            for key, (s, c_in, c_out) in layout.items()})
+
+    def _state_trees(self) -> list:
+        """The device state of the composition stores."""
+        return [e["state"] for e in list(self._comp_state.values())]
+
     def _live_state_bytes(self) -> int:
-        return sum(_state_nbytes(e["state"])
-                   for e in list(self._comp_state.values()))
+        """Bytes of the composition stores and of the step graphs' buffers,
+        each tensor once (an entry's rows may live in a buffer)."""
+        return unique_nbytes(self._state_trees() + self.graphs.buffers())
+
+    def _row_state_bytes(self) -> int:
+        """Bytes of the row state ``comp_state_bytes`` bounds: the
+        composition stores and the step sets' row buffers, each tensor
+        once."""
+        return unique_nbytes(self._state_trees() + self.graphs.row_states())
 
     def post_overlap_ok(self, reqs_by_res) -> bool:
         """May this postprocess run on the background thread while the

@@ -25,8 +25,10 @@ takes it, a uniform one too (``denoise_step``):
 Their device state lives in a store keyed by the batch composition
 (``_sd3_state``): a stable batch reuses its entry, any change starts a
 fresh one (so an admission or a finish costs one full step), and the
-pipeline frees a finished request's entries.  The JAX pipeline's warm-key
-routing (compile keys) and fused multi-step dispatch are not ported.
+pipeline frees a finished request's entries.  ``denoise_chunk`` runs k
+steps of a uniform batch on the token path in one dispatch, from captured
+step graphs on the card.  The JAX pipeline's warm-key routing (compile
+keys) is not ported: eager PyTorch has no cold program to route around.
 """
 
 from __future__ import annotations
@@ -39,7 +41,9 @@ import torch
 
 from sduss_tpu_torch.cache.manager import BlockCache
 from sduss_tpu_torch.config import bucket_for
-from sduss_tpu_torch.pipelines.base import _PAD, BasePipeline, _state_nbytes
+from sduss_tpu_torch.pipelines.base import (_PAD, BasePipeline, _split_tc,
+                                            _state_nbytes)
+from sduss_tpu_torch.pipelines.graphs import clone_tree, keep_leaves, store
 from sduss_tpu_torch.samplers import gather_coeffs, gather_timesteps
 
 
@@ -162,26 +166,12 @@ class StableDiffusion3Pipeline(BasePipeline):
 
         tables = [r.sampler_table for r in ordered]
         coeffs = torch.from_numpy(gather_coeffs(tables)).to(dev)
-        tok_rows = []
-        for i, j in groups:
-            lat = torch.cat([r.latents for r in ordered[i:j]], dim=0)
-            toks = tr.embed_latents(
-                self.sampler.scale_model_input(lat, coeffs[i:j, 0]))
-            tok_rows.append(torch.nn.functional.pad(
-                toks, (0, 0, 0, s_pad - toks.shape[1])))
-        tokens = _pad_rows(torch.cat(tok_rows, dim=0), bb)
         mask = np.zeros((bb, s_pad), bool)
         for idx, n in enumerate(lens):
             mask[idx, :n] = True
         t = np.zeros((bb,), np.float32)
         t[:b] = gather_timesteps(tables)
-        guidance = np.zeros((bb,), np.float32)
-        guidance[:b] = [r.params.guidance_scale if r.params.guidance_scale
-                        is not None else self.spec.default_guidance
-                        for r in ordered]
-        cond = {key: _pad_rows(torch.cat([r.conditioning[key] for r in ordered],
-                                         dim=0), bb)
-                for key in ordered[0].conditioning}
+        guidance, cond = self._token_batch(ordered, bb)
 
         kw = {}
         entry = deep_mode = None
@@ -203,13 +193,15 @@ class StableDiffusion3Pipeline(BasePipeline):
                                     and not entry["anchored"]))
         if span is not None:
             deep_mode = self._sd3_deep_mode(entry, ordered)
+            self._record_mode(deep_mode)
             kw.update(deep_mode=deep_mode, deep_span=span,
                       deep_state=(self._sd3_deep_predicted(entry)
                                   if deep_mode == "shallow" else None))
-        out, deep_out = self._trunk_fn(
-            tokens, torch.from_numpy(mask).to(dev),
-            torch.from_numpy(t).to(dev), torch.from_numpy(guidance).to(dev),
-            cond, **kw)
+        new_lats, deep_out = self._token_step(
+            [torch.cat([r.latents for r in ordered[i:j]]) for i, j in groups],
+            [ordered[i].latent_hw(self.vae_scale) // ps for i, _ in groups],
+            coeffs, s_pad, bb, torch.from_numpy(mask).to(dev),
+            torch.from_numpy(t).to(dev), guidance, cond, kw)
         if cache is not None:
             entry["anchored"] = True
             entry["kv_ok"] = fine and cc.fine_stale_kv
@@ -219,16 +211,168 @@ class StableDiffusion3Pipeline(BasePipeline):
         elif deep_mode == "shallow":
             entry["deep_age"] += 1
 
-        for i, j in groups:
-            hp = ordered[i].latent_hw(self.vae_scale) // ps
-            lat = torch.cat([r.latents for r in ordered[i:j]], dim=0)
-            v = tr.unpatchify(out[i:j], hp, hp)
-            new_lat = self.sampler.step(lat, v.to(lat.dtype), coeffs[i:j, 0],
-                                        coeffs[i:j, 1])
+        for (i, j), new_lat in zip(groups, new_lats):
             for k, r in enumerate(ordered[i:j]):
                 r.latents = new_lat[k:k + 1]
                 r.sampler_table.advance()
                 r.remain_steps -= 1
+
+    def _token_batch(self, ordered, bb: int):
+        """``(guidance, cond)`` of a token batch padded to ``bb`` rows: pad
+        rows get guidance 0 and repeat the last row's conditioning."""
+        guidance = np.zeros((bb,), np.float32)
+        guidance[:len(ordered)] = [
+            r.params.guidance_scale if r.params.guidance_scale is not None
+            else self.spec.default_guidance for r in ordered]
+        cond = {key: _pad_rows(torch.cat([r.conditioning[key]
+                                          for r in ordered], dim=0), bb)
+                for key in ordered[0].conditioning}
+        return torch.from_numpy(guidance).to(self.device), cond
+
+    def _token_step(self, lats, hps, coeffs, s_pad: int, bb: int, mask, t,
+                    guidance, cond, kw):
+        """One token-path step over resolution runs: ``lats`` each run's
+        latents (rows in batch order), ``hps`` their patch grids, ``coeffs``
+        (b, 2).  Each run's scaled latents are embedded and right-padded to
+        ``s_pad`` tokens, the batch to ``bb`` rows by repeating the last;
+        ``_trunk_fn`` (with the cache and deep arguments ``kw``), then each
+        run's sampler update.  Returns ``(new latents per run,
+        deep_out)``."""
+        tr = self.bundle.models["transformer"]
+        tok_rows, i = [], 0
+        for lat in lats:
+            n = lat.shape[0]
+            toks = tr.embed_latents(
+                self.sampler.scale_model_input(lat, coeffs[i:i + n, 0]))
+            tok_rows.append(torch.nn.functional.pad(
+                toks, (0, 0, 0, s_pad - toks.shape[1])))
+            i += n
+        tokens = _pad_rows(torch.cat(tok_rows, dim=0), bb)
+        out, deep_out = self._trunk_fn(tokens, mask, t, guidance, cond, **kw)
+        new, i = [], 0
+        for lat, hp in zip(lats, hps):
+            n = lat.shape[0]
+            v = tr.unpatchify(out[i:i + n], hp, hp)
+            new.append(self.sampler.step(lat, v.to(lat.dtype),
+                                         coeffs[i:i + n, 0],
+                                         coeffs[i:i + n, 1]))
+            i += n
+        return new, deep_out
+
+    # -- fused multi-step dispatch (SchedulerConfig.steps_per_dispatch) -----
+
+    @torch.inference_mode()
+    def denoise_chunk(self, reqs_by_res, k: int) -> bool:
+        """Run ``k`` steps of a uniform batch on the token path in one
+        dispatch (JAX sd3.py:363-589): embed -> trunk -> unpatchify ->
+        sampler step per step, the latents, the token-cache rows and the
+        span delta carried through; on the card k replays of captured step
+        graphs.  False, as in JAX, for mixed resolutions, a stateful
+        sampler, a request with fewer than ``k`` steps, the fine gate's
+        stale K/V, the adaptive refresh, the span with ``deep_predict``, an
+        un-anchored compact state, and the span during warmup.  The span
+        runs at any interval phase: step j is full when ``(phase + j) %
+        itv == itv - 1``, the per-step recurrence, with ``phase`` the
+        delta's age (``itv - 1`` without one).  A cache-off chunk runs the
+        token path too, as JAX's does."""
+        ordered = [r for res in sorted(reqs_by_res) for r in reqs_by_res[res]]
+        if not ordered or k <= 1:
+            return False
+        cc = self.config.cache
+        cache, span = self._sd3_cache(), self._sd3_deep_span()
+        fine = (cache is not None and cc.mode == "compact"
+                and cc.patch_fraction < 1.0)
+        if (len({r.resolution for r in ordered}) != 1
+                or self.sampler.needs_state
+                or any(r.remain_steps < k for r in ordered)
+                or (fine and cc.fine_stale_kv) or cc.deep_adaptive
+                or (span is not None and cc.deep_predict)):
+            return False
+        tr = self.bundle.models["transformer"]
+        hp = ordered[0].latent_hw(self.vae_scale) // tr.cfg.patch_size
+        s_pad = hp * hp
+        b = len(ordered)
+        bb = bucket_for(b, self.config.scheduler.batch_buckets)
+        itv = max(cc.deep_interval, 1)
+        entry = None
+        if cache is not None or span is not None:
+            entry = self._sd3_state_entry(ordered, bb, s_pad, cache)
+            if (cache is not None and cc.mode == "compact" and not fine
+                    and not entry["anchored"]):
+                return False  # the anchoring sync step runs per-step
+            if span is not None and any(
+                    r.sampler_table.step < cc.deep_warmup for r in ordered):
+                return False
+        dev = self.device
+        sset = self.graphs.step_set(
+            ("sd3", s_pad, b, bb, cache is not None and cc.mode, fine, span))
+        sset.load("lat", torch.cat([r.latents for r in ordered]))
+        guidance, cond = self._token_batch(ordered, bb)
+        sset.load("guid", guidance)
+        sset.load("cond", cond)
+        mask = np.zeros((bb, s_pad), bool)
+        mask[:b] = True
+        sset.load("mask", torch.from_numpy(mask).to(dev))
+        sset.load("row_valid", self._row_valid(b, bb))
+        if cache is not None:
+            sset.adopt("state", entry, self._entry_live)
+        per_step = {"tc": self._step_rows([r.sampler_table for r in ordered],
+                                          k, bb, b, repeat=False)}
+        if span is not None:
+            phase = (itv - 1 if entry["deep"] is None
+                     else min(entry["deep_age"], itv - 1))
+            sset.load("deep", entry["deep"] if entry["deep"] is not None
+                      else self._span_zeros(
+                          2 * bb, s_pad,
+                          ordered[0].conditioning["embeds"].shape[1], dev))
+            kinds = ["full" if (phase + j) % itv == itv - 1 else "shallow"
+                     for j in range(k)]
+        else:
+            kinds = ["token"] * k
+
+        def make_step(kind):
+            def step(bufs):
+                t, c = _split_tc(bufs["tc"], bb, b)
+                state = bufs.get("state")
+                kw = {}
+                if cache is not None:
+                    kw.update(cache=cache, cache_state=state,
+                              row_valid=bufs["row_valid"])
+                if span is not None:
+                    kw.update(deep_mode=kind, deep_span=span,
+                              deep_state=bufs["deep"] if kind == "shallow"
+                              else None)
+                (lat,), deep = keep_leaves(state, lambda: self._token_step(
+                    [bufs["lat"]], [hp], c, s_pad, bb, bufs["mask"], t,
+                    bufs["guid"], bufs["cond"], kw))
+                store(bufs["lat"], lat)
+                if span is not None:
+                    store(bufs["deep"], deep)
+            return step
+
+        self._run_chunk(sset, per_step, kinds, make_step)
+        if cache is not None:
+            entry["anchored"] = True
+        if span is not None:
+            for kind in kinds:
+                self._record_mode(kind)
+            entry["deep"] = clone_tree(sset.bufs["deep"])
+            # the per-step recurrence's age: the last full at j* leaves
+            # k - 1 - j*; none ages the delta by k
+            fulls = [j for j, kind in enumerate(kinds) if kind == "full"]
+            entry["deep_age"] = (k - 1 - fulls[-1]) if fulls else phase + k
+            entry["deep_slope"] = None
+        lat = sset.bufs["lat"]
+        for i, r in enumerate(ordered):
+            r.latents = lat[i:i + 1].clone()
+        self._finish_chunk(ordered, k)
+        return True
+
+    def denoise_chunk_mixed(self, reqs_by_res, k: int) -> bool:
+        """Mixed SD3 batches step one at a time on the token path: JAX's
+        SD3 chunk takes uniform batches only (its base class's patch chunk
+        would run a UNet program on the MMDiT)."""
+        return False
 
     def _trunk_fn(self, tokens, mask, t, guidance, cond, row_valid=None,
                   **kw):
@@ -288,10 +432,10 @@ class StableDiffusion3Pipeline(BasePipeline):
         bb, request ids, mode signature)``.  A new entry holds fresh rows:
         CFG-doubled ``[uncond x bb | cond x bb]``, zeros with hits at
         ``max_hits`` (so the first gate recomputes them), and no delta.
-        LRU-bounded by ``comp_state_lru`` and ``comp_state_bytes``; the
+        LRU-bounded by ``comp_state_lru``, and by ``comp_state_bytes``
+        together with the step sets' rows (``_trim_row_state``); the
         newest entry is always kept."""
         cfg = self.config.cache
-        tr = self.bundle.models["transformer"]
         fine = (cache is not None and cfg.mode == "compact"
                 and cfg.patch_fraction < 1.0)
         want_kv = fine and cfg.fine_stale_kv
@@ -304,30 +448,67 @@ class StableDiffusion3Pipeline(BasePipeline):
         store = self._sd3_state
         entry = store.get(key)
         if entry is None:
-            dtype, dev = self.bundle.dtype, self.device
-            layout = tr.token_cache_layout(s_pad).items()
-            state = None
-            if fine:
-                # K/V pairs a block carries: two for a dual block
-                pairs = {i: (2 if i in tr.cfg.dual_attention_layers else 1)
-                         if want_kv else 0 for i in range(tr.cfg.num_layers)}
-                state = {k: cache.init_token_rows_fine(
-                    k, 2 * bb, seq, dim, dtype, dev, kv_pairs=pairs[int(k[5:])])
-                    for k, (seq, dim) in layout}
-            elif cache is not None:
-                state = {k: cache.init_token_rows(k, 2 * bb, seq, dim, dtype,
-                                                  dev, ctx_seq=ctx_seq)
-                         for k, (seq, dim) in layout}
+            state = self._sd3_rows(cache, 2 * bb, s_pad, ctx_seq, self.device)
             entry = {"state": state, "kv_ok": False, "anchored": False,
                      "deep": None, "deep_age": 0, "deep_slope": None}
             store[key] = entry
         store.move_to_end(key)
         while len(store) > max(int(cfg.comp_state_lru), 1):
             store.popitem(last=False)
-        while (len(store) > 1 and sum(_state_nbytes(e) for e in store.values())
-               > float(cfg.comp_state_bytes)):
-            store.popitem(last=False)
+        self._trim_row_state(store)
         return entry
+
+    def _sd3_rows(self, cache, n_rows: int, s_pad: int, ctx_seq, device):
+        """Fresh token-cache rows of every block (None without a token
+        cache): the fine gate's (with its K/V pairs under
+        ``fine_stale_kv``, two for a dual block), or the block/compact
+        gates' (``ctx_seq``: compact's context stream)."""
+        if cache is None:
+            return None
+        cfg = self.config.cache
+        tr = self.bundle.models["transformer"]
+        dtype = self.bundle.dtype
+        layout = tr.token_cache_layout(s_pad).items()
+        if cfg.mode == "compact" and cfg.patch_fraction < 1.0:
+            pairs = {i: (2 if i in tr.cfg.dual_attention_layers else 1)
+                     if cfg.fine_stale_kv else 0
+                     for i in range(tr.cfg.num_layers)}
+            return {k: cache.init_token_rows_fine(
+                k, n_rows, seq, dim, dtype, device, kv_pairs=pairs[int(k[5:])])
+                for k, (seq, dim) in layout}
+        return {k: cache.init_token_rows(k, n_rows, seq, dim, dtype, device,
+                                         ctx_seq=ctx_seq)
+                for k, (seq, dim) in layout}
+
+    def _span_zeros(self, n_rows: int, s_pad: int, ctx_len: int, device):
+        """A zero span delta: ``{"dx"}``, with ``"c"`` for an interior
+        span (the shape a full pass emits)."""
+        tr = self.bundle.models["transformer"]
+        d = {"dx": torch.zeros((n_rows, s_pad, tr.cfg.dim),
+                               dtype=self.bundle.dtype, device=device)}
+        if self._sd3_deep_span()[1] < tr.cfg.num_layers:
+            d["c"] = torch.zeros((n_rows, ctx_len, tr.cfg.dim),
+                                 dtype=self.bundle.dtype, device=device)
+        return d
+
+    def estimate_serving_state_bytes(self, res: int, bucket: int) -> int:
+        """Bytes of the state a uniform (res, bucket) token-path step mints:
+        the token-cache rows and the span delta, built on the meta device
+        (shape math only, JAX sd3.py:695-735)."""
+        cache, span = self._sd3_cache(), self._sd3_deep_span()
+        if cache is None and span is None:
+            return 0
+        ps = self.bundle.models["transformer"].cfg.patch_size
+        s_pad = (res // self.vae_scale // ps) ** 2
+        ctx = 77 + self.T5_SEQ_LEN
+        cfg = self.config.cache
+        meta = torch.device("meta")
+        rows = self._sd3_rows(cache, 2 * bucket, s_pad, ctx if (
+            cfg.mode == "compact" and cfg.patch_fraction >= 1.0) else None,
+            meta)
+        delta = None if span is None else self._span_zeros(2 * bucket, s_pad,
+                                                           ctx, meta)
+        return _state_nbytes(rows) + _state_nbytes(delta)
 
     def release_serving_state(self) -> None:
         super().release_serving_state()
@@ -341,9 +522,14 @@ class StableDiffusion3Pipeline(BasePipeline):
         for k in [k for k in list(self._sd3_state) if ids.intersection(k[2])]:
             self._sd3_state.pop(k, None)
 
-    def _live_state_bytes(self) -> int:
-        return super()._live_state_bytes() + sum(
-            _state_nbytes(e) for e in list(self._sd3_state.values()))
+    def _state_trees(self) -> list:
+        return super()._state_trees() + list(self._sd3_state.values())
+
+    def _live_entries(self) -> list:
+        return super()._live_entries() + list(self._sd3_state.values())
+
+    def _state_store(self):
+        return self._sd3_state
 
     # -- span reuse-then-predict (CacheConfig.deep_predict) -----------------
 

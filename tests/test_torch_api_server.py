@@ -438,12 +438,14 @@ def test_cli_config_matches_jax(argv):
 def test_unported_flags_raise(flags):
     """What the port does not serve raises, and so does a snapshot that
     is not there; ``--use-cache`` in modes "block" and "compact" serves
-    (one mixed step of finite latents through the cache)."""
+    (one mixed step of finite latents through the cache), and so does
+    ``--prewarm`` (the engine it configures serves the same step)."""
     p = argparse.ArgumentParser()
     add_engine_args(p)
     config = config_from_args(p.parse_args(
         ["--test-tiny", "--dtype", "float32"] + flags))
-    if "--use-cache" in flags:
+    if "--use-cache" in flags or "--prewarm" in flags:
+        assert config.engine.prewarm == ("--prewarm" in flags)
         config.scheduler.patch_size = 64
         engine = Engine(config, "cpu")
         for i, res in enumerate((64, 128)):  # a mixed batch
@@ -453,7 +455,8 @@ def test_unported_flags_raise(flags):
         outs = []
         while engine.has_unfinished_requests():
             outs += engine.step()
-        assert engine.worker.pipeline._cache_obj is not None
+        if "--use-cache" in flags:
+            assert engine.worker.pipeline._cache_obj is not None
         assert all(o.finished and np.isfinite(o.image).all() for o in outs)
         return
     error = FileNotFoundError if "--model-path" in flags \

@@ -26,7 +26,12 @@ on the CPU, ties included, the patch path's image gate the same images,
 and a drift value reaches the host only once its event has completed.  A
 postprocess on the worker's decode thread gives the same images, bit for
 bit, as the same call on the main thread.  The block cache at threshold -1
-serves cache-off's latents and launches.
+serves cache-off's latents and launches.  A fused multi-step chunk run
+from captured step graphs (dense, compact, the row warmup's hybrid partial
+chunk, the patch path's hybrid and block cache, SD3's span with compact;
+small denoisers at head dim 64) gives the same latents, bit for bit, as
+the same chunks stepped eagerly, and the launch counters count the
+replayed kernels.
 """
 
 from __future__ import annotations
@@ -609,3 +614,105 @@ def test_block_cache_at_threshold_minus_one_equals_cache_off(cuda):
         assert min(b - a for a, b in zip(c0, c1)) > 0
         err = (out.float() - plain.float()).abs().max().item()
         assert err <= 2.0 ** -7 * plain.float().abs().max().item()
+
+
+def _hd64_bundle(family: str, cuda):
+    """The tiny bundle of ``family`` with a denoiser at the kernels' head
+    dim 64 (the tiny configs' 16/32 have no instantiation), bf16."""
+    import dataclasses
+
+    from sduss_tpu_torch.models import mmdit as tmmdit
+    from sduss_tpu_torch.models import unet as tunet
+
+    bundle = ModelBundle(family, tiny=True, dtype=torch.bfloat16, device=cuda)
+    with torch.device("meta"):
+        if family == "sd3":
+            bundle.models["transformer"] = tmmdit.SD3Transformer2DModel(
+                dataclasses.replace(tmmdit.TINY_MMDIT, head_dim=64))
+        else:
+            bundle.models["unet"] = tunet.UNet2DConditionModel(
+                dataclasses.replace(tunet.TINY_UNET, block_out_channels=(64,
+                                                                         128),
+                                    down_block_has_attn=(True, True),
+                                    transformer_layers=(1, 1),
+                                    num_heads=(1, 2)))
+    bundle.init_random(seed=0)
+    return bundle
+
+
+CHUNK_CASES = {
+    # name: (family, mixed, cache, pre-steps, resolutions of the batch)
+    "dense": ("sd15", False, None, 0, (64, 64)),
+    "compact": ("sd15", False, dict(mode="compact", compact_fraction=0.5,
+                                    min_level=0), 1, (64, 64, 64)),
+    "hybrid_partial": ("sd15", False, dict(
+        mode="deep", deep_interval=3, deep_warmup=1, deep_row_warmup=True,
+        deep_compact_fraction=0.5, deep_compact_pairwise=True,
+        deep_boundary=1, min_level=0), 2, (64, 64, 64)),
+    "mixed_hybrid": ("sd15", True, dict(
+        mode="deep", deep_interval=3, deep_warmup=0,
+        deep_compact_fraction=0.5, deep_compact_pairwise=True,
+        deep_boundary=1, min_level=0), 2, (64, 128)),
+    "mixed_block": ("sd15", True, dict(mode="block", max_hits=2, min_level=0,
+                                       mse_threshold=1e9), 1, (64, 128)),
+    "sd3_span_compact": ("sd3", False, dict(
+        mode="compact", compact_fraction=0.5, sd3_deep_span=(1, 2),
+        deep_interval=3, deep_warmup=0), 2, (64, 64)),
+}
+
+
+def _chunk_rounds(cuda, bundle, case: str, live: bool, k: int = 4):
+    """Two rounds of fresh requests, each ``pre`` per-step steps and one
+    k-step chunk, on one pipeline whose step graphs are live (captured,
+    then replayed) or not (every step eager); returns each round's final
+    latents and kernel launches in the chunk."""
+    from sduss_tpu_torch.pipelines import build_pipeline
+    from sduss_tpu_torch.pipelines.graphs import COUNTED
+
+    family, mixed, cache, pre, resolutions = CHUNK_CASES[case]
+    config = default_config(family, dtype="bfloat16", test_tiny=True,
+                            resolutions=(64, 128))
+    config.scheduler.use_mixed_resolution = mixed
+    config.scheduler.patch_size = 64
+    if cache is not None:
+        config.cache = CacheConfig(enabled=True, **cache)
+    pipe = build_pipeline(config, cuda, bundle=bundle)
+    pipe.graphs.live = live
+    rounds = []
+    for rnd in range(2):
+        reqs = [Request(f"r{rnd}-{i}", SamplingParams(
+            prompt=f"p{i}", resolution=res, num_inference_steps=pre + k,
+            seed=i)) for i, res in enumerate(resolutions)]
+        pipe.prepare(reqs)
+        by_res = {}
+        for r in reqs:
+            by_res.setdefault(r.resolution, []).append(r)
+        step = pipe.denoise_step_mixed if mixed else pipe.denoise_step
+        chunk = pipe.denoise_chunk_mixed if mixed else pipe.denoise_chunk
+        for _ in range(pre):
+            step(by_res)
+        if case == "hybrid_partial":
+            reqs[0].deep_state = None  # as an admission: a partial step
+        before = [f.launches for f in COUNTED]
+        assert chunk(by_res, k)
+        rounds.append(([r.latents.float().cpu() for r in reqs],
+                       [f.launches - n for f, n in zip(COUNTED, before)]))
+    return rounds, pipe.graphs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CHUNK_CASES))
+def test_chunk_graph_replay_equals_eager(cuda, case):
+    """A chunk run from captured step graphs (the first round captures
+    each step kind after its eager step, the second replays them all)
+    gives the same latents, bit for bit, as the same chunks with every
+    step eager on the card, and the launch counters count the replayed
+    kernels exactly as the eager steps launch them."""
+    bundle = _hd64_bundle(CHUNK_CASES[case][0], cuda)
+    graphed, graphs = _chunk_rounds(cuda, bundle, case, live=True)
+    eager, _ = _chunk_rounds(cuda, bundle, case, live=False)
+    assert graphs.captures > 0 and graphs.replays > 0
+    for (lat_g, n_g), (lat_e, n_e) in zip(graphed, eager):
+        assert n_g == n_e and sum(n_g) > 0
+        for a, b in zip(lat_g, lat_e):
+            assert torch.isfinite(a).all() and torch.equal(a, b)

@@ -303,13 +303,15 @@ def _refused(family="sdxl", **changes) -> Config:
 
 
 @pytest.mark.parametrize("config,item", [
-    # SD3's caches are served; what its presets still cannot combine with
-    (_refused("sd3", scheduler__steps_per_dispatch=4), "item 3"),
+    # fused multi-step dispatch is served (item None), SD3's span within
+    # the tiny MMDiT's 2 blocks
+    (_refused("sd3", scheduler__steps_per_dispatch=4,
+              cache__sd3_deep_span=(1, 2)), None),
     (_refused("sd3", parallel__dp=2), "item 10"),
     # the UNet families' modes "block" and "compact" are served (item None)
     (_refused(cache__mode="block"), None),
     (_refused(cache__mode="compact"), None),
-    (_refused(scheduler__steps_per_dispatch=4), "item 3"),
+    (_refused(scheduler__steps_per_dispatch=4), None),
 ], ids=["sd3", "sd3-span", "block", "compact", "multi-step"])
 def test_engine_refuses_what_is_not_ported(config, item):
     """What is not ported raises, naming its ROADMAP item; what is (item

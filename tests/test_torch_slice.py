@@ -203,20 +203,30 @@ def test_cuda_device_required_by_default():
     ("scheduler", "steps_per_dispatch", 4),
 ])
 def test_unported_configs_raise(section, field, value):
-    """What the port does not serve raises when the pipeline is built; the
-    block cache (``cache.enabled``, mode "block" by default) serves: one
-    mixed step of finite latents through the cache."""
+    """What the port does not serve (more than one device) raises when the
+    pipeline is built; the block cache (``cache.enabled``, mode "block" by
+    default) serves one mixed step of finite latents through the cache,
+    and ``steps_per_dispatch=4`` one mixed 4-step chunk."""
     config = default_config("sdxl", dtype="float32", test_tiny=True)
     setattr(getattr(config, section), field, value)
-    if section != "cache":
+    if section == "parallel":
         with pytest.raises(NotImplementedError):
             DiffusionPipeline(config=config, device="cpu")
         return
     config.scheduler.patch_size = 64
     pipe = DiffusionPipeline(config=config, device="cpu")
+    inner = pipe.engine.worker.pipeline
+    chunks, chunk = [], inner.denoise_chunk_mixed
+    inner.denoise_chunk_mixed = lambda by_res, k: (
+        chunks.append(k), chunk(by_res, k))[1]
+    steps = 4 if section == "scheduler" else 1
     outs = pipe.generate(["a cat", "a dog"], resolution=[64, 128],
-                         num_inference_steps=1, seed=0, output_type="latent")
-    assert pipe.engine.worker.pipeline._cache_obj is not None
+                         num_inference_steps=steps, seed=0,
+                         output_type="latent")
+    if section == "cache":
+        assert inner._cache_obj is not None
+    else:
+        assert chunks == [4]
     assert all(o.finished and np.isfinite(o.image).all() for o in outs)
 
 
