@@ -176,6 +176,7 @@ import asyncio
 import base64
 import collections
 import copy
+import dataclasses
 import gc
 import json
 import os
@@ -194,6 +195,11 @@ import torch
 import torch.nn.functional as F
 
 from sduss_tpu_torch import configure_numerics
+from sduss_tpu_torch.benchmark.metrics import (compute_metrics,
+                                               records_from_csv,
+                                               records_to_csv)
+from sduss_tpu_torch.benchmark.replay import run_replay
+from sduss_tpu_torch.benchmark.traces import load_trace
 from sduss_tpu_torch.cache import train as cache_train
 from sduss_tpu_torch.cache.manager import BlockCache
 from sduss_tpu_torch.config import CacheConfig
@@ -465,6 +471,21 @@ CHUNK_SD15_K = 3
 CHUNK_SD15_ADMIT = 6
 CHUNK_SD3_K = 8
 CHUNK_SD3_STEPS = 16
+# The trace replay (benchmark/replay.py): the first REPLAY_N rows of the
+# committed SDXL trace (512/768/1024^2, 50 steps, Poisson at 1 qps) under
+# ESyMReD with the card's fitted profile and predictor and the serving
+# cache preset, slo 5; eight requests never fill a bucket above 8, so
+# prewarm walks (1, 2, 4, 8).  The records' CSV (times written to the
+# microsecond) read back gives the metrics of the records at that
+# precision, exactly.
+REPLAY_TRACE = "exp/sdxl/qps_1.0.csv"
+REPLAY_N = 8
+REPLAY_SLO = 5
+REPLAY_BUCKETS = (1, 2, 4, 8)
+# dp replicas on one card (ParallelConfig.devices = [0, 0]): four
+# same-resolution SD-1.5 requests added at once
+DP2_DEVICES = [0, 0]
+DP2_REQUESTS = [512] * 4
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
@@ -1088,7 +1109,7 @@ def serve(card: str, bundle: ModelBundle) -> dict:
     config.scheduler.use_mixed_resolution = False  # the dense path
     config.engine.collect_data = True  # per-iteration schedule log
     pipe = DiffusionPipeline(config=config, device="cuda", bundle=bundle)
-    unet = pipe.engine.worker.pipeline.bundle.denoiser
+    unet = pipe.engine.workers[0].pipeline.bundle.denoiser
     n_self = sum(isinstance(m, BasicTransformerBlock) for m in unet.modules())
     prompts = ["a lighthouse on a cliff at dusk", "a bowl of ramen, studio photo",
                "an astronaut riding a horse"]
@@ -1118,7 +1139,7 @@ def serve(card: str, bundle: ModelBundle) -> dict:
         raise AssertionError(f"bad latents {lat.shape}")
 
     # the 1024^2 pair (4 UNet rows with CFG)
-    step_gaps(pipe.engine.worker.schedule_log, "1024x2",
+    step_gaps(pipe.engine.workers[0].schedule_log, "1024x2",
               "batch 2 x 1024^2 (CFG 4 rows)", card)
     print(f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} "
           f"GiB [{card}]")
@@ -1135,7 +1156,7 @@ def serve_mixed(card: str, bundle: ModelBundle) -> dict:
     if not (config.scheduler.use_mixed_resolution
             and config.scheduler.policy == "fcfs_mixed"):
         raise AssertionError("the default configuration is not the mixed path")
-    unet = pipe.engine.worker.pipeline.bundle.denoiser
+    unet = pipe.engine.workers[0].pipeline.bundle.denoiser
     n_self = sum(isinstance(m, BasicTransformerBlock) for m in unet.modules())
     n_k4 = 2 * len([m for m in unet.modules()
                     if type(m).__name__ == "ResnetBlock2D"]) + 1
@@ -1152,7 +1173,7 @@ def serve_mixed(card: str, bundle: ModelBundle) -> dict:
     masked, k4 = got["masked"], got["k4"]
 
     check_outputs(outs, MIXED_REQUESTS, card)
-    log = pipe.engine.worker.schedule_log
+    log = pipe.engine.workers[0].schedule_log
     key = ";".join(f"{r}x{MIXED_REQUESTS.count(r)}"
                    for r in sorted(set(MIXED_REQUESTS)))
     batches = [e["resolutions"] for e in log if e["stage"] == "denoising"]
@@ -1215,7 +1236,7 @@ def time_sd3_stages(pipe, card: str) -> None:
     """PREPARE of two 1024^2 requests (the three text encoders, cold, then
     again through the T5 row cache) and the tiled VAE decode of one
     1024^2 latent, host clock around work that ends in a synchronise."""
-    p = pipe.engine.worker.pipeline
+    p = pipe.engine.workers[0].pipeline
 
     def reqs():
         return [Request(f"t{i}", SamplingParams(
@@ -1274,7 +1295,7 @@ def serve_sd3(card: str, bundle: ModelBundle) -> int:
     if launches < expected:
         raise AssertionError("the SD3 dense path did not go through flash_mha")
     res, n = SD3_REQUESTS[0], SD3_REQUESTS.count(SD3_REQUESTS[0])
-    step_gaps(pipe.engine.worker.schedule_log, f"{res}x{n}",
+    step_gaps(pipe.engine.workers[0].schedule_log, f"{res}x{n}",
               f"SD3 batch {n} x {res}^2 (CFG {2 * n} rows)", card)
     peak = torch.cuda.max_memory_allocated()
 
@@ -1314,7 +1335,7 @@ def serve_sd3_mixed(card: str, bundle: ModelBundle) -> int:
     masked = got["masked"]
 
     check_outputs(outs, SD3_MIXED_REQUESTS, card)
-    log = pipe.engine.worker.schedule_log
+    log = pipe.engine.workers[0].schedule_log
     key = ";".join(f"{r}x{SD3_MIXED_REQUESTS.count(r)}"
                    for r in sorted(set(SD3_MIXED_REQUESTS)))
     batches = [e["resolutions"] for e in log if e["stage"] == "denoising"]
@@ -1329,7 +1350,7 @@ def serve_sd3_mixed(card: str, bundle: ModelBundle) -> int:
     if masked < want:
         raise AssertionError("the SD3 mixed path did not go through the "
                              "masked kernel")
-    ctx = sd3_mixed_ctx(pipe.engine.worker.pipeline.device)
+    ctx = sd3_mixed_ctx(pipe.engine.workers[0].pipeline.device)
     step_gaps(log, key, f"SD3 mixed {key} token batch (CFG {ctx.token_mask.shape[0]} "
               f"rows of {ctx.token_mask.shape[1]} + {SD3_CTX} tokens)", card)
     peak = torch.cuda.max_memory_allocated()
@@ -1504,7 +1525,7 @@ def serve_sd3_span(card: str, bundle: ModelBundle) -> list:
         config.engine.collect_data = True
         config.cache = cache
         pipe = DiffusionPipeline(config=config, device="cuda", bundle=bundle)
-        steps = sd3_steps_spy(pipe.engine.worker.pipeline)
+        steps = sd3_steps_spy(pipe.engine.workers[0].pipeline)
         reset_counts()
         t0 = time.perf_counter()
         outs = pipe.generate(prompts, resolution=SD3_SPAN_REQUESTS,
@@ -1571,7 +1592,7 @@ def serve_sd3_span_serving(card: str, bundle: ModelBundle) -> dict:
     cc = config.cache
     engine = DiffusionPipeline(config=config, device="cuda",
                                bundle=bundle).engine
-    pipe = engine.worker.pipeline
+    pipe = engine.workers[0].pipeline
     steps = sd3_steps_spy(pipe)
 
     def add(i, res, n):
@@ -1633,7 +1654,7 @@ def serve_sd3_token_caches(card: str, bundle: ModelBundle) -> list:
         config = default_config("sd3", dtype="bfloat16", seed=0)
         config.cache = CacheConfig(enabled=True, **kw)
         pipe = DiffusionPipeline(config=config, device="cuda", bundle=bundle)
-        steps = sd3_steps_spy(pipe.engine.worker.pipeline)
+        steps = sd3_steps_spy(pipe.engine.workers[0].pipeline)
         reset_counts()
         t0 = time.perf_counter()
         outs = pipe.generate([f"a token cache prompt {i}" for i in range(2)],
@@ -1934,7 +1955,7 @@ def serve_sdxl_deep(card: str, bundle: ModelBundle) -> list:
         config.engine.collect_data = True
         config.cache = cache
         pipe = DiffusionPipeline(config=config, device="cuda", bundle=bundle)
-        steps = spy_deep(pipe.engine.worker.pipeline)
+        steps = spy_deep(pipe.engine.workers[0].pipeline)
         reset_counts()
         t0 = time.perf_counter()
         outs = pipe.generate(prompts, resolution=DEEP_REQUESTS,
@@ -1946,7 +1967,7 @@ def serve_sdxl_deep(card: str, bundle: ModelBundle) -> list:
         runs.append(got)
         check_outputs(outs, DEEP_REQUESTS, card)
         label = "on" if cache.enabled else "off"
-        step_gaps(pipe.engine.worker.schedule_log,
+        step_gaps(pipe.engine.workers[0].schedule_log,
                   f"{DEEP_REQUESTS[0]}x{len(DEEP_REQUESTS)}",
                   f"SDXL 8 x 1024^2 cache {label} (schedule log)", card)
         peak = torch.cuda.max_memory_allocated()
@@ -1991,7 +2012,7 @@ def serve_sd15_rowwarm(card: str, bundle: ModelBundle) -> dict:
     config.cache = CacheConfig.production("sd15", serving=True)
     engine = DiffusionPipeline(config=config, device="cuda",
                                bundle=bundle).engine
-    steps = spy_deep(engine.worker.pipeline)
+    steps = spy_deep(engine.workers[0].pipeline)
 
     def add(i):
         return engine.add_request(f"rowwarm-{i}", SamplingParams(
@@ -2153,7 +2174,7 @@ def serve_sdxl_mixed_deep(card: str, bundle: ModelBundle) -> list:
         config = default_config("sdxl", dtype="bfloat16", seed=0)
         config.cache = cache
         pipe = DiffusionPipeline(config=config, device="cuda", bundle=bundle)
-        steps = spy_deep(pipe.engine.worker.pipeline)
+        steps = spy_deep(pipe.engine.workers[0].pipeline)
         reset_counts()
         t0 = time.perf_counter()
         outs = pipe.generate(prompts, resolution=MIXED_REQUESTS,
@@ -2290,7 +2311,7 @@ def serve_cache_run(card: str, bundle: ModelBundle, cache: CacheConfig,
     config.scheduler.use_mixed_resolution = mixed
     config.cache = cache
     pipe = DiffusionPipeline(config=config, device="cuda", bundle=bundle)
-    rec = spy_cache_steps(pipe.engine.worker.pipeline)
+    rec = spy_cache_steps(pipe.engine.workers[0].pipeline)
     engine = pipe.engine
     prompts = ["a red fox in snow", "a harbor at night, long exposure",
                "a watercolor of a mountain lake", "a robot reading a book"]
@@ -2604,7 +2625,7 @@ def serve_api_cache(card: str) -> list:
             wait_for(up, "the HTTP server", 300)
             aeng = made["engine"]
             calls = collections.Counter()
-            cache = aeng.engine.worker.pipeline._block_cache()
+            cache = aeng.engine.workers[0].pipeline._block_cache()
             for name in ("gate", "gate_compact_images"):
                 real = getattr(cache, name)
 
@@ -2676,7 +2697,7 @@ def serve_sd15_mixed_deep(card: str, bundle: ModelBundle) -> dict:
     config.cache = CacheConfig.production("sd15", serving=True)
     engine = DiffusionPipeline(config=config, device="cuda",
                                bundle=bundle).engine
-    steps = spy_deep(engine.worker.pipeline)
+    steps = spy_deep(engine.workers[0].pipeline)
 
     def add(i, res):
         return engine.add_request(f"mixdeep-{i}", SamplingParams(
@@ -2768,11 +2789,11 @@ def serve_http(card: str, bundle: ModelBundle) -> dict:
     config.engine.collect_data = True
     config.engine.collect_dir = "build/serve_http"
     engine = Engine(config, "cuda", bundle=bundle)
-    pipe = engine.worker.pipeline
+    pipe = engine.workers[0].pipeline
     steps = spy_deep(pipe)
     decodes, gates, observed = [], [], []
     decode_group, overlap_ok = pipe._decode_group, pipe.post_overlap_ok
-    observe = engine.worker.scheduler.policy.observe_step_time
+    observe = engine.workers[0].scheduler.policy.observe_step_time
 
     def spy_decode_group(reqs):
         t0 = time.time()
@@ -2800,7 +2821,7 @@ def serve_http(card: str, bundle: ModelBundle) -> dict:
 
     pipe._decode_group = spy_decode_group
     pipe.post_overlap_ok = spy_overlap_ok
-    engine.worker.scheduler.policy.observe_step_time = spy_observe
+    engine.workers[0].scheduler.policy.observe_step_time = spy_observe
     aeng = AsyncEngine(config, engine=engine)
     box, ready = {}, threading.Event()
 
@@ -2849,7 +2870,7 @@ def serve_http(card: str, bundle: ModelBundle) -> dict:
         gate.set()
         time.sleep(1.0)
         senders += [start(rid) for rid in "DE"]
-        wait_for(lambda: getattr(engine.worker.scheduler.pool.get("E"),
+        wait_for(lambda: getattr(engine.workers[0].scheduler.pool.get("E"),
                                  "stage", None) is Stage.DENOISING,
                  "E in DENOISING")
         if client.post_json(url + "/abort", {"request_id": "E"}) \
@@ -2896,7 +2917,7 @@ def serve_http(card: str, bundle: ModelBundle) -> dict:
         raise AssertionError("the server or the engine did not stop")
 
     # the decode thread overlapped denoising
-    denoise_times = [e["time"] for e in engine.worker.schedule_log
+    denoise_times = [e["time"] for e in engine.workers[0].schedule_log
                      if e["stage"] == "denoising"]
     overlapped = [d for d in decodes if d["thread"].startswith("post-")
                   and any(d["start"] < t < d["end"] for t in denoise_times)]
@@ -2929,9 +2950,9 @@ def serve_http(card: str, bundle: ModelBundle) -> dict:
     def during(a, b):
         return any(s < b and a < e for s, e in spans)
 
-    log = [e["time"] for e in engine.worker.schedule_log]
+    log = [e["time"] for e in engine.workers[0].schedule_log]
     walls: dict = {True: [], False: []}
-    for e, t_next in zip(engine.worker.schedule_log, log[1:]):
+    for e, t_next in zip(engine.workers[0].schedule_log, log[1:]):
         if e["stage"] == "denoising":
             walls[during(e["time"], t_next)].append((t_next - e["time"]) * 1e3)
     fed: dict = {True: [], False: []}
@@ -3112,9 +3133,9 @@ def serve_sd15_snapshot(card: str, bundle: ModelBundle) -> dict:
 
     config.model.safety_checker_path = "random"
     checked = DiffusionPipeline(config=config, device="cuda",
-                                bundle=snap.engine.worker.pipeline.bundle)
+                                bundle=snap.engine.workers[0].pipeline.bundle)
     t0 = time.perf_counter()
-    checker = checked.engine.worker.pipeline._safety_checker()
+    checker = checked.engine.workers[0].pipeline._safety_checker()
     t_init = time.perf_counter() - t0
     group_ms = []
     check = checker.check
@@ -3216,7 +3237,7 @@ def profile_h100(card: str) -> dict:
         config.scheduler.stage_latency_overrides = profile
         config.scheduler.predictor_path = pred_path
         pipe = DiffusionPipeline(config=config, device="cuda", bundle=bundle)
-        policy = pipe.engine.worker.scheduler.policy
+        policy = pipe.engine.workers[0].scheduler.policy
         if policy.profile.step_latency != profile["step_latency"] \
                 or policy.predictor.weights is None:
             raise AssertionError("ESyMReD did not take the fitted profile")
@@ -3432,7 +3453,7 @@ def serve_chunked(card: str, bundle: ModelBundle, label: str, config,
         gc.collect()
         torch.cuda.empty_cache()
         engine = Engine(cfg, "cuda", bundle=bundle)
-        pipe = engine.worker.pipeline
+        pipe = engine.workers[0].pipeline
         rec = {}
         if spd > 1:
             torch.cuda.synchronize()
@@ -3639,13 +3660,13 @@ def serve_sd15(card: str, bundle: ModelBundle, mixed: bool, sampler: str,
     config.engine.async_prepare = async_prepare
     pipe = DiffusionPipeline(config=config, device="cuda", bundle=bundle)
     prepare_threads = []
-    prepare = pipe.engine.worker.pipeline.prepare
+    prepare = pipe.engine.workers[0].pipeline.prepare
 
     def spy_prepare(reqs):
         prepare_threads.append(threading.current_thread().name)
         return prepare(reqs)
 
-    pipe.engine.worker.pipeline.prepare = spy_prepare
+    pipe.engine.workers[0].pipeline.prepare = spy_prepare
     if mixed and config.scheduler.policy != "fcfs_mixed":
         raise AssertionError("the default configuration is not the mixed path")
     cfg = bundle.denoiser.cfg
@@ -3653,7 +3674,7 @@ def serve_sd15(card: str, bundle: ModelBundle, mixed: bool, sampler: str,
                    for m in bundle.denoiser.modules()) + 1
     prompts = ["a lighthouse on a cliff at dusk", "a bowl of ramen",
                "an astronaut riding a horse", "a red fox in snow"][:len(requests)]
-    evals = pipe.engine.worker.pipeline.sampler.make_table(steps).num_steps
+    evals = pipe.engine.workers[0].pipeline.sampler.make_table(steps).num_steps
 
     reset_counts()
     t0 = time.perf_counter()
@@ -3664,7 +3685,7 @@ def serve_sd15(card: str, bundle: ModelBundle, mixed: bool, sampler: str,
     got = read_counts()
 
     check_outputs(outs, requests, card)
-    log = pipe.engine.worker.schedule_log
+    log = pipe.engine.workers[0].schedule_log
     batches = [e["resolutions"] for e in log if e["stage"] == "denoising"]
     groups = sorted(set(requests))
     counts = [f"{r}x{requests.count(r)}" for r in groups]
@@ -3716,6 +3737,246 @@ def serve_sd15(card: str, bundle: ModelBundle, mixed: bool, sampler: str,
             raise AssertionError(f"bad SD-1.5 latents {o.image.shape}")
     print(f"max_memory_allocated {peak / 2**30:.2f} GiB (SD-1.5 {path}, "
           f"{sampler}) [{card}]")
+    return got
+
+
+# -- the trace replay and dp replicas --------------------------------------
+
+def busy_shares(prof, wall_s: float) -> dict:
+    """Each card's busy share of a profiled window of ``wall_s`` seconds:
+    the union of its kernel spans over the window."""
+    spans = collections.defaultdict(list)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            spans[e.device_index].append((e.time_range.start,
+                                          e.time_range.end))
+    out = {}
+    for dev, sp in sorted(spans.items()):
+        sp.sort()
+        busy_us, cur_s, cur_e = 0.0, *sp[0]
+        for a, b in sp[1:]:
+            if a > cur_e:
+                busy_us += cur_e - cur_s
+                cur_s, cur_e = a, b
+            else:
+                cur_e = max(cur_e, b)
+        out[dev] = (busy_us + cur_e - cur_s) / 1e6 / wall_s
+    return out
+
+
+def replay_sdxl(card: str, bundle: ModelBundle, devices=None,
+                buckets=REPLAY_BUCKETS, busy: bool = False) -> dict:
+    """``benchmark.replay.run_replay`` on the card: SDXL-base (the random
+    bf16 bundle of seed 0), ``CacheConfig.production("sdxl")``, ESyMReD
+    with the committed H100 profile and predictor, the first REPLAY_N rows
+    of REPLAY_TRACE, after the replay's prewarm of their resolutions.
+    Checks REPLAY_N records, an image of its resolution with contrast for
+    every finished request, and ``compute_metrics`` of the records (times
+    at the microsecond) against that of their CSV round trip; prints the
+    SLO metrics, each request's latency and the prewarm seconds.
+    ``devices`` (card indices): dp replicas there; ``busy``: the replay
+    runs under torch.profiler (CUDA activity) and each card's busy share
+    is printed.  Returns the launches of the replay (prewarm excluded)."""
+    t0 = time.perf_counter()
+    config = default_config("sdxl", dtype="bfloat16", seed=0)
+    config.scheduler.policy = "esymred"
+    config.scheduler.batch_buckets = tuple(buckets)
+    config.scheduler.max_batch_size = buckets[-1]
+    if devices is not None:
+        config.parallel.dp = len(devices)
+        config.parallel.devices = list(devices)
+    config.cache = CacheConfig.production("sdxl")
+    with open(os.path.join(H100_PROFILES, "profile_sdxl.json")) as f:
+        config.scheduler.stage_latency_overrides = json.load(f)
+    config.scheduler.predictor_path = os.path.join(H100_PROFILES,
+                                                   "predictor_sdxl.npz")
+    rows = load_trace(REPLAY_TRACE)[:REPLAY_N]
+    engine = Engine(config, "cuda", bundle=bundle)
+    outs, prewarm_s = [], []
+    step, prewarm = engine.step, engine.prewarm
+
+    def spy_step():
+        got = step()
+        outs.extend(got)
+        return got
+
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA]) if busy else None
+    window = []
+
+    def spy_prewarm(**kw):
+        prewarm_s.append(prewarm(**kw))
+        for d in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(d)
+        reset_counts()  # the replay's launches only
+        if prof is not None:
+            prof.start()
+        window.append(time.perf_counter())
+        return prewarm_s[-1]
+
+    engine.step, engine.prewarm = spy_step, spy_prewarm
+    per_rank = collections.Counter()  # requests dispatched to each replica
+    for w in engine.workers:
+        w.add_requests = (lambda reqs, add=w.add_requests, r=w.rank:
+                          (per_rank.update({r: len(reqs)}), add(reqs))[1])
+    t1 = time.perf_counter()
+    records = run_replay(config, rows, slo=REPLAY_SLO, device="cuda",
+                         engine=engine)
+    for d in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(d)
+    window.append(time.perf_counter())
+    got = read_counts()
+    if prof is not None:
+        prof.stop()
+        shares = busy_shares(prof, window[1] - window[0])
+        print(f"replay busy share per card over its {window[1] - window[0]:.3f}"
+              f" s (profiled): " + (", ".join(
+                  f"cuda:{d} {v:.1%}" for d, v in shares.items())
+                  or "not measured (the profiler saw no kernel)")
+              + f" [{card}]")
+
+    if len(records) != REPLAY_N or len(outs) != REPLAY_N or not prewarm_s:
+        raise AssertionError(f"{len(records)} records, {len(outs)} outputs "
+                             f"for {REPLAY_N} rows; prewarm {prewarm_s}")
+    by_id = {o.request_id: o for o in outs}
+    for rec in sorted(records, key=lambda r: r.arrival_time):
+        o = by_id[rec.request_id]
+        if not rec.aborted:
+            img = o.image
+            if img is None or img.dtype != np.uint8 or img.shape != (
+                    rec.resolution, rec.resolution, 3) or img.std() == 0:
+                raise AssertionError(
+                    f"bad image for {rec.request_id}: "
+                    f"{None if img is None else (img.dtype, img.shape)}")
+        print(f"replay {rec.request_id} {rec.resolution}^2: latency "
+              f"{rec.latency_s:.3f} s, {'aborted' if rec.aborted else 'ok'}"
+              f" [{card}]")
+    m = compute_metrics(records, "sdxl", slo=REPLAY_SLO)
+    root = tempfile.mkdtemp(prefix="replay_", dir="build")
+    try:
+        path = os.path.join(root, "client.csv")
+        records_to_csv(records, path)
+        back = compute_metrics(records_from_csv(path), "sdxl",
+                               slo=REPLAY_SLO)
+    finally:
+        shutil.rmtree(root)
+    micro = [dataclasses.replace(
+        r, arrival_time=float(f"{r.arrival_time:.6f}"),
+        finish_time=float(f"{r.finish_time:.6f}")) for r in records]
+    want = compute_metrics(micro, "sdxl", slo=REPLAY_SLO)
+    if json.dumps(want) != json.dumps(back):  # NaN equal to NaN
+        raise AssertionError(f"metrics {want} != CSV round trip {back}")
+    if got["k5"] == 0:
+        raise AssertionError(f"the replay launched no text cross-attention "
+                             f"kernel: {got}")
+    print(f"replay_sdxl metrics ({REPLAY_N} rows of {REPLAY_TRACE}, slo "
+          f"{REPLAY_SLO}, ESyMReD, production('sdxl'), dp "
+          f"{len(engine.workers)}, requests per replica "
+          f"{[per_rank[w.rank] for w in engine.workers]}): {json.dumps(m)}; "
+          f"prewarm {prewarm_s[0]:.1f} s, replay "
+          f"{time.perf_counter() - t1 - prewarm_s[0]:.1f} s, launches {got}; "
+          f"phase {time.perf_counter() - t0:.1f} s [{card}]")
+    return got
+
+
+def greedy_ranks(resolutions, replicas: int) -> list:
+    """The greedy dispatch recomputed on the host: each request to the
+    least-loaded replica by pending pixels, first one on ties."""
+    loads, ranks = [0] * replicas, []
+    for res in resolutions:
+        r = loads.index(min(loads))
+        loads[r] += res * res
+        ranks.append(r)
+    return ranks
+
+
+def dp_latents(engine: Engine, reqs: list, loads=None) -> dict:
+    """Add ``reqs`` at once, serve them to the end; finite latents by id.
+    ``loads`` receives each replica's pending pixels after the first
+    step, which dispatches them."""
+    engine.add_requests(reqs)
+    outs = engine.step()
+    if loads is not None:
+        loads += [w.pending_pixels() for w in engine.workers]
+    while engine.has_unfinished_requests():
+        outs += engine.step()
+    for o in outs:
+        if not o.finished or not np.isfinite(o.image).all():
+            raise AssertionError(f"bad output {o.request_id}")
+    return {o.request_id: o.image for o in outs}
+
+
+def dp_requests(resolutions) -> list:
+    return [Request(f"dp-{i}", SamplingParams(
+        prompt=f"a lighthouse, view {i}", resolution=res,
+        num_inference_steps=STEPS, seed=100 + i, output_type="latent"))
+        for i, res in enumerate(resolutions)]
+
+
+def serve_dp(card: str, bundle: ModelBundle, devices: list,
+             resolutions: list, spd: int = 1) -> tuple:
+    """dp = len(devices) SD-1.5 replicas on ``devices`` (card indices,
+    repeats allowed) behind the greedy dispatcher; the requests added at
+    once.  Checks the dispatch against :func:`greedy_ranks`, that every
+    replica serves, and each replica's latents bitwise against a dp = 1
+    engine on that replica's card serving that replica's requests, both
+    with ``steps_per_dispatch`` ``spd`` (above 1: chunks from step graphs
+    captured on each replica's card).  Returns the launches of the dp run
+    and the per-replica loads at dispatch."""
+    config = default_config("sd15", dtype="bfloat16", seed=0)
+    config.scheduler.steps_per_dispatch = spd
+    config.parallel.dp = len(devices)
+    config.parallel.devices = list(devices)
+    engine = Engine(config, "cuda", bundle=bundle)
+    want_dev = [torch.device("cuda", i) for i in devices]
+    if [w.device for w in engine.workers] != want_dev:
+        raise AssertionError(f"replicas on {[w.device for w in engine.workers]}")
+    for w in engine.workers:
+        shared = w.pipeline.bundle is bundle
+        if shared != (w.device == torch.device("cuda", 0)):
+            raise AssertionError(f"replica {w.rank} on {w.device}: bundle "
+                                 f"shared {shared}")
+    reqs, loads = dp_requests(resolutions), []
+    reset_counts()
+    t0 = time.perf_counter()
+    latents = dp_latents(engine, reqs, loads)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_counts()
+    ranks = [r.dp_rank for r in reqs]
+    want = greedy_ranks(resolutions, len(devices))
+    if ranks != want or set(ranks) != set(range(len(devices))):
+        raise AssertionError(f"dispatch {ranks}, host greedy {want}")
+    if got["k1"] == 0 or got["k5"] == 0:
+        raise AssertionError(f"dp launches {got}")
+    for rank, dev in enumerate(devices):
+        mine = [r for r, k in zip(reqs, ranks) if k == rank]
+        one = default_config("sd15", dtype="bfloat16", seed=0)
+        one.scheduler.steps_per_dispatch = spd
+        one.parallel.devices = [dev]
+        ref = dp_latents(Engine(one, "cuda", bundle=bundle), [
+            Request(f"ref-{r.request_id}", dataclasses.replace(r.params))
+            for r in mine])
+        for r in mine:
+            a, b = latents[r.request_id], ref[f"ref-{r.request_id}"]
+            if not np.array_equal(a, b):
+                raise AssertionError(
+                    f"replica {rank} (cuda:{dev}) {r.request_id}: max |dp - "
+                    f"dp=1| {np.abs(a.astype(np.float64) - b).max():.3e}")
+    print(f"dp={len(devices)} on cards {devices} (steps_per_dispatch "
+          f"{spd}, graphs captured per replica "
+          f"{[w.pipeline.graphs.captures for w in engine.workers]}): {len(reqs)} x "
+          f"{sorted(set(resolutions))}^2 x {STEPS} steps in {wall:.3f} s; "
+          f"greedy ranks {ranks}; pending pixels per replica at dispatch "
+          f"{loads}; latents bitwise equal to dp=1 on each replica's card; "
+          f"launches {got} [{card}]")
+    return got, loads
+
+
+def serve_dp2(card: str, bundle: ModelBundle) -> dict:
+    """Two SD-1.5 replicas on one card (devices [0, 0], one shared
+    bundle): :func:`serve_dp` on DP2_REQUESTS."""
+    got, _ = serve_dp(card, bundle, DP2_DEVICES, DP2_REQUESTS)
     return got
 
 
@@ -3778,6 +4039,7 @@ def main() -> None:
     runs += serve_api_cache(card)
     check_vae_dtype(card, bundle)
     runs.append(serve_http(card, bundle))
+    runs.append(replay_sdxl(card, bundle))
     # free each bundle so each family's peak memory reads alone
     del bundle
     gc.collect()
@@ -3804,6 +4066,7 @@ def main() -> None:
         *serve_sd15_chunked(card, sd15),
         serve_sd15_mixed_deep(card, sd15),
         serve_sd15_snapshot(card, sd15),
+        serve_dp2(card, sd15),
     ]
     del sd15
     gc.collect()

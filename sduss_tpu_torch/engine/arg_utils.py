@@ -1,10 +1,11 @@
 """CLI argument surface -> Config (counterpart of
 sduss_tpu/engine/arg_utils.py).
 
-The JAX package's flags with its defaults, plus ``--device``.  Flags of
-paths the port does not serve yet (``--dp``/``--tp``/``--sp`` above 1)
-parse as there and are refused by ``engine.check_supported`` when the
-Engine is built.
+The JAX package's flags with its defaults, plus ``--device``.  ``--dp``
+replicas are served (on ``cuda:0..dp-1`` from ``--device cuda``, all on
+the CPU from ``--device cpu``) behind ``--dispatcher-policy`` (greedy or
+round_robin).  ``--tp``/``--sp`` above 1 parse as in JAX and are refused
+by ``engine.check_supported`` when the Engine is built.
 """
 
 from __future__ import annotations

@@ -4,7 +4,9 @@ Per-request streams over a background engine loop: the engine lives in
 this process, and every call that mutates it (``add_request``, ``step``,
 ``abort_requests``) runs on one single-thread executor, so the asyncio
 event loop (the HTTP handlers) stays responsive while the card computes
-and no two Engine calls ever overlap.
+and no two Engine calls ever overlap.  The engine's ``dp`` replicas
+(``ParallelConfig.dp``, ``--dp``) are stepped in turn by that one thread;
+``EngineStats`` stays one stream over all of them, as in JAX.
 """
 
 from __future__ import annotations
@@ -128,6 +130,12 @@ class AsyncEngine:
         if final is None:
             raise AsyncEngineDeadError("stream closed without output")
         return final
+
+    async def call(self, fn, *args):
+        """``fn(engine, *args)`` on the executor that runs every Engine
+        call, so it never overlaps a step."""
+        return await asyncio.get_running_loop().run_in_executor(
+            self._executor, fn, self.engine, *args)
 
     async def abort(self, request_id: str) -> None:
         outs = await asyncio.get_running_loop().run_in_executor(

@@ -1,15 +1,22 @@
-"""Serving engine on one CUDA device (counterpart of
+"""Serving engine over dp replicas (counterpart of
 sduss_tpu/engine/engine.py).
 
-One replica (``dp=1``) on an explicit ``torch.device``: the engine holds
-one ``Worker`` and hands it every waiting request (the JAX engine's
-dispatch over replicas comes back with ``dp > 1``).  ``step()``,
-``add_request()``, ``abort_requests()`` and ``has_unfinished_requests()``
-keep the JAX engine's semantics; ``abort_requests`` also reaches requests
-parked in PREPARING or DECODING while a worker thread runs their stage.
-There is no compilation cache: eager PyTorch compiles nothing ahead of a
-step.  ``prewarm`` builds the kernels and, with ``steps_per_dispatch >
-1``, captures the step graphs that chunks replay (``pipelines/graphs.py``).
+The engine holds one ``Worker`` per data-parallel replica, each on its own
+device (``parallel/replica.py``: ``cuda:0..dp-1``, an explicit
+``ParallelConfig.devices`` list that may repeat a card, or the CPU).
+``step()`` hands the waiting requests to the replicas through the
+dispatch policy (``dispatcher/``: greedy over the workers'
+``pending_pixels`` by default) and runs one iteration on every replica in
+turn, on this thread, as the JAX engine does.  ``add_request()``,
+``abort_requests()`` and ``has_unfinished_requests()`` keep the JAX
+engine's semantics over all replicas; ``abort_requests`` also reaches
+requests parked in PREPARING or DECODING while a worker thread runs their
+stage.  Replicas on one device share one ``ModelBundle``; a replica on
+another card serves a copy of the same weights.  There is no compilation
+cache: eager PyTorch compiles nothing ahead of a step.  ``prewarm``
+builds the kernels and, with ``steps_per_dispatch > 1``, captures the
+step graphs that chunks replay (``pipelines/graphs.py``), replica by
+replica.
 """
 
 from __future__ import annotations
@@ -19,17 +26,20 @@ import csv
 import gc
 import os
 import time
-from typing import Dict, List, Optional, Sequence, Set
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
 from sduss_tpu_torch.config import Config
+from sduss_tpu_torch.dispatcher import get_dispatch_policy
 from sduss_tpu_torch.logger import init_logger
 from sduss_tpu_torch.metrics import EngineStats
 from sduss_tpu_torch.request import Request, RequestOutput, SamplingParams, Stage
 from sduss_tpu_torch import configure_numerics
 from sduss_tpu_torch.engine.worker import Worker
 from sduss_tpu_torch.models.registry import ModelBundle
+from sduss_tpu_torch.parallel.replica import (build_placements, canonical,
+                                              on_device)
 from sduss_tpu_torch.pipelines import build_pipeline
 
 logger = init_logger(__name__)
@@ -54,28 +64,49 @@ def check_supported(config: Config) -> None:
     ``sd3_deep_span`` mints no cache at all, and the UNet families ignore
     ``sd3_deep_span``.  ``steps_per_dispatch`` above 1 runs fused
     multi-step chunks (captured step graphs on the card) and
-    ``engine.prewarm`` warms them.  What is refused: more than one device
-    (item 10)."""
-    if config.parallel.world_size != 1:
-        raise NotImplementedError("multi-device serving is not ported "
-                                  "(dp = tp = sp = pp = 1; ROADMAP Queue 1 "
-                                  "item 10)")
+    ``engine.prewarm`` warms them.  ``dp`` replicas are served, two or
+    more on one card included.  What is refused: a replica over more than
+    one device, ``tp``, ``sp`` or ``pp`` above 1 (item 10)."""
+    par = config.parallel
+    if max(par.tp, par.sp, par.pp) != 1:
+        raise NotImplementedError(
+            f"tensor, spatial and pipeline parallelism are not ported "
+            f"(tp={par.tp}, sp={par.sp}, pp={par.pp}; dp replicas are; "
+            f"ROADMAP Queue 1 item 10)")
 
 
 class Engine:
+    """``device`` is the engine's device (``cuda``, ``cuda:N`` or ``cpu``),
+    from which ``build_placements`` places the replicas; ``bundle``, when
+    given, serves the replicas on its device and is copied to any other."""
+
     def __init__(self, config: Config, device: torch.device | str,
                  bundle: Optional[ModelBundle] = None):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device found; pass device='cpu' "
                                "explicitly to run on the CPU")
         check_supported(config)
         configure_numerics()
         self.config = config
-        pipe = build_pipeline(config, self.device, bundle=bundle)
-        self.worker = Worker(0, pipe, config)
+        par = config.parallel
+        placements = build_placements(par.dp, par.sp, par.tp, par.devices,
+                                      device)
+        bundles: Dict[torch.device, ModelBundle] = {}
+        if bundle is not None:
+            bundles[canonical(bundle.device)] = bundle
+        self.workers: List[Worker] = []
+        for rank, dev in enumerate(placements):
+            b = bundles.get(dev)
+            if b is None and bundles:
+                b = next(iter(bundles.values())).replicate(dev)
+            pipe = build_pipeline(config, dev, bundle=b)
+            bundles.setdefault(dev, pipe.bundle)
+            self.workers.append(Worker(rank, pipe, config))
+        self.dispatch_policy = get_dispatch_policy(
+            config.engine.dispatcher_policy)
         self._waiting: List[Request] = []
-        self._known: Set[str] = set()  # ids of unfinished requests
+        self._known: Dict[str, int] = {}  # request id -> dp rank (-1 waiting)
         self.stats = EngineStats()
 
     # -- request API ---------------------------------------------------------
@@ -84,7 +115,7 @@ class Engine:
         for req in reqs:
             if req.request_id in self._known:
                 raise ValueError(f"duplicate request id {req.request_id}")
-            self._known.add(req.request_id)
+            self._known[req.request_id] = -1
             self._waiting.append(req)
             self.stats.on_arrival(req)
 
@@ -102,37 +133,49 @@ class Engine:
             if req.request_id in ids:
                 req.stage = Stage.ABORTED
                 req.finish_time = time.time()
-                self._known.discard(req.request_id)
+                self._known.pop(req.request_id, None)
                 outs.append(RequestOutput.from_request(req))
                 ids.discard(req.request_id)
             else:
                 still_waiting.append(req)
         self._waiting = still_waiting
-        for req in self.worker.abort_requests(list(ids)):
-            self._known.discard(req.request_id)
-            outs.append(RequestOutput.from_request(req))
+        for worker in self.workers:
+            for req in worker.abort_requests(list(ids)):
+                self._known.pop(req.request_id, None)
+                outs.append(RequestOutput.from_request(req))
+                ids.discard(req.request_id)
         for out in outs:
             self.stats.on_finish(out)
         return outs
 
     def has_unfinished_requests(self) -> bool:
-        return bool(self._waiting) or self.worker.has_unfinished()
+        return bool(self._waiting) or any(w.has_unfinished()
+                                          for w in self.workers)
 
     # -- main loop -----------------------------------------------------------
 
     def step(self) -> List[RequestOutput]:
-        """Hand waiting requests to the worker, run one iteration, collect
-        finished outputs."""
+        """Dispatch the waiting requests over the replicas (each request's
+        ``dp_rank``), run one iteration on each replica, collect finished
+        outputs (JAX engine.py:118-139)."""
         if self._waiting:
-            self.worker.add_requests(self._waiting)
+            loads = [w.pending_pixels() for w in self.workers]
+            ranks = self.dispatch_policy.assign(self._waiting, loads)
+            per_rank: Dict[int, List[Request]] = {}
+            for req, rank in zip(self._waiting, ranks):
+                per_rank.setdefault(rank, []).append(req)
+                self._known[req.request_id] = rank
+            for rank, reqs in per_rank.items():
+                self.workers[rank].add_requests(reqs)
             self._waiting = []
 
         outputs: List[RequestOutput] = []
-        for req in self.worker.step():
-            self._known.discard(req.request_id)
-            out = RequestOutput.from_request(req)
-            self.stats.on_finish(out)
-            outputs.append(out)
+        for worker in self.workers:
+            for req in worker.step():
+                self._known.pop(req.request_id, None)
+                out = RequestOutput.from_request(req)
+                self.stats.on_finish(out)
+                outputs.append(out)
         return outputs
 
     # -- prewarm -------------------------------------------------------------
@@ -187,19 +230,30 @@ class Engine:
         self.stats = EngineStats()
         dt = time.time() - t0
         logger.info("prewarm: %.1f s, %d step graphs captured", dt,
-                    self.worker.pipeline.graphs.captures)
+                    sum(w.pipeline.graphs.captures for w in self.workers))
         return dt
 
     def _prewarm_inner(self, res_list, buckets, steps: int,
                        compositions) -> None:
-        """Two passes over (resolution x bucket): first the per-step steps
-        and the decode of each pair, each decode after a release, so that
-        no row state sits beside it; then the chunks and partial steps,
-        whose step sets keep their row buffers and graphs for serving
-        within ``comp_state_bytes`` (those runs end with their throwaway
-        requests' eviction, not a release, which would drop the sets)."""
+        """Each replica's pipeline in turn (JAX engine.py:407, :495: a
+        dispatch through the engine would split a bucket over the
+        replicas), under its device.  Two passes over (resolution x
+        bucket): first the per-step steps and the decode of each pair,
+        each decode after a release, so that no row state sits beside it;
+        then the chunks and partial steps, whose step sets keep their row
+        buffers and graphs for serving within ``comp_state_bytes`` (those
+        runs end with their throwaway requests' eviction, not a release,
+        which would drop the sets).  ``max_batch_size`` is shared: a cap
+        met on one replica holds for the next, and the gate of a replica
+        counts what the replicas before it hold on its device."""
+        for worker in self.workers:
+            with on_device(worker.pipeline.device):
+                self._prewarm_replica(worker.pipeline, res_list, buckets,
+                                      steps, compositions)
+
+    def _prewarm_replica(self, pipe, res_list, buckets, steps: int,
+                         compositions) -> None:
         sc, cc = self.config.scheduler, self.config.cache
-        pipe = self.worker.pipeline
         bks = [b for b in (sc.batch_buckets if buckets is None else buckets)
                if b <= sc.max_batch_size]
         for res in res_list:
@@ -209,7 +263,7 @@ class Engine:
                 if not self._bucket_fits(pipe, res, b):
                     self._cap(res, b, bks, "does not fit the card")
                     break
-                with self._oom_caps(res, b, bks):
+                with self._oom_caps(pipe, res, b, bks):
                     reqs = _throwaway(pipe, f"prewarm-{res}-{b}", {res: b},
                                       steps)
                     by_res = {res: reqs}
@@ -227,7 +281,7 @@ class Engine:
         if sc.steps_per_dispatch > 1 or partial:
             for res in res_list:
                 for b in [b for b in bks if b <= sc.max_batch_size]:
-                    with self._oom_caps(res, b, bks):
+                    with self._oom_caps(pipe, res, b, bks):
                         if sc.steps_per_dispatch > 1:
                             self._prewarm_chunk(pipe, res, b)
                         if partial:
@@ -257,41 +311,51 @@ class Engine:
         sc.max_batch_size = min(sc.max_batch_size, prev)
 
     @contextlib.contextmanager
-    def _oom_caps(self, res: int, b: int, bks):
+    def _oom_caps(self, pipe, res: int, b: int, bks):
         """A bucket that runs out of the card's memory caps
         ``max_batch_size`` below it and releases the serving state."""
         try:
             yield
         except torch.cuda.OutOfMemoryError:
             self._cap(res, b, bks, "ran out of memory")
-            self.worker.pipeline.release_serving_state()
+            pipe.release_serving_state()
             gc.collect()
             torch.cuda.empty_cache()
 
-    def _device_bytes(self) -> float:
+    def _device_bytes(self, device: torch.device) -> float:
         """The card's memory (``torch.cuda.mem_get_info``), or
         ``engine.hbm_bytes_fallback`` on the CPU."""
-        if self.device.type == "cuda":
-            return float(torch.cuda.mem_get_info(self.device)[1])
+        if device.type == "cuda":
+            return float(torch.cuda.mem_get_info(device)[1])
         return float(self.config.engine.hbm_bytes_fallback)
 
+    def _held_bytes(self, device: torch.device) -> int:
+        """Bytes the replicas on ``device`` hold: each bundle's parameters
+        once (replicas on one card share it) and every replica's row state
+        (composition stores and step-set row buffers)."""
+        pipes = [w.pipeline for w in self.workers if w.device == device]
+        bundles = {id(p.bundle): p for p in pipes}
+        return (sum(p.device_param_bytes() for p in bundles.values())
+                + sum(p._row_state_bytes() for p in pipes))
+
     def _bucket_fits(self, pipe, res: int, bucket: int) -> bool:
-        """Prewarm's capacity gate (JAX engine.py:229-259): the parameters,
-        the row state held now (the composition stores and the step sets'
-        row buffers), the bucket's composition state (from the layouts'
-        shapes, nothing allocated) and ``prewarm_hbm_margin`` must fit the
-        card.  With ``steps_per_dispatch > 1`` the bucket's state counts
-        twice: a composition's fresh rows are copied into its step set's
-        buffer when that buffer already holds an earlier one's
+        """Prewarm's capacity gate (JAX engine.py:229-259): what the
+        replicas on the pipeline's device hold (:meth:`_held_bytes`:
+        parameters and row state), the bucket's composition state (from
+        the layouts' shapes, nothing allocated) and ``prewarm_hbm_margin``
+        must fit the card.  With ``steps_per_dispatch > 1`` the bucket's
+        state counts twice: a composition's fresh rows are copied into its
+        step set's buffer when that buffer already holds an earlier one's
         (``pipelines/graphs.py``)."""
         need = pipe.estimate_serving_state_bytes(res, bucket)
         if not need:
             return True
         if self.config.scheduler.steps_per_dispatch > 1:
             need *= 2
-        total = (pipe.device_param_bytes() + pipe._row_state_bytes() + need
+        device = next(w.device for w in self.workers if w.pipeline is pipe)
+        total = (self._held_bytes(device) + need
                  + float(self.config.engine.prewarm_hbm_margin))
-        return total <= self._device_bytes()
+        return total <= self._device_bytes(device)
 
     def _prewarm_chunk(self, pipe, res: int, b: int) -> None:
         """Throwaway requests of (res, b) run to their end in chunks of
@@ -342,15 +406,17 @@ class Engine:
     # -- data collection -----------------------------------------------------
 
     def dump_data(self, out_dir: Optional[str] = None) -> None:
-        """Write ``request_data.csv`` and ``schedule_rank{r}.csv`` (the
+        """Write ``request_data.csv`` and ``schedule_rank{r}.csv`` (each
         worker's per-iteration schedule log) to ``out_dir``, by default
         ``engine.collect_dir``."""
         out_dir = out_dir or self.config.engine.collect_dir
         os.makedirs(out_dir, exist_ok=True)
         self.stats.dump_csv(os.path.join(out_dir, "request_data.csv"))
-        log = self.worker.schedule_log
-        if log:
-            path = os.path.join(out_dir, f"schedule_rank{self.worker.rank}.csv")
+        for worker in self.workers:
+            log = worker.schedule_log
+            if not log:
+                continue
+            path = os.path.join(out_dir, f"schedule_rank{worker.rank}.csv")
             with open(path, "w", newline="") as f:
                 w = csv.DictWriter(f, fieldnames=list(log[0]))
                 w.writeheader()

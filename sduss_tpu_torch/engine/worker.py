@@ -29,6 +29,13 @@ synchronous: the JAX package backgrounds prepare only when its encoders
 live on the host (``encoders_on_host``, a memory policy for a 16 GB TPU
 chip), and every model of the port's bundle stays on the card.
 
+Each worker serves one dp replica on its own device
+(``parallel/replica.py``).  The engine's thread steps every replica in
+turn, so each step runs under ``torch.cuda.device(replica device)``, and
+the ``prepare-{rank}`` and ``post-{rank}`` threads make that device
+current when they start: the kernels' launches and the step graphs act
+on the current device.
+
 Both threads issue their kernels to the same CUDA stream as the loop (a
 new thread starts on the device's default stream), so a decode's kernels
 interleave with the denoise steps' as XLA's do on one compute stream, and
@@ -43,13 +50,17 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import functools
 import time
 from typing import Dict, List
+
+import torch
 
 from sduss_tpu_torch.config import Config
 from sduss_tpu_torch.request import Request, Stage
 from sduss_tpu_torch.scheduler import WorkerScheduler
 from sduss_tpu_torch.scheduler.policies import ScheduledBatch
+from sduss_tpu_torch.parallel.replica import canonical, on_device
 from sduss_tpu_torch.pipelines.base import BasePipeline
 
 
@@ -58,6 +69,7 @@ class Worker:
         self.rank = rank
         self.pipeline = pipeline
         self.config = config
+        self.device = canonical(pipeline.device)
         self.scheduler = WorkerScheduler(config.scheduler, pipeline.bundle.family,
                                          cache_config=config.cache,
                                          parallel_config=config.parallel)
@@ -69,20 +81,26 @@ class Worker:
         # "auto": prepare in the background exactly when the encoders live
         # on the host, which they never do in the port (module docstring)
         ap = config.engine.async_prepare
-        self._prepare_pool = (
-            concurrent.futures.ThreadPoolExecutor(
-                max_workers=1, thread_name_prefix=f"prepare-{rank}")
-            if (False if ap == "auto" else bool(ap)) else None)
+        self._prepare_pool = (self._pool(f"prepare-{rank}")
+                              if (False if ap == "auto" else bool(ap))
+                              else None)
         self._preparing: collections.deque = collections.deque()
         app = config.engine.async_postprocess
-        self._post_pool = (
-            concurrent.futures.ThreadPoolExecutor(
-                max_workers=1, thread_name_prefix=f"post-{rank}")
-            if (True if app == "auto" else bool(app)) else None)
+        self._post_pool = (self._pool(f"post-{rank}")
+                           if (True if app == "auto" else bool(app))
+                           else None)
         self._posting: collections.deque = collections.deque()
         if config.scheduler.steps_per_dispatch > 1:
             # a step-graph capture never races a background decode
             pipeline.graphs.before_capture = self._wait_posted
+
+    def _pool(self, name: str) -> concurrent.futures.ThreadPoolExecutor:
+        """One background thread whose current CUDA device is the
+        replica's."""
+        init = (functools.partial(torch.cuda.set_device, self.device)
+                if self.device.type == "cuda" else None)
+        return concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix=name, initializer=init)
 
     # -- request management --------------------------------------------------
 
@@ -105,10 +123,18 @@ class Worker:
     def has_unfinished(self) -> bool:
         return self.scheduler.has_unfinished()
 
+    def pending_pixels(self) -> int:
+        return self.scheduler.pool.pending_pixels()
+
     # -- iteration -----------------------------------------------------------
 
     def step(self) -> List[Request]:
-        """Run one scheduled iteration; return requests finished this step."""
+        """Run one scheduled iteration on the replica's device; return
+        requests finished this step."""
+        with on_device(self.device):
+            return self._step()
+
+    def _step(self) -> List[Request]:
         self._poll_prepared(block=False)
         done_async = self._poll_posted(block=False)
         batch = self.scheduler.schedule()

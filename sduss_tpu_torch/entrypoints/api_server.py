@@ -12,7 +12,8 @@ Endpoints:
                       "e2e_latency_s", "resolution", "nsfw_flagged",
                       "image_base64" (PNG), "error" (if any)}
   GET  /health    -> {"status": "ok"}
-  GET  /stats     -> the engine's metrics summary and "devices"
+  GET  /stats     -> the engine's metrics summary (one stream over the
+                     replicas) and "devices", a row per dp replica
   POST /abort     {"request_id": ...}
   POST /clear     -> drain, stop the engine and close the server
 
@@ -76,19 +77,27 @@ def _encode_png(image) -> Optional[str]:
     return base64.b64encode(png).decode()
 
 
-def device_stats(device: torch.device) -> list:
-    """Memory of the serving device in the JAX package's keys (``id``,
-    ``platform``, ``bytes_in_use``, ``bytes_limit``, ``hbm_utilization``);
-    one ``{"platform": "cpu"}`` row on the CPU."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        return [{"platform": "cpu"}]
-    idx = device.index if device.index is not None else torch.cuda.current_device()
-    in_use = torch.cuda.memory_allocated(idx)
-    limit = torch.cuda.get_device_properties(idx).total_memory
-    return [{"id": idx, "platform": "gpu", "bytes_in_use": in_use,
-             "bytes_limit": limit,
-             "hbm_utilization": round(in_use / limit, 4)}]
+def device_stats(engine) -> list:
+    """One row per dp replica of ``engine`` (an ``Engine``): its memory in
+    the JAX package's keys (``id``, ``platform``, ``bytes_in_use``,
+    ``bytes_limit``, ``hbm_utilization``; ``{"platform": "cpu"}`` on the
+    CPU) and its load (``dp_rank``, ``pending_pixels``, ``unfinished``).
+    Replicas that share a card report that card's memory."""
+    rows = []
+    for worker in engine.workers:
+        device = worker.device
+        if device.type == "cuda":
+            in_use = torch.cuda.memory_allocated(device)
+            limit = torch.cuda.get_device_properties(device).total_memory
+            row = {"id": device.index, "platform": "gpu",
+                   "bytes_in_use": in_use, "bytes_limit": limit,
+                   "hbm_utilization": round(in_use / limit, 4)}
+        else:
+            row = {"platform": "cpu"}
+        row.update(dp_rank=worker.rank, pending_pixels=worker.pending_pixels(),
+                   unfinished=worker.scheduler.pool.unfinished())
+        rows.append(row)
+    return rows
 
 
 class _HTTPError(Exception):
@@ -253,7 +262,8 @@ class ApiServer:
         cfg = self.engine.config
         out = self.engine.engine.stats.summary(cfg.model.family,
                                                cfg.scheduler.slo_scale)
-        out["devices"] = device_stats(self.engine.engine.device)
+        # on the engine's thread: the replicas' pools change during a step
+        out["devices"] = await self.engine.call(device_stats)
         return 200, out, None
 
     async def _abort(self, body: bytes):

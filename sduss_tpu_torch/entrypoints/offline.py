@@ -35,8 +35,8 @@ class DiffusionPipeline:
                  device: torch.device | str = "cuda",
                  bundle: Optional[ModelBundle] = None, **kwargs):
         if config is None:
-            # the JAX entry point's keywords; what the port cannot serve
-            # (dp > 1) raises in Engine
+            # the JAX entry point's keywords (dp: replicas on cuda:0..dp-1,
+            # or all on the CPU)
             config = default_config(model, **{
                 k: v for k, v in kwargs.items()
                 if k in ("model_path", "dtype", "seed", "test_tiny",

@@ -16,7 +16,9 @@ through ``models/convert.py``).
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import itertools
 import math
 import zlib
 from typing import Dict, Mapping, Optional, Tuple
@@ -278,6 +280,33 @@ class ModelBundle:
                 m = self._materialize(name)
                 for p in m.parameters():
                     p.normal_(0.0, 0.02, generator=gen)
+
+    @torch.no_grad()
+    def replicate(self, device: torch.device | str) -> "ModelBundle":
+        """A copy of the bundle on ``device``: the same modules, weights
+        (copied tensor by tensor, so a request gives the same image on
+        either copy), dtypes and tokenizers.  A dp replica on another card
+        serves from it; replicas on one card share one bundle (the JAX
+        engine shares ``first.bundle``, engine.py:60-64).  No tensor is
+        copied on this bundle's device on the way."""
+        other = copy.copy(self)
+        other.device = torch.device(device)
+        other.models = {}
+        for name, m in self.models.items():
+            # the copy's tensors start on the meta device, then are made
+            # on the target and filled from this bundle's
+            memo = {}
+            for t in itertools.chain(m.parameters(), m.buffers()):
+                e = torch.empty_like(t, device="meta")
+                memo[id(t)] = (nn.Parameter(e, t.requires_grad)
+                               if isinstance(t, nn.Parameter) else e)
+            c = copy.deepcopy(m, memo).to_empty(device=other.device)
+            for dst, src in zip(
+                    itertools.chain(c.parameters(), c.buffers()),
+                    itertools.chain(m.parameters(), m.buffers())):
+                dst.copy_(src)
+            other.models[name] = c.eval()
+        return other
 
     @torch.no_grad()
     def load_state_dicts(self, state_dicts: Mapping[str, Mapping]) -> None:

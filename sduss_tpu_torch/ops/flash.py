@@ -140,10 +140,13 @@ def flash_mha_fused(q, k, v, num_heads: int, scale: float):
     lib = _build.load_library()
     b, lq, d = q.shape
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.sduss_flash_mha_fused(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, lq, k.shape[1], d, num_heads, float(scale) * _LOG2E, stream)
+    # the launch and its shared-memory attribute act on the current
+    # device: make it the tensors' (a replica on another card)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.sduss_flash_mha_fused(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, lq, k.shape[1], d, num_heads, float(scale) * _LOG2E, stream)
     _build.check(lib, err, "flash_mha_fused launch")
     flash_mha_fused.launches += 1
     return out
@@ -186,10 +189,13 @@ def flash_mha(q, k, v, num_heads: int, scale: float, kv_mask=None,
     lib = _build.load_library()
     b, lq, d = q.shape
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.sduss_flash_mha(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, lq, k.shape[1], n, d, num_heads, float(scale) * _LOG2E, stream)
+    # the launch and its shared-memory attribute act on the current
+    # device: make it the tensors' (a replica on another card)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.sduss_flash_mha(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, lq, k.shape[1], n, d, num_heads, float(scale) * _LOG2E, stream)
     _build.check(lib, err, "flash_mha launch")
     flash_mha.launches += 1
     return out
@@ -228,11 +234,14 @@ def flash_mha_masked(q, k, v, kv_mask, num_heads: int, scale: float):
     lib = _build.load_library()
     b, lq, d = q.shape
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.sduss_flash_mha_masked(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(),
-        out.data_ptr(), b, lq, k.shape[1], d, num_heads,
-        float(scale) * _LOG2E, stream)
+    # the launch and its shared-memory attribute act on the current
+    # device: make it the tensors' (a replica on another card)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.sduss_flash_mha_masked(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(),
+            out.data_ptr(), b, lq, k.shape[1], d, num_heads,
+            float(scale) * _LOG2E, stream)
     _build.check(lib, err, "flash_mha_masked launch")
     flash_mha_masked.launches += 1
     return out
@@ -269,10 +278,13 @@ def flash_cross_short(q, k, v, num_heads: int, scale: float):
     lib = _build.load_library()
     b, lq, d = q.shape
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.sduss_flash_cross_short(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, lq, k.shape[1], d, num_heads, float(scale) * _LOG2E, stream)
+    # the launch and its shared-memory attribute act on the current
+    # device: make it the tensors' (a replica on another card)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.sduss_flash_cross_short(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, lq, k.shape[1], d, num_heads, float(scale) * _LOG2E, stream)
     _build.check(lib, err, "flash_cross_short launch")
     flash_cross_short.launches += 1
     return out

@@ -38,8 +38,11 @@ a device copy of that step's timestep and coefficient row into the
   whose rows no live entry holds when over it (:meth:`StepGraphs.drop_idle`)
   and drops every row-holding set, graphs included, when it releases its
   serving state (:meth:`StepGraphs.drop_rows`).
-* All graphs share one memory pool: replays run one at a time on one
-  stream, and every tensor that outlives a step lives outside the pool.
+* All graphs of a pipeline share one memory pool: replays run one at a
+  time on one stream, and every tensor that outlives a step lives outside
+  the pool.  Each dp replica has its own pipeline, so its step sets,
+  buffers, pool and capture stream are its own, on its device; capture
+  and replay run under ``torch.cuda.device(pipeline device)``.
 * Launch counters stay truthful: the launches a capture records are taken
   back off the counters and added again at every replay.
 * A capture waits for ``before_capture`` (the worker's in-flight
@@ -61,6 +64,7 @@ import torch
 from sduss_tpu_torch.ops.flash import (flash_cross_short, flash_mha,
                                        flash_mha_fused, flash_mha_masked)
 from sduss_tpu_torch.ops.gn_halo import gn_silu_halo
+from sduss_tpu_torch.parallel.replica import on_device
 
 # The wrappers whose ``launches`` counters chip_smoke reads.
 COUNTED = (flash_mha_fused, flash_mha, flash_mha_masked, flash_cross_short,
@@ -205,11 +209,17 @@ class StepSet:
 
     def run(self, kind, step: Callable[[dict], None]) -> None:
         """One step of ``kind``: ``step(bufs)`` eagerly on the CPU and the
-        first time on the card (then captured), a replay afterwards."""
+        first time on the card (then captured), a replay afterwards; on
+        the card under the pipeline's device."""
         g = self.graphs
         if not g.live:
             step(self.bufs)
             return
+        with on_device(g.device):
+            self._run_live(kind, step)
+
+    def _run_live(self, kind, step: Callable[[dict], None]) -> None:
+        g = self.graphs
         if g.events is not None:
             start, end = (torch.cuda.Event(enable_timing=True),
                           torch.cuda.Event(enable_timing=True))
@@ -234,10 +244,12 @@ class StepGraphs:
     """A pipeline's step sets, LRU-bounded by :data:`MAX_STEP_SETS`."""
 
     def __init__(self, device: torch.device):
+        self.device = device
         self.live = device.type == "cuda"
         self._sets: "collections.OrderedDict[object, StepSet]" = \
             collections.OrderedDict()
         self._pool = None
+        self._stream = None
         # called before each capture (the worker waits for its background
         # decode there)
         self.before_capture: Optional[Callable[[], None]] = None
@@ -295,11 +307,16 @@ class StepGraphs:
             self.before_capture()
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
+            # the pipeline's own capture stream: torch.cuda.graph's default
+            # is one stream for the process, made on the device current at
+            # the first capture, and a dp replica on another card cannot
+            # capture on it
+            self._stream = torch.cuda.Stream(device=self.device)
         t0 = time.perf_counter()
         counts = [f.launches for f in COUNTED]
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph, pool=self._pool,
+            with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
                                   capture_error_mode="thread_local"):
                 fn()
         finally:

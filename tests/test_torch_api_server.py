@@ -185,9 +185,10 @@ def test_http_surface_matches_jax(servers):
             if path == "/generate":
                 assert tbody["finished"] and not tbody["aborted"]
                 assert tbody["request_id"] == jbody["request_id"] == "keys"
-    # the device rows name the platform
+    # a device row per replica names the platform and the replica's load
     assert port_call(servers, "GET", "/stats", None)[1]["devices"] == [
-        {"platform": "cpu"}]
+        {"platform": "cpu", "dp_rank": 0, "pending_pixels": 0,
+         "unfinished": 0}]
 
 
 def test_latents_match_jax(servers):
@@ -325,7 +326,7 @@ def test_async_engine_abort_waiting_and_running(bundle):
             outs = [o async for o in waiting]
             assert len(outs) == 1 and outs[0].aborted
             running = await eng.add_request(params(steps=400), "running")
-            while eng.engine.worker.iteration < 3:
+            while eng.engine.workers[0].iteration < 3:
                 await asyncio.sleep(0.01)
             await eng.abort("running")
             outs = [o async for o in running]
@@ -438,13 +439,14 @@ def test_cli_config_matches_jax(argv):
 def test_unported_flags_raise(flags):
     """What the port does not serve raises, and so does a snapshot that
     is not there; ``--use-cache`` in modes "block" and "compact" serves
-    (one mixed step of finite latents through the cache), and so does
-    ``--prewarm`` (the engine it configures serves the same step)."""
+    (one mixed step of finite latents through the cache), and so do
+    ``--prewarm`` (the engine it configures serves the same step) and
+    ``--dp 2`` (two replicas, one request each)."""
     p = argparse.ArgumentParser()
     add_engine_args(p)
     config = config_from_args(p.parse_args(
         ["--test-tiny", "--dtype", "float32"] + flags))
-    if "--use-cache" in flags or "--prewarm" in flags:
+    if "--use-cache" in flags or "--prewarm" in flags or "--dp" in flags:
         assert config.engine.prewarm == ("--prewarm" in flags)
         config.scheduler.patch_size = 64
         engine = Engine(config, "cpu")
@@ -456,7 +458,9 @@ def test_unported_flags_raise(flags):
         while engine.has_unfinished_requests():
             outs += engine.step()
         if "--use-cache" in flags:
-            assert engine.worker.pipeline._cache_obj is not None
+            assert engine.workers[0].pipeline._cache_obj is not None
+        if "--dp" in flags:
+            assert [w.iteration > 0 for w in engine.workers] == [True] * 2
         assert all(o.finished and np.isfinite(o.image).all() for o in outs)
         return
     error = FileNotFoundError if "--model-path" in flags \

@@ -536,7 +536,7 @@ def test_engine_serves_unet_cache_modes(family, mode):
     config.cache = CacheConfig(enabled=True, mode=mode, patch_fraction=0.5)
     check_supported(config)
     engine = Engine(config, "cpu")
-    pipe = engine.worker.pipeline
+    pipe = engine.workers[0].pipeline
     reqs = make_reqs(plan=MIXED_PLAN, steps=2)
     latents = run(pipe, reqs, 1)
     assert all(np.isfinite(x).all() for x in latents)

@@ -63,6 +63,14 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.fixture
+def second_card():
+    """``cuda:1``, for a dp replica on another card than the current."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    return torch.device("cuda", 1)
+
+
 def _randn(gen, *shape, device):
     return torch.randn(*shape, generator=gen, device=device,
                        dtype=torch.bfloat16)
@@ -512,8 +520,8 @@ def test_decode_thread_matches_main_thread(cuda):
     bundle.init_random(seed=0)
     config = default_config("sdxl", dtype="bfloat16", test_tiny=True)
     engine = Engine(config, cuda, bundle=bundle)
-    pipe, gen = engine.worker.pipeline, torch.Generator(cuda).manual_seed(3)
-    assert engine.worker._post_pool is not None
+    pipe, gen = engine.workers[0].pipeline, torch.Generator(cuda).manual_seed(3)
+    assert engine.workers[0]._post_pool is not None
 
     def requests():
         reqs = {}
@@ -529,7 +537,7 @@ def test_decode_thread_matches_main_thread(cuda):
     main = requests()
     pipe.postprocess(main)
     pooled = requests()
-    engine.worker._post_pool.submit(pipe.plan_postprocess(pooled)).result()
+    engine.workers[0]._post_pool.submit(pipe.plan_postprocess(pooled)).result()
     for res in main:
         for a, b in zip(main[res], pooled[res]):
             assert a.output.dtype == b.output.dtype
@@ -557,7 +565,7 @@ def test_vae_auto_is_bf16_for_sdxl_on_card(cuda):
     for mode in ("auto", "float32"):
         config = default_config("sdxl", dtype="bfloat16", test_tiny=True)
         config.model.vae_dtype = mode
-        pipe = Engine(config, cuda, bundle=bundle).worker.pipeline
+        pipe = Engine(config, cuda, bundle=bundle).workers[0].pipeline
         assert pipe.bundle.param_dtype("vae") == (
             torch.bfloat16 if mode == "auto" else torch.float32)
         with torch.inference_mode():
@@ -716,3 +724,70 @@ def test_chunk_graph_replay_equals_eager(cuda, case):
         assert n_g == n_e and sum(n_g) > 0
         for a, b in zip(lat_g, lat_e):
             assert torch.isfinite(a).all() and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dense", "mixed_hybrid"])
+def test_chunk_graphs_on_second_card(second_card, case):
+    """A dp replica's step graphs on ``cuda:1``, captured after a capture
+    on ``cuda:0`` and while ``cuda:0`` is current: each pipeline captures
+    on a stream of its own card, and the replays equal the eager steps
+    bit for bit."""
+    first = torch.device("cuda", 0)
+    family = CHUNK_CASES[case][0]
+    _chunk_rounds(first, _hd64_bundle(family, first), case, live=True)
+    bundle = _hd64_bundle(family, second_card)
+    with torch.cuda.device(0):
+        graphed, graphs = _chunk_rounds(second_card, bundle, case, live=True)
+        eager, _ = _chunk_rounds(second_card, bundle, case, live=False)
+        assert torch.cuda.current_device() == 0
+    assert graphs.captures > 0 and graphs.replays > 0
+    for (lat_g, n_g), (lat_e, n_e) in zip(graphed, eager):
+        assert n_g == n_e and sum(n_g) > 0
+        for a, b in zip(lat_g, lat_e):
+            assert torch.isfinite(a).all() and torch.equal(a, b)
+
+
+def _second_card_case(kernel: str, dev):
+    """(kernel output, plain output) on ``dev`` tensors at a serving shape."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    if kernel == "k4":
+        meta = tpatching.build_meta((3, 4), 16, (4, 8, 16, 32), (2, 4))
+        x = torch.randn(meta.p_pad, 640, 16, 16, generator=gen,
+                        device=dev).to(torch.bfloat16)
+        ids = torch.from_numpy(meta.image_id).to(dev)
+        nbs = torch.from_numpy(meta.neighbors).to(dev)
+        mean, var = tgn.moments(x, ids, meta.i_pad, 32)
+        args = (x, ids, nbs, mean, torch.rsqrt(var + 1e-5),
+                torch.randn(640, generator=gen, device=dev).to(torch.bfloat16),
+                torch.randn(640, generator=gen, device=dev).to(torch.bfloat16))
+        return tgn.gn_silu_halo(*args), tgn.gn_silu_halo_reference(*args)
+    lk = 77 if kernel == "k5" else 1000
+    q = _randn(gen, 2, 1000, 640, device=dev)
+    k, v = (_randn(gen, 2, lk, 640, device=dev) for _ in range(2))
+    if kernel == "masked":
+        mask = torch.rand(2, lk, generator=gen, device=dev) > 0.3
+        return (tflash.flash_mha_masked(q, k, v, mask, 10, 0.125),
+                tflash.flash_mha_masked_reference(q, k, v, mask, 10, 0.125))
+    fn, ref = {"k1": (tflash.flash_mha_fused, tflash.flash_mha_fused_reference),
+               "flash_mha": (tflash.flash_mha, tflash.flash_mha_reference),
+               "k5": (tflash.flash_cross_short,
+                      tflash.flash_cross_short_reference)}[kernel]
+    return fn(q, k, v, 10, 0.125), ref(q, k, v, 10, 0.125)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["k1", "flash_mha", "masked", "k4", "k5"])
+def test_kernels_on_second_card_while_first_is_current(second_card, kernel):
+    """A dp replica on ``cuda:1`` stepped from a thread whose current
+    device is ``cuda:0``: each kernel runs on the tensors' card (the
+    wrappers make it current around the launch) and matches its plain
+    version there, as on the first card."""
+    with torch.cuda.device(0):
+        out, ref = _second_card_case(kernel, second_card)
+        torch.cuda.synchronize(second_card)
+        assert torch.cuda.current_device() == 0
+    assert out.device == second_card and torch.isfinite(out).all()
+    bound = K4_MAX_REL if kernel == "k4" else K1_MAX_REL
+    diff = (out.float() - ref.float()).abs().max().item()
+    assert diff <= bound * ref.float().abs().max().item()

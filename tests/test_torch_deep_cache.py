@@ -275,7 +275,7 @@ def test_engine_accepts_the_production_presets(family, serving, mixed):
     config.scheduler.patch_size = 64
     config.cache = CacheConfig.production(family, serving=serving)
     pipe = DiffusionPipeline(config=config, device="cpu")
-    inner = pipe.engine.worker.pipeline
+    inner = pipe.engine.workers[0].pipeline
     assert inner._deep_cache_active()
     modes, step = [], inner._deep_step_mixed
     inner._deep_step_mixed = lambda mode, *a: (modes.append(mode),
@@ -307,12 +307,14 @@ def _refused(family="sdxl", **changes) -> Config:
     # the tiny MMDiT's 2 blocks
     (_refused("sd3", scheduler__steps_per_dispatch=4,
               cache__sd3_deep_span=(1, 2)), None),
-    (_refused("sd3", parallel__dp=2), "item 10"),
+    # dp replicas are served; sp above 1 is not
+    (_refused("sd3", parallel__dp=2, cache__sd3_deep_span=(1, 2)), None),
+    (_refused("sd3", parallel__sp=2), "item 10"),
     # the UNet families' modes "block" and "compact" are served (item None)
     (_refused(cache__mode="block"), None),
     (_refused(cache__mode="compact"), None),
     (_refused(scheduler__steps_per_dispatch=4), None),
-], ids=["sd3", "sd3-span", "block", "compact", "multi-step"])
+], ids=["sd3", "sd3-span", "sd3-sp", "block", "compact", "multi-step"])
 def test_engine_refuses_what_is_not_ported(config, item):
     """What is not ported raises, naming its ROADMAP item; what is (item
     None) builds and serves one step of finite latents."""

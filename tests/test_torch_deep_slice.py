@@ -103,7 +103,7 @@ def port_engine(family: str, serving: bool, jengine, cache: dict = None):
     config.cache = (CacheConfig(**cache) if cache else
                     CacheConfig.production(family, serving=serving))
     engine = Engine(config, "cpu", bundle=bundle)
-    pipe = engine.worker.pipeline
+    pipe = engine.workers[0].pipeline
     modes, step = [], pipe._deep_step
 
     def spy(mode, *args):
@@ -163,7 +163,7 @@ def test_sdxl_bench_default_trajectory_equals_jax():
     plan = ([("r0", 64), ("r1", 64), ("r2", 64)], [])
     pengine, modes = run_both("sdxl", False, plan)
     assert modes[0] == "full" and "shallow" in modes and len(modes) == STEPS
-    pipe = pengine.worker.pipeline
+    pipe = pengine.workers[0].pipeline
     assert not pipe._comp_state and not pipe._deep_carry
 
 
@@ -174,7 +174,7 @@ def test_sd15_row_warmup_admission_equals_jax():
     seen = []
 
     def on_step(engine, reqs):
-        pipe = engine.worker.pipeline
+        pipe = engine.workers[0].pipeline
         live = {r.request_id for r in reqs if r.finish_time is None}
         for key in list(pipe._comp_state) + list(pipe._deep_carry):
             ids = key[3] if len(key) == 5 else key[2]
@@ -188,7 +188,7 @@ def test_sd15_row_warmup_admission_equals_jax():
     assert "partial" in modes and "shallow" in modes
     assert modes.count("partial") == 3  # the third request's warmup
     assert seen[0] == [(("r2",), True)]  # shrunk from the finished batch
-    pipe = pengine.worker.pipeline
+    pipe = pengine.workers[0].pipeline
     assert not pipe._comp_state and not pipe._deep_carry
 
 
@@ -201,7 +201,7 @@ def test_plain_deep_row_warmup_equals_jax():
     plan = ([("r0", 64), ("r1", 64)], [("r2", 64)])
     pengine, modes = run_both("sd15", True, plan, cache=cache)
     assert {"full", "shallow", "partial"} <= set(modes)
-    assert not pengine.worker.pipeline._deep_carry
+    assert not pengine.workers[0].pipeline._deep_carry
 
 
 def test_abort_and_finish_evict_the_request_state(monkeypatch):
@@ -226,7 +226,7 @@ def test_abort_and_finish_evict_the_request_state(monkeypatch):
     serving_policy(config.scheduler, True)
     config.cache = CacheConfig.production("sd15", serving=True)
     engine = Engine(config, "cpu")
-    pipe = engine.worker.pipeline
+    pipe = engine.workers[0].pipeline
     reqs = [engine.add_request(f"a{i}", SamplingParams(
         prompt=f"p{i}", resolution=64, num_inference_steps=STEPS, seed=i))
         for i in range(2)]

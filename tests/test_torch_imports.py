@@ -22,6 +22,12 @@ def test_port_imports_nothing_of_jax_or_sduss_tpu():
             sduss_tpu_torch.__path__, "sduss_tpu_torch.")]
         for name in names:
             importlib.import_module(name)
+        # the benchmark harness, the dispatcher and the dp placement too
+        assert {"sduss_tpu_torch.benchmark.replay",
+                "sduss_tpu_torch.benchmark.traces",
+                "sduss_tpu_torch.benchmark.metrics",
+                "sduss_tpu_torch.dispatcher",
+                "sduss_tpu_torch.parallel.replica"} <= set(names), names
         spec = importlib.util.spec_from_file_location("chip_smoke",
                                                       "chip_smoke.py")
         spec.loader.exec_module(importlib.util.module_from_spec(spec))

@@ -90,7 +90,7 @@ def test_prewarmed_chunks_serve_per_step_latents(cache, bundle):
     got = {}
     for spd in (1, 4):
         engine = Engine(config_for(cache, spd), "cpu", bundle=bundle)
-        pipe = engine.worker.pipeline
+        pipe = engine.workers[0].pipeline
         log, chunks = [], []
         step, chunk = pipe.denoise_step, pipe.denoise_chunk
 
@@ -123,7 +123,7 @@ def test_capacity_gate_caps_max_batch_size(bundle, monkeypatch):
     config = config_for("serving", 4)
     config.engine.prewarm_hbm_margin = 0.0
     engine = Engine(config, "cpu", bundle=bundle)
-    pipe = engine.worker.pipeline
+    pipe = engine.workers[0].pipeline
     state2 = pipe.estimate_serving_state_bytes(64, 2)
     assert 0 < state2 < pipe.estimate_serving_state_bytes(64, 4)
     # room for bucket 2's rows twice (a composition's rows are copied
@@ -131,7 +131,7 @@ def test_capacity_gate_caps_max_batch_size(bundle, monkeypatch):
     total = pipe.device_param_bytes() + 2 * state2 + 1
     monkeypatch.setattr(torch.cuda, "mem_get_info",
                         lambda device=None: (total, total))
-    engine.device = torch.device("cuda")  # the card's memory is read
+    engine.workers[0].device = torch.device("cuda")  # the card's memory is read
     engine.prewarm(resolutions=(64,), buckets=(1, 2, 4), steps=2)
     assert config.scheduler.max_batch_size == 2
 
@@ -140,7 +140,7 @@ def test_prewarm_keeps_row_state_within_budget(bundle, monkeypatch):
     config = config_for("serving", 4)
     config.engine.prewarm_hbm_margin = 0.0
     engine = Engine(config, "cpu", bundle=bundle)
-    pipe = engine.worker.pipeline
+    pipe = engine.workers[0].pipeline
     unit = pipe.estimate_serving_state_bytes(64, 1)
     assert pipe.estimate_serving_state_bytes(64, 4) == 4 * unit
     # buckets 1, 2 and 4 leave 7 units of rows in their step sets
@@ -156,12 +156,12 @@ def test_prewarm_keeps_row_state_within_budget(bundle, monkeypatch):
     total = pipe.device_param_bytes() + 2 * 2 * unit + 1
     monkeypatch.setattr(torch.cuda, "mem_get_info",
                         lambda device=None: (total, total))
-    engine.device = torch.device("cuda")
+    engine.workers[0].device = torch.device("cuda")
     assert not engine._bucket_fits(pipe, 64, 2)
     pipe.release_serving_state()
     assert pipe.graphs.row_states() == [] and pipe._row_state_bytes() == 0
     assert engine._bucket_fits(pipe, 64, 2)
-    engine.device = torch.device("cpu")
+    engine.workers[0].device = torch.device("cpu")
     out = serve(engine, lambda: 3, steps=8)
     assert sorted(out) == ["r0", "r1", "r2"]
     assert pipe._row_state_bytes() <= budget
@@ -196,7 +196,8 @@ def test_capture_takes_launches_off_and_replays_add_them(monkeypatch):
     counters count two launches a run."""
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
     monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: object())
-    monkeypatch.setattr(torch.cuda, "graph", lambda g, pool=None,
+    monkeypatch.setattr(torch.cuda, "Stream", lambda device=None: None)
+    monkeypatch.setattr(torch.cuda, "graph", lambda g, pool=None, stream=None,
                         capture_error_mode=None: contextlib.nullcontext())
     g = graphs_mod.StepGraphs(torch.device("cpu"))
     g.live = True
@@ -228,7 +229,7 @@ def _rowwarm_run(bundle, emulate: bool, monkeypatch):
     config.cache = dataclasses.replace(config.cache, deep_interval=4,
                                        deep_warmup=1)
     engine = Engine(config, "cpu", bundle=bundle)
-    pipe = engine.worker.pipeline
+    pipe = engine.workers[0].pipeline
     if emulate:
         pipe.graphs.live = True
         monkeypatch.setattr(

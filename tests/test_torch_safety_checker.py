@@ -114,7 +114,7 @@ def test_pipeline_sets_nsfw_flagged():
     outs = pipe.generate(["a cat", "a dog"], **kw)
     assert all(o.image.dtype == np.uint8 for o in outs)
     assert [o.nsfw_flagged for o in outs] == [False, False]
-    checker = pipe.engine.worker.pipeline._safety_checker()
+    checker = pipe.engine.workers[0].pipeline._safety_checker()
     assert checker.vision.cfg == TINY_CLIP_VISION
     # thresholds below every cosine: every image is flagged and blanked
     with torch.inference_mode():

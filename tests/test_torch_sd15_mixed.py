@@ -66,7 +66,7 @@ def test_sd15_mixed_slice_matches_jax(runs, sampler, output_type, tmp_path):
                          num_inference_steps=STEPS, seed=11,
                          output_type=output_type)
     evals = STEPS + 1 if sampler == "pndm" else STEPS
-    denoise = [e["resolutions"] for e in port.engine.worker.schedule_log
+    denoise = [e["resolutions"] for e in port.engine.workers[0].schedule_log
                if e["stage"] == "denoising"]
     assert denoise == ["64x1;128x1;192x1"] * evals, denoise
     assert_outputs_close(outs, latents if output_type == "latent" else images,

@@ -99,8 +99,8 @@ def test_sd15_dense_slice_matches_jax(jax_pipes, bundle, sampler,
     config.engine.collect_dir = str(tmp_path)
     port = DiffusionPipeline(config=config, device="cpu", bundle=bundle)
     tout = port.generate(PROMPTS, output_type=output_type, **KW)
-    assert port.engine.worker.pipeline.sampler.kind == sampler
-    denoise = [e["resolutions"] for e in port.engine.worker.schedule_log
+    assert port.engine.workers[0].pipeline.sampler.kind == sampler
+    denoise = [e["resolutions"] for e in port.engine.workers[0].schedule_log
                if e["stage"] == "denoising"]
     assert sorted(set(denoise)) == ["128x1", "64x1"]
     assert_outputs_close(tout, [o.image for o in jout], output_type)
@@ -130,7 +130,7 @@ def test_collect_data_writes_the_jax_files(jax_pipes, bundle, tmp_path,
         assert port_lines[0] == jax_lines[0]
     with open(tmp_path / "port" / "schedule_rank0.csv", newline="") as f:
         rows = list(csv.DictReader(f))
-    log = port.engine.worker.schedule_log
+    log = port.engine.workers[0].schedule_log
     assert len(rows) == len(log) > 0
     assert [r["stage"] for r in rows] == [e["stage"] for e in log]
     with open(tmp_path / "port" / "request_data.csv", newline="") as f:
@@ -143,7 +143,7 @@ def test_default_pipeline_is_sd15():
     assert Config().model.family == "sd15"
     pipe = DiffusionPipeline(device="cpu", dtype="float32", test_tiny=True)
     assert pipe.config.model.family == "sd15"
-    assert isinstance(pipe.engine.worker.pipeline, StableDiffusionPipeline)
+    assert isinstance(pipe.engine.workers[0].pipeline, StableDiffusionPipeline)
     out = pipe.generate(["a cat"], resolution=64, num_inference_steps=2,
                         seed=0)
     assert out[0].finished and out[0].image.dtype == np.uint8

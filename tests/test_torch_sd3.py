@@ -260,12 +260,12 @@ def test_sd3_mixed_slice_matches_jax(both, mixed_jax, output_type, tmp_path):
     config.engine.collect_data = True
     config.engine.collect_dir = str(tmp_path)
     port = DiffusionPipeline(config=config, device="cpu",
-                             bundle=both[1].engine.worker.pipeline.bundle)
+                             bundle=both[1].engine.workers[0].pipeline.bundle)
     outs = port.generate([PROMPTS[i % 2] for i in range(len(MIXED_RES))],
                          negative_prompt="blurry", resolution=MIXED_RES,
                          num_inference_steps=MIXED_STEPS, seed=11,
                          output_type=output_type)
-    denoise = [e["resolutions"] for e in port.engine.worker.schedule_log
+    denoise = [e["resolutions"] for e in port.engine.workers[0].schedule_log
                if e["stage"] == "denoising"]
     assert denoise == ["64x1;128x2"] * MIXED_STEPS
     want = mixed_jax[0] if output_type == "latent" else mixed_jax[1]

@@ -349,7 +349,7 @@ def test_engine_serves_the_sd3_presets(sd3_bundle, serving):
     assert cache.deep_interval == (16 if serving else 30)
     engine = _engine(sd3_bundle, dataclasses.replace(cache,
                                                      sd3_deep_span=(1, 2)))
-    pipe = engine.worker.pipeline
+    pipe = engine.workers[0].pipeline
     modes, trunk = [], pipe._trunk_fn
 
     def spy(*args, **kw):
@@ -376,7 +376,7 @@ def test_engine_serves_the_sd3_presets(sd3_bundle, serving):
 def test_engine_evicts_on_abort(sd3_bundle):
     engine = _engine(sd3_bundle, dataclasses.replace(
         CacheConfig.production("sd3"), sd3_deep_span=(0, 1)))
-    pipe = engine.worker.pipeline
+    pipe = engine.workers[0].pipeline
     engine.add_request("a0", SamplingParams(prompt="x", resolution=64,
                                             num_inference_steps=8, seed=0))
     engine.add_request("a1", SamplingParams(prompt="y", resolution=64,

@@ -64,6 +64,7 @@ class StubPipeline:
 
     def __init__(self, overlap_ok=True, fail_decode=False):
         self.bundle = _Bundle()
+        self.device = torch.device("cpu")  # the port's worker runs on it
         self.loop_thread = threading.get_ident()
         self.overlap_ok = overlap_ok
         self.fail_decode = fail_decode

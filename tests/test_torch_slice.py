@@ -133,12 +133,12 @@ def test_mixed_slice_matches_jax(both, mixed_jax, output_type, tmp_path):
                                           test_tiny=True))
     config.engine.collect_dir = str(tmp_path)
     port = DiffusionPipeline(config=config, device="cpu",
-                             bundle=tpipe.engine.worker.pipeline.bundle)
+                             bundle=tpipe.engine.workers[0].pipeline.bundle)
     outs = port.generate([PROMPTS[i % 2] for i in range(len(MIXED_RES))],
                          negative_prompt="blurry", resolution=MIXED_RES,
                          num_inference_steps=MIXED_STEPS, seed=11,
                          output_type=output_type)
-    denoise = [e["resolutions"] for e in port.engine.worker.schedule_log
+    denoise = [e["resolutions"] for e in port.engine.workers[0].schedule_log
                if e["stage"] == "denoising"]
     assert denoise == ["128x1;256x2"] * MIXED_STEPS
     want = mixed_jax[0] if output_type == "latent" else mixed_jax[1]
@@ -203,19 +203,20 @@ def test_cuda_device_required_by_default():
     ("scheduler", "steps_per_dispatch", 4),
 ])
 def test_unported_configs_raise(section, field, value):
-    """What the port does not serve (more than one device) raises when the
-    pipeline is built; the block cache (``cache.enabled``, mode "block" by
-    default) serves one mixed step of finite latents through the cache,
-    and ``steps_per_dispatch=4`` one mixed 4-step chunk."""
+    """What the port does not serve (a replica over more than one device)
+    raises when the pipeline is built; the block cache (``cache.enabled``,
+    mode "block" by default) serves one mixed step of finite latents
+    through the cache, ``steps_per_dispatch=4`` one mixed 4-step chunk,
+    and ``dp=2`` one step on each of two replicas."""
     config = default_config("sdxl", dtype="float32", test_tiny=True)
     setattr(getattr(config, section), field, value)
-    if section == "parallel":
+    if (section, field) == ("parallel", "sp"):
         with pytest.raises(NotImplementedError):
             DiffusionPipeline(config=config, device="cpu")
         return
     config.scheduler.patch_size = 64
     pipe = DiffusionPipeline(config=config, device="cpu")
-    inner = pipe.engine.worker.pipeline
+    inner = pipe.engine.workers[0].pipeline
     chunks, chunk = [], inner.denoise_chunk_mixed
     inner.denoise_chunk_mixed = lambda by_res, k: (
         chunks.append(k), chunk(by_res, k))[1]
@@ -225,8 +226,10 @@ def test_unported_configs_raise(section, field, value):
                          output_type="latent")
     if section == "cache":
         assert inner._cache_obj is not None
-    else:
+    elif section == "scheduler":
         assert chunks == [4]
+    else:  # greedy dispatch: one request on each replica
+        assert [w.iteration > 0 for w in pipe.engine.workers] == [True] * 2
     assert all(o.finished and np.isfinite(o.image).all() for o in outs)
 
 
@@ -236,14 +239,20 @@ def test_unported_configs_raise(section, field, value):
     dict(dp=4),
 ])
 def test_unported_entry_kwargs_raise(kwargs):
-    """The JAX entry point's keywords reach the config, so what the port
-    cannot serve raises instead of serving random weights or one replica:
-    a snapshot that is not there, and dp > 1."""
-    error = FileNotFoundError if "model_path" in kwargs \
-        else NotImplementedError
-    with pytest.raises(error):
-        DiffusionPipeline("sdxl", device="cpu", dtype="float32",
-                          test_tiny=True, **kwargs)
+    """The JAX entry point's keywords reach the config: a snapshot that is
+    not there raises instead of serving random weights, and ``dp`` builds
+    that many replicas (all on the CPU here)."""
+    if "model_path" in kwargs:
+        with pytest.raises(FileNotFoundError):
+            DiffusionPipeline("sdxl", device="cpu", dtype="float32",
+                              test_tiny=True, **kwargs)
+        return
+    pipe = DiffusionPipeline("sdxl", device="cpu", dtype="float32",
+                             test_tiny=True, **kwargs)
+    workers = pipe.engine.workers
+    assert pipe.engine.config.parallel.dp == len(workers) == kwargs["dp"]
+    assert {w.device for w in workers} == {torch.device("cpu")}
+    assert len({id(w.pipeline.bundle) for w in workers}) == 1
 
 
 def test_default_config_is_the_mixed_patch_path():
@@ -279,6 +288,6 @@ def test_abort_and_single_resolution_batches():
         outs.extend(eng.step())
     assert sorted(o.request_id for o in outs) == ["r0", "r2", "r3"]
     assert all(o.finished and o.image.dtype == np.uint8 for o in outs)
-    denoise = [e for e in eng.worker.schedule_log
+    denoise = [e for e in eng.workers[0].schedule_log
                if e["stage"] == "denoising"]
     assert {e["resolutions"] for e in denoise} == {"64x2", "128x1"}
