@@ -166,7 +166,34 @@ Phases (any failure propagates and the script exits non-zero):
      per-step) and ``production("sd15", serving=True)`` under ESyMReD
      (buckets 2 and 4 prewarmed; 3 x 512^2 and a fourth after 6 steps,
      chunks of 3: hybrid partial chunks);
- 19. print the kernels' JSON line, then the result line
+ 19. a replica over an sp x tp group of devices, on one card (devices
+     [0, 0]: both shards on card 0, each on its own thread and stream),
+     each run against the same requests on one device: with the SDXL
+     bundle (``serve_tp2``), tp=2 on the dense 2 x 1024^2 pair and the
+     768^2 + 1024^2 patch batch, cache-off and under
+     ``production("sdxl")``, 8 steps: latents within 2^-7, every kernel
+     launched exactly twice as often (each shard's forward at its local
+     heads and channels: K4 at C / 2, checked in phase 3 at 160/320/640
+     channels over 16 groups), the same deep modes, and one forward's
+     shards bitwise equal and within 3e-2 of one device's forward, and
+     in float32 within 1e-4 (the sharding alone, attention on the plain
+     versions);
+     (``serve_sp2``) the dense pair under sp=2: ``sp_mode="gspmd"``
+     (every step sync) within 2^-7, then ``"displaced"`` over 30 steps (2
+     sync, 28 stale) and the plain fixed-interval deep cache on the
+     displaced seam, both within 5e-2 of one device with the expected
+     modes and sync/stale counts; with the SD3 bundle
+     (``serve_sd3_sp2``), one CFG 2 x 1024^2 forward and the dense pair's
+     4-step trajectory under sp=2 with the latent K/V gathered (within
+     2^-7) and under tp=2 (within 3e-2: SD3's random-weight trajectory
+     moves ~2e-2 under any change of summation order, measured beside it
+     with one device's attention on the plain versions; the tp shards
+     bitwise equal, and the float32 forward within 1e-4), one forward
+     with the K/V rotated around the ring (within 3e-2), then
+     ``MMDiTStagePipeline`` on two stages on card 0 bitwise equal to the
+     single-device forward; the step ms of every run beside the card's
+     name and power limit;
+ 20. print the kernels' JSON line, then the result line
      ``{"ok": true, "device": {...}}`` last.
 """
 
@@ -175,6 +202,7 @@ from __future__ import annotations
 import asyncio
 import base64
 import collections
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -486,6 +514,37 @@ REPLAY_BUCKETS = (1, 2, 4, 8)
 # same-resolution SD-1.5 requests added at once
 DP2_DEVICES = [0, 0]
 DP2_REQUESTS = [512] * 4
+# a replica over an sp x tp group on one card (devices [0, 0]): SDXL's
+# dense pair and a mixed 768^2 + 1024^2 batch under tp=2, the dense pair
+# under sp=2 (sync, then displaced over DISPLACED_STEPS with
+# DISPLACED_WARMUP sync steps, then the plain deep cache on the displaced
+# seam), SD3.5-medium's dense pair under sp=2 (gather; one forward with
+# the K/V rotated around the ring) and tp=2, and the MMDiT stage pipeline
+# on two stages; exact modes within GROUP_MAX_REL of the single-device
+# run (max error / max |single|), the displaced ones within
+# DISPLACED_MAX_REL (the shallow-mode bound)
+GROUP_DEVICES = [0, 0]
+GROUP_DENSE = [1024, 1024]
+GROUP_MIXED = [768, 1024]
+GROUP_STEPS = 8
+SD3_GROUP_STEPS = 4
+DISPLACED_STEPS = 30
+DISPLACED_WARMUP = 2
+DISPLACED_DEEP = dict(deep_interval=5, deep_warmup=2)
+GROUP_MAX_REL = 2.0 ** -7
+DISPLACED_MAX_REL = 5e-2
+# what another summation order moves: SD3.5-medium's tp trajectory and
+# ring forward, and the tp forwards (the row-parallel layers sum bf16
+# partials; ring attention is float32 PyTorch math).  On an H100 these
+# read up to 2.14e-2, as far as one device's SD3 trajectory moves with its
+# attention on the plain versions (2.03e-2, printed beside them).  Each tp
+# forward also runs in float32 (TP_FLOAT32_MAX_REL), where only the order
+# of float32 sums differs (1.2e-6 and 2.3e-6 on an H100), so that a
+# sharding fault cannot hide under the bf16 rounding.
+MOVED_MAX_REL = 3e-2
+TP_FLOAT32_MAX_REL = 1e-4
+# K4 at a tp=2 shard's norm2: SDXL's C / 2 channels over 16 groups
+K4_TP2_SHAPES = [(32, 160), (16, 320), (8, 640)]
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
@@ -752,18 +811,19 @@ def sub_meta(family: str, requests):
                                     True)[0]
 
 
-def check_k4(card: str, meta=None, shapes=K4_SHAPES, seed: int = 2) -> dict:
+def check_k4(card: str, meta=None, shapes=K4_SHAPES, seed: int = 2,
+             groups: int = 32) -> dict:
     """K4 against its plain version on a mixed phase's doubled patch batch
     (SDXL's by default: 128 patches of 8 image slots, real border patches
-    and a dummy image) at each (s, C) of ``shapes``, with a bf16 GroupNorm
-    weight and bias (the model's dtype); halo cells of -1 neighbours must be
-    exactly 0.  The moments and the fused op (``gn_silu_haloed``) must give
-    the same bits on a second call."""
+    and a dummy image) at each (s, C) of ``shapes`` over ``groups`` groups
+    (a tensor-parallel shard's norm2: C / tp channels, 32 / tp groups),
+    with a bf16 GroupNorm weight and bias (the model's dtype); halo cells
+    of -1 neighbours must be exactly 0.  The moments and the fused op
+    (``gn_silu_haloed``) must give the same bits on a second call."""
     meta = mixed_meta() if meta is None else meta
     gen = torch.Generator(device="cuda").manual_seed(seed)
     image_id = torch.from_numpy(meta.image_id).cuda()
     nb = neighbors = torch.from_numpy(meta.neighbors).cuda()
-    groups = 32
     worst, times = 0.0, {}
     for s, c in shapes:
         shape = (meta.p_pad, s, c)
@@ -780,8 +840,8 @@ def check_k4(card: str, meta=None, shapes=K4_SHAPES, seed: int = 2) -> dict:
                 and torch.equal(*haloed)):
             raise AssertionError(f"K4's moments or gn_silu_haloed differ "
                                  f"between two calls at {shape}")
-        print(f"K4 (P, s, C) {shape}: moments and gn_silu_haloed repeat bit "
-              f"for bit")
+        print(f"K4 (P, s, C) {shape}, {groups} groups: moments and "
+              f"gn_silu_haloed repeat bit for bit")
         mean, var = stats
         rstd = torch.rsqrt(var + 1e-5)
         out = gn_silu_halo(x, image_id, neighbors, mean, rstd, w, bias)
@@ -3980,6 +4040,450 @@ def serve_dp2(card: str, bundle: ModelBundle) -> dict:
     return got
 
 
+def group_requests(resolutions, steps, tag: str) -> list:
+    """``steps``: one count for every request, or a list, one a request."""
+    counts = steps if isinstance(steps, list) else [steps] * len(resolutions)
+    return [Request(f"{tag}-{i}", SamplingParams(
+        prompt=f"a harbour at dawn, view {i}", resolution=res,
+        num_inference_steps=n, seed=300 + i, output_type="latent"))
+        for i, (res, n) in enumerate(zip(resolutions, counts))]
+
+
+def time_denoise(pipe) -> list:
+    """CUDA events around each denoise call of ``pipe`` (dense and mixed),
+    on the engine's stream, which waits for every shard's."""
+    rec = []
+    for name in ("denoise_step", "denoise_step_mixed"):
+        fn = getattr(pipe, name)
+
+        def timed(by_res, fn=fn, name=name):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(by_res)
+            end.record()
+            rec.append((name, start, end))
+            return out
+
+        setattr(pipe, name, timed)
+    return rec
+
+
+def serve_group(bundle: ModelBundle, family: str, resolutions, steps,
+                tag: str, sp: int = 1, tp: int = 1, mixed: bool = False,
+                cache=None, sp_mode: str = "gspmd", keep: bool = False,
+                devices=None) -> dict:
+    """One Engine run of ``resolutions`` (added at once) on a replica over
+    sp x tp devices (card indices ``devices``; by default card 0 of
+    GROUP_DEVICES, repeated), or on one device.
+    Returns the latents by request position, the launches, the mean step
+    ms of the resolution-group steps (CUDA events), the pipeline's sync
+    and stale step counts and its step modes; with ``keep`` the pipeline
+    too, its shard threads running (the caller closes its group)."""
+    config = default_config(family, dtype="bfloat16", seed=0)
+    config.scheduler.use_mixed_resolution = mixed
+    config.parallel.sp, config.parallel.tp = sp, tp
+    config.parallel.sp_mode = sp_mode
+    config.parallel.displaced_warmup = DISPLACED_WARMUP
+    config.parallel.devices = (list(devices) if devices is not None
+                               else [GROUP_DEVICES[0]] * (sp * tp))
+    if cache is not None:
+        config.cache = cache
+    engine = Engine(config, "cuda", bundle=bundle)
+    pipe = engine.workers[0].pipeline
+    pipe.step_modes = []
+    rec = time_denoise(pipe)
+    reqs = group_requests(resolutions, steps, tag)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    lat = dp_latents(engine, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    ms = [s.elapsed_time(e) for _, s, e in rec]
+    out = {"latents": [lat[r.request_id] for r in reqs], "counts": counts,
+           "ms": float(np.mean(ms[1:] if len(ms) > 1 else ms)),
+           "wall": wall, "steps": len(ms),
+           "sync_stale": dict(pipe.displaced_steps),
+           "modes": list(pipe.step_modes)}
+    if keep:
+        out["pipe"] = pipe
+    elif pipe.group is not None:
+        pipe.group.close()
+    return out
+
+
+def group_err(got, want) -> list:
+    """Max |got - want| / max |want| per request."""
+    return [float(np.abs(g.astype(np.float64) - w).max() / np.abs(w).max())
+            for g, w in zip(got["latents"], want["latents"])]
+
+
+def check_group_run(label: str, got, want, bound_rel: float, card: str,
+                    launch_ratio=None) -> None:
+    """Print and check a group run against its single-device run: the
+    latents within ``bound_rel``, finite, and (``launch_ratio``) every
+    kernel launched that many times as often, each shard's forward
+    launching what one device's does."""
+    errs = group_err(got, want)
+    same = all(np.array_equal(g, w) for g, w in
+               zip(got["latents"], want["latents"]))
+    print(f"{label}: step {got['ms']:.2f} ms (single device "
+          f"{want['ms']:.2f} ms; mean of {got['steps'] - 1} steps after the "
+          f"first, CUDA events), wall {got['wall']:.2f} s; max err / max "
+          f"|single| per request {[f'{e:.3e}' for e in errs]} (bound "
+          f"{bound_rel:.3e}), bitwise equal: {same}; sync/stale "
+          f"{got['sync_stale']}; launches {got['counts']} (single device "
+          f"{want['counts']}) [{card}]")
+    if not all(np.isfinite(g).all() for g in got["latents"]):
+        raise AssertionError(f"{label}: latents not finite")
+    if not all(np.isfinite(e) and e <= bound_rel for e in errs):
+        raise AssertionError(f"{label} disagrees with one device: {errs}")
+    if launch_ratio is not None:
+        want_n = {k: launch_ratio * v for k, v in want["counts"].items()}
+        if got["counts"] != want_n:
+            raise AssertionError(f"{label}: launches {got['counts']}, want "
+                                 f"{launch_ratio} x one device's {want_n}")
+
+
+def forward_err(got, want) -> float:
+    """Max |got - want| / max |want| of one forward's outputs."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def check_replicas(pipe, model, args: tuple, kwargs: dict, label: str,
+                   card: str) -> None:
+    """One tensor-parallel forward through the pipeline's sharded
+    denoiser: every shard's output (the replicated residual stream after
+    the head) bitwise equal, and shard 0's within MOVED_MAX_REL of
+    ``model``'s forward on one device (the row-parallel layers sum
+    rounded bf16 partials: another summation order); then the same
+    forward in float32 (``check_tp_float32``)."""
+    den = pipe.denoiser
+    den.keep_outputs = True
+    with torch.inference_mode():
+        den(*args, **kwargs)
+        want = model(*args, **kwargs)
+    torch.cuda.synchronize()
+    outs = den.last_outputs
+    den.keep_outputs, den.last_outputs = False, None
+    check_shards(outs, want, MOVED_MAX_REL, label, card)
+    del outs, want
+    check_tp_float32(pipe, model, args, kwargs, label, card)
+
+
+def check_shards(outs: list, want, bound: float, label: str,
+                 card: str) -> None:
+    """Every shard's output bitwise equal, and shard 0's within ``bound``
+    of ``want`` (max error / max |want|)."""
+    same = all(torch.equal(outs[0], o) for o in outs[1:])
+    err = forward_err(outs[0], want)
+    print(f"{label}: the {len(outs)} shards' outputs bitwise equal: {same}; "
+          f"max err / max |one device| {err:.3e} (bound {bound:.3e}) "
+          f"[{card}]")
+    if not same or not err <= bound:
+        raise AssertionError(f"{label}: shards differ ({same}) or the "
+                             f"forward is off one device's ({err})")
+
+
+def check_tp_float32(pipe, model, args: tuple, kwargs: dict, label: str,
+                     card: str) -> None:
+    """The tp forward's sharding alone: ``model`` in float32, sharded over
+    the pipeline's group, against the float32 model on one device within
+    TP_FLOAT32_MAX_REL, the attention of both on its kernels' plain
+    versions (the kernels take bf16).  No partial is rounded to bf16
+    before the psum, so only the order of float32 sums differs."""
+    from sduss_tpu_torch.parallel.sharding import ShardedDenoiser
+
+    def f32(v):
+        if isinstance(v, dict):
+            return {k: f32(x) for k, x in v.items()}
+        return v.float() if torch.is_floating_point(v) else v
+
+    model32 = copy.deepcopy(model).float()
+    den = ShardedDenoiser(model32, pipe.group)
+    den.keep_outputs = True
+    args32, kwargs32 = [f32(a) for a in args], f32(kwargs)
+    with plain_attention(), torch.inference_mode():
+        den(*args32, **kwargs32)
+        want = model32(*args32, **kwargs32)
+    torch.cuda.synchronize()
+    check_shards(den.last_outputs, want, TP_FLOAT32_MAX_REL,
+                 f"{label}, float32 (plain attention)", card)
+    del den, model32, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_tp2(card: str, bundle: ModelBundle) -> list:
+    """SDXL tp=2 on devices [0, 0]: the dense 2 x 1024^2 pair and the
+    768^2 + 1024^2 patch batch, cache off and under production("sdxl"),
+    each against the single-device run (GROUP_MAX_REL) with every kernel
+    launched exactly twice as often (each shard's forward launches what
+    one device's does, at its local heads and channels); the shards'
+    outputs bitwise equal; K4 at a shard's norm2 (C / 2, 16 groups) in
+    phase 3's kernel checks.  Returns the launches of every run and the
+    single-device dense run (serve_sp2's reference)."""
+    runs, ref_dense = [], None
+    for cache_label, cache in (("cache-off", None),
+                               ("production", CacheConfig.production("sdxl"))):
+        for mixed, res in ((False, GROUP_DENSE), (True, GROUP_MIXED)):
+            path = "mixed" if mixed else "dense"
+            one = serve_group(bundle, "sdxl", res, GROUP_STEPS,
+                              f"tp1-{path}-{cache_label}", mixed=mixed,
+                              cache=cache)
+            first = cache is None and not mixed
+            two = serve_group(bundle, "sdxl", res, GROUP_STEPS,
+                              f"tp1-{path}-{cache_label}", tp=2, mixed=mixed,
+                              cache=cache, keep=first)
+            check_group_run(f"serve_tp2 SDXL {path} {res} x {GROUP_STEPS} "
+                            f"steps, {cache_label}, tp=2 on {GROUP_DEVICES}",
+                            two, one, GROUP_MAX_REL, card, launch_ratio=2)
+            if mixed and two["counts"]["k4"] == 0:
+                raise AssertionError("serve_tp2: the patch path ran no K4")
+            if two["modes"] != one["modes"]:
+                raise AssertionError(f"serve_tp2 modes {two['modes']} vs "
+                                     f"{one['modes']}")
+            if first:
+                ref_dense = one
+                pipe = two.pop("pipe")
+                gen = torch.Generator(device="cuda").manual_seed(5)
+                x = torch.randn(4, 128, 128, 4, generator=gen,
+                                device="cuda").to(torch.bfloat16)
+                ehs = torch.randn(4, 77, 2048, generator=gen,
+                                  device="cuda").to(torch.bfloat16)
+                added = {"text_embeds": torch.randn(
+                    4, 1280, generator=gen, device="cuda").to(torch.bfloat16),
+                    "time_ids": torch.tensor([[1024.0] * 2 + [0.0] * 2
+                                              + [1024.0] * 2] * 4,
+                                             device="cuda")}
+                check_replicas(pipe, bundle.models["unet"],
+                               (x, torch.full((4,), 500.0, device="cuda"),
+                                ehs), {"added_cond": added},
+                               "serve_tp2 SDXL 2 x 1024^2 CFG forward", card)
+                pipe.group.close()
+                del pipe
+            runs += [one["counts"], two["counts"]]
+    return runs, ref_dense
+
+
+def expected_displaced(steps: int, warmup: int, interval=None,
+                       deep_warmup: int = 0) -> tuple:
+    """The sp step's modes and sync/stale counts for one composition over
+    ``steps`` (pipelines/base.py _denoise_group_displaced): full steps
+    always sync, each mode's first step sync, then stale once
+    ``warmup`` steps of the composition have run."""
+    modes, kv, deep, age = [], set(), None, 0
+    counts = {"sync": 0, "stale": 0}
+    for step in range(steps):
+        mode = None
+        if interval is not None:
+            full = deep is None or age >= interval - 1 or step < deep_warmup
+            mode = "full" if full else "shallow"
+            modes.append(mode)
+            deep, age = (1, 0) if full else (deep, age + 1)
+        stale = mode != "full" and step >= warmup and mode in kv
+        counts["stale" if stale else "sync"] += 1
+        kv.add(mode)
+    return modes, counts
+
+
+def serve_sp2(card: str, bundle: ModelBundle, ref_dense: dict) -> list:
+    """SDXL 2 x 1024^2 under sp=2 on devices [0, 0], mixed batches off:
+    sp_mode "gspmd" (every step sync) within GROUP_MAX_REL of one device
+    (tp phase's run) and launching twice as often; "displaced" over
+    DISPLACED_STEPS (DISPLACED_WARMUP sync steps, then stale) within
+    DISPLACED_MAX_REL of one device's trajectory; then the plain
+    fixed-interval deep cache on the displaced seam against one device
+    under the same cache (modes and sync/stale counts as expected)."""
+    runs = []
+    sync = serve_group(bundle, "sdxl", GROUP_DENSE, GROUP_STEPS, "tp1-dense-"
+                       "cache-off", sp=2)
+    check_group_run(f"serve_sp2 SDXL {GROUP_DENSE} x {GROUP_STEPS} steps, "
+                    f"sp=2 gspmd on {GROUP_DEVICES}", sync, ref_dense,
+                    GROUP_MAX_REL, card, launch_ratio=2)
+    runs.append(sync["counts"])
+    for label, cache, interval in (
+            ("cache-off", None, None),
+            ("plain deep", CacheConfig(enabled=True, mode="deep",
+                                       **DISPLACED_DEEP),
+             DISPLACED_DEEP["deep_interval"])):
+        one = serve_group(bundle, "sdxl", GROUP_DENSE, DISPLACED_STEPS,
+                          f"sp-disp-{label}", cache=cache)
+        disp = serve_group(bundle, "sdxl", GROUP_DENSE, DISPLACED_STEPS,
+                           f"sp-disp-{label}", sp=2, sp_mode="displaced",
+                           cache=cache)
+        check_group_run(f"serve_sp2 SDXL {GROUP_DENSE} x {DISPLACED_STEPS} "
+                        f"steps, {label}, sp=2 displaced (warmup "
+                        f"{DISPLACED_WARMUP}) on {GROUP_DEVICES}", disp, one,
+                        DISPLACED_MAX_REL, card)
+        modes, counts = expected_displaced(
+            DISPLACED_STEPS, DISPLACED_WARMUP, interval,
+            DISPLACED_DEEP["deep_warmup"])
+        if disp["sync_stale"] != counts or disp["modes"] != modes \
+                or one["modes"] != modes:
+            raise AssertionError(
+                f"serve_sp2 {label}: sync/stale {disp['sync_stale']} modes "
+                f"{disp['modes']}, want {counts} {modes} (one device "
+                f"{one['modes']})")
+        runs += [one["counts"], disp["counts"]]
+    return runs
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Every attention of the dispatcher on its kernel's plain version
+    (float32 softmax; a calibration of how far another summation order
+    moves the serving latents)."""
+    names = ("flash_mha_fused", "flash_mha", "flash_mha_masked",
+             "flash_cross_short")
+    saved = {n: getattr(attention_mod, n) for n in names}
+    attention_mod.flash_mha_fused = flash_mha_fused_reference
+    attention_mod.flash_mha = (lambda q, k, v, h, s:
+                               flash_mha_reference(q, k, v, h, s))
+    attention_mod.flash_mha_masked = flash_mha_masked_reference
+    attention_mod.flash_cross_short = flash_cross_short_reference
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(attention_mod, n, fn)
+
+
+def sd3_inputs(seed: int) -> tuple:
+    """A CFG-doubled 2 x 1024^2 SD3.5-medium forward's inputs, bf16."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(4, 128, 128, 16, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    t = torch.tensor([900.0, 900.0, 400.0, 400.0], device="cuda")
+    ehs = torch.randn(4, SD3_CTX, 4096, generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    pooled = torch.randn(4, 2048, generator=gen,
+                         device="cuda").to(torch.bfloat16)
+    return x, t, ehs, pooled
+
+
+def sp_forward(pipe, args: tuple, kv_mode: str):
+    """One MMDiT forward of ``args`` on the pipeline's sp row shards
+    (``MMDiTShardContext``), the rows gathered back."""
+    from sduss_tpu_torch.parallel.displaced import (MMDiTShardContext,
+                                                    gather_rows, shard_rows)
+
+    group, den = pipe.group, pipe.denoiser
+    x, rest = args[0], args[1:]
+    with torch.inference_mode():
+        outs = group.run(lambda r: den(
+            shard_rows(x, group, "sp", 1, r), *rest,
+            ctx=MMDiTShardContext(group, kv_mode=kv_mode)))
+    return gather_rows(outs, group, 1, x.device)
+
+
+def serve_sd3_sp2(card: str, bundle: ModelBundle) -> list:
+    """SD3.5-medium 2 x 1024^2, mixed batches off, on devices [0, 0]: one
+    forward under sp=2 with the latent K/V gathered within GROUP_MAX_REL
+    of one device's, and with them rotated around the ring
+    (``MMDiTShardContext(kv_mode="ring")``: float32 PyTorch math,
+    parallel/ring.py, no kernel; a library seam the Engine does not
+    serve) within MOVED_MAX_REL, printed beside one device's forward with
+    its attention on the plain versions; under tp=2 the shards bitwise
+    equal and within MOVED_MAX_REL, and in float32 within
+    TP_FLOAT32_MAX_REL (``check_replicas``); the 4-step trajectories
+    under sp=2 gather within GROUP_MAX_REL of one device and under tp=2
+    (its dual attention's 6 MiB K row goes to K1) within MOVED_MAX_REL,
+    printed beside how far one device's trajectory moves with its
+    attention on the plain versions, each launching every attention
+    twice as often; then ``MMDiTStagePipeline`` with two stages on
+    [0, 0] bitwise equal to the single-device forward (one microbatch,
+    and two against the single-device forward of each)."""
+    from sduss_tpu_torch.parallel.pipeline import MMDiTStagePipeline
+
+    model = bundle.models["transformer"]
+    runs = []
+    one = serve_group(bundle, "sd3", GROUP_DENSE, SD3_GROUP_STEPS, "sd3-g")
+    runs.append(one["counts"])
+    attn = sum(one["counts"].values())
+    with plain_attention():
+        plain = serve_group(bundle, "sd3", GROUP_DENSE, SD3_GROUP_STEPS,
+                            "sd3-g")
+    print(f"serve_sd3_sp2 calibration: one device with the plain attention "
+          f"versions, max err / max |kernels| per request "
+          f"{[f'{e:.3e}' for e in group_err(plain, one)]}; step "
+          f"{plain['ms']:.2f} ms [{card}]")
+    args = sd3_inputs(6)
+    with torch.inference_mode():
+        want = model(*args)
+        with plain_attention():
+            want_plain = model(*args)
+    for label, kw in (("sp=2 gather", dict(sp=2)), ("tp=2", dict(tp=2))):
+        got = serve_group(bundle, "sd3", GROUP_DENSE, SD3_GROUP_STEPS,
+                          "sd3-g", keep=True, **kw)
+        pipe = got.pop("pipe")
+        exact = label == "sp=2 gather"
+        if not exact:
+            check_replicas(pipe, model, args, {}, "serve_sd3_sp2 "
+                           "SD3.5-medium 2 x 1024^2 CFG forward, tp=2", card)
+        else:
+            for kv_mode, bound in (("gather", GROUP_MAX_REL),
+                                   ("ring", MOVED_MAX_REL)):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = sp_forward(pipe, args, kv_mode)
+                end.record()
+                torch.cuda.synchronize()
+                err = forward_err(out, want)
+                print(f"serve_sd3_sp2 SD3.5-medium 2 x 1024^2 CFG forward, "
+                      f"sp=2 {kv_mode}: {start.elapsed_time(end):.2f} ms; "
+                      f"max err / max |one device| {err:.3e} (bound "
+                      f"{bound:.3e}); vs one device with the plain "
+                      f"attention versions {forward_err(out, want_plain):.3e}"
+                      f" [{card}]")
+                if not err <= bound:
+                    raise AssertionError(f"serve_sd3_sp2 sp=2 {kv_mode} "
+                                         f"forward: {err}")
+        pipe.group.close()
+        del pipe
+        check_group_run(f"serve_sd3_sp2 SD3.5-medium {GROUP_DENSE} x "
+                        f"{SD3_GROUP_STEPS} steps, {label} on "
+                        f"{GROUP_DEVICES}", got, one,
+                        GROUP_MAX_REL if exact else MOVED_MAX_REL, card)
+        if not exact:
+            print(f"serve_sd3_sp2 {label} vs one device with the plain "
+                  f"attention versions: "
+                  f"{[f'{e:.3e}' for e in group_err(got, plain)]} [{card}]")
+        # each shard launches one device's attentions (tp moves the dual
+        # attention's 6 MiB K row from flash_mha to K1)
+        n = sum(got["counts"].values())
+        if n != 2 * attn:
+            raise AssertionError(f"serve_sd3_sp2 {label}: {n} attention "
+                                 f"launches, one device {attn}")
+        runs.append(got["counts"])
+    x, t, ehs, pooled = sd3_inputs(7)
+    with torch.inference_mode():
+        want = model(x, t, ehs, pooled)
+        halves = torch.cat([model(x[i:i + 2], t[i:i + 2], ehs[i:i + 2],
+                                  pooled[i:i + 2]) for i in (0, 2)])
+    for n_micro, ref in ((1, want), (2, halves)):
+        stages = MMDiTStagePipeline(model, ["cuda:0"] * 2, n_micro=n_micro)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = stages(x, t, ehs, pooled)
+        end.record()
+        torch.cuda.synchronize()
+        same = torch.equal(got, ref)
+        print(f"serve_sd3_sp2 MMDiTStagePipeline 2 stages {stages.spans} on "
+              f"cuda:0, {n_micro} microbatch(es) of the CFG 2 x 1024^2 "
+              f"batch: bitwise equal to the single-device forward: {same}; "
+              f"{start.elapsed_time(end):.2f} ms [{card}]")
+        if not same:
+            raise AssertionError("MMDiTStagePipeline differs from the "
+                                 "single-device forward")
+    return runs
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -4017,9 +4521,12 @@ def main() -> None:
     # mode "compact"'s sub-composition of SDXL's serving mix
     k4_compact = check_k4(card, compact_sub_meta(), COMPACT_K4_SHAPES,
                           seed=10)
+    # a tp=2 shard's norm2 on SDXL's patch batch: C / 2 over 16 groups
+    k4_tp2 = check_k4(card, shapes=K4_TP2_SHAPES, seed=11, groups=16)
     k4["max_abs_err"] = max(k4["max_abs_err"], k4_sd15["max_abs_err"],
                             k4_sub["max_abs_err"], k4_sub_sd15["max_abs_err"],
-                            k4_compact["max_abs_err"])
+                            k4_compact["max_abs_err"],
+                            k4_tp2["max_abs_err"])
     k5 = check_k5(card)
     check_block()
     check_sd3_block()
@@ -4040,6 +4547,9 @@ def main() -> None:
     check_vae_dtype(card, bundle)
     runs.append(serve_http(card, bundle))
     runs.append(replay_sdxl(card, bundle))
+    tp_runs, ref_dense = serve_tp2(card, bundle)
+    runs += tp_runs
+    runs += serve_sp2(card, bundle, ref_dense)
     # free each bundle so each family's peak memory reads alone
     del bundle
     gc.collect()
@@ -4048,6 +4558,7 @@ def main() -> None:
     runs += [serve_sd3(card, sd3), serve_sd3_mixed(card, sd3)]
     runs += serve_sd3_deep(card, sd3)
     runs += serve_sd3_chunked(card, sd3)
+    runs += serve_sd3_sp2(card, sd3)
     del sd3
     gc.collect()
     torch.cuda.empty_cache()

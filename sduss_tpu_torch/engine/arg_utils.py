@@ -4,8 +4,10 @@ sduss_tpu/engine/arg_utils.py).
 The JAX package's flags with its defaults, plus ``--device``.  ``--dp``
 replicas are served (on ``cuda:0..dp-1`` from ``--device cuda``, all on
 the CPU from ``--device cpu``) behind ``--dispatcher-policy`` (greedy or
-round_robin).  ``--tp``/``--sp`` above 1 parse as in JAX and are refused
-by ``engine.check_supported`` when the Engine is built.
+round_robin); ``--tp``/``--sp`` above 1 give each replica an sp x tp
+group of consecutive cards (``parallel/replica.py``); what a group does
+not serve is refused by ``engine.check_supported`` when the Engine is
+built.
 """
 
 from __future__ import annotations

@@ -2,8 +2,10 @@
 sduss_tpu/engine/engine.py).
 
 The engine holds one ``Worker`` per data-parallel replica, each on its own
-device (``parallel/replica.py``: ``cuda:0..dp-1``, an explicit
-``ParallelConfig.devices`` list that may repeat a card, or the CPU).
+device or its own ``sp * tp`` devices (``parallel/replica.py``:
+consecutive cards from ``cuda:0``, an explicit ``ParallelConfig.devices``
+list that may repeat a card, or the CPU); a replica over more than one
+device serves its denoiser over a ``ShardGroup``.
 ``step()`` hands the waiting requests to the replicas through the
 dispatch policy (``dispatcher/``: greedy over the workers'
 ``pending_pixels`` by default) and runs one iteration on every replica in
@@ -39,7 +41,7 @@ from sduss_tpu_torch import configure_numerics
 from sduss_tpu_torch.engine.worker import Worker
 from sduss_tpu_torch.models.registry import ModelBundle
 from sduss_tpu_torch.parallel.replica import (build_placements, canonical,
-                                              on_device)
+                                              check_group, on_device)
 from sduss_tpu_torch.pipelines import build_pipeline
 
 logger = init_logger(__name__)
@@ -65,14 +67,13 @@ def check_supported(config: Config) -> None:
     ``sd3_deep_span``.  ``steps_per_dispatch`` above 1 runs fused
     multi-step chunks (captured step graphs on the card) and
     ``engine.prewarm`` warms them.  ``dp`` replicas are served, two or
-    more on one card included.  What is refused: a replica over more than
-    one device, ``tp``, ``sp`` or ``pp`` above 1 (item 10)."""
-    par = config.parallel
-    if max(par.tp, par.sp, par.pp) != 1:
-        raise NotImplementedError(
-            f"tensor, spatial and pipeline parallelism are not ported "
-            f"(tp={par.tp}, sp={par.sp}, pp={par.pp}; dp replicas are; "
-            f"ROADMAP Queue 1 item 10)")
+    more on one card included, and each replica may span an ``sp x tp``
+    group of devices (item 10): ``tp`` on every path and cache, ``sp`` on
+    the dense step.  What is refused (``parallel/replica.py
+    check_group``): ``sp > 1`` with ``use_mixed_resolution`` or a gated
+    cache (item 13), and ``pp > 1``, which the Engine does not route
+    (``MMDiTStagePipeline`` is driven directly)."""
+    check_group(config)
 
 
 class Engine:
@@ -96,12 +97,13 @@ class Engine:
         if bundle is not None:
             bundles[canonical(bundle.device)] = bundle
         self.workers: List[Worker] = []
-        for rank, dev in enumerate(placements):
-            b = bundles.get(dev)
+        for rank, devs in enumerate(placements):
+            lead = devs[0]
+            b = bundles.get(lead)
             if b is None and bundles:
-                b = next(iter(bundles.values())).replicate(dev)
-            pipe = build_pipeline(config, dev, bundle=b)
-            bundles.setdefault(dev, pipe.bundle)
+                b = next(iter(bundles.values())).replicate(lead)
+            pipe = build_pipeline(config, devs, bundle=b)
+            bundles.setdefault(lead, pipe.bundle)
             self.workers.append(Worker(rank, pipe, config))
         self.dispatch_policy = get_dispatch_policy(
             config.engine.dispatcher_policy)
@@ -218,6 +220,9 @@ class Engine:
             if cc.enabled and (cc.mode == "deep"
                                or cc.sd3_deep_span is not None):
                 steps = cc.deep_warmup + interval + 1
+            if self.config.parallel.sp_mode == "displaced":
+                # both the sync and the stale step (JAX engine.py:183-185)
+                steps = max(steps, self.config.parallel.displaced_warmup + 1)
         saved = cc.deep_drift_threshold
         if cc.enabled and cc.mode == "deep" and cc.deep_adaptive:
             cc.deep_drift_threshold = float("inf")
@@ -330,13 +335,21 @@ class Engine:
         return float(self.config.engine.hbm_bytes_fallback)
 
     def _held_bytes(self, device: torch.device) -> int:
-        """Bytes the replicas on ``device`` hold: each bundle's parameters
-        once (replicas on one card share it) and every replica's row state
-        (composition stores and step-set row buffers)."""
-        pipes = [w.pipeline for w in self.workers if w.device == device]
-        bundles = {id(p.bundle): p for p in pipes}
-        return (sum(p.device_param_bytes() for p in bundles.values())
-                + sum(p._row_state_bytes() for p in pipes))
+        """Bytes the replicas hold on ``device``: the parameters there, each
+        storage once (replicas on one card share a bundle; every shard of a
+        group on the card counts its slices and copies), and the row state
+        (composition stores, the sp step's K/V and step-set row buffers) of
+        every replica whose lead device it is."""
+        params: Dict[int, int] = {}
+        for w in self.workers:
+            pipe = w.pipeline
+            if w.device == device:  # the replica's lead card
+                params.update(pipe.param_bytes_on(pipe.device))
+            elif device in pipe.devices:  # its shards on another card
+                params.update(pipe.param_bytes_on(device))
+        return (sum(params.values())
+                + sum(w.pipeline._row_state_bytes() for w in self.workers
+                      if w.device == device))
 
     def _bucket_fits(self, pipe, res: int, bucket: int) -> bool:
         """Prewarm's capacity gate (JAX engine.py:229-259): what the

@@ -78,11 +78,14 @@ def _encode_png(image) -> Optional[str]:
 
 
 def device_stats(engine) -> list:
-    """One row per dp replica of ``engine`` (an ``Engine``): its memory in
-    the JAX package's keys (``id``, ``platform``, ``bytes_in_use``,
-    ``bytes_limit``, ``hbm_utilization``; ``{"platform": "cpu"}`` on the
-    CPU) and its load (``dp_rank``, ``pending_pixels``, ``unfinished``).
-    Replicas that share a card report that card's memory."""
+    """One row per dp replica of ``engine`` (an ``Engine``): its lead
+    device's memory in the JAX package's keys (``id``, ``platform``,
+    ``bytes_in_use``, ``bytes_limit``, ``hbm_utilization``;
+    ``{"platform": "cpu"}`` on the CPU), for a replica over an sp x tp
+    group every device it spans (``devices``: card indices, or "cpu", one
+    per shard) and its load (``dp_rank``, ``pending_pixels``,
+    ``unfinished``).  Replicas that
+    share a card report that card's memory."""
     rows = []
     for worker in engine.workers:
         device = worker.device
@@ -94,6 +97,9 @@ def device_stats(engine) -> list:
                    "hbm_utilization": round(in_use / limit, 4)}
         else:
             row = {"platform": "cpu"}
+        if len(worker.pipeline.devices) > 1:
+            row["devices"] = [d.index if d.type == "cuda" else d.type
+                              for d in worker.pipeline.devices]
         row.update(dp_rank=worker.rank, pending_pixels=worker.pending_pixels(),
                    unfinished=worker.scheduler.pool.unfinished())
         rows.append(row)

@@ -40,6 +40,17 @@ def conv2d(x, weight, bias=None, stride: int = 1):
                     stride=stride, padding=pad)
 
 
+def conv_apply(conv, x, stride: int = 1, padding=0):
+    """``conv``'s weights on ``x`` at ``stride`` and ``padding`` (a context's
+    haloed input).  A module that sums its convolution across shards (the
+    row-parallel conv of ``parallel/sharding.py``) adds its bias after the
+    sum, through its ``conv_at``."""
+    conv_at = getattr(conv, "conv_at", None)
+    if conv_at is not None:
+        return conv_at(x, stride, padding)
+    return F.conv2d(x, conv.weight, conv.bias, stride=stride, padding=padding)
+
+
 def group_norm(x, weight, bias, num_groups: int, eps: float = 1e-5,
                act: Optional[str] = None):
     """GroupNorm over an ``(N, C, ...)`` tensor with float32 moments.

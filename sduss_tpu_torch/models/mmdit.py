@@ -185,6 +185,11 @@ class FeedForward(nn.Module):
 
 
 class JointTransformerBlock(nn.Module):
+    # the suffix of the state keys this block writes its stale K/V rows to:
+    # a tensor-parallel shard other than the first holds its own heads'
+    # rows under ``k@j``/``v@j`` (parallel/sharding.py)
+    kv_suffix = ""
+
     def __init__(self, cfg: MMDiTConfig, last: bool, dual: bool):
         super().__init__()
         d = cfg.dim
@@ -244,9 +249,8 @@ class JointTransformerBlock(nn.Module):
                 q = attn.q(_gather_tokens(x_mod, tok_sel))
                 k, v = attn.kv(x_mod)
             if kv_state is not None and kv_out is not None:
-                b = x.shape[0]
-                kv_out[names[0]] = k.reshape(b, -1, self.cfg.dim)
-                kv_out[names[1]] = v.reshape(b, -1, self.cfg.dim)
+                kv_out[names[0] + self.kv_suffix] = k.flatten(2)
+                kv_out[names[1] + self.kv_suffix] = v.flatten(2)
             return q, k, v
 
         q, k, v = latent_qkv(self.attn, _modulate(xn, shift_msa, scale_msa),
@@ -256,7 +260,7 @@ class JointTransformerBlock(nn.Module):
         # joint sequence [latent ; context], split back at s_q
         attn_out = _attention(torch.cat([q, cq], dim=1),
                               torch.cat([k, ck], dim=1),
-                              torch.cat([v, cv], dim=1), ctx)
+                              torch.cat([v, cv], dim=1), ctx, k.shape[1])
         x_attn, c_attn = attn_out[:, :s_q], attn_out[:, s_q:]
         x = _add_tokens(x, tok_sel,
                         gate_msa[:, None] * self.attn.to_out[0](x_attn))
@@ -265,7 +269,7 @@ class JointTransformerBlock(nn.Module):
             shift2, scale2, gate2 = mods[6:]
             q2, k2, v2 = latent_qkv(self.attn2, _modulate(xn, shift2, scale2),
                                     ("k2", "v2"))
-            out2 = _attention(q2, k2, v2, ctx)
+            out2 = _attention(q2, k2, v2, ctx, k2.shape[1])
             x = _add_tokens(x, tok_sel,
                             gate2[:, None] * self.attn2.to_out[0](out2))
 
@@ -302,12 +306,15 @@ def _add_tokens(x, sel, delta):
     return x.scatter_add(1, sel[..., None].expand_as(delta), delta)
 
 
-def _attention(q, k, v, ctx=None):
-    """``(B, S, H, hd)`` heads -> ``(B, S, D)``; masked when ctx is given."""
+def _attention(q, k, v, ctx=None, s_lat: int = None):
+    """``(B, S, H, hd)`` heads -> ``(B, S, D)``; through the context when
+    one is given (masked tokens, or sharded latent rows), which gets
+    ``s_lat``, the count of leading latent keys (mmdit.py:194-212)."""
+    if ctx is not None:
+        return ctx.mmdit_attention(q, k, v,
+                                   k.shape[1] if s_lat is None else s_lat)
     b, s, nh, hd = q.shape
     q, k, v = (t.reshape(b, t.shape[1], nh * hd) for t in (q, k, v))
-    if ctx is not None:
-        return ctx.mmdit_attention(q, k, v, nh)
     return masked_attention(q, k, v, nh)
 
 
@@ -373,13 +380,18 @@ class SD3Transformer2DModel(nn.Module):
                 np.ascontiguousarray(self.pos_grid(hp, wp))).to(device, dtype)
         return self._pos_dev[key]
 
-    def embed_latents(self, latents):
+    def embed_latents(self, latents, ctx=None):
         """``(B, H, W, C)`` latents -> ``(B, h*w, dim)`` tokens with the
-        position grid added."""
+        position grid added.  A context that holds a row slice of the
+        latent (``pos_embed_rows``) gives the rows of the global grid."""
         x = self.pos_embed.proj(latents.permute(0, 3, 1, 2))
         b, d, hp, wp = x.shape
         x = x.permute(0, 2, 3, 1).reshape(b, hp * wp, d)
-        return x + self._pos(hp, wp, x.device, x.dtype)[None]
+        if ctx is not None and hasattr(ctx, "pos_embed_rows"):
+            pe = ctx.pos_embed_rows(self, hp, wp).to(x.device, x.dtype)
+        else:
+            pe = self._pos(hp, wp, x.device, x.dtype)
+        return x + pe[None]
 
     def time_text_embed_fn(self, timesteps, pooled, dtype):
         tte = self.time_text_embed
@@ -434,7 +446,7 @@ class SD3Transformer2DModel(nn.Module):
         if fine:
             # per-token gate: each token is one 2x2 latent patch
             k_t = max(1, round(x.shape[1] * cache.config.patch_fraction))
-            token_valid = None if ctx is None else ctx.token_mask
+            token_valid = getattr(ctx, "token_mask", None)
         elif mode == "compact":
             n_active = (x.shape[0] if compact_sync else
                         max(1, round(x.shape[0] * cache.config.compact_fraction)))
@@ -459,7 +471,8 @@ class SD3Transformer2DModel(nn.Module):
             if st is None:
                 x, c2 = blk(x, c, temb, ctx=ctx)
             elif fine:
-                kv = {n: st[n] for n in ("k", "v", "k2", "v2") if n in st}
+                kv = {n: st.get(n + blk.kv_suffix, st[n])
+                      for n in ("k", "v", "k2", "v2") if n in st}
 
                 def block_fn(sel, blk=blk, x=x, c=c, st=st, kv=kv):
                     return blk(x, c, temb, ctx=ctx, tok_sel=sel,
@@ -497,6 +510,28 @@ class SD3Transformer2DModel(nn.Module):
         out = self.head(x, temb)
         return (out, deep_out) if deep else out
 
+    def prelude(self, latents, timesteps, encoder_hidden_states,
+                pooled_projections, ctx=None):
+        """The embedding front (mmdit.py:374-385): latents, time and text ->
+        ``(x tokens, c context, temb)``.  A stage pipeline's first stage
+        runs it; the dense forward too."""
+        x = self.embed_latents(latents, ctx=ctx)
+        temb = self.time_text_embed_fn(timesteps, pooled_projections,
+                                       latents.dtype)
+        c = self.context_embedder(encoder_hidden_states.to(latents.dtype))
+        return x, c, temb
+
+    def trunk_blocks(self, x, c, temb, ctx=None):
+        """Every joint block this module holds, plain (mmdit.py:387-399).
+        The JAX function takes the span's global start index, because its
+        blocks' roles (dual attention, the context-dropping last block)
+        come from the index; the port's blocks carry their roles, so a
+        stage module holding a span runs it as it is."""
+        for blk in self.transformer_blocks:
+            x, c2 = blk(x, c, temb, ctx=ctx)
+            c = c if c2 is None else c2
+        return x, c
+
     def head(self, x, temb):
         """Final AdaLN modulation ([scale, shift]) + projection."""
         scale, shift = self.norm_out.linear(_silu_f32(temb)).chunk(2, dim=-1)
@@ -514,22 +549,23 @@ class SD3Transformer2DModel(nn.Module):
     def forward(self, latents, timesteps, encoder_hidden_states,
                 pooled_projections, cache=None, cache_state=None,
                 fine_kv_stale: bool = False, deep_mode=None, deep_span=None,
-                deep_state=None):
+                deep_state=None, ctx=None):
         """Dense forward: ``(B, H, W, C)`` latents -> velocity ``(B, H, W, C)``.
 
         ``timesteps`` ``(B,)``; ``encoder_hidden_states`` ``(B, L,
         joint_attention_dim)`` CLIP+T5 features; ``pooled_projections``
         ``(B, pooled_projection_dim)``.  The cache and deep arguments are
         :meth:`trunk`'s (mmdit.py:583-618); with ``deep_mode`` returns
-        ``(velocity, deep_out)``.
+        ``(velocity, deep_out)``.  ``ctx``: a sharded context
+        (``parallel/displaced.py MMDiTShardContext``) when the latents are
+        this shard's rows.
         """
         ps = self.cfg.patch_size
         hp, wp = latents.shape[1] // ps, latents.shape[2] // ps
-        x = self.embed_latents(latents)
-        temb = self.time_text_embed_fn(timesteps, pooled_projections,
-                                       latents.dtype)
-        c = self.context_embedder(encoder_hidden_states.to(latents.dtype))
-        out = self.trunk(x, c, temb, cache=cache, cache_state=cache_state,
+        x, c, temb = self.prelude(latents, timesteps, encoder_hidden_states,
+                                  pooled_projections, ctx=ctx)
+        out = self.trunk(x, c, temb, ctx=ctx, cache=cache,
+                         cache_state=cache_state,
                          t_norm=timesteps.float() / 1000.0,
                          fine_kv_stale=fine_kv_stale, deep_mode=deep_mode,
                          deep_span=deep_span, deep_state=deep_state)
@@ -590,8 +626,14 @@ class MMDiTMaskCtx:
         """The context of the rows ``idx`` (a compact gate's sub-batch)."""
         return MMDiTMaskCtx(self.token_mask[idx], self.ctx_len)
 
-    def mmdit_attention(self, q, k, v, num_heads: int):
+    def mmdit_attention(self, q, k, v, s_lat: int):
+        """``(B, S, H, hd)`` heads -> ``(B, S, D)``; the padded latent keys
+        masked (the joint mask when the keys carry the context)."""
+        b, s, nh, hd = q.shape
         s_lat = self.token_mask.shape[1]
         kv_mask = (self.joint_mask if k.shape[1] == s_lat + self.ctx_len
                    else self.token_mask)
-        return masked_attention(q, k, v, num_heads, kv_token_mask=kv_mask)
+        return masked_attention(q.reshape(b, s, nh * hd),
+                                k.reshape(b, k.shape[1], nh * hd),
+                                v.reshape(b, v.shape[1], nh * hd), nh,
+                                kv_token_mask=kv_mask)

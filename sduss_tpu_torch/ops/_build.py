@@ -20,6 +20,7 @@ import re
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import NamedTuple
@@ -152,9 +153,26 @@ def ptxas_usage(log: str) -> list:
     return out
 
 
-@functools.lru_cache(maxsize=1)
+_COUNT_LOCK = threading.Lock()
+_LOAD_LOCK = threading.Lock()
+
+
+def count(fn, n: int = 1) -> None:
+    """Add ``n`` to a kernel wrapper's ``launches`` counter; the shards of
+    a group launch from several threads at once."""
+    with _COUNT_LOCK:
+        fn.launches += n
+
+
 def load_library() -> ctypes.CDLL:
-    """Build if needed, load once, and declare every entry point's types."""
+    """Build if needed, load once (whichever thread asks first), and
+    declare every entry point's types."""
+    with _LOAD_LOCK:
+        return _load()
+
+
+@functools.lru_cache(maxsize=1)
+def _load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build().path))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.sduss_flash_mha_fused.argtypes = [p, p, p, p, i, i, i, i, i,

@@ -148,7 +148,7 @@ def flash_mha_fused(q, k, v, num_heads: int, scale: float):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, lq, k.shape[1], d, num_heads, float(scale) * _LOG2E, stream)
     _build.check(lib, err, "flash_mha_fused launch")
-    flash_mha_fused.launches += 1
+    _build.count(flash_mha_fused)
     return out
 
 
@@ -197,7 +197,7 @@ def flash_mha(q, k, v, num_heads: int, scale: float, kv_mask=None,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, lq, k.shape[1], n, d, num_heads, float(scale) * _LOG2E, stream)
     _build.check(lib, err, "flash_mha launch")
-    flash_mha.launches += 1
+    _build.count(flash_mha)
     return out
 
 
@@ -243,7 +243,7 @@ def flash_mha_masked(q, k, v, kv_mask, num_heads: int, scale: float):
             out.data_ptr(), b, lq, k.shape[1], d, num_heads,
             float(scale) * _LOG2E, stream)
     _build.check(lib, err, "flash_mha_masked launch")
-    flash_mha_masked.launches += 1
+    _build.count(flash_mha_masked)
     return out
 
 
@@ -286,7 +286,7 @@ def flash_cross_short(q, k, v, num_heads: int, scale: float):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, lq, k.shape[1], d, num_heads, float(scale) * _LOG2E, stream)
     _build.check(lib, err, "flash_cross_short launch")
-    flash_cross_short.launches += 1
+    _build.count(flash_cross_short)
     return out
 
 

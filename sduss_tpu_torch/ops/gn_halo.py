@@ -150,7 +150,7 @@ def gn_silu_halo(x, image_id, neighbors, mean, rstd, weight, bias,
             mean.data_ptr(), rstd.data_ptr(), weight.data_ptr(), bias.data_ptr(),
             out.data_ptr(), pp, c, s, mean.shape[1], _ACTS[act], stream)
     _build.check(lib, err, "gn_silu_halo launch")
-    gn_silu_halo.launches += 1
+    _build.count(gn_silu_halo)
     return out
 
 

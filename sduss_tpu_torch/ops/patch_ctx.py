@@ -27,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from sduss_tpu_torch.models.layers import conv_apply
 from sduss_tpu_torch.ops.attention import masked_attention
 from sduss_tpu_torch.ops.gn_halo import gn_silu_haloed, group_sums
 from sduss_tpu_torch.ops.patching import PatchMeta, compact_submeta, haloed
@@ -107,8 +108,7 @@ class PatchContext:
             return conv(x)
         if k != 3:
             raise NotImplementedError(f"patch conv kernel {k}")
-        return F.conv2d(haloed(x, self.neighbors32), conv.weight, conv.bias,
-                        stride=stride)
+        return conv_apply(conv, haloed(x, self.neighbors32), stride)
 
     def upsample_2x(self, x) -> torch.Tensor:
         return F.interpolate(x, scale_factor=2.0, mode="nearest")
@@ -124,7 +124,7 @@ class PatchContext:
         """GroupNorm + SiLU written into the conv's haloed input."""
         if conv.weight.shape[-1] == 1:
             return conv(self.group_norm(norm, x, act="silu"))
-        return F.conv2d(self.gn_silu_halo(norm, x), conv.weight, conv.bias)
+        return conv_apply(conv, self.gn_silu_halo(norm, x))
 
     # -- group norm ---------------------------------------------------------
 

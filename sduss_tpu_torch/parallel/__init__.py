@@ -1,5 +1,5 @@
-"""Device placement of the serving replicas (counterpart of
-sduss_tpu/parallel/).  Only the data-parallel half is ported:
-``replica.py`` places each dp replica on one device; the sp/tp/pp
-modules of the JAX package (mesh, sharding, displaced, ring, pipeline,
-multihost) are ROADMAP Queue 1 item 10."""
+"""Device placement and parallelism (counterpart of sduss_tpu/parallel/):
+dp replicas (``replica.py``), a replica over an sp x tp group of devices
+(``group.py``, ``sharding.py``, ``displaced.py``, ``ring.py``), device
+meshes (``mesh.py``), the MMDiT stage pipeline (``pipeline.py``) and
+multi-host start-up (``multihost.py``)."""

@@ -2,12 +2,15 @@
 
 The reference's DP workers are OS processes pinned to one GPU each
 (worker/runner/model_runner.py:29-30 CUDA_VISIBLE_DEVICES).  Here, as in
-the JAX package, a DP replica is a device owned by one ``Worker`` in this
-process: ``build_placements`` gives one ``torch.device`` per replica.  An
-explicit device list may repeat an index, which puts several replicas on
-one card (each with its own pipeline, row state and step graphs, all
-sharing one copy of the weights).  A replica over an (sp x tp) group of
-devices is not ported (ROADMAP Queue 1 item 10).
+the JAX package, a DP replica is owned by one ``Worker`` in this process
+and holds a slice of the device list: ``sp * tp`` consecutive entries
+(``build_placements``), one device or a group over which the denoiser is
+tensor-parallel and the latent rows spatial-parallel
+(``parallel/group.py``, ``parallel/sharding.py``).  The list may repeat an
+index, which puts several replicas, or several shards of one replica, on
+one card (each replica with its own pipeline, row state and step graphs;
+replicas on one card share one copy of the weights).  ``check_group``
+states what a group serves.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ import contextlib
 from typing import List, Optional, Sequence
 
 import torch
+
+from .mesh import make_mesh
 
 
 def canonical(device: torch.device | str) -> torch.device:
@@ -37,34 +42,78 @@ def on_device(device: torch.device):
 
 def build_placements(dp: int, sp: int = 1, tp: int = 1,
                      devices: Optional[Sequence[int]] = None,
-                     base: torch.device | str = "cuda") -> List[torch.device]:
-    """One device per replica.
+                     base: torch.device | str = "cuda"
+                     ) -> List[List[torch.device]]:
+    """The devices of each replica: ``sp * tp`` of them, rank order.
 
-    ``base`` is the engine's device.  On the CPU every replica is ``cpu``.
+    ``base`` is the engine's device.  On the CPU every shard is ``cpu``.
     On the card, ``devices`` (``ParallelConfig.devices``: card indices,
-    repeats allowed) gives replica ``r`` the card ``devices[r]``; with
-    ``devices=None`` the replicas take consecutive cards from ``base``'s
-    index (0 for ``cuda``).  Too few cards raises ``ValueError`` ("need n
-    devices"), as in the JAX package; ``sp * tp > 1`` raises
-    ``NotImplementedError``."""
-    if sp * tp > 1:
-        raise NotImplementedError(
-            f"a replica over sp={sp} x tp={tp} devices is not ported "
-            f"(ROADMAP Queue 1 item 10)")
+    repeats allowed) gives replica ``r`` the entries ``[r * n, (r + 1) *
+    n)``, ``n = sp * tp`` (JAX replica.py:62-74); with ``devices=None`` the
+    shards take consecutive cards from ``base``'s index (0 for ``cuda``).
+    Too few devices raises ``ValueError`` ("need n devices"), as in the
+    JAX package."""
+    per = sp * tp
+    need = dp * per
     base = torch.device(base)
     if base.type != "cuda":
-        return [base] * dp
+        return _slices(dp, sp, tp, [base] * need)
     have = torch.cuda.device_count()
     if devices is None:
         start = base.index or 0
-        devices = list(range(start, start + dp))
+        devices = list(range(start, start + need))
         if devices[-1] >= have:
-            raise ValueError(f"need {dp} devices for dp={dp} sp={sp} tp={tp} "
-                             f"from cuda:{start}, have {have}")
-    if len(devices) < dp:
-        raise ValueError(f"need {dp} devices for dp={dp} sp={sp} tp={tp}, "
+            raise ValueError(f"need {need} devices for dp={dp} sp={sp} "
+                             f"tp={tp} from cuda:{start}, have {have}")
+    if len(devices) < need:
+        raise ValueError(f"need {need} devices for dp={dp} sp={sp} tp={tp}, "
                          f"have {len(devices)}")
-    bad = [i for i in devices[:dp] if not 0 <= int(i) < have]
+    bad = [i for i in devices[:need] if not 0 <= int(i) < have]
     if bad:
         raise ValueError(f"devices {bad} outside the {have} visible cards")
-    return [torch.device("cuda", int(i)) for i in devices[:dp]]
+    return _slices(dp, sp, tp, [torch.device("cuda", int(i))
+                                for i in devices[:need]])
+
+
+def _slices(dp: int, sp: int, tp: int, devices: list) -> list:
+    """Each replica's ``dp`` slice of the ``dp x sp x tp`` mesh, rank
+    order."""
+    mesh = make_mesh(dp=dp, sp=sp, tp=tp, devices=devices)
+    return [list(mesh.devices[r].reshape(-1)) for r in range(dp)]
+
+
+def check_group(config) -> None:
+    """Raise, for a replica over an sp x tp group, what the group does not
+    serve yet (``NotImplementedError`` naming the ROADMAP item).
+
+    ``tp`` composes with every path and cache: the residual stream is
+    replicated, so each shard's gates read the same inputs.  ``sp > 1``
+    serves the dense step (``pipelines/base.py _denoise_group_displaced``):
+    cache-off, a stateful sampler, and the plain fixed-interval deep cache
+    of the UNet families; the mixed-resolution paths (the UNet's patch
+    batch, SD3's token path) and the gated caches are item 13.  ``pp > 1``
+    is not served by the Engine: the MMDiT stage pipeline
+    (``parallel/pipeline.py MMDiTStagePipeline``) is a library class."""
+    par, cc = config.parallel, config.cache
+    if par.pp > 1:
+        raise NotImplementedError(
+            f"pp={par.pp}: the Engine serves no pipeline-stage parallelism; "
+            f"drive sduss_tpu_torch.parallel.pipeline.MMDiTStagePipeline "
+            f"directly (ROADMAP item 10)")
+    if par.sp <= 1:
+        return
+    if config.scheduler.use_mixed_resolution:
+        raise NotImplementedError(
+            f"sp={par.sp} with use_mixed_resolution=True: the patch batch "
+            f"and the padded-token path across sp shards are ROADMAP item "
+            f"13 (set scheduler.use_mixed_resolution=False)")
+    if config.model.family == "sd3":
+        gated = cc.enabled and (cc.sd3_deep_span is not None
+                                or cc.mode in ("block", "compact"))
+    else:
+        gated = cc.enabled and not cc.plain_fixed_deep()
+    if gated:
+        raise NotImplementedError(
+            f"sp={par.sp} with this cache (mode={cc.mode!r}): only the "
+            f"plain fixed-interval deep cache of the UNet families rides "
+            f"the sp step; the gated caches are ROADMAP item 13")

@@ -64,14 +64,22 @@ import torch
 
 from sduss_tpu_torch.cache.manager import BlockCache
 from sduss_tpu_torch.config import Config, bucket_for
+from sduss_tpu_torch.logger import init_logger
 from sduss_tpu_torch.request import Request
 from sduss_tpu_torch.models.registry import ModelBundle
 from sduss_tpu_torch.models.safety_checker import SafetyChecker
 from sduss_tpu_torch.ops import patching
 from sduss_tpu_torch.ops.patch_ctx import PatchContext, compact_context
+from sduss_tpu_torch.parallel.displaced import (ShardContext, gather_rows,
+                                                shard_rows)
+from sduss_tpu_torch.parallel.group import ShardGroup
+from sduss_tpu_torch.parallel.replica import check_group
+from sduss_tpu_torch.parallel.sharding import ShardedDenoiser
 from sduss_tpu_torch.pipelines.graphs import (StepGraphs, keep_leaves,
                                               store, unique_nbytes)
 from sduss_tpu_torch.samplers import gather_coeffs, gather_timesteps, get_sampler
+
+logger = init_logger(__name__)
 
 # tokenizer arguments of every text encode: a snapshot's transformers
 # tokenizers pad and truncate to max_length only when asked (the stub
@@ -136,13 +144,34 @@ class _DriftScalar:
 
 
 class BasePipeline:
-    """Family-agnostic staged pipeline over a ModelBundle on one device."""
+    """Family-agnostic staged pipeline over a ModelBundle.
 
-    def __init__(self, bundle: ModelBundle, config: Config):
+    ``devices``: the replica's devices, one (the bundle's) or ``sp * tp``
+    of them (``parallel/replica.py``), the first the bundle's.  Over more
+    than one the denoiser is a ``ShardedDenoiser`` on a ``ShardGroup``:
+    tensor-parallel forwards on every path, and with ``sp > 1`` the dense
+    step runs on row shards (:meth:`_denoise_group_displaced`).  The text
+    encoders, the VAE and the safety checker run on the lead device, where
+    the requests' latents stay whole."""
+
+    def __init__(self, bundle: ModelBundle, config: Config, devices=None):
         self.bundle = bundle
         self.config = config
         self.spec = bundle.spec
         self.device = bundle.device
+        self.devices = ([self.device] if devices is None
+                        else [torch.device(d) for d in devices])
+        par = config.parallel
+        self.group = None
+        self.denoiser = bundle.denoiser
+        if len(self.devices) > 1:
+            check_group(config)
+            self.group = ShardGroup(self.devices, par.sp, par.tp)
+            self.denoiser = ShardedDenoiser(bundle.denoiser, self.group)
+        # the stale K/V (sp_mode "displaced") and deep feature of each
+        # composition under sp > 1 (_denoise_group_displaced)
+        self._disp_state: collections.OrderedDict = collections.OrderedDict()
+        self.displaced_steps = {"sync": 0, "stale": 0}
         if config.model.sampler:
             self.sampler = get_sampler(config.model.sampler)
         else:
@@ -158,6 +187,10 @@ class BasePipeline:
         # the captured step graphs of fused multi-step dispatch, and, when
         # a caller sets it to a list, the deep mode of every step run
         self.graphs = StepGraphs(self.device)
+        if self.group is not None:
+            # cross-thread peer copies cannot live in per-shard graphs: a
+            # group's chunks run their steps eagerly
+            self.graphs.live = False
         self.step_modes = None
 
     # -- family hooks --------------------------------------------------------
@@ -232,8 +265,12 @@ class BasePipeline:
         t = torch.from_numpy(gather_timesteps(tables)).to(dev)
         coeffs = torch.from_numpy(gather_coeffs(tables)).to(dev)
         # the JAX branch order: a stateful sampler first (PNDM runs without
-        # the caches, in both packages), then the deep cache, then compact
-        if self.sampler.needs_state:
+        # the caches, in both packages), then the deep cache, then compact;
+        # under sp > 1 every dense step runs on row shards
+        if self._sp() > 1:
+            new_latents = self._denoise_group_displaced(reqs, latents, t,
+                                                        coeffs, guidance, cond)
+        elif self.sampler.needs_state:
             self._init_sampler_state(reqs)
             state = {key: torch.cat([r.sampler_state[key] for r in reqs])
                      for key in reqs[0].sampler_state}
@@ -288,6 +325,168 @@ class BasePipeline:
             latents, t, coeffs, guidance,
             lambda lat_in, t2: self.denoiser_forward(lat_in, t2, cond))
         return noise_pred, c0, c1
+
+    # -- spatial parallelism over the group's sp axis -----------------------
+
+    def _sp(self) -> int:
+        return self.group.sp if self.group is not None else 1
+
+    def _warn_once(self, msg: str) -> None:
+        if not hasattr(self, "_warned"):
+            self._warned = set()
+        if msg not in self._warned:
+            self._warned.add(msg)
+            logger.warning(msg)
+
+    def _displaced_requested(self) -> bool:
+        return self.config.parallel.sp_mode == "displaced" and self._sp() > 1
+
+    def _displaced_deep_ok(self) -> bool:
+        """Does the enabled cache ride the sp step?  The plain
+        fixed-interval deep cache of the UNet families (JAX base.py:1028),
+        the predicate ESyMReD's admission mirror shares."""
+        return (self.config.cache.plain_fixed_deep()
+                and hasattr(self.bundle.denoiser, "cache_layout"))
+
+    def _displaced_ctx_cls(self):
+        """The context class of the sharded denoiser seam (SD3 overrides)."""
+        return ShardContext
+
+    def _row_multiple(self) -> int:
+        """Latent rows each shard's slice must be a multiple of: the UNet
+        halves them at every downsample."""
+        return 2 ** (len(self.bundle.denoiser.cfg.block_out_channels) - 1)
+
+    def _denoise_group_displaced(self, reqs, latents, t, coeffs, guidance,
+                                 cond):
+        """One dense step of a resolution group on the sp row shards (JAX
+        base.py:1042-1132); returns the new latents.
+
+        Each shard steps its rows of the latents through the CFG skeleton
+        and the denoiser on a ``ShardContext`` (``MMDiTShardContext`` for
+        SD3); the guided noise rows come back to the lead device, where
+        the sampler updates the whole latents (element-wise, so the same
+        as updating each slice; a stateful sampler's state stays whole).
+        ``sp_mode="gspmd"`` runs every step in sync (fresh K/V gathers,
+        exact).  Under ``"displaced"`` the K/V state of a composition lives
+        in ``_disp_state`` under ``(res, bucket, request ids)``, LRU 4: its
+        first ``displaced_warmup`` steps run sync, later ones stale (this
+        shard's fresh rows spliced into the previous step's full K/V).  A
+        stateful sampler serves the exact sync path instead, with JAX's
+        warning.  The plain fixed-interval deep cache rides the seam: the
+        mode is chosen as on the dense deep path, the deep feature is
+        composition state (rows sharded like the latents), full steps
+        always run sync and each mode keeps its own K/V dict."""
+        res = reqs[0].resolution
+        hw = latents.shape[1]
+        mult = self._sp() * self._row_multiple()
+        if hw % mult:
+            raise ValueError(f"resolution {res}: {hw} latent rows do not "
+                             f"split into sp={self._sp()} shards of a "
+                             f"multiple of {self._row_multiple()} rows")
+        bb = bucket_for(len(reqs), self.config.scheduler.batch_buckets)
+        key = (res, bb, tuple(r.request_id for r in reqs))
+        st = self._disp_state.get(key)
+        if st is None:
+            st = {"comp": key[2], "kv": {}, "warm": 0, "deep": None,
+                  "deep_age": 0}
+            self._disp_state[key] = st
+        self._disp_state.move_to_end(key)
+        while len(self._disp_state) > 4:
+            self._disp_state.popitem(last=False)
+
+        stateful = self.sampler.needs_state
+        displaced = self._displaced_requested()
+        if displaced and stateful:
+            self._warn_once("displaced sp_mode: stateful sampler — serving "
+                            "on the exact sync path instead")
+        deep_on = (self.config.cache.enabled and self._displaced_deep_ok()
+                   and not stateful)
+        mode = None
+        if deep_on:
+            interval, warmup_deep, _ = self._deep_policy()
+            steps_done = min(r.sampler_table.step for r in reqs)
+            need_full = (st["deep"] is None
+                         or st["deep_age"] >= interval - 1
+                         or steps_done < warmup_deep)
+            mode = "full" if need_full else "shallow"
+            self._record_mode(mode)
+        kv = st["kv"].get(mode or "dense", {})
+        stale = (displaced and not stateful and mode != "full"
+                 and st["warm"] >= self.config.parallel.displaced_warmup
+                 and bool(kv))
+        eps, new_kv, deep_out = self._sharded_eps(
+            latents, t, coeffs, guidance, cond, stale, mode, kv, st["deep"])
+        self.displaced_steps["stale" if stale else "sync"] += 1
+        if displaced and not stateful:
+            st["kv"][mode or "dense"] = new_kv
+        st["warm"] += 1
+        if mode == "full":
+            st["deep"], st["deep_age"] = deep_out, 0
+        elif mode == "shallow":
+            st["deep_age"] += 1
+        if deep_on:
+            # ESyMReD's deep-phase admission gate reads the cadence here
+            for r in reqs:
+                r.deep_state, r.deep_age = st["deep"], st["deep_age"]
+        c0, c1 = coeffs[:, 0], coeffs[:, 1]
+        if stateful:
+            self._init_sampler_state(reqs)
+            state = {k: torch.cat([r.sampler_state[k] for r in reqs])
+                     for k in reqs[0].sampler_state}
+            new_latents, new_state = self.sampler.step_with_state(
+                latents, eps, c0, c1, state)
+            for i, r in enumerate(reqs):
+                r.sampler_state = {k: a[i:i + 1] for k, a in new_state.items()}
+        else:
+            new_latents = self.sampler.step(latents, eps, c0, c1)
+        self._trim_row_state(self._disp_state)
+        return new_latents
+
+    def _sharded_eps(self, latents, t, coeffs, guidance, cond, stale: bool,
+                     mode, kv: dict, deep):
+        """The guided noise of a dense batch from the sp row shards:
+        ``(eps (B, H, W, C) on the lead device, {rank: new K/V}, the full
+        step's deep feature or None)``.  ``kv``: each rank's stale K/V;
+        ``deep``: the composition's feature (NCHW, its rows split like the
+        latents) for a shallow step."""
+        group = self.group
+        ctx_cls = self._displaced_ctx_cls()
+
+        def local(rank):
+            dev = group.device(rank)
+            lat = shard_rows(latents, group, "sp", 1, rank)
+            t_, c_, g_ = (a.to(dev) for a in (t, coeffs, guidance))
+            cond_ = {k: v.to(dev) for k, v in cond.items()}
+            ctx = ctx_cls(group, "sp", stale=stale, kv_state=kv.get(rank))
+            kw = {} if mode is None else {"deep_mode": mode}
+            if mode == "shallow":
+                kw["deep_state"] = shard_rows(deep, group, "sp", 2, rank)
+            eps, _, _, feature = self._cfg_step(
+                lat, t_, c_, g_, lambda lat_in, t2: self.denoiser_forward(
+                    lat_in, t2, cond_, ctx=ctx, **kw))
+            return eps, ctx.new_kv_state, feature
+
+        outs = group.run(local)
+        eps = gather_rows([o[0] for o in outs], group, 1, self.device)
+        feature = (gather_rows([o[2] for o in outs], group, 2, self.device)
+                   if mode == "full" else None)
+        return eps, {r: o[1] for r, o in enumerate(outs)}, feature
+
+    def _sp_chunk(self, reqs_by_res, k: int) -> bool:
+        """A chunk under sp > 1: its k steps run one after another through
+        the sharded step (eager, no step graphs); False where JAX refuses a
+        chunk (``sp_mode="displaced"``, a stateful sampler, mixed
+        resolutions, a request with fewer than k steps)."""
+        ordered = [r for res in sorted(reqs_by_res) for r in reqs_by_res[res]]
+        if (not ordered or k <= 1 or self._displaced_requested()
+                or self.sampler.needs_state
+                or len({r.resolution for r in ordered}) != 1
+                or any(r.remain_steps < k for r in ordered)):
+            return False
+        for _ in range(k):
+            self.denoise_step(reqs_by_res)
+        return True
 
     # -- the compact cache on the dense path (CacheConfig.mode "compact") ---
 
@@ -739,10 +938,12 @@ class BasePipeline:
         return any(entry is e for e in self._live_entries())
 
     def release_serving_state(self) -> None:
-        """Drop every composition's row caches and deep carry, and the
-        step sets holding row state, with their graphs."""
+        """Drop every composition's row caches and deep carry, the sp
+        step's K/V state, and the step sets holding row state, with their
+        graphs."""
         self._comp_state.clear()
         self._deep_carry.clear()
+        self._disp_state.clear()
         self.graphs.drop_rows()
 
     def evict_finished_state(self, req_ids) -> None:
@@ -757,6 +958,8 @@ class BasePipeline:
             return
         for k in [k for k in self._deep_carry if ids.intersection(k[2])]:
             del self._deep_carry[k]
+        for k in [k for k in self._disp_state if ids.intersection(k[2])]:
+            del self._disp_state[k]
         store = self._comp_state
         for k in [k for k in store if ids.intersection(k[3])]:
             entry = store.pop(k)
@@ -1181,13 +1384,16 @@ class BasePipeline:
         than the gate's capacity is marked un-anchored before the refusal,
         so the per-step path runs the anchoring full it would have run
         (JAX's per-step path finds the entry made and skips it)."""
+        if self._sp() > 1:
+            return self._sp_chunk(reqs_by_res, k)
         ordered = [r for res in sorted(reqs_by_res) for r in reqs_by_res[res]]
         if not ordered or k <= 1:
             return False
         cc = self.config.cache
         if (len({r.resolution for r in ordered}) != 1
                 or self.sampler.needs_state
-                or any(r.remain_steps < k for r in ordered)):
+                or any(r.remain_steps < k for r in ordered)
+                or self.config.parallel.sp_mode == "displaced"):
             return False
         res = ordered[0].resolution
         b = len(ordered)
@@ -1429,7 +1635,8 @@ class BasePipeline:
         if not ordered or k <= 1:
             return False
         if (self.sampler.needs_state
-                or any(r.remain_steps < k for r in ordered)):
+                or any(r.remain_steps < k for r in ordered)
+                or self.config.parallel.sp_mode == "displaced"):
             return False
         sc, cc = self.config.scheduler, self.config.cache
         cells = sc.patch_size // self.vae_scale
@@ -1621,14 +1828,26 @@ class BasePipeline:
                 self.device).total_memory)
         return float(self.config.engine.hbm_bytes_fallback)
 
+    def param_bytes_on(self, device: torch.device) -> dict:
+        """``{storage pointer: bytes}`` of the storages holding the
+        parameters and buffers this pipeline has on ``device``: the
+        bundle's (the port keeps no encoder on the host) and its shards'
+        (a shard's slice along dim 0 is a view of the bundle's storage,
+        counted once; its other slices and copies are its own)."""
+        tensors = [t for m in self.bundle.models.values()
+                   for t in list(m.parameters()) + list(m.buffers())]
+        if self.group is not None:
+            tensors += list(self.denoiser.param_tensors())
+        out = {}
+        for t in tensors:
+            if t.device == device:
+                st = t.untyped_storage()
+                out[st.data_ptr()] = st.nbytes()
+        return out
+
     def device_param_bytes(self) -> int:
-        """Bytes of the bundle's parameters and buffers, all of which live
-        on the device (the port keeps no encoder on the host)."""
-        seen = {}
-        for model in self.bundle.models.values():
-            for t in list(model.parameters()) + list(model.buffers()):
-                seen[t.data_ptr()] = t.numel() * t.element_size()
-        return sum(seen.values())
+        """Bytes of the parameters on the lead device, each storage once."""
+        return sum(self.param_bytes_on(self.device).values())
 
     def estimate_serving_state_bytes(self, res: int, bucket: int) -> int:
         """Bytes of the composition state a uniform (res, bucket) dense
@@ -1654,8 +1873,12 @@ class BasePipeline:
             for key, (s, c_in, c_out) in layout.items()})
 
     def _state_trees(self) -> list:
-        """The device state of the composition stores."""
-        return [e["state"] for e in list(self._comp_state.values())]
+        """The device state of the composition stores, the sp step's K/V
+        and deep features included (every shard's full-sequence K/V count,
+        as the row caches do)."""
+        return ([e["state"] for e in list(self._comp_state.values())]
+                + [{"kv": e["kv"], "deep": e["deep"]}
+                   for e in list(self._disp_state.values())])
 
     def _live_state_bytes(self) -> int:
         """Bytes of the composition stores and of the step graphs' buffers,

@@ -29,6 +29,6 @@ class StableDiffusionPipeline(BasePipeline):
     def denoiser_forward(self, latents_in, t, cond, ctx=None, **deep):
         # CFG rows: [uncond, cond]
         ehs = torch.cat([cond["neg_embeds"], cond["embeds"]], dim=0)
-        return self.bundle.models["unet"](
+        return self.denoiser(
             latents_in, t, ehs.to(latents_in.dtype), ctx=ctx,
             deep_boundary=self.config.cache.deep_boundary, **deep)

@@ -41,6 +41,7 @@ import torch
 
 from sduss_tpu_torch.cache.manager import BlockCache
 from sduss_tpu_torch.config import bucket_for
+from sduss_tpu_torch.parallel.displaced import MMDiTShardContext
 from sduss_tpu_torch.pipelines.base import (_PAD, BasePipeline, _split_tc,
                                             _state_nbytes)
 from sduss_tpu_torch.pipelines.graphs import clone_tree, keep_leaves, store
@@ -56,8 +57,8 @@ class StableDiffusion3Pipeline(BasePipeline):
     # (sd3.py:21-45).  The port keeps the same rows, on the device.
     T5_CACHE_ROWS = 32
 
-    def __init__(self, bundle, config):
-        super().__init__(bundle, config)
+    def __init__(self, bundle, config, devices=None):
+        super().__init__(bundle, config, devices)
         self._t5_row_cache: "OrderedDict[bytes, torch.Tensor]" = OrderedDict()
         # the token caches' and the span cache's state, per batch
         # composition: (s_pad, bb, request ids, mode signature) -> entry
@@ -116,8 +117,15 @@ class StableDiffusion3Pipeline(BasePipeline):
         dtype = latents_in.dtype
         ehs = torch.cat([cond["neg_embeds"], cond["embeds"]], dim=0)
         pooled = torch.cat([cond["neg_pooled"], cond["pooled"]], dim=0)
-        return self.bundle.models["transformer"](
-            latents_in, t, ehs.to(dtype), pooled.to(dtype))
+        return self.denoiser(latents_in, t, ehs.to(dtype), pooled.to(dtype),
+                             ctx=ctx)
+
+    def _displaced_ctx_cls(self):
+        return MMDiTShardContext
+
+    def _row_multiple(self) -> int:
+        """A shard's latent rows must tile into 2x2 patches."""
+        return self.bundle.denoiser.cfg.patch_size
 
     @torch.inference_mode()
     def denoise_step(self, reqs_by_res) -> None:
@@ -275,6 +283,8 @@ class StableDiffusion3Pipeline(BasePipeline):
         itv == itv - 1``, the per-step recurrence, with ``phase`` the
         delta's age (``itv - 1`` without one).  A cache-off chunk runs the
         token path too, as JAX's does."""
+        if self._sp() > 1:
+            return self._sp_chunk(reqs_by_res, k)
         ordered = [r for res in sorted(reqs_by_res) for r in reqs_by_res[res]]
         if not ordered or k <= 1:
             return False
@@ -380,12 +390,11 @@ class StableDiffusion3Pipeline(BasePipeline):
         guidance combine (sd3.py:802-851).  ``kw`` are ``apply_tokens``'s
         cache and deep arguments.  Returns ``(combined, deep_out)``;
         ``deep_out`` None without ``deep_mode``."""
-        tr = self.bundle.models["transformer"]
         ehs = torch.cat([cond["neg_embeds"], cond["embeds"]], dim=0)
         pooled = torch.cat([cond["neg_pooled"], cond["pooled"]], dim=0)
         if row_valid is not None:
             kw["row_valid"] = torch.cat([row_valid, row_valid])
-        out = tr.apply_tokens(torch.cat([tokens, tokens]),
+        out = self.denoiser.apply_tokens(torch.cat([tokens, tokens]),
                               torch.cat([mask, mask]), torch.cat([t, t]),
                               ehs.to(tokens.dtype), pooled.to(tokens.dtype),
                               **kw)

@@ -51,6 +51,6 @@ class StableDiffusionXLPipeline(BasePipeline):
         pooled = torch.cat([cond["neg_pooled"], cond["pooled"]], dim=0)
         time_ids = torch.cat([cond["time_ids"], cond["time_ids"]], dim=0)
         added = {"text_embeds": pooled.to(dtype), "time_ids": time_ids}
-        return self.bundle.models["unet"](
+        return self.denoiser(
             latents_in, t, ehs.to(dtype), added_cond=added, ctx=ctx,
             deep_boundary=self.config.cache.deep_boundary, **deep)

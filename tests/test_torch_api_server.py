@@ -437,16 +437,19 @@ def test_cli_config_matches_jax(argv):
     ["--prewarm"], ["--model-path", "/nonexistent/snapshot"],
 ])
 def test_unported_flags_raise(flags):
-    """What the port does not serve raises, and so does a snapshot that
-    is not there; ``--use-cache`` in modes "block" and "compact" serves
-    (one mixed step of finite latents through the cache), and so do
-    ``--prewarm`` (the engine it configures serves the same step) and
-    ``--dp 2`` (two replicas, one request each)."""
+    """What the port does not serve raises (``--sp 2`` on the default
+    mixed patch path, ROADMAP item 13), and so does a snapshot that is not
+    there; ``--use-cache`` in modes "block" and "compact" serves (one mixed
+    step of finite latents through the cache), and so do ``--prewarm``
+    (the engine it configures serves the same step), ``--dp 2`` (two
+    replicas, one request each) and ``--tp 2`` (one replica over two
+    shards)."""
     p = argparse.ArgumentParser()
     add_engine_args(p)
     config = config_from_args(p.parse_args(
         ["--test-tiny", "--dtype", "float32"] + flags))
-    if "--use-cache" in flags or "--prewarm" in flags or "--dp" in flags:
+    if ("--use-cache" in flags or "--prewarm" in flags or "--dp" in flags
+            or "--tp" in flags):
         assert config.engine.prewarm == ("--prewarm" in flags)
         config.scheduler.patch_size = 64
         engine = Engine(config, "cpu")
@@ -461,6 +464,8 @@ def test_unported_flags_raise(flags):
             assert engine.workers[0].pipeline._cache_obj is not None
         if "--dp" in flags:
             assert [w.iteration > 0 for w in engine.workers] == [True] * 2
+        if "--tp" in flags:
+            assert engine.workers[0].pipeline.group.tp == 2
         assert all(o.finished and np.isfinite(o.image).all() for o in outs)
         return
     error = FileNotFoundError if "--model-path" in flags \

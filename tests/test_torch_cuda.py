@@ -31,7 +31,10 @@ from captured step graphs (dense, compact, the row warmup's hybrid partial
 chunk, the patch path's hybrid and block cache, SD3's span with compact;
 small denoisers at head dim 64) gives the same latents, bit for bit, as
 the same chunks stepped eagerly, and the launch counters count the
-replayed kernels.
+replayed kernels.  K4 at a tensor-parallel shard's C / 2 channels matches
+its plain version, and a small UNet on sp x tp shards of card 0 matches
+its one-device forward (the tp shards bitwise equal, each shard
+launching one device's kernels).
 """
 
 from __future__ import annotations
@@ -791,3 +794,71 @@ def test_kernels_on_second_card_while_first_is_current(second_card, kernel):
     bound = K4_MAX_REL if kernel == "k4" else K1_MAX_REL
     diff = (out.float() - ref.float()).abs().max().item()
     assert diff <= bound * ref.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,c", [(32, 160), (16, 320), (8, 640)])
+def test_k4_at_a_tp_shards_channels(cuda, s, c):
+    """K4 on a tensor-parallel shard's norm2: SDXL's C / 2 channels over
+    16 groups, against its plain version."""
+    meta = tpatching.build_meta((3, 4), s, (4, 8, 16, 32), (2, 4))
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x = (1.5 * torch.randn(meta.p_pad, c, s, s, generator=gen, device=cuda)
+         + 0.2).to(torch.bfloat16)
+    image_id = torch.from_numpy(meta.image_id).to(cuda)
+    neighbors = torch.from_numpy(meta.neighbors).to(cuda)
+    mean, var = tgn.moments(x, image_id, meta.i_pad, 16)
+    args = (x, image_id, neighbors, mean, torch.rsqrt(var + 1e-5),
+            torch.randn(c, generator=gen, device=cuda).to(torch.bfloat16),
+            torch.randn(c, generator=gen, device=cuda).to(torch.bfloat16))
+    out = tgn.gn_silu_halo(*args)
+    ref = tgn.gn_silu_halo_reference(*args)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= K4_MAX_REL * ref.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sp,tp", [(1, 2), (2, 1), (2, 2)])
+def test_group_forward_on_one_card(cuda, sp, tp):
+    """The tiny SD-1.5 UNet (head dim 64) on a group of sp x tp shards all
+    on card 0 (``ShardedDenoiser``, a ``ShardContext`` per shard under sp)
+    against the same forward on one device: within 2^-7 of max |one|, the
+    tp shards' outputs bitwise equal, and each shard launching the
+    kernels one device's forward launches."""
+    from sduss_tpu_torch.parallel.displaced import (ShardContext,
+                                                    gather_rows, shard_rows)
+    from sduss_tpu_torch.parallel.group import ShardGroup
+    from sduss_tpu_torch.parallel.sharding import ShardedDenoiser
+
+    bundle = _hd64_bundle("sd15", cuda)
+    unet = bundle.models["unet"]
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = _randn(gen, 4, 16, 16, 4, device=cuda)
+    ehs = _randn(gen, 4, 77, unet.cfg.cross_attention_dim, device=cuda)
+    t = torch.full((4,), 500.0, device=cuda)
+    group = ShardGroup([cuda] * (sp * tp), sp=sp, tp=tp)
+    den = ShardedDenoiser(unet, group)
+
+    def counts():
+        return (tflash.flash_mha_fused.launches,
+                tflash.flash_cross_short.launches)
+
+    with torch.inference_mode():
+        c0 = counts()
+        want = unet(x, t, ehs)
+        c1 = counts()
+        outs = group.run(lambda r: den(
+            shard_rows(x, group, "sp", 1, r), t, ehs,
+            ctx=ShardContext(group) if sp > 1 else None))
+        c2 = counts()
+    torch.cuda.synchronize()
+    got = gather_rows(outs, group, 1, cuda)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2.0 ** -7 * want.float().abs().max().item()
+    for i in range(sp):
+        assert all(torch.equal(outs[i * tp], outs[i * tp + j])
+                   for j in range(1, tp))
+    assert [b - a for a, b in zip(c1, c2)] == [group.size * (b - a)
+                                               for a, b in zip(c0, c1)]
+    group.close()

@@ -2,8 +2,7 @@
 
 - ``build_placements``: every replica ``cpu`` on the CPU; ``cuda:0..dp-1``
   by default and a repeated explicit index on the card (card counts
-  stubbed here); too few cards raise "need n devices", ``sp * tp > 1``
-  names item 10.
+  stubbed here); too few cards raise "need n devices".
 - ``GreedyDispatch``/``RoundRobinDispatch`` assign the same replicas as
   JAX's on random loads; an unknown policy raises JAX's error.
 - A tiny float32 SD-1.5 ``Engine`` at dp=2 (the port's replicas on the
@@ -103,15 +102,19 @@ def port_config(dp: int = 2):
 
 
 def test_placements(monkeypatch):
-    assert build_placements(3, base="cpu") == [torch.device("cpu")] * 3
-    with pytest.raises(NotImplementedError, match="item 10"):
-        build_placements(1, sp=2, base="cpu")
+    """Each replica's device list: one device a replica here; a replica
+    over an sp x tp group takes sp * tp entries (test_torch_multihost.py
+    holds those against JAX's)."""
+    assert build_placements(3, base="cpu") == [[torch.device("cpu")]] * 3
+    assert build_placements(1, sp=2, base="cpu") == [[torch.device("cpu")]
+                                                     * 2]
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     cuda = [torch.device("cuda", i) for i in range(2)]
-    assert build_placements(2) == cuda
-    assert build_placements(1, base="cuda:1") == cuda[1:]
-    assert build_placements(2, devices=[0, 0]) == [cuda[0]] * 2
-    assert build_placements(2, devices=[1, 0, 1]) == cuda[::-1]
+    assert build_placements(2) == [[d] for d in cuda]
+    assert build_placements(1, base="cuda:1") == [cuda[1:]]
+    assert build_placements(2, devices=[0, 0]) == [[cuda[0]]] * 2
+    assert build_placements(2, devices=[1, 0, 1]) == [[d] for d in
+                                                      cuda[::-1]]
     with pytest.raises(ValueError, match="need 3 devices"):
         build_placements(3)
     with pytest.raises(ValueError, match="need 2 devices"):

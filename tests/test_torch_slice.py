@@ -203,8 +203,9 @@ def test_cuda_device_required_by_default():
     ("scheduler", "steps_per_dispatch", 4),
 ])
 def test_unported_configs_raise(section, field, value):
-    """What the port does not serve (a replica over more than one device)
-    raises when the pipeline is built; the block cache (``cache.enabled``,
+    """What the port does not serve (sp above 1 on the default mixed patch
+    path, ROADMAP item 13) raises when the pipeline is built; the block
+    cache (``cache.enabled``,
     mode "block" by default) serves one mixed step of finite latents
     through the cache, ``steps_per_dispatch=4`` one mixed 4-step chunk,
     and ``dp=2`` one step on each of two replicas."""
