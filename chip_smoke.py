@@ -2293,8 +2293,8 @@ def spy_cache_steps(pipe) -> list:
     if cache is not None and pipe.config.cache.mode == "block":
         gate = cache.gate
 
-        def spy_gate(key, x, t_norm, state_k, fn):
-            y, st, stats = gate(key, x, t_norm, state_k, fn)
+        def spy_gate(key, x, t_norm, state_k, fn, **kw):
+            y, st, stats = gate(key, x, t_norm, state_k, fn, **kw)
             v = valid[0]
             steps[-1]["fresh"].append((stats["fresh"] & v).sum() / v.sum())
             return y, st, stats
@@ -3693,10 +3693,106 @@ def serve_sd3_chunked(card: str, bundle: ModelBundle) -> list:
                                      else (0, 0))})
 
 
+# the wrappers chip_smoke counts, by the key the launch dicts use
+COUNTED_WRAPPERS = {"k1": flash_mha_fused, "flash_mha": flash_mha,
+                    "masked": flash_mha_masked, "k4": gn_silu_halo,
+                    "k5": flash_cross_short}
+
+
 def reset_counts() -> None:
     flash_mha_fused.launches = flash_mha.launches = 0
     flash_mha_masked.launches = gn_silu_halo.launches = 0
     flash_cross_short.launches = 0
+    for fn in COUNTED_WRAPPERS.values():
+        fn.__dict__.pop("by_thread", None)
+
+
+def shard_counts(n: int) -> list:
+    """Each shard's launches since :func:`reset_counts` (a group's shard
+    ``r`` launches from its thread ``shard-<r>_*``), rank order."""
+    out = [dict.fromkeys(COUNTED_WRAPPERS, 0) for _ in range(n)]
+    for key, fn in COUNTED_WRAPPERS.items():
+        for name, k in fn.__dict__.get("by_thread", {}).items():
+            if name.startswith("shard-"):
+                out[int(name[6:].split("_")[0])][key] += k
+    return out
+
+
+@contextlib.contextmanager
+def plain_routes():
+    """Count the kernels' plain versions as their wrappers call them (a
+    wrapper takes its plain version for CPU tensors only): yields the
+    ``{name: calls}`` dict."""
+    from sduss_tpu_torch.ops import flash as flash_mod
+    from sduss_tpu_torch.ops import gn_halo as gn_mod
+
+    calls: dict = {}
+    saved = []
+    for mod, name in ((flash_mod, "flash_mha_fused_reference"),
+                      (flash_mod, "flash_mha_reference"),
+                      (flash_mod, "flash_mha_masked_reference"),
+                      (flash_mod, "flash_cross_short_reference"),
+                      (gn_mod, "gn_silu_halo_reference")):
+        real = getattr(mod, name)
+
+        def counted(*a, _real=real, _name=name, **kw):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _real(*a, **kw)
+
+        saved.append((mod, name, real))
+        setattr(mod, name, counted)
+    try:
+        yield calls
+    finally:
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+
+
+@contextlib.contextmanager
+def gate_picks():
+    """Record what every ``BlockCache`` gate selects (device copies, read
+    after the run), by the rank of the shard thread that ran it (0 off
+    the shard threads): yields ``{rank: [(gate, key, {stat: tensor})]}``."""
+    stats = {"gate": ("fresh",), "gate_compact": ("idx",),
+             "gate_compact_pairs": ("idx",),
+             "gate_compact_images": ("images", "gather", "tok_sel"),
+             "gate_tokens_fine": ("sel",)}
+    calls = collections.defaultdict(list)
+    saved = []
+    for name, keys in stats.items():
+        real = getattr(BlockCache, name)
+
+        def spy(self, key, *a, _real=real, _name=name, _keys=keys, **kw):
+            out = _real(self, key, *a, **kw)
+            thread = threading.current_thread().name
+            rank = (int(thread[6:].split("_")[0])
+                    if thread.startswith("shard-") else 0)
+            calls[rank].append((_name, key, {
+                k: out[2][k].clone() for k in _keys
+                if out[2] and k in out[2]}))
+            return out
+
+        saved.append((name, real))
+        setattr(BlockCache, name, spy)
+    try:
+        yield calls
+    finally:
+        for name, real in saved:
+            setattr(BlockCache, name, real)
+
+
+def equal_picks(one: list, group: list) -> tuple:
+    """``(equal, total)`` gate calls whose selections (all stats) are
+    one device's; a call the group did not make counts unequal."""
+    eq = 0
+    for k, (name, key, stats) in enumerate(one):
+        if k >= len(group) or group[k][:2] != (name, key):
+            continue
+        got = group[k][2]
+        if set(got) == set(stats) and all(
+                torch.equal(got[s].cpu(), v.cpu()) for s, v in stats.items()):
+            eq += 1
+    return eq, max(len(one), len(group))
 
 
 def read_counts() -> dict:
@@ -4072,14 +4168,18 @@ def time_denoise(pipe) -> list:
 def serve_group(bundle: ModelBundle, family: str, resolutions, steps,
                 tag: str, sp: int = 1, tp: int = 1, mixed: bool = False,
                 cache=None, sp_mode: str = "gspmd", keep: bool = False,
-                devices=None) -> dict:
+                devices=None, record: bool = False) -> dict:
     """One Engine run of ``resolutions`` (added at once) on a replica over
     sp x tp devices (card indices ``devices``; by default card 0 of
     GROUP_DEVICES, repeated), or on one device.
-    Returns the latents by request position, the launches, the mean step
-    ms of the resolution-group steps (CUDA events), the pipeline's sync
-    and stale step counts and its step modes; with ``keep`` the pipeline
-    too, its shard threads running (the caller closes its group)."""
+    Returns the latents by request position, the launches (and each
+    shard's), the mean step ms of the resolution-group steps (CUDA
+    events), the pipeline's sync and stale step counts, its step modes,
+    the most composition-state bytes each shard held after a step, and
+    the calls of the kernels' plain versions (none on the card); with
+    ``record`` every gate's selections (:func:`gate_picks`); with
+    ``keep`` the pipeline too, its shard threads running (the caller
+    closes its group)."""
     config = default_config(family, dtype="bfloat16", seed=0)
     config.scheduler.use_mixed_resolution = mixed
     config.parallel.sp, config.parallel.tp = sp, tp
@@ -4093,20 +4193,34 @@ def serve_group(bundle: ModelBundle, family: str, resolutions, steps,
     pipe = engine.workers[0].pipeline
     pipe.step_modes = []
     rec = time_denoise(pipe)
+    held = [0] * (sp * tp)
+    for name in ("denoise_step", "denoise_step_mixed"):
+        fn = getattr(pipe, name)
+
+        def watched(by_res, fn=fn):
+            out = fn(by_res)
+            held[:] = map(max, held, pipe.shard_state_bytes())
+            return out
+
+        setattr(pipe, name, watched)
     reqs = group_requests(resolutions, steps, tag)
     torch.cuda.synchronize()
     reset_counts()
+    picks = gate_picks() if record else contextlib.nullcontext({})
     t0 = time.perf_counter()
-    lat = dp_latents(engine, reqs)
-    torch.cuda.synchronize()
+    with plain_routes() as plain, picks as calls:
+        lat = dp_latents(engine, reqs)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
     ms = [s.elapsed_time(e) for _, s, e in rec]
     out = {"latents": [lat[r.request_id] for r in reqs], "counts": counts,
+           "shard_counts": shard_counts(sp * tp),
            "ms": float(np.mean(ms[1:] if len(ms) > 1 else ms)),
            "wall": wall, "steps": len(ms),
            "sync_stale": dict(pipe.displaced_steps),
-           "modes": list(pipe.step_modes)}
+           "modes": list(pipe.step_modes), "shard_bytes": held,
+           "plain": dict(plain), "picks": dict(calls)}
     if keep:
         out["pipe"] = pipe
     elif pipe.group is not None:
@@ -4225,15 +4339,17 @@ def serve_tp2(card: str, bundle: ModelBundle) -> list:
     one device's does, at its local heads and channels); the shards'
     outputs bitwise equal; K4 at a shard's norm2 (C / 2, 16 groups) in
     phase 3's kernel checks.  Returns the launches of every run and the
-    single-device dense run (serve_sp2's reference)."""
-    runs, ref_dense = [], None
+    single-device runs (``(path, cache label)``: serve_sp2's and
+    serve_sp2_paths' references, with their gate selections)."""
+    runs, refs = [], {}
     for cache_label, cache in (("cache-off", None),
                                ("production", CacheConfig.production("sdxl"))):
         for mixed, res in ((False, GROUP_DENSE), (True, GROUP_MIXED)):
             path = "mixed" if mixed else "dense"
             one = serve_group(bundle, "sdxl", res, GROUP_STEPS,
                               f"tp1-{path}-{cache_label}", mixed=mixed,
-                              cache=cache)
+                              cache=cache, record=cache is not None)
+            refs[path, cache_label] = one
             first = cache is None and not mixed
             two = serve_group(bundle, "sdxl", res, GROUP_STEPS,
                               f"tp1-{path}-{cache_label}", tp=2, mixed=mixed,
@@ -4247,7 +4363,6 @@ def serve_tp2(card: str, bundle: ModelBundle) -> list:
                 raise AssertionError(f"serve_tp2 modes {two['modes']} vs "
                                      f"{one['modes']}")
             if first:
-                ref_dense = one
                 pipe = two.pop("pipe")
                 gen = torch.Generator(device="cuda").manual_seed(5)
                 x = torch.randn(4, 128, 128, 4, generator=gen,
@@ -4266,7 +4381,7 @@ def serve_tp2(card: str, bundle: ModelBundle) -> list:
                 pipe.group.close()
                 del pipe
             runs += [one["counts"], two["counts"]]
-    return runs, ref_dense
+    return runs, refs
 
 
 def expected_displaced(steps: int, warmup: int, interval=None,
@@ -4484,6 +4599,107 @@ def serve_sd3_sp2(card: str, bundle: ModelBundle) -> list:
     return runs
 
 
+# PR 15's one-device step ms on the H100 80GB HBM3 at 700 W (PERF.md):
+# the group runs below print beside them
+PR15_ONE_DEVICE_MS = {"SDXL 768^2 + 1024^2": 137.43,
+                      "production dense": 41.71, "production mixed": 48.31,
+                      "SD3 2 x 1024^2": 189.64}
+SD3_GROUP_MIXED = [512, 1024]
+
+
+def check_paths_run(label: str, got, one, card: str, pr15: str,
+                    per_shard: dict) -> None:
+    """A group run against its single-device run (``check_group_run`` at
+    GROUP_MAX_REL, the same deep modes), printed beside PR 15's
+    one-device step ms, with the share of gate decisions equal to one
+    device's, each shard's launches and state bytes; ``per_shard``:
+    ``{kernel: "equal"}`` (each shard launches one device's count) or
+    ``{kernel: "some"}`` (each shard launches it at least once: at sp=4,
+    where a shard may hold no query patch of a class).  No launch takes
+    a kernel's plain version."""
+    check_group_run(label, got, one, GROUP_MAX_REL, card)
+    eq, total = equal_picks(one["picks"].get(0, []),
+                            got["picks"].get(0, []))
+    modes_eq = sum(a == b for a, b in zip(got["modes"], one["modes"]))
+    print(f"{label}: PR 15 one device {PR15_ONE_DEVICE_MS[pr15]:.2f} ms "
+          f"({pr15}, H100 80GB HBM3, 700 W); gate decisions equal to one "
+          f"device's: {eq}/{total}, deep modes {modes_eq}/"
+          f"{len(one['modes'])}; each shard's launches "
+          f"{got['shard_counts']}; each shard's state bytes (most after a "
+          f"step) {got['shard_bytes']} (one device {one['shard_bytes']}) "
+          f"[{card}]")
+    if got["modes"] != one["modes"]:
+        raise AssertionError(f"{label}: modes {got['modes']} vs one "
+                             f"device's {one['modes']}")
+    if got["plain"] or one["plain"]:
+        raise AssertionError(f"{label}: plain versions ran: {got['plain']} "
+                             f"{one['plain']}")
+    for r, counts in enumerate(got["shard_counts"]):
+        for key, rule in per_shard.items():
+            n, want = counts[key], one["counts"][key]
+            if (rule == "equal" and n != want) or (rule == "some"
+                                                    and not 0 < n):
+                raise AssertionError(
+                    f"{label}: shard {r} launched {key} {n} times (one "
+                    f"device {want}, rule {rule!r})")
+
+
+def serve_sp2_paths(card: str, bundle: ModelBundle, refs: dict) -> list:
+    """SDXL under sp=2 on devices [0, 0] on what the group serves beyond
+    the dense cache-off step: the 768^2 + 1024^2 patch batch cache-off and
+    under production("sdxl"), and the dense 2 x 1024^2 pair under
+    production("sdxl"), 8 steps each, against the single-device runs of
+    serve_tp2 (``check_paths_run``).  Each shard launches one device's
+    K4, masked attention (K2b/K3a) and K5 on the patch batch, under the
+    gates too (their sub-batches split over the shards), and one
+    device's K1 and K5 on the dense pair."""
+    runs = []
+    for path, cache_label, res in (("mixed", "cache-off", GROUP_MIXED),
+                                   ("mixed", "production", GROUP_MIXED),
+                                   ("dense", "production", GROUP_DENSE)):
+        one = refs[path, cache_label]
+        cache = (CacheConfig.production("sdxl") if cache_label
+                 == "production" else None)
+        got = serve_group(bundle, "sdxl", res, GROUP_STEPS,
+                          f"tp1-{path}-{cache_label}", sp=2,
+                          mixed=path == "mixed", cache=cache,
+                          record=cache is not None)
+        rule = dict.fromkeys(("k4", "masked", "k5") if path == "mixed"
+                             else ("k1", "k5"), "equal")
+        pr15 = ("SDXL 768^2 + 1024^2" if cache is None
+                else f"production {path}")
+        check_paths_run(f"serve_sp2_paths SDXL {path} {res} x {GROUP_STEPS}"
+                        f" steps, {cache_label}, sp=2 on {GROUP_DEVICES}",
+                        got, one, card, pr15, rule)
+        runs += [got["counts"]]
+    return runs
+
+
+def serve_sd3_sp2_paths(card: str, bundle: ModelBundle) -> list:
+    """SD3.5-medium 512^2 + 1024^2 on the padded-token path under sp=2 on
+    devices [0, 0] (the tokens and their mask split over the shards, the
+    padded keys masked in every attention): production("sd3") and the
+    fine token gate at patch_fraction 0.5 with its stale K/V, 4 steps,
+    against one device (``check_paths_run``); each shard launches one
+    device's masked attentions (K2b/K3a)."""
+    runs = []
+    fine = CacheConfig(enabled=True, mode="compact", patch_fraction=0.5,
+                       fine_stale_kv=True)
+    for label, cache in (("production", CacheConfig.production("sd3")),
+                         ("fine token gate 0.5", fine)):
+        one = serve_group(bundle, "sd3", SD3_GROUP_MIXED, SD3_GROUP_STEPS,
+                          "sd3-p", mixed=True, cache=cache, record=True)
+        got = serve_group(bundle, "sd3", SD3_GROUP_MIXED, SD3_GROUP_STEPS,
+                          "sd3-p", sp=2, mixed=True, cache=cache,
+                          record=True)
+        check_paths_run(f"serve_sd3_sp2_paths SD3.5-medium {SD3_GROUP_MIXED}"
+                        f" x {SD3_GROUP_STEPS} steps, {label}, sp=2 on "
+                        f"{GROUP_DEVICES}", got, one, card, "SD3 2 x 1024^2",
+                        {"masked": "equal"})
+        runs += [one["counts"], got["counts"]]
+    return runs
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -4547,9 +4763,11 @@ def main() -> None:
     check_vae_dtype(card, bundle)
     runs.append(serve_http(card, bundle))
     runs.append(replay_sdxl(card, bundle))
-    tp_runs, ref_dense = serve_tp2(card, bundle)
+    tp_runs, refs = serve_tp2(card, bundle)
     runs += tp_runs
-    runs += serve_sp2(card, bundle, ref_dense)
+    runs += serve_sp2(card, bundle, refs["dense", "cache-off"])
+    runs += serve_sp2_paths(card, bundle, refs)
+    del refs
     # free each bundle so each family's peak memory reads alone
     del bundle
     gc.collect()
@@ -4559,6 +4777,7 @@ def main() -> None:
     runs += serve_sd3_deep(card, sd3)
     runs += serve_sd3_chunked(card, sd3)
     runs += serve_sd3_sp2(card, sd3)
+    runs += serve_sd3_sp2_paths(card, sd3)
     del sd3
     gc.collect()
     torch.cuda.empty_cache()

@@ -19,7 +19,13 @@ the step ms of each (CUDA events on the engine's stream, which waits for
 every shard); then tp=2 on [0, 1] over a mixed 768^2 + 1024^2 + 768^2
 batch whose composition changes twice as its requests finish (3, 8 and 5
 steps; the second card rebuilds each step's patch context), held the same
-way against one card; then SD3.5-medium's dense 2 x 1024^2 pair, 4 steps, under
+way against one card; then what sp serves beyond the dense cache-off step:
+the 768^2 + 1024^2 patch batch cache-off and under production("sdxl"), and
+the dense pair under production("sdxl"), 8 steps each, at sp=2 on [0, 1]
+and sp=4 on [0, 1, 2, 3] (``chip_smoke.check_paths_run``: within 2^-7 of
+one card, the same deep modes, the share of gate decisions equal to one
+card's, each shard's launches and state bytes, no kernel's plain version
+run); then SD3.5-medium's dense 2 x 1024^2 pair, 4 steps, under
 the same layouts (sp gathers the latent K/V: within 2^-7; with tp, within
 chip_smoke's MOVED_MAX_REL; the attention launches sp * tp times one
 card's).  Prints the card's name and power limit, each layout's
@@ -40,10 +46,13 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke as smoke  # noqa: E402
 from sduss_tpu_torch import configure_numerics  # noqa: E402
+from sduss_tpu_torch.config import CacheConfig  # noqa: E402
 from sduss_tpu_torch.ops import _build  # noqa: E402
 
 # the mixed batch under tp=2: resolutions and each request's steps
 MIXED = ([768, 1024, 768], [3, 8, 5])
+# the patch batch and the production preset over sp: (label, sp, cards)
+SP_LAYOUTS = [("sp=2", 2, [0, 1]), ("sp=4", 4, [0, 1, 2, 3])]
 LAYOUTS = [  # (label, sp, tp, card indices)
     ("sp=2", 2, 1, [0, 1]),
     ("tp=2", 1, 2, [0, 1]),
@@ -88,6 +97,36 @@ def main() -> None:
         f"[0, 1]", got, one, smoke.GROUP_MAX_REL, card, launch_ratio=2)
     if got["counts"]["k4"] == 0:
         raise AssertionError("check_sp_cards: the mixed batch ran no K4")
+    for path, cache_label, res in (
+            ("mixed", "cache-off", smoke.GROUP_MIXED),
+            ("mixed", "production", smoke.GROUP_MIXED),
+            ("dense", "production", smoke.GROUP_DENSE)):
+        cache = (CacheConfig.production("sdxl")
+                 if cache_label == "production" else None)
+        kw = dict(mixed=path == "mixed", cache=cache,
+                  record=cache is not None)
+        one = smoke.serve_group(bundle, "sdxl", res, smoke.GROUP_STEPS,
+                                f"cards-{path}-{cache_label}", **kw)
+        steps = {"one card": one["ms"]}
+        for label, sp, devices in SP_LAYOUTS:
+            got = smoke.serve_group(bundle, "sdxl", res, smoke.GROUP_STEPS,
+                                    f"cards-{path}-{cache_label}", sp=sp,
+                                    devices=devices, **kw)
+            # each shard launches one card's count at sp=2; at sp=4 a
+            # shard may hold no query patch of a class, and its masked
+            # attention (or K1 on the dense pair) launches fewer times
+            attn = "masked" if path == "mixed" else "k1"
+            rule = {attn: "equal" if sp == 2 else "some", "k5": "equal"}
+            if path == "mixed":
+                rule["k4"] = "equal"
+            smoke.check_paths_run(
+                f"check_sp_cards SDXL {path} {res} x {smoke.GROUP_STEPS} "
+                f"steps, {cache_label}, {label} on cards {devices}", got, one,
+                card, "SDXL 768^2 + 1024^2" if cache is None
+                else f"production {path}", rule)
+            steps[label] = got["ms"]
+        print(f"step ms (SDXL {path} {res}, {cache_label}): {steps} "
+              f"[{card}]")
     del bundle
     gc.collect()
     torch.cuda.empty_cache()

@@ -33,6 +33,15 @@ output: a skipped token keeps its value) and, with
 ``CacheConfig.fine_stale_kv``, the block's post-norm K/V rows (``k``,
 ``v``, and ``k2``, ``v2`` for a dual block).
 
+Over the shards of a replica's ``sp`` axis every gate selects over the
+whole batch or token axis, as one device does: a row's drift means are
+summed over the shards (``reducer``, the shard context's ``psum_rows``),
+the image gate and the fine token gate rank every shard's scores
+(``ctx.rows_all``, ``split.tokens_all``), and each shard writes the
+selected rows or tokens that lie in its range (``ctx.write_rows``,
+``split.put_tokens``).  On one device the same code runs through the
+identity of each (``PatchContext``, :data:`WHOLE_TOKENS`).
+
 The JAX package returns new state pytrees; the port updates the state in
 place, so the old and the new state are never held together (at SDXL
 1024^2, bucket 8, the rows are 2.35 GB).  The selection stays on the
@@ -77,6 +86,42 @@ def _tree_map(fn, *trees):
 def _token_index(sel: torch.Tensor, dim: int) -> torch.Tensor:
     """``(B, k)`` token indices expanded over a feature axis of ``dim``."""
     return sel[..., None].expand(-1, -1, dim)
+
+
+class WholeTokens:
+    """The token axis held whole, by one device or by a shard that ranks
+    its own tokens (the offline runner's, as in JAX): the identity of the
+    token split of a shard of the padded-token path
+    (``parallel/displaced.py MMDiTShardContext``), which the fine token
+    gate and its block run through."""
+
+    def tokens_all(self, t):
+        """Every shard's tokens of a per-token tensor: here the tensor."""
+        return t
+
+    def token_offset(self) -> int:
+        return 0
+
+    def share(self, k: int):
+        """The ``[a, b)`` of ``k`` selected positions computed here."""
+        return 0, k
+
+    def put_tokens(self, t, sel, vals) -> None:
+        """``t[b, j] = vals[b, j]`` in place for the selected tokens ``j``
+        of ``sel`` (B, k) held here; ``vals`` is laid out like ``t``."""
+        idx = sel if t.dim() == 2 else _token_index(sel, t.shape[-1])
+        t.scatter_(1, idx, vals.gather(1, idx).to(t.dtype))
+
+
+WHOLE_TOKENS = WholeTokens()
+
+
+def token_split(ctx):
+    """The token split a context gives the fine token gate: its own on a
+    shard of the padded-token path (``key_mask`` set), else
+    :data:`WHOLE_TOKENS`."""
+    return ctx if getattr(ctx, "key_mask", None) is not None \
+        else WHOLE_TOKENS
 
 
 class BlockCache:
@@ -160,13 +205,23 @@ class BlockCache:
 
     # -- decision ----------------------------------------------------------
 
-    def _drift_logit(self, key: str, x, state_k, t_norm):
+    def _drift_logit(self, key: str, x, state_k, t_norm, reducer=None):
         """(signed score, > 0 means recompute; rel_mse) per row, in
-        float32, reduced over every axis but the first."""
+        float32, reduced over every axis but the first.  ``reducer`` (rows
+        split over shards): the float32 sums of the squared error and the
+        squared input over every shard, in rank order, over the global
+        count, so that every shard holds the same scores."""
         axes = tuple(range(1, x.dim()))
         xf = x.float()
-        mse = (xf - state_k["inp"].float()).square().mean(dim=axes)
-        rel = mse / (xf.square().mean(dim=axes) + 1e-8)
+        d2 = (xf - state_k["inp"].float()).square()
+        if reducer is None:
+            mse, msq = d2.mean(dim=axes), xf.square().mean(dim=axes)
+        else:
+            n = float(reducer.row_count(x[0].numel()))
+            se, sq = reducer.psum_rows((d2.sum(dim=axes),
+                                        xf.square().sum(dim=axes)))
+            mse, msq = se / n, sq / n
+        rel = mse / (msq + 1e-8)
         clf = self.classifiers.get(key)
         if clf is not None:
             w_mse, w_t, w_hits, bias = [float(v) for v in clf]
@@ -176,45 +231,45 @@ class BlockCache:
             score = rel - self.config.mse_threshold
         return score, rel
 
-    def _recompute_mask(self, key: str, x, state_k, t_norm):
+    def _recompute_mask(self, key: str, x, state_k, t_norm, reducer=None):
         """(R,) bool, True where the block must be recomputed: the drift
         score is positive or the row is at ``max_hits``."""
-        score, rel = self._drift_logit(key, x, state_k, t_norm)
+        score, rel = self._drift_logit(key, x, state_k, t_norm, reducer)
         return (score > 0.0) | (state_k["hits"] >= self.config.max_hits), rel
 
-    def _scores(self, key: str, x, state_k, t_norm):
+    def _scores(self, key: str, x, state_k, t_norm, reducer=None):
         """(R,) float32 drift ranking; forced rows (hits >= max_hits) rank
         first."""
-        score, _ = self._drift_logit(key, x, state_k, t_norm)
+        score, _ = self._drift_logit(key, x, state_k, t_norm, reducer)
         forced = (state_k["hits"] >= self.config.max_hits).float()
         return score + forced * 1e6
 
     # -- gates -------------------------------------------------------------
 
-    def gate(self, key: str, x, t_norm, state_k, compute_fn: Callable):
+    def gate(self, key: str, x, t_norm, state_k, compute_fn: Callable,
+             reducer=None):
         """Mode "block": run ``compute_fn(x)`` on every row and keep the
         cached output where the row need not be recomputed (an exact
         splice, no compute saved).  ``state_k`` None: plain compute.
         Returns ``(y, state_k, stats)``; the state's ``inp``, ``out`` and
-        ``hits`` are replaced, and, as the JAX gate's new state has only
-        those three, ``slope``/``seen`` are dropped."""
+        ``hits`` are updated in place, and, as the JAX gate's new state has
+        only those three, ``slope``/``seen`` are dropped."""
         if state_k is None:
             return compute_fn(x), None, None
-        fresh, rel = self._recompute_mask(key, x, state_k, t_norm)
+        fresh, rel = self._recompute_mask(key, x, state_k, t_norm, reducer)
         y_new = compute_fn(x)
         y = torch.where(_rows(fresh, y_new.dim()), y_new,
                         state_k["out"].to(y_new.dtype))
-        state_k["inp"] = torch.where(_rows(fresh, x.dim()), x,
-                                     state_k["inp"].to(x.dtype))
-        state_k["out"] = y
-        state_k["hits"] = torch.where(fresh, 0, state_k["hits"] + 1).to(
-            torch.int32)
+        inp = state_k["inp"]
+        inp.copy_(torch.where(_rows(fresh, x.dim()), x, inp.to(x.dtype)))
+        state_k["out"].copy_(y)
+        state_k["hits"].add_(1).masked_fill_(fresh, 0)
         state_k.pop("slope", None)
         state_k.pop("seen", None)
         return y, state_k, {"fresh": fresh, "rel_mse": rel}
 
     def gate_compact(self, key: str, x, t_norm, state_k, compute_fn: Callable,
-                     n_active: int, row_valid=None):
+                     n_active: int, row_valid=None, reducer=None):
         """Recompute the ``n_active`` highest-scoring rows, gathered into a
         sub-batch, and splice cached outputs into the rest.
 
@@ -229,7 +284,7 @@ class BlockCache:
         if state_k is None:
             return compute_fn(x, torch.arange(x.shape[0],
                                               device=x.device)), None, None
-        scores = self._scores(key, x, state_k, t_norm)
+        scores = self._scores(key, x, state_k, t_norm, reducer)
         if row_valid is not None:
             scores = torch.where(row_valid, scores, -torch.inf)
         idx = top_k_stable(scores, n_active)
@@ -239,13 +294,13 @@ class BlockCache:
 
     def gate_compact_pairs(self, key: str, x, t_norm, state_k: dict,
                            compute_fn: Callable, n_pairs: int,
-                           row_valid=None):
+                           row_valid=None, reducer=None):
         """``gate_compact`` with the CFG pair as the unit: rows are the
         ``[uncond | cond]`` halves of the same images, a pair scores the sum
         of its halves, and both rows of a selected pair recompute
         together.  ``row_valid`` marks real rows in both halves."""
         n = x.shape[0] // 2
-        scores = self._scores(key, x, state_k, t_norm)
+        scores = self._scores(key, x, state_k, t_norm, reducer)
         if row_valid is not None:
             scores = torch.where(row_valid, scores, -torch.inf)
         pidx = top_k_stable(scores[:n] + scores[n:], n_pairs)
@@ -256,7 +311,8 @@ class BlockCache:
 
     def gate_compact_images(self, key: str, x, t_norm, state_k: dict,
                             compute_fn: Callable, ctx, caps,
-                            cfg_pair_offset=None, two_level=True):
+                            cfg_pair_offset=None, two_level=True,
+                            sub_range=None):
         """Image-granular compact recompute on the patch path: per
         resolution class, the ``caps[ci]`` most-drifted images are gathered
         with all their patches into the sub-composition of
@@ -286,22 +342,31 @@ class BlockCache:
         The state's ``inp``/``out``/``hits`` are updated in place; like the
         JAX gate, whose returned state has only those three, it drops
         ``slope``/``seen``, so ``compact_predict`` has no effect here.
+        The image and row selections are over every shard's scores
+        (``ctx.rows_all``, the identity on one device), ``compute_fn`` runs
+        the context's ``sub_range`` of the sub-batch (``gather_idx`` global
+        rows) and the context writes the selected rows of its range
+        (``ctx.write_rows``); ``sub_range`` None: all of them.
+
         Returns ``(y, state_k, stats)``, ``y`` the updated ``out`` rows.
         """
-        scores = self._scores(key, x, state_k, t_norm)
-        valid = ctx.patch_valid
-        num = ctx.image_onehot @ torch.where(valid, scores, 0.0)
-        den = ctx.image_onehot @ valid.float()
+        # rows are patches, each whole on one shard: the scores are local,
+        # and a shard ranks every shard's (``ctx.rows_all``)
+        scores = ctx.rows_all(self._scores(key, x, state_k, t_norm))
+        view = ctx.gate_view()
+        valid = view.patch_valid
+        num = view.image_onehot @ torch.where(valid, scores, 0.0)
+        den = view.image_onehot @ valid.float()
         img_scores = num / den.clamp(min=1.0)
         if cfg_pair_offset is not None:
             h = cfg_pair_offset
             sym = 0.5 * (img_scores[:h] + img_scores[h:2 * h])
             img_scores = torch.cat([sym, sym])
         gathers, images = [], []
-        for ci in range(len(ctx.meta.class_info)):
-            slots = ctx.class_slots[ci]          # (ipc, g*g), -1 = pad slot
-            slot_valid = ctx.class_kv[ci][:, 0]
-            img_ids = ctx.image_id[slots[:, 0].clamp(min=0)]
+        for ci in range(len(view.meta.class_info)):
+            slots = view.class_slots[ci]         # (ipc, g*g), -1 = pad slot
+            slot_valid = view.class_kv[ci][:, 0]
+            img_ids = view.image_id[slots[:, 0].clamp(min=0)]
             s_c = torch.where(slot_valid, img_scores[img_ids], -torch.inf)
             sel = top_k_stable(s_c, caps[ci])
             gathers.append(slots[sel].reshape(-1))
@@ -309,11 +374,14 @@ class BlockCache:
         gidx = torch.cat(gathers)
         sel_imgs = torch.cat(images)
         src = gidx.clamp(min=0)
-        x_sub = x[src]
         stats = {"gather": gidx, "images": sel_imgs}
         # real slots score finite, pads -inf, so a class's selection holds
         # its real images first: the rows to write are known on the host
-        rows = ctx.real_rows(caps)
+        rows = view.real_rows(caps)
+        # the sub-batch's rows; this context computes its range of them
+        x_sel = ctx.rows_all(x)[src]
+        lo, hi = sub_range or (0, None)
+        mine = src[lo:hi]
         if two_level and self.config.patch_fraction < 1.0:
             p_sub = gidx.shape[0]
             k_q = max(1, int(round(p_sub * self.config.patch_fraction)))
@@ -323,22 +391,22 @@ class BlockCache:
                 scores_sub = torch.where(ok.index_fill_(0, rows, True),
                                          scores_sub, -torch.inf)
             tok_sel = top_k_stable(scores_sub, k_q)
-            y_w = compute_fn(x_sub, src, sel_imgs, tok_sel)
+            y_w = compute_fn(x_sel[lo:hi], mine, sel_imgs, tok_sel)
             # the real rows outrank the -inf pads: the first ones selected
             n_real = k_q if rows is None else min(k_q, len(rows))
             tok_w = tok_sel[:n_real]
-            sidx, x_w, y_w = gidx[tok_w], x_sub[tok_w], y_w[:n_real]
+            sidx, x_w, y_w = gidx[tok_w], x_sel[tok_w], y_w[:n_real]
             stats["tok_sel"] = tok_sel
         else:
-            y_w = compute_fn(x_sub, src, sel_imgs)
-            sidx, x_w = gidx, x_sub
+            y_w = ctx.rows_all(compute_fn(x_sel[lo:hi], mine, sel_imgs))
+            sidx, x_w = gidx, x_sel
             if rows is not None:
-                sidx, x_w, y_w = gidx[rows], x_sub[rows], y_w[rows]
+                sidx, x_w, y_w = gidx[rows], x_sel[rows], y_w[rows]
         out, hits = state_k["out"], state_k["hits"]
-        state_k["inp"].index_copy_(0, sidx, x_w.to(state_k["inp"].dtype))
-        out.index_copy_(0, sidx, y_w.to(out.dtype))
+        ctx.write_rows(state_k["inp"], sidx, x_w)
+        ctx.write_rows(out, sidx, y_w)
         hits.add_(1)
-        hits.index_fill_(0, sidx, 0)
+        ctx.write_rows(hits, sidx, hits.new_zeros(sidx.shape))
         state_k.pop("slope", None)
         state_k.pop("seen", None)
         return out.to(y_w.dtype), state_k, stats
@@ -381,7 +449,8 @@ class BlockCache:
         return out if y is None else y
 
     def gate_tokens_fine(self, key: str, x, t_norm, state_k: dict,
-                         compute_fn: Callable, k_t: int, token_valid=None):
+                         compute_fn: Callable, k_t: int, token_valid=None,
+                         split=WHOLE_TOKENS):
         """Per-token compaction of a residual token block (the MMDiT):
         each row recomputes its ``k_t`` most-drifted tokens through the
         block and the rest skip the block's residual updates, which for a
@@ -394,6 +463,11 @@ class BlockCache:
         state's ``inp`` and ``hits`` are updated in place; K/V rows
         (``fine_stale_kv``) are the block's to write.  Returns ``(out,
         state_k, stats)``.
+
+        ``split`` (:func:`token_split`): on a shard of the padded-token
+        path ``x`` holds this shard's tokens, the ranking is over every
+        shard's (``split.tokens_all``), the selection ``sel`` is global,
+        and the shard writes the state of the selected tokens it holds.
         """
         xf = x.float()
         rel = ((xf - state_k["inp"].float()).square().mean(dim=-1)
@@ -409,13 +483,11 @@ class BlockCache:
         score = score + (hits >= self.config.max_hits).float() * 1e6
         if token_valid is not None:
             score = torch.where(token_valid, score, -torch.inf)
-        sel = top_k_stable(score, k_t)                              # (B, k_t)
+        sel = top_k_stable(split.tokens_all(score), k_t)            # (B, k_t)
         out = compute_fn(sel)
-        idx = _token_index(sel, x.shape[-1])
-        state_k["inp"].scatter_(1, idx, x.gather(1, idx).to(
-            state_k["inp"].dtype))
+        split.put_tokens(state_k["inp"], sel, x)
         hits.add_(1)
-        hits.scatter_(1, sel, 0)
+        split.put_tokens(hits, sel, torch.zeros_like(hits))
         return out, state_k, {"sel": sel}
 
     def write_through(self, state_k: dict, x, y) -> None:

@@ -57,10 +57,12 @@ class TraceCache(BlockCache):
         return self._add_trace_rows(super().init_token_rows(
             key, n_rows, seq, dim, dtype, device))
 
-    def gate(self, key, x, t_norm, state_k, compute_fn):
+    def gate(self, key, x, t_norm, state_k, compute_fn, reducer=None):
         """Compute every row and replace the state's entries: the fresh
         input and output, hits 0, and the features against the previous
-        step's rows."""
+        step's rows.  The trace runs on one device (``reducer`` None)."""
+        if reducer is not None:
+            raise ValueError("the classifier trace runs on one device")
         y = compute_fn(x)
         if state_k is None:
             return y, None, None

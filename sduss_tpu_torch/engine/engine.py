@@ -68,11 +68,10 @@ def check_supported(config: Config) -> None:
     multi-step chunks (captured step graphs on the card) and
     ``engine.prewarm`` warms them.  ``dp`` replicas are served, two or
     more on one card included, and each replica may span an ``sp x tp``
-    group of devices (item 10): ``tp`` on every path and cache, ``sp`` on
-    the dense step.  What is refused (``parallel/replica.py
-    check_group``): ``sp > 1`` with ``use_mixed_resolution`` or a gated
-    cache (item 13), and ``pp > 1``, which the Engine does not route
-    (``MMDiTStagePipeline`` is driven directly)."""
+    group of devices: ``tp`` and ``sp`` on every path and cache (the
+    patch batch and SD3's token path included).  What is refused
+    (``parallel/replica.py check_group``): ``pp > 1``, which the Engine
+    does not route (``MMDiTStagePipeline`` is driven directly)."""
     check_group(config)
 
 

@@ -84,8 +84,9 @@ def device_stats(engine) -> list:
     ``{"platform": "cpu"}`` on the CPU), for a replica over an sp x tp
     group every device it spans (``devices``: card indices, or "cpu", one
     per shard) and its load (``dp_rank``, ``pending_pixels``,
-    ``unfinished``).  Replicas that
-    share a card report that card's memory."""
+    ``unfinished``) and the bytes of its composition state
+    (``state_bytes``; ``shard_state_bytes`` per shard of a group).
+    Replicas that share a card report that card's memory."""
     rows = []
     for worker in engine.workers:
         device = worker.device
@@ -97,9 +98,12 @@ def device_stats(engine) -> list:
                    "hbm_utilization": round(in_use / limit, 4)}
         else:
             row = {"platform": "cpu"}
+        shards = worker.pipeline.shard_state_bytes()
+        row["state_bytes"] = sum(shards)
         if len(worker.pipeline.devices) > 1:
             row["devices"] = [d.index if d.type == "cuda" else d.type
                               for d in worker.pipeline.devices]
+            row["shard_state_bytes"] = shards
         row.update(dp_rank=worker.rank, pending_pixels=worker.pending_pixels(),
                    unfinished=worker.scheduler.pool.unfinished())
         rows.append(row)

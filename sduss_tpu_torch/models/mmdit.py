@@ -32,6 +32,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from sduss_tpu_torch.cache.manager import WHOLE_TOKENS, token_split
 from sduss_tpu_torch.models import layers as L
 from sduss_tpu_torch.ops.attention import masked_attention
 
@@ -220,67 +221,107 @@ class JointTransformerBlock(nn.Module):
         (in place when the dtypes agree) while the rest keep the previous
         step's; without it K/V are computed full.  Either way the rows
         used go into ``kv_out``.  Exact at a selection of every token.
+
+        The selection runs through the context's token split
+        (``cache/manager.py token_split``, the identity on one device): on
+        a shard of the padded-token path ``tok_sel`` is global, the shard
+        computes the queries, residual updates and FF of its share of it
+        (``split.share``) from every shard's tokens (``split.tokens_all``),
+        gathers every share's results and keeps the tokens of its range.
+        Its K/V are computed over its own tokens and gathered in the
+        attention, or (stale) every shard's previous rows with every
+        share's fresh rows written in, of which its own go into
+        ``kv_out``.  The context stream runs in full on every shard.
         """
         silu_t = _silu_f32(temb)
         mods = self.norm1.linear(silu_t).chunk(9 if self.dual else 6, dim=-1)
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mods[:6]
         stale = kv_state is not None and tok_sel is not None and kv_stale
-        # with stale K/V only the selected tokens are normalised
-        xn = _layer_norm(_gather_tokens(x, tok_sel) if stale else x)
+        split = WHOLE_TOKENS if tok_sel is None else token_split(ctx)
+        # K/V that hold every shard's tokens skip the attention's gather
+        kv_full = stale and split is not WHOLE_TOKENS
+        lo, n_loc = split.token_offset(), x.shape[1]
+        x_all = split.tokens_all(x)
+        sel = None
+        if tok_sel is not None:
+            a, b = split.share(tok_sel.shape[1])
+            sel = tok_sel[:, a:b]
+        xs = _gather_tokens(x_all, sel)  # the tokens this block updates here
+        xn_s = _layer_norm(xs)
+        # without stale K/V, every token's normalised input for the K/V
+        xn = None if stale else (xn_s if sel is None else _layer_norm(x))
 
-        cmods = self.norm1_context.linear(silu_t)
-        cn = _layer_norm(c)
-        if self.last:
-            # AdaLayerNormContinuous: [scale, shift] chunks
-            c_scale, c_shift = cmods.chunk(2, dim=-1)
-            c_mod = _modulate(cn, c_shift, c_scale)
-        else:
-            (c_shift_msa, c_scale_msa, c_gate_msa,
-             c_shift_mlp, c_scale_mlp, c_gate_mlp) = cmods.chunk(6, dim=-1)
-            c_mod = _modulate(cn, c_shift_msa, c_scale_msa)
+        c_mod, cmods = self._context_in(c, silu_t)
 
-        def latent_qkv(attn, x_mod, names):
-            if stale:   # x_mod holds the selected tokens
-                q, k_s, v_s = attn.qkv(x_mod)
-                k, v = (attn._heads(_scatter_tokens(kv_state[n].to(x.dtype),
-                                                    tok_sel, t))
-                        for n, t in zip(names, (k_s, v_s)))
+        def latent_qkv(attn, shift, scale, names):
+            xm_s = _modulate(xn_s, shift, scale)
+            if stale:
+                q, k_s, v_s = attn.qkv(xm_s)
+                k, v = (attn._heads(_scatter_tokens(
+                    split.tokens_all(kv_state[n]).to(x.dtype), tok_sel,
+                    split.tokens_all(t)))
+                    for n, t in zip(names, (k_s, v_s)))
+                # this shard's rows (the whole, one device's)
+                rows = (k[:, lo:lo + n_loc].contiguous(),
+                        v[:, lo:lo + n_loc].contiguous())
             else:
-                q = attn.q(_gather_tokens(x_mod, tok_sel))
-                k, v = attn.kv(x_mod)
+                q = attn.q(xm_s)
+                k, v = attn.kv(xm_s if sel is None
+                               else _modulate(xn, shift, scale))
+                rows = (k, v)
             if kv_state is not None and kv_out is not None:
-                kv_out[names[0] + self.kv_suffix] = k.flatten(2)
-                kv_out[names[1] + self.kv_suffix] = v.flatten(2)
+                kv_out[names[0] + self.kv_suffix] = rows[0].flatten(2)
+                kv_out[names[1] + self.kv_suffix] = rows[1].flatten(2)
             return q, k, v
 
-        q, k, v = latent_qkv(self.attn, _modulate(xn, shift_msa, scale_msa),
-                             ("k", "v"))
+        q, k, v = latent_qkv(self.attn, shift_msa, scale_msa, ("k", "v"))
         cq, ck, cv = self.attn.qkv(c_mod, "added_")
         s_q = q.shape[1]
         # joint sequence [latent ; context], split back at s_q
         attn_out = _attention(torch.cat([q, cq], dim=1),
                               torch.cat([k, ck], dim=1),
-                              torch.cat([v, cv], dim=1), ctx, k.shape[1])
+                              torch.cat([v, cv], dim=1), ctx, k.shape[1],
+                              kv_full)
         x_attn, c_attn = attn_out[:, :s_q], attn_out[:, s_q:]
-        x = _add_tokens(x, tok_sel,
-                        gate_msa[:, None] * self.attn.to_out[0](x_attn))
+        xs = xs + gate_msa[:, None] * self.attn.to_out[0](x_attn)
 
         if self.dual:
             shift2, scale2, gate2 = mods[6:]
-            q2, k2, v2 = latent_qkv(self.attn2, _modulate(xn, shift2, scale2),
-                                    ("k2", "v2"))
-            out2 = _attention(q2, k2, v2, ctx, k2.shape[1])
-            x = _add_tokens(x, tok_sel,
-                            gate2[:, None] * self.attn2.to_out[0](out2))
+            q2, k2, v2 = latent_qkv(self.attn2, shift2, scale2, ("k2", "v2"))
+            out2 = _attention(q2, k2, v2, ctx, k2.shape[1], kv_full)
+            xs = xs + gate2[:, None] * self.attn2.to_out[0](out2)
 
-        x_ff = _modulate(_layer_norm(_gather_tokens(x, tok_sel)), shift_mlp,
-                         scale_mlp)
-        x = _add_tokens(x, tok_sel, gate_mlp[:, None] * self.ff(x_ff))
+        x_ff = _modulate(_layer_norm(xs), shift_mlp, scale_mlp)
+        xs = xs + gate_mlp[:, None] * self.ff(x_ff)
+        if sel is not None:
+            # every share's tokens written into every shard's, this
+            # shard's kept
+            vals = split.tokens_all(xs).to(x.dtype)
+            xs = x_all.scatter(1, tok_sel[..., None].expand_as(vals),
+                               vals)[:, lo:lo + n_loc]
+        return xs, self._context_out(c, c_attn, cmods)
+
+    def _context_in(self, c, silu_t):
+        """The context stream's modulated attention input, and its
+        modulation chunks."""
+        cmods = self.norm1_context.linear(silu_t)
+        cn = _layer_norm(c)
         if self.last:
-            return x, None
+            # AdaLayerNormContinuous: [scale, shift] chunks
+            c_scale, c_shift = cmods.chunk(2, dim=-1)
+            return _modulate(cn, c_shift, c_scale), None
+        cmods = cmods.chunk(6, dim=-1)
+        return _modulate(cn, cmods[0], cmods[1]), cmods
+
+    def _context_out(self, c, c_attn, cmods):
+        """The context stream after the attention and its FF (None after
+        the last block)."""
+        if self.last:
+            return None
+        _, _, c_gate_msa, c_shift_mlp, c_scale_mlp, c_gate_mlp = cmods
         c = c + c_gate_msa[:, None] * self.attn.to_add_out(c_attn)
         c_ff = _modulate(_layer_norm(c), c_shift_mlp, c_scale_mlp)
-        return x, c + c_gate_mlp[:, None] * self.ff_context(c_ff)
+        return c + c_gate_mlp[:, None] * self.ff_context(c_ff)
 
 
 def _gather_tokens(x, sel):
@@ -298,18 +339,13 @@ def _scatter_tokens(rows, sel, vals):
     return rows.scatter_(1, sel[..., None].expand_as(vals), vals)
 
 
-def _add_tokens(x, sel, delta):
-    """``x + delta``, or with a token selection ``x`` with ``delta`` added
-    at ``sel`` (a new tensor)."""
-    if sel is None:
-        return x + delta
-    return x.scatter_add(1, sel[..., None].expand_as(delta), delta)
-
-
-def _attention(q, k, v, ctx=None, s_lat: int = None):
+def _attention(q, k, v, ctx=None, s_lat: int = None, kv_full=False):
     """``(B, S, H, hd)`` heads -> ``(B, S, D)``; through the context when
     one is given (masked tokens, or sharded latent rows), which gets
-    ``s_lat``, the count of leading latent keys (mmdit.py:194-212)."""
+    ``s_lat``, the count of leading latent keys (mmdit.py:194-212), and
+    ``kv_full`` when they hold every shard's."""
+    if kv_full:
+        return ctx.mmdit_attention(q, k, v, s_lat, kv_full=True)
     if ctx is not None:
         return ctx.mmdit_attention(q, k, v,
                                    k.shape[1] if s_lat is None else s_lat)
@@ -443,9 +479,14 @@ class SD3Transformer2DModel(nn.Module):
         caching = cache is not None and cache_state is not None
         mode = cache.config.mode if caching else None
         fine = mode == "compact" and cache.config.patch_fraction < 1.0
+        # the gates' row reductions over the shards of the token axis
+        reducer = getattr(ctx, "row_reducer", None)
         if fine:
-            # per-token gate: each token is one 2x2 latent patch
-            k_t = max(1, round(x.shape[1] * cache.config.patch_fraction))
+            # per-token gate: each token is one 2x2 latent patch, ranked
+            # over every shard's tokens
+            key_mask = getattr(ctx, "key_mask", None)
+            s_all = x.shape[1] if key_mask is None else key_mask.shape[1]
+            k_t = max(1, round(s_all * cache.config.patch_fraction))
             token_valid = getattr(ctx, "token_mask", None)
         elif mode == "compact":
             n_active = (x.shape[0] if compact_sync else
@@ -480,7 +521,8 @@ class SD3Transformer2DModel(nn.Module):
                                kv_out=st)
 
                 (x, c2), _, _ = cache.gate_tokens_fine(
-                    key, x, t_norm, st, block_fn, k_t, token_valid=token_valid)
+                    key, x, t_norm, st, block_fn, k_t, token_valid=token_valid,
+                    split=token_split(ctx))
             elif mode == "compact":
                 def block_fn(x_c, idx, blk=blk, c=c):
                     y, c2 = blk(x_c, c[idx], temb[idx],
@@ -488,7 +530,8 @@ class SD3Transformer2DModel(nn.Module):
                     return {"x": y, "c": c[idx] if c2 is None else c2}
 
                 out, _, _ = cache.gate_compact(key, x, t_norm, st, block_fn,
-                                               n_active, row_valid=row_valid)
+                                               n_active, row_valid=row_valid,
+                                               reducer=reducer)
                 x, c2 = out["x"], out["c"]
             else:
                 c_holder = [c]
@@ -498,7 +541,8 @@ class SD3Transformer2DModel(nn.Module):
                     c_holder[0] = c_holder[0] if c2 is None else c2
                     return y
 
-                x, _, _ = cache.gate(key, x, t_norm, st, block_fn)
+                x, _, _ = cache.gate(key, x, t_norm, st, block_fn,
+                                     reducer=reducer)
                 c2 = c_holder[0]
             c = c if c2 is None else c2
 
@@ -582,7 +626,8 @@ class SD3Transformer2DModel(nn.Module):
                      encoder_hidden_states, pooled_projections, cache=None,
                      cache_state=None, row_valid=None,
                      fine_kv_stale: bool = False, compact_sync: bool = False,
-                     deep_mode=None, deep_span=None, deep_state=None):
+                     deep_mode=None, deep_span=None, deep_state=None,
+                     ctx=None):
         """Mixed-resolution forward over padded token rows
         (mmdit.py:625-653).
 
@@ -591,13 +636,16 @@ class SD3Transformer2DModel(nn.Module):
         Returns ``(B, S_pad, ps*ps*C)``; rows past a request's tokens are
         garbage that the caller slices off.  The cache and deep arguments
         are :meth:`trunk`'s; with ``deep_mode`` returns ``(tokens,
-        deep_out)``.
+        deep_out)``.  ``ctx``: a token-sharded context
+        (``parallel/displaced.py MMDiTShardContext`` with the masks) when
+        ``tokens`` are this shard's columns; else the mask's own.
         """
         temb = self.time_text_embed_fn(timesteps, pooled_projections,
                                        tokens.dtype)
         c = self.context_embedder(encoder_hidden_states.to(tokens.dtype))
-        return self.trunk(tokens, c, temb,
-                          ctx=MMDiTMaskCtx(token_mask, c.shape[1]),
+        if ctx is None:
+            ctx = MMDiTMaskCtx(token_mask, c.shape[1])
+        return self.trunk(tokens, c, temb, ctx=ctx,
                           cache=cache, cache_state=cache_state,
                           t_norm=timesteps.float() / 1000.0,
                           row_valid=row_valid, fine_kv_stale=fine_kv_stale,

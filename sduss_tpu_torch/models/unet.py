@@ -33,7 +33,6 @@ import torch.nn.functional as F
 
 from sduss_tpu_torch.models import layers as L
 from sduss_tpu_torch.ops.attention import masked_attention
-from sduss_tpu_torch.ops.patch_ctx import compact_context
 
 
 @dataclasses.dataclass(frozen=True)
@@ -231,10 +230,12 @@ class BasicTransformerBlock(nn.Module):
         if tok_sel is None:
             h = h + self.attn2(self.norm2(h), ehs, ctx=ctx)
             return h + self.ff(self.norm3(h))
-        hs = h[tok_sel]
-        hs = hs + self.attn2(self.norm2(hs), ehs, ctx=ctx, rows=tok_sel)
+        # the context's share of the selected rows (all of them on one
+        # device; on a shard of an sp group its part of the selection)
+        hs, rows = ctx.take_rows(h, tok_sel)
+        hs = hs + self.attn2(self.norm2(hs), ehs, ctx=ctx, rows=rows)
         hs = hs + self.ff(self.norm3(hs))
-        return h.index_copy(0, tok_sel, hs)
+        return ctx.put_rows(h, tok_sel, hs)
 
 
 class Transformer2DModel(nn.Module):
@@ -274,7 +275,7 @@ class Transformer2DModel(nn.Module):
         for blk in self.transformer_blocks:
             h = blk(h, ehs, ctx=ctx, tok_sel=tok_sel)
         if tok_sel is not None:
-            h, x = h[tok_sel], x[tok_sel]
+            h, x = ctx.select_rows(h, tok_sel), ctx.select_rows(x, tok_sel)
             n = h.shape[0]
         h = self._project(self.proj_out, h)
         return h.reshape(n, hh, ww, c).permute(0, 3, 1, 2) + x
@@ -474,7 +475,7 @@ class UNet2DConditionModel(nn.Module):
             y = res(x, temb, ctx=ctx)
             if attn is not None:
                 return attn(y, ehs, ctx=ctx, tok_sel=tok_sel)
-            return y if tok_sel is None else y[tok_sel]
+            return y if tok_sel is None else ctx.select_rows(y, tok_sel)
         return body
 
     def _mid(self, h, temb, ehs, ctx=None, tok_sel=None):
@@ -484,31 +485,33 @@ class UNet2DConditionModel(nn.Module):
         h = mid.resnets[0](h, temb, ctx=ctx)
         h = mid.attentions[0](h, ehs, ctx=ctx)
         h = mid.resnets[1](h, temb, ctx=ctx)
-        return h if tok_sel is None else h[tok_sel]
+        return h if tok_sel is None else ctx.select_rows(h, tok_sel)
 
-    def _deep_tail(self, h, temb, ehs, boundary: int):
+    def _deep_tail(self, h, temb, ehs, boundary: int, ctx=None):
         """The ops a full pass runs between the partial capture point (the
         input of the level-(boundary-1) downsample) and the deep-feature
         capture (the output of up block ``n_levels - boundary - 1``, after
         its upsample): down levels >= boundary, mid and the deep up blocks,
         dense and ungated.  Rows are independent on the dense path, so on
-        a gathered row subset each row equals the full pass's."""
+        a gathered row subset each row equals the full pass's.  ``ctx``: a
+        row-sharded context (``parallel/displaced.py ShardContext``), or
+        None."""
         n_levels = len(self.cfg.block_out_channels)
-        h = self.down_blocks[boundary - 1].downsamplers[0](h)
+        h = self.down_blocks[boundary - 1].downsamplers[0](h, ctx=ctx)
         dskips = [h]
         for blk in self.down_blocks[boundary:]:
             for j in range(len(blk.resnets)):
-                h = self._pair(blk, j)(h, temb, ehs)
+                h = self._pair(blk, j)(h, temb, ehs, ctx)
                 dskips.append(h)
             if hasattr(blk, "downsamplers"):
-                h = blk.downsamplers[0](h)
+                h = blk.downsamplers[0](h, ctx=ctx)
                 dskips.append(h)
-        h = self._mid(h, temb, ehs)
+        h = self._mid(h, temb, ehs, ctx=ctx)
         for blk in self.up_blocks[:n_levels - boundary]:
             for j in range(len(blk.resnets)):
                 h = self._pair(blk, j)(torch.cat([h, dskips.pop()], dim=1),
-                                       temb, ehs)
-            h = blk.upsamplers[0](h)
+                                       temb, ehs, ctx)
+            h = blk.upsamplers[0](h, ctx=ctx)
         assert not dskips
         return h
 
@@ -572,8 +575,11 @@ class UNet2DConditionModel(nn.Module):
         """
         hybrid = (deep_mode is not None and cache is not None
                   and cache.config.deep_compact_fraction is not None)
+        # a patch batch's context (one device's or a shard's), or None /
+        # a row-sharded context on the dense path
+        patched = ctx is not None and hasattr(ctx, "meta")
         if deep_mode == "partial":
-            if ctx is not None or (cache is not None and not hybrid):
+            if patched or (cache is not None and not hybrid):
                 raise ValueError("deep_mode='partial' is dense-path only; "
                                  "the only composing cache is the deep x "
                                  "compact hybrid")
@@ -586,11 +592,14 @@ class UNet2DConditionModel(nn.Module):
                              "the hybrid, which returns all three)")
         n_levels = len(self.cfg.block_out_channels)
         boundary = deep_boundary if deep_boundary is not None else n_levels - 1
-        temb = self.time_embed(timesteps, added_cond, dtype=sample.dtype)
+        temb = temb_img = self.time_embed(timesteps, added_cond,
+                                          dtype=sample.dtype)
         t_norm = timesteps.float() / 1000.0
         if ctx is not None:
             temb = ctx.broadcast_to_patches(temb)
             t_norm = ctx.per_patch(t_norm)
+        # the gates' row reductions over the shards of a row-sharded batch
+        reducer = getattr(ctx, "row_reducer", None)
         ehs = encoder_hidden_states
         caching = cache is not None and cache_state is not None
         cc = cache.config if caching else None
@@ -601,9 +610,9 @@ class UNet2DConditionModel(nn.Module):
             regime = None
         elif hybrid:
             regime = ("write" if deep_mode == "full"
-                      else "rows" if ctx is None else "images")
+                      else "images" if patched else "rows")
         elif cc.mode == "compact":
-            regime = "rows" if ctx is None else "images"
+            regime = "images" if patched else "rows"
         else:
             regime = "block"
         if regime == "rows":
@@ -615,10 +624,11 @@ class UNet2DConditionModel(nn.Module):
         if regime == "images":
             # the gated images' canonical sub-composition: pair-coherent
             # (even) capacities on the CFG-doubled meta under the hybrid
-            sub_ctx, caps = compact_context(
-                ctx.meta.patch_cells, ctx.meta.class_info,
+            sub_ctx, caps = ctx.compact_context(
                 cc.deep_compact_fraction if hybrid else cc.compact_fraction,
-                hybrid, ctx.image_id.device)
+                hybrid)
+            # per-patch rows of the sub-batch by their global patch index
+            patch_image = ctx.gate_view().image_id
             two_level = not hybrid and cc.patch_fraction < 1.0
 
         def gated(key, x, body):
@@ -631,32 +641,36 @@ class UNet2DConditionModel(nn.Module):
                 return y
             if regime == "block":
                 y, _, _ = cache.gate(key, x, t_norm, st,
-                                     lambda xx: body(xx, temb, ehs, ctx))
+                                     lambda xx: body(xx, temb, ehs, ctx),
+                                     reducer=reducer)
                 return y
             if regime == "images":
                 if two_level:
                     def fn(x_s, gidx, imgs, sel):
-                        return body(x_s, temb[gidx], ehs[imgs], sub_ctx,
-                                    tok_sel=sel)
+                        return body(x_s, temb_img[patch_image[gidx]],
+                                    ehs[imgs], sub_ctx, tok_sel=sel)
                 else:
                     def fn(x_s, gidx, imgs):
-                        return body(x_s, temb[gidx], ehs[imgs], sub_ctx)
+                        return body(x_s, temb_img[patch_image[gidx]],
+                                    ehs[imgs], sub_ctx)
                 y, _, _ = cache.gate_compact_images(
                     key, x, t_norm, st, fn, ctx, caps,
                     cfg_pair_offset=ctx.meta.i_pad // 2 if hybrid else None,
-                    two_level=two_level)
+                    two_level=two_level, sub_range=sub_ctx.local_range)
                 return y
 
             def fn(x_c, idx):
-                return body(x_c, temb[idx], ehs[idx])
+                return body(x_c, temb[idx], ehs[idx], ctx)
 
             if hybrid and cc.deep_compact_pairwise:
                 y, _, _ = cache.gate_compact_pairs(
                     key, x, t_norm, st, fn,
-                    max(1, round(x.shape[0] // 2 * frac)), row_valid=row_valid)
+                    max(1, round(x.shape[0] // 2 * frac)), row_valid=row_valid,
+                    reducer=reducer)
             else:
                 y, _, _ = cache.gate_compact(key, x, t_norm, st, fn, n_active,
-                                             row_valid=row_valid)
+                                             row_valid=row_valid,
+                                             reducer=reducer)
             return y
 
         shallow = deep_mode in ("shallow", "partial")
@@ -679,7 +693,8 @@ class UNet2DConditionModel(nn.Module):
         if deep_mode == "partial":
             half = h.shape[0] // 2
             sel2 = torch.cat([deep_sel, deep_sel + half])
-            tail = self._deep_tail(h[sel2], temb[sel2], ehs[sel2], boundary)
+            tail = self._deep_tail(h[sel2], temb[sel2], ehs[sel2], boundary,
+                                   ctx)
             # the pipeline pads deep_sel with copies of a selected row; the
             # copies carry equal values, so the order of their writes does
             # not matter

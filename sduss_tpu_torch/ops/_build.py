@@ -158,10 +158,14 @@ _LOAD_LOCK = threading.Lock()
 
 
 def count(fn, n: int = 1) -> None:
-    """Add ``n`` to a kernel wrapper's ``launches`` counter; the shards of
-    a group launch from several threads at once."""
+    """Add ``n`` to a kernel wrapper's ``launches`` counter, and to the
+    launching thread's in ``fn.by_thread`` (a group's shards launch from
+    threads of their own, ``shard-<rank>_*``)."""
     with _COUNT_LOCK:
         fn.launches += n
+        by = fn.__dict__.setdefault("by_thread", {})
+        name = threading.current_thread().name
+        by[name] = by.get(name, 0) + n
 
 
 def load_library() -> ctypes.CDLL:

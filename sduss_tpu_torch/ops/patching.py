@@ -21,7 +21,11 @@ statistics.  The index arrays go to the device once per step
 (``ops/patch_ctx.py``).  The JAX package's native C++ layout code gives
 the same arrays; the port builds them in Python.  ``compact_submeta``
 gives the canonical sub-composition that the deep cache's image gate
-recomputes on a shallow step.
+recomputes on a shallow step.  ``shard_meta`` cuts a patch batch into
+contiguous row ranges, one a shard of a replica's ``sp`` axis, and gives
+each shard what its ops need from the others: its ghost patches (the
+neighbours its halo reads from another shard's range) and the per-class
+layout of its own attention queries.
 
 Tensor helpers: ``split_latent`` / ``merge_patches`` keep the JAX layout
 (NHWC latents and patches); ``haloed`` works on NCHW patch activations,
@@ -244,6 +248,126 @@ def double_meta(grids: Tuple[int, ...], patch_cells: int,
 
 
 # ---------------------------------------------------------------------------
+# A patch batch over the shards of an sp group.
+# ---------------------------------------------------------------------------
+
+
+def shard_ranges(n: int, parts: int) -> Tuple[Tuple[int, int], ...]:
+    """``parts`` contiguous ``[lo, hi)`` ranges of ``n`` rows in order; the
+    first ``n % parts`` take one row more."""
+    q, r = divmod(n, parts)
+    out, lo = [], 0
+    for i in range(parts):
+        hi = lo + q + (1 if i < r else 0)
+        out.append((lo, hi))
+        lo = hi
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardMeta:
+    """One shard's rows ``[lo, hi)`` of a patch batch (host arrays).
+
+    The shard's extended rows are its own ``n_loc = hi - lo`` patches, then
+    its ghosts: the patches of other shards that its halo reads.  Each
+    shard sends ``send[q]`` of its rows (shard ``q``'s, relative to its
+    ``lo``); the shards' sends, gathered in shard order, hold every ghost,
+    ``ghost_pos`` giving each ghost's row there.
+
+    ``attn`` holds, per resolution class, the layout of the shard's own
+    queries: ``(img_slots, kv_gather, q_gather, out_pos, member, lq)``:
+    the class slots of the images with a patch here, the global patch rows
+    of those images' keys, the queries grouped ``lq`` patches an image
+    (``-1`` = pad), each own patch's row in the grouped output, and which
+    own patches belong to the class."""
+
+    lo: int
+    hi: int
+    image_id: np.ndarray            # (n_loc + n_ghost,) int32
+    neighbors: np.ndarray           # (n_loc + n_ghost, 8) int32, extended rows
+    send: Tuple[np.ndarray, ...]    # per shard: rows (relative) it sends
+    ghost_pos: np.ndarray           # (n_ghost,) rows in the gathered sends
+    image_patches: np.ndarray       # (i_pad,) float32: patches an image
+    attn: Tuple[tuple, ...]
+
+    @property
+    def n_loc(self) -> int:
+        return self.hi - self.lo
+
+
+_SHARD_METAS: dict = {}
+
+
+def shard_meta(meta: PatchMeta, parts: int) -> Tuple[ShardMeta, ...]:
+    """``meta``'s batch over ``parts`` shards in contiguous row ranges
+    (:func:`shard_ranges` of ``p_pad``), one ``ShardMeta`` a shard; built
+    once per meta object (``build_meta`` returns one object per
+    composition) and shard count."""
+    key = (id(meta), parts)
+    hit = _SHARD_METAS.get(key)
+    if hit is not None and hit[0] is meta:
+        return hit[1]
+    ranges = shard_ranges(meta.p_pad, parts)
+    owner = np.zeros((meta.p_pad,), np.int64)
+    for q, (lo, hi) in enumerate(ranges):
+        owner[lo:hi] = q
+    needs = []
+    for lo, hi in ranges:
+        nb = meta.neighbors[lo:hi]
+        far = np.unique(nb[nb >= 0])
+        needs.append(far[(far < lo) | (far >= hi)])
+    send = []
+    for q, (lo, hi) in enumerate(ranges):
+        rows = [n[(n >= lo) & (n < hi)] for r, n in enumerate(needs) if r != q]
+        rows = np.unique(np.concatenate(rows)) if rows else np.zeros(0, int)
+        send.append((rows - lo).astype(np.int64))
+    offsets = np.cumsum([0] + [len(s) for s in send])
+    image_patches = np.bincount(meta.image_id, minlength=meta.i_pad).astype(
+        np.float32)
+    out = []
+    for (lo, hi), need in zip(ranges, needs):
+        n_loc = hi - lo
+        ext = np.concatenate([np.arange(lo, hi), need]).astype(np.int64)
+        local = {int(g): i for i, g in enumerate(ext)}
+        nb = np.full((len(ext), 8), -1, np.int32)
+        for i in range(n_loc):
+            for k, g in enumerate(meta.neighbors[lo + i]):
+                if g >= 0:
+                    nb[i, k] = local[int(g)]
+        ghost_pos = np.asarray(
+            [offsets[owner[g]] + int(np.searchsorted(
+                send[owner[g]], g - ranges[owner[g]][0])) for g in need],
+            np.int64)
+        attn = []
+        for (g, ipc), member, cpos, cgather in zip(
+                meta.class_info, meta.class_member, meta.class_pos,
+                meta.class_gather):
+            own = [p for p in range(lo, hi) if member[p]]
+            slots = sorted({int(cpos[p]) // (g * g) for p in own})
+            per = {s: [p for p in own if int(cpos[p]) // (g * g) == s]
+                   for s in slots}
+            lq = max((len(v) for v in per.values()), default=0)
+            q_gather = np.full((len(slots) * lq,), -1, np.int64)
+            out_pos = np.zeros((n_loc,), np.int64)
+            for j, s in enumerate(slots):
+                for k, p in enumerate(per[s]):
+                    q_gather[j * lq + k] = p - lo
+                    out_pos[p - lo] = j * lq + k
+            kv_gather = cgather.reshape(ipc, g * g)[slots].reshape(-1)
+            attn.append((np.asarray(slots, np.int64), kv_gather.astype(
+                np.int64), q_gather, out_pos, member[lo:hi].copy(), lq))
+        out.append(ShardMeta(
+            lo=lo, hi=hi, image_id=meta.image_id[ext].astype(np.int32),
+            neighbors=nb, send=tuple(send), ghost_pos=ghost_pos,
+            image_patches=image_patches, attn=tuple(attn)))
+    out = tuple(out)
+    if len(_SHARD_METAS) >= 256:
+        _SHARD_METAS.pop(next(iter(_SHARD_METAS)))
+    _SHARD_METAS[key] = (meta, out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Latent <-> patch-batch reshapes.
 # ---------------------------------------------------------------------------
 
@@ -267,18 +391,21 @@ def merge_patches(patches: torch.Tensor, grid: int) -> torch.Tensor:
     return x.reshape(1, grid * s, grid * s, c)
 
 
-def haloed(x: torch.Tensor, neighbors: torch.Tensor) -> torch.Tensor:
+def haloed(x: torch.Tensor, neighbors: torch.Tensor,
+           src: torch.Tensor = None) -> torch.Tensor:
     """Add a 1-cell halo from the 8 neighbour patches, NCHW:
     (P, C, s, s) -> (P, C, s+2, s+2), zero where a neighbour is -1.
 
-    ``neighbors``: (P, 8) integer tensor on x's device.  Only the edge rows
-    and columns of the neighbours are gathered.
+    ``neighbors``: (P, 8) integer tensor on x's device, rows of ``src``
+    (``x`` by default; a shard's own patches then its ghosts).  Only the
+    edge rows and columns of the neighbours are gathered.
     """
     s = x.shape[-1]
+    src = x if src is None else src
 
     def take(k, rows, cols):
         idx = neighbors[:, k].long()
-        part = x[:, :, rows, cols][idx.clamp(min=0)]
+        part = src[:, :, rows, cols][idx.clamp(min=0)]
         valid = (idx >= 0).reshape(-1, 1, 1, 1)
         return torch.where(valid, part, torch.zeros_like(part))
 

@@ -14,12 +14,20 @@ the ops that cross rows to a context with explicit collectives:
     exact), or, in stale mode, this shard's fresh rows spliced into the
     previous step's full K/V while the fresh gather is kept for the next
     step (DistriFuser's displaced step);
-  - cross-attention: the text K/V are per image, replicated; local.
+  - cross-attention: the text K/V are per image, replicated; local;
+  - the cache gates' per-row drift means: local float32 sums, ``psum``
+    over ``sp`` in rank order, divided by the global count
+    (``row_reducer``), so that every shard selects the same rows.
 * ``MMDiTShardContext`` (SD3): latent token rows sharded, the context
   tokens replicated; joint and dual attention gather the latent K/V
   (``kv_mode="gather"``: sync or stale splice, as above) or rotate them
   around the ring (``"ring"``: exact, ``parallel/ring.py``); the position
-  grid's rows come from the global crop (``pos_embed_rows``).
+  grid's rows come from the global crop (``pos_embed_rows``).  On the
+  padded-token path it holds this shard's token mask and every shard's
+  (``key_mask``), which keeps padded keys out of every softmax, reduces
+  the row gates' means like ``ShardContext`` and gives the fine token
+  gate the whole row's scores (``tokens_all``) and a share of its
+  selection (``share``).
 
 The stale K/V live in ``kv_state``: the UNet's keyed by attention module,
 the MMDiT's by call order within a forward (one counter per forward, as
@@ -42,6 +50,7 @@ import torch.nn.functional as F
 
 from sduss_tpu_torch.models.layers import conv_apply
 from sduss_tpu_torch.ops.attention import masked_attention
+from sduss_tpu_torch.ops.patching import shard_ranges
 from sduss_tpu_torch.parallel.ring import (_partial_dense, combine_partials,
                                            finalize_partial, ring_attention)
 
@@ -63,6 +72,20 @@ class ShardContext:
 
     def _n(self) -> int:
         return self.group.axis_size(self.axis)
+
+    # -- the cache gates' row reductions -------------------------------------
+
+    @property
+    def row_reducer(self):
+        return self
+
+    def psum_rows(self, sums):
+        """Per-row float32 sums over every shard, added in rank order."""
+        return self.group.psum(sums, self.axis)
+
+    def row_count(self, local: int) -> int:
+        """Elements of a row over every shard (the rows split evenly)."""
+        return local * self._n()
 
     def _halo(self, x, down: bool = True):
         """``(row above, row below)``: the last row of the shard above and
@@ -155,7 +178,8 @@ class MMDiTShardContext:
     context tokens replicated (displaced.py:162-265)."""
 
     def __init__(self, group, axis: str = "sp", stale: bool = False,
-                 kv_state: Optional[Dict] = None, kv_mode: str = "gather"):
+                 kv_state: Optional[Dict] = None, kv_mode: str = "gather",
+                 token_mask=None, key_mask=None):
         if kv_mode not in ("gather", "ring"):
             raise ValueError(f"kv_mode must be gather|ring, got {kv_mode!r}")
         self.group = group
@@ -165,6 +189,49 @@ class MMDiTShardContext:
         self.new_kv_state: Dict = {}
         self.kv_mode = kv_mode
         self._layer = 0
+        # the padded-token path: this shard's (B, S/n) mask and the whole
+        # (B, S) one, whose False keys every attention masks out
+        self.token_mask = token_mask
+        self.key_mask = key_mask
+        self.row_reducer = self if token_mask is not None else None
+
+    # -- the padded-token path -----------------------------------------------
+
+    psum_rows = ShardContext.psum_rows
+
+    def row_count(self, local: int) -> int:
+        return local * self.group.axis_size(self.axis)
+
+    def gather(self, idx):
+        """The context of the batch rows ``idx`` (a compact gate's
+        sub-batch)."""
+        return MMDiTShardContext(self.group, self.axis,
+                                 token_mask=self.token_mask[idx],
+                                 key_mask=self.key_mask[idx])
+
+    def tokens_all(self, t):
+        """``(B, S/n, ...)`` per-token rows of every shard, ``(B, S, ...)``
+        in token order."""
+        return self.group.all_gather(t.contiguous(), self.axis, 1)
+
+    def token_offset(self) -> int:
+        return self.group.axis_index(self.axis) * self.token_mask.shape[1]
+
+    def share(self, k: int):
+        """This shard's ``[a, b)`` of ``k`` selected positions."""
+        return shard_ranges(k, self.group.axis_size(self.axis))[
+            self.group.axis_index(self.axis)]
+
+    def put_tokens(self, t, sel, vals) -> None:
+        """``t[b, j] = vals[b, j]`` in place for the selected tokens ``j``
+        of ``sel`` (B, k; global) that lie in this shard (``t`` and
+        ``vals`` this shard's tokens)."""
+        lo = self.token_offset()
+        picked = torch.zeros(self.key_mask.shape, dtype=torch.bool,
+                             device=t.device).scatter_(1, sel, True)
+        picked = picked[:, lo:lo + t.shape[1]]
+        picked = picked.reshape(picked.shape + (1,) * (t.dim() - 2))
+        t.copy_(torch.where(picked, vals.to(t.dtype), t))
 
     def pos_embed_rows(self, model, hp_local: int, wp: int):
         """This shard's rows of the global position crop, ``(hp_local * wp,
@@ -200,10 +267,10 @@ class MMDiTShardContext:
         self.new_kv_state[key] = {"k": fresh[0], "v": fresh[1]}
         return k_full, v_full
 
-    def mmdit_attention(self, q, k, v, s_lat: int):
+    def mmdit_attention(self, q, k, v, s_lat: int, kv_full: bool = False):
         """``(B, S, H, hd)`` joint or latent-only attention; the leading
-        ``s_lat`` keys are this shard's latent rows, any more the
-        replicated context."""
+        ``s_lat`` keys are this shard's latent rows (every shard's, with
+        ``kv_full``), any more the replicated context."""
         key = self._layer
         self._layer += 1
         b, s, nh, hd = q.shape
@@ -225,24 +292,44 @@ class MMDiTShardContext:
                 v[:, s_lat:].reshape(b, s_ctx, nh * hd), nh,
                 1.0 / math.sqrt(hd))
             return combine_partials(o, m, l, o2, m2, l2, q.dtype)
-        k_full, v_full = self._gather_or_splice(key, k_lat, v_lat)
+        if kv_full:
+            k_full, v_full = k_lat, v_lat
+        else:
+            k_full, v_full = self._gather_or_splice(key, k_lat, v_lat)
+        mask = self.key_mask
         if joint:
             k_full = torch.cat([k_full, k[:, s_lat:]], dim=1)
             v_full = torch.cat([v_full, v[:, s_lat:]], dim=1)
+            if mask is not None:
+                mask = torch.cat([mask, mask.new_ones(
+                    (b, k.shape[1] - s_lat))], dim=1)
         lk = k_full.shape[1]
         return masked_attention(q2, k_full.reshape(b, lk, nh * hd),
-                                v_full.reshape(b, lk, nh * hd), nh)
+                                v_full.reshape(b, lk, nh * hd), nh,
+                                kv_token_mask=mask)
 
 
-def shard_rows(x, group, axis: str = "sp", dim: int = 1, rank=None):
-    """This shard's slice of ``x`` along ``dim`` (``x.shape[dim]`` must
-    divide by the axis size), on the shard's device."""
-    n = group.axis_size(axis)
-    if x.shape[dim] % n:
-        raise ValueError(f"{x.shape[dim]} rows do not split over {axis}={n}")
-    m = x.shape[dim] // n
+def shard_rows(x, group, axis: str = "sp", dim: int = 1, rank=None,
+               ranges=None, copy: bool = False):
+    """This shard's slice of ``x`` along ``dim``, on the shard's device:
+    an equal share (``x.shape[dim]`` must divide by the axis size), or
+    with ``ranges`` the axis index's ``[lo, hi)``; ``dim`` None: the whole
+    of ``x``.  ``copy``: a new tensor even where the slice already is one
+    on that device."""
     i = group.axis_index(axis, rank)
-    return x.narrow(dim, i * m, m).to(group.device(rank)).contiguous()
+    if dim is None:
+        part = x
+    elif ranges is not None:
+        lo, hi = ranges[i]
+        part = x.narrow(dim, lo, hi - lo)
+    else:
+        n = group.axis_size(axis)
+        if x.shape[dim] % n:
+            raise ValueError(f"{x.shape[dim]} rows do not split over "
+                             f"{axis}={n}")
+        m = x.shape[dim] // n
+        part = x.narrow(dim, i * m, m)
+    return part.to(group.device(rank), copy=copy).contiguous()
 
 
 def gather_rows(outs, group, dim: int, device):

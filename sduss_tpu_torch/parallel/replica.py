@@ -83,37 +83,17 @@ def _slices(dp: int, sp: int, tp: int, devices: list) -> list:
 
 
 def check_group(config) -> None:
-    """Raise, for a replica over an sp x tp group, what the group does not
-    serve yet (``NotImplementedError`` naming the ROADMAP item).
-
-    ``tp`` composes with every path and cache: the residual stream is
-    replicated, so each shard's gates read the same inputs.  ``sp > 1``
-    serves the dense step (``pipelines/base.py _denoise_group_displaced``):
-    cache-off, a stateful sampler, and the plain fixed-interval deep cache
-    of the UNet families; the mixed-resolution paths (the UNet's patch
-    batch, SD3's token path) and the gated caches are item 13.  ``pp > 1``
-    is not served by the Engine: the MMDiT stage pipeline
-    (``parallel/pipeline.py MMDiTStagePipeline``) is a library class."""
-    par, cc = config.parallel, config.cache
+    """Raise what a replica over an sp x tp group does not serve
+    (``NotImplementedError``): ``pp > 1``, which the Engine does not route
+    (the MMDiT stage pipeline, ``parallel/pipeline.py MMDiTStagePipeline``,
+    is a library class).  Every path and cache serves over ``sp`` and
+    ``tp``: ``tp`` with a replicated residual stream, ``sp`` through the
+    denoiser's sharded route (``parallel/sharding.py``), the dense latent
+    rows, the patch batch's rows and SD3's token columns split over the
+    shards, the cache gates selecting over the whole batch."""
+    par = config.parallel
     if par.pp > 1:
         raise NotImplementedError(
             f"pp={par.pp}: the Engine serves no pipeline-stage parallelism; "
             f"drive sduss_tpu_torch.parallel.pipeline.MMDiTStagePipeline "
             f"directly (ROADMAP item 10)")
-    if par.sp <= 1:
-        return
-    if config.scheduler.use_mixed_resolution:
-        raise NotImplementedError(
-            f"sp={par.sp} with use_mixed_resolution=True: the patch batch "
-            f"and the padded-token path across sp shards are ROADMAP item "
-            f"13 (set scheduler.use_mixed_resolution=False)")
-    if config.model.family == "sd3":
-        gated = cc.enabled and (cc.sd3_deep_span is not None
-                                or cc.mode in ("block", "compact"))
-    else:
-        gated = cc.enabled and not cc.plain_fixed_deep()
-    if gated:
-        raise NotImplementedError(
-            f"sp={par.sp} with this cache (mode={cc.mode!r}): only the "
-            f"plain fixed-interval deep cache of the UNet families rides "
-            f"the sp step; the gated caches are ROADMAP item 13")

@@ -34,21 +34,40 @@ unchanged.  The residual stream stays replicated, bitwise equal on every
 shard (``psum`` adds in rank order).
 
 :class:`ShardedDenoiser` is the denoiser a replica over a ``ShardGroup``
-serves from: called on the pipeline's thread it runs every shard's
-forward (tp alone) and returns shard 0's; called on a shard thread (the
-sp step, ``pipelines/base.py``) it runs that shard's module.
+serves from.  Called on the pipeline's thread under tp alone it runs every
+shard's forward and returns shard 0's.  With ``sp > 1`` every forward the
+pipeline makes goes through one route (:meth:`ShardedDenoiser._sp_forward`),
+whatever step made it: the inputs are split over ``sp`` (latent rows on the
+dense path, contiguous ranges of patch rows on the patch path, token
+columns on SD3's token path), each shard gets its context
+(``parallel/displaced.py ShardContext`` / ``MMDiTShardContext``,
+``ops/patch_ctx.py PatchShardContext``), the shards run the forward, and
+the model output (and a UNet's deep feature) is gathered on the lead
+device, where the sampler update and the bookkeeping stay.  The state a
+forward updates in place (the caches' rows, SD3's span delta, the stale
+K/V rows) lives on the shards between steps as :class:`ShardedTensor`
+leaves of the caller's own state dicts, split like the activations it
+caches; :func:`tmap` runs the pipeline's row carry-over and predictions on
+every shard's part.
 """
 
 from __future__ import annotations
 
+import collections
 import copy
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from sduss_tpu_torch.ops.patch_ctx import PatchContext, PatchShardContext
+from sduss_tpu_torch.ops.patching import shard_ranges
+from sduss_tpu_torch.parallel.displaced import (MMDiTShardContext,
+                                                ShardContext, gather_rows,
+                                                shard_rows)
 
 # keyword arguments a forward updates in place: each shard but the first
 # works on its own copy
@@ -262,6 +281,136 @@ def _private(obj, dev: torch.device):
     return obj
 
 
+class ShardedTensor:
+    """A state tensor of a replica over an sp group, kept as one part per
+    shard (rank order, on the shard's device; None where a shard holds no
+    such tensor), between the forwards that update it.  A part is the
+    shard's slice of the whole (or a copy of it, for a tensor every shard
+    holds whole); tp peers hold equal parts."""
+
+    __slots__ = ("parts",)
+
+    def __init__(self, parts):
+        self.parts = list(parts)
+
+    def __repr__(self) -> str:
+        shapes = [None if p is None else tuple(p.shape) for p in self.parts]
+        return f"ShardedTensor({shapes})"
+
+
+def tmap(fn, *trees):
+    """``fn`` over the leaves of matching trees (tensors, ``ShardedTensor``
+    leaves, dicts of them): a ``ShardedTensor`` leaf maps shard by shard
+    (the other arguments' part of the same shard, or the argument itself),
+    into a ``ShardedTensor``."""
+    x0 = trees[0]
+    if isinstance(x0, dict):
+        return {k: tmap(fn, *(t[k] for t in trees)) for k in x0}
+    if isinstance(x0, ShardedTensor):
+        return ShardedTensor([
+            None if p is None else fn(*(
+                t.parts[r] if isinstance(t, ShardedTensor) else t
+                for t in trees))
+            for r, p in enumerate(x0.parts)])
+    return fn(*trees)
+
+
+def parts_of(tree):
+    """Every tensor of a state tree, each shard's part of a
+    ``ShardedTensor`` leaf included."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, ShardedTensor):
+        yield from (p for p in tree.parts if p is not None)
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from parts_of(v)
+
+
+class SpStep:
+    """What the pipeline's dense sp step (``pipelines/base.py
+    _denoise_group_displaced``) passes as ``ctx``: stale K/V or a fresh
+    gather, each rank's previous K/V (``kv``); the forward leaves each
+    rank's new K/V in ``new_kv``."""
+
+    def __init__(self, stale: bool = False, kv: Optional[dict] = None):
+        self.stale = stale
+        self.kv = kv or {}
+        self.new_kv: Dict[int, dict] = {}
+
+
+def _state_dim(kind: str, path: tuple, t: torch.Tensor):
+    """The axis a state tensor splits on, like the activations it caches:
+    the UNet's dense rows ``(R, C, s, s)`` on their height, a patch batch's
+    rows on the patch axis, MMDiT token rows ``(R, S, ...)`` on the token
+    axis (the context stream ``"c"`` whole); per-row vectors whole."""
+    if kind == "patch":
+        return 0
+    if kind == "tokens":
+        return None if path[-1] == "c" or t.dim() < 2 else 1
+    return 2 if t.dim() == 4 else None
+
+
+def _shard_leaves(tree: dict, split, n: int, kind: str, path=()) -> None:
+    """Turn the plain tensor leaves of a caller's state tree into
+    ``ShardedTensor`` leaves over ``n`` ranks, in place (once: later
+    forwards find them); ``split(t, dim, rank)`` is a rank's part."""
+    for k, v in list(tree.items()):
+        if isinstance(v, dict):
+            _shard_leaves(v, split, n, kind, path + (k,))
+        elif isinstance(v, torch.Tensor):
+            dim = _state_dim(kind, path + (k,), v)
+            tree[k] = ShardedTensor([split(v, dim, r) for r in range(n)])
+
+
+def _rank_tree(tree: dict, rank: int) -> dict:
+    """Rank ``rank``'s state: new dicts over its parts."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _rank_tree(v, rank)
+        elif v.parts[rank] is not None:
+            out[k] = v.parts[rank]
+    return out
+
+
+def _merge_back(tree: dict, ranks: List[dict]) -> None:
+    """Write the ranks' updated states back into the caller's ``tree`` (its
+    dicts kept): a key every rank dropped goes, any other leaf becomes the
+    ranks' parts."""
+    keys = list(dict.fromkeys(k for t in ranks for k in t))
+    for k in [k for k in tree if k not in keys]:
+        del tree[k]
+    for k in keys:
+        vals = [t.get(k) for t in ranks]
+        if any(isinstance(v, dict) for v in vals):
+            sub = tree.get(k)
+            if not isinstance(sub, dict):
+                sub = tree[k] = {}
+            _merge_back(sub, [v if isinstance(v, dict) else {} for v in vals])
+        else:
+            tree[k] = ShardedTensor(vals)
+
+
+def _sharded_tree(trees: List):
+    """The ranks' output trees (SD3's span delta) as one tree of
+    ``ShardedTensor`` leaves."""
+    if isinstance(trees[0], dict):
+        return {k: _sharded_tree([t[k] for t in trees]) for k in trees[0]}
+    return ShardedTensor(trees)
+
+
+def _split_tree(tree, split, kind: str, rank: int, path=()):
+    """Rank ``rank``'s part of an input tree (a ``ShardedTensor`` leaf's
+    part, a plain tensor split by ``_state_dim``)."""
+    if isinstance(tree, dict):
+        return {k: _split_tree(v, split, kind, rank, path + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, ShardedTensor):
+        return tree.parts[rank]
+    return split(tree, _state_dim(kind, path, tree), rank)
+
+
 class ShardedDenoiser:
     """A replica's denoiser over ``group``: one :func:`shard_module` per
     shard, ``model`` (the whole module, on the lead device) for every
@@ -286,6 +435,19 @@ class ShardedDenoiser:
                        for r in range(group.size)]
         self.keep_outputs = False
         self.last_outputs = None
+        # each shard's patch-batch context of the latest compositions
+        # (index tensors only): {(id(meta), rank): (meta, context)}
+        self._patch_ctxs: collections.OrderedDict = collections.OrderedDict()
+
+    def _patch_ctx(self, meta, rank: int):
+        key = (id(meta), rank)
+        hit = self._patch_ctxs.get(key)
+        if hit is None or hit[0] is not meta:
+            hit = (meta, PatchShardContext(meta, self.group, rank))
+            self._patch_ctxs[key] = hit
+            while len(self._patch_ctxs) > 8 * self.group.size:
+                self._patch_ctxs.popitem(last=False)
+        return hit[1]
 
     def __getattr__(self, name):
         return getattr(self.__dict__["model"], name)
@@ -302,9 +464,7 @@ class ShardedDenoiser:
         if rank is not None:
             return getattr(self.shards[rank], method)(*args, **kwargs)
         if group.sp > 1:
-            raise RuntimeError("an sp group's forward runs inside the "
-                               "pipeline's sharded step, on the shard "
-                               "threads")
+            return self._sp_forward(method, args, kwargs)
         kws: dict = {}
 
         def fn(r):
@@ -333,6 +493,90 @@ class ShardedDenoiser:
         if self.keep_outputs:
             self.last_outputs = outs
         return outs[0]
+
+    def _sp_forward(self, method: str, args, kwargs):
+        """One forward over the sp x tp group (module docstring): the split
+        follows the call's layout, ``apply_tokens`` (SD3's token path: token
+        columns), a ``PatchContext`` (the patch batch: contiguous ranges of
+        patch rows) or else the dense latents' rows, with ``ctx`` None (a
+        sync step) or an :class:`SpStep`."""
+        group = self.group
+        lead = group.device(0)
+        ctx = kwargs.get("ctx")
+        args = list(args)
+        ranges = None
+        if method == "apply_tokens":
+            kind = "tokens"
+            mask = args[1].bool()
+        elif isinstance(ctx, PatchContext):
+            kind = "patch"
+            ranges = shard_ranges(ctx.meta.p_pad, group.sp)
+        else:
+            kind = "rows"
+            if ctx is not None and not isinstance(ctx, SpStep):
+                raise TypeError(f"an sp forward takes no {type(ctx).__name__}")
+
+        def split(t, dim, r):
+            """Rank ``r``'s part of ``t`` split on ``dim``, a new tensor."""
+            return shard_rows(t, group, "sp", dim, r, ranges=ranges,
+                              copy=True)
+
+        state = kwargs.get("cache_state")
+        if state is not None:
+            _shard_leaves(state, split, group.size, kind)
+        mmdit = hasattr(self.model, "apply_tokens")
+
+        def fn(r):
+            dev = group.device(r)
+            a = [None] + list(_to(args[1:], dev, {}))
+            kw = {k: _to(v, dev, {}) for k, v in kwargs.items()
+                  if k not in ("ctx", "cache_state", "deep_state")}
+            if kind == "tokens":
+                a[0] = split(args[0], 1, r)
+                a[1] = split(mask, 1, r)
+                kw["ctx"] = MMDiTShardContext(group, token_mask=a[1],
+                                              key_mask=mask.to(dev))
+            elif kind == "patch":
+                a[0] = split(args[0], 0, r)
+                kw["ctx"] = self._patch_ctx(ctx.meta, r)
+            else:
+                a[0] = split(args[0], 1, r)
+                seam = ctx if ctx is not None else SpStep()
+                kw["ctx"] = (MMDiTShardContext if mmdit else ShardContext)(
+                    group, "sp", stale=seam.stale,
+                    kv_state=seam.kv.get(r))
+            deep = kwargs.get("deep_state")
+            if deep is not None:
+                kw["deep_state"] = (
+                    _split_tree(deep, split, kind, r) if kind == "tokens"
+                    else split(deep, 0 if kind == "patch" else 2, r))
+            if state is not None:
+                kw["cache_state"] = _rank_tree(state, r)
+            return getattr(self.shards[r], method)(*a, **kw), kw
+
+        outs = group.run(fn)
+        if state is not None:
+            _merge_back(state, [kw["cache_state"] for _, kw in outs])
+        if isinstance(ctx, SpStep):
+            ctx.new_kv = {r: kw["ctx"].new_kv_state
+                          for r, (_, kw) in enumerate(outs)}
+        if self.keep_outputs:
+            self.last_outputs = [o for o, _ in outs]
+        res = [o for o, _ in outs]
+        out_dim = {"tokens": 1, "patch": 0, "rows": 1}[kind]
+        if not isinstance(res[0], tuple):
+            return gather_rows(res, group, out_dim, lead)
+        joined = [gather_rows([o[0] for o in res], group, out_dim, lead)]
+        for i in range(1, len(res[0])):
+            items = [o[i] for o in res]
+            if state is not None and items[0] is outs[0][1]["cache_state"]:
+                joined.append(state)
+            elif kind == "tokens":  # SD3's span delta: stays on the shards
+                joined.append(_sharded_tree(items))
+            else:  # a UNet's deep feature (NCHW)
+                joined.append(gather_rows(items, group,
+                                          0 if kind == "patch" else 2, lead))
+        return tuple(joined)
 
     def param_tensors(self):
         """Every shard's parameters and buffers."""

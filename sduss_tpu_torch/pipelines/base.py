@@ -40,7 +40,8 @@ The block and compact caches (modes "block" and "compact") gate every
 pair of the UNet's ``cache_layout``.  On the patch path each request keeps
 its rows, two per patch (uncond, then cond), in ``Request.cache_rows``;
 they are gathered into the doubled patch batch each step and scattered
-back, so rows follow membership changes.  On the dense path mode "block"
+back, so rows follow membership changes (under sp a composition's rows
+stay on the shards in ``_batch_rows`` until it changes).  On the dense path mode "block"
 is cache-off, as in the JAX package, and mode "compact" keeps its rows in
 a ``"unet_compact"`` entry of the composition store, anchored by one step
 at full capacity.  The SD3 pipeline runs its own caches on its token path
@@ -70,11 +71,11 @@ from sduss_tpu_torch.models.registry import ModelBundle
 from sduss_tpu_torch.models.safety_checker import SafetyChecker
 from sduss_tpu_torch.ops import patching
 from sduss_tpu_torch.ops.patch_ctx import PatchContext, compact_context
-from sduss_tpu_torch.parallel.displaced import (ShardContext, gather_rows,
-                                                shard_rows)
 from sduss_tpu_torch.parallel.group import ShardGroup
 from sduss_tpu_torch.parallel.replica import check_group
-from sduss_tpu_torch.parallel.sharding import ShardedDenoiser
+from sduss_tpu_torch.parallel.sharding import (ShardedDenoiser,
+                                               ShardedTensor, SpStep, parts_of,
+                                               tmap)
 from sduss_tpu_torch.pipelines.graphs import (StepGraphs, keep_leaves,
                                               store, unique_nbytes)
 from sduss_tpu_torch.samplers import gather_coeffs, gather_timesteps, get_sampler
@@ -102,6 +103,19 @@ def _split_tc(tc: torch.Tensor, n_t: int, n_c: Optional[int] = None):
     return tc[:n_t], tc[n_t:n_t + 2 * n_c].view(n_c, 2)
 
 
+class _BatchRows:
+    """The block or compact rows of one patch-batch composition under sp,
+    in the pipeline's store (``_batch_rows``, keyed by the request ids):
+    the composition's requests, its meta, and the state tree whose leaves
+    the sharded route keeps on the shards.  Its requests' own
+    ``cache_rows`` are None meanwhile."""
+
+    def __init__(self, reqs, meta, state):
+        self.reqs = reqs
+        self.meta = meta
+        self.state = state
+
+
 def _latent_drift(new, ref):
     """Relative MSE of the current latent against the latent of the last
     full pass (the adaptive deep refresh's trigger), a float32 scalar."""
@@ -111,12 +125,9 @@ def _latent_drift(new, ref):
 
 def _state_nbytes(tree) -> int:
     """Bytes held by the tensors of a composition-state tree (nested dicts
-    of tensors; other leaves hold none)."""
-    if isinstance(tree, torch.Tensor):
-        return tree.numel() * tree.element_size()
-    if isinstance(tree, dict):
-        return sum(_state_nbytes(v) for v in tree.values())
-    return 0
+    of tensors, every shard's part of a sharded leaf; other leaves hold
+    none)."""
+    return sum(t.numel() * t.element_size() for t in parts_of(tree))
 
 
 class _DriftScalar:
@@ -149,8 +160,10 @@ class BasePipeline:
     ``devices``: the replica's devices, one (the bundle's) or ``sp * tp``
     of them (``parallel/replica.py``), the first the bundle's.  Over more
     than one the denoiser is a ``ShardedDenoiser`` on a ``ShardGroup``:
-    tensor-parallel forwards on every path, and with ``sp > 1`` the dense
-    step runs on row shards (:meth:`_denoise_group_displaced`).  The text
+    tensor-parallel forwards on every path, and with ``sp > 1`` every
+    forward of every path and cache runs on the sp shards through the
+    denoiser's one sharded route; the cache-off and plain deep dense step
+    adds the displaced mode (:meth:`_denoise_group_displaced`).  The text
     encoders, the VAE and the safety checker run on the lead device, where
     the requests' latents stay whole."""
 
@@ -182,6 +195,9 @@ class BasePipeline:
         # hybrid's row caches and the batch-form deep carry
         self._comp_state: collections.OrderedDict = collections.OrderedDict()
         self._deep_carry: collections.OrderedDict = collections.OrderedDict()
+        # under sp, the patch batch's block or compact rows, per
+        # composition (:meth:`_batch_cache_rows`)
+        self._batch_rows: Dict[tuple, _BatchRows] = {}
         self._cache_obj = None
         self._safety_obj = None
         # the captured step graphs of fused multi-step dispatch, and, when
@@ -266,8 +282,18 @@ class BasePipeline:
         coeffs = torch.from_numpy(gather_coeffs(tables)).to(dev)
         # the JAX branch order: a stateful sampler first (PNDM runs without
         # the caches, in both packages), then the deep cache, then compact;
-        # under sp > 1 every dense step runs on row shards
+        # under sp > 1 the sp step serves what rides its seam (cache-off,
+        # a stateful sampler, the plain deep cache), and the gated caches
+        # take their own branches, whose forwards shard all the same (the
+        # JAX package's GSPMD precedence)
         if self._sp() > 1:
+            self._check_sp_rows(reqs[0].resolution, latents.shape[1])
+            if self._sp_gated() and self._displaced_requested():
+                self._warn_once("displaced sp_mode: this cache configuration "
+                                "takes precedence — serving on the sync "
+                                "sharded path (plain deep interval "
+                                "composes; hybrid/compact/adaptive do not)")
+        if self._sp() > 1 and not self._sp_gated():
             new_latents = self._denoise_group_displaced(reqs, latents, t,
                                                         coeffs, guidance, cond)
         elif self.sampler.needs_state:
@@ -341,16 +367,29 @@ class BasePipeline:
     def _displaced_requested(self) -> bool:
         return self.config.parallel.sp_mode == "displaced" and self._sp() > 1
 
+    def _sp_gated(self) -> bool:
+        """Does a dense step under sp take a gated cache's branch (the deep
+        cache's hybrid, adaptive or predict modes, or mode "compact")
+        rather than the sp step?  A stateful sampler runs without the
+        caches, on the sp step (JAX base.py:1018-1025)."""
+        if self.sampler.needs_state:
+            return False
+        return self._compact_cache_active() or (
+            self._deep_cache_active() and not self._displaced_deep_ok())
+
+    def _check_sp_rows(self, res: int, hw: int) -> None:
+        mult = self._sp() * self._row_multiple()
+        if hw % mult:
+            raise ValueError(f"resolution {res}: {hw} latent rows do not "
+                             f"split into sp={self._sp()} shards of a "
+                             f"multiple of {self._row_multiple()} rows")
+
     def _displaced_deep_ok(self) -> bool:
         """Does the enabled cache ride the sp step?  The plain
         fixed-interval deep cache of the UNet families (JAX base.py:1028),
         the predicate ESyMReD's admission mirror shares."""
         return (self.config.cache.plain_fixed_deep()
                 and hasattr(self.bundle.denoiser, "cache_layout"))
-
-    def _displaced_ctx_cls(self):
-        """The context class of the sharded denoiser seam (SD3 overrides)."""
-        return ShardContext
 
     def _row_multiple(self) -> int:
         """Latent rows each shard's slice must be a multiple of: the UNet
@@ -362,11 +401,11 @@ class BasePipeline:
         """One dense step of a resolution group on the sp row shards (JAX
         base.py:1042-1132); returns the new latents.
 
-        Each shard steps its rows of the latents through the CFG skeleton
-        and the denoiser on a ``ShardContext`` (``MMDiTShardContext`` for
-        SD3); the guided noise rows come back to the lead device, where
-        the sampler updates the whole latents (element-wise, so the same
-        as updating each slice; a stateful sampler's state stays whole).
+        The denoiser's sharded route splits the CFG batch's rows over the
+        shards, each on a ``ShardContext`` (``MMDiTShardContext`` for SD3)
+        built from this step's :class:`SpStep`, and gathers the model
+        output on the lead device, where the CFG combine and the sampler
+        update the whole latents (a stateful sampler's state stays whole).
         ``sp_mode="gspmd"`` runs every step in sync (fresh K/V gathers,
         exact).  Under ``"displaced"`` the K/V state of a composition lives
         in ``_disp_state`` under ``(res, bucket, request ids)``, LRU 4: its
@@ -378,12 +417,6 @@ class BasePipeline:
         composition state (rows sharded like the latents), full steps
         always run sync and each mode keeps its own K/V dict."""
         res = reqs[0].resolution
-        hw = latents.shape[1]
-        mult = self._sp() * self._row_multiple()
-        if hw % mult:
-            raise ValueError(f"resolution {res}: {hw} latent rows do not "
-                             f"split into sp={self._sp()} shards of a "
-                             f"multiple of {self._row_multiple()} rows")
         bb = bucket_for(len(reqs), self.config.scheduler.batch_buckets)
         key = (res, bb, tuple(r.request_id for r in reqs))
         st = self._disp_state.get(key)
@@ -415,8 +448,15 @@ class BasePipeline:
         stale = (displaced and not stateful and mode != "full"
                  and st["warm"] >= self.config.parallel.displaced_warmup
                  and bool(kv))
-        eps, new_kv, deep_out = self._sharded_eps(
-            latents, t, coeffs, guidance, cond, stale, mode, kv, st["deep"])
+        seam = SpStep(stale, kv)
+        kw = {} if mode is None else {"deep_mode": mode}
+        if mode == "shallow":
+            kw["deep_state"] = st["deep"]
+        eps, c0, c1, deep_out = self._cfg_step(
+            latents, t, coeffs, guidance,
+            lambda lat_in, t2: self.denoiser_forward(lat_in, t2, cond,
+                                                     ctx=seam, **kw))
+        new_kv = seam.new_kv
         self.displaced_steps["stale" if stale else "sync"] += 1
         if displaced and not stateful:
             st["kv"][mode or "dense"] = new_kv
@@ -429,7 +469,6 @@ class BasePipeline:
             # ESyMReD's deep-phase admission gate reads the cadence here
             for r in reqs:
                 r.deep_state, r.deep_age = st["deep"], st["deep_age"]
-        c0, c1 = coeffs[:, 0], coeffs[:, 1]
         if stateful:
             self._init_sampler_state(reqs)
             state = {k: torch.cat([r.sampler_state[k] for r in reqs])
@@ -443,49 +482,32 @@ class BasePipeline:
         self._trim_row_state(self._disp_state)
         return new_latents
 
-    def _sharded_eps(self, latents, t, coeffs, guidance, cond, stale: bool,
-                     mode, kv: dict, deep):
-        """The guided noise of a dense batch from the sp row shards:
-        ``(eps (B, H, W, C) on the lead device, {rank: new K/V}, the full
-        step's deep feature or None)``.  ``kv``: each rank's stale K/V;
-        ``deep``: the composition's feature (NCHW, its rows split like the
-        latents) for a shallow step."""
-        group = self.group
-        ctx_cls = self._displaced_ctx_cls()
-
-        def local(rank):
-            dev = group.device(rank)
-            lat = shard_rows(latents, group, "sp", 1, rank)
-            t_, c_, g_ = (a.to(dev) for a in (t, coeffs, guidance))
-            cond_ = {k: v.to(dev) for k, v in cond.items()}
-            ctx = ctx_cls(group, "sp", stale=stale, kv_state=kv.get(rank))
-            kw = {} if mode is None else {"deep_mode": mode}
-            if mode == "shallow":
-                kw["deep_state"] = shard_rows(deep, group, "sp", 2, rank)
-            eps, _, _, feature = self._cfg_step(
-                lat, t_, c_, g_, lambda lat_in, t2: self.denoiser_forward(
-                    lat_in, t2, cond_, ctx=ctx, **kw))
-            return eps, ctx.new_kv_state, feature
-
-        outs = group.run(local)
-        eps = gather_rows([o[0] for o in outs], group, 1, self.device)
-        feature = (gather_rows([o[2] for o in outs], group, 2, self.device)
-                   if mode == "full" else None)
-        return eps, {r: o[1] for r, o in enumerate(outs)}, feature
-
-    def _sp_chunk(self, reqs_by_res, k: int) -> bool:
+    def _sp_chunk(self, reqs_by_res, k: int, mixed: bool = False) -> bool:
         """A chunk under sp > 1: its k steps run one after another through
-        the sharded step (eager, no step graphs); False where JAX refuses a
-        chunk (``sp_mode="displaced"``, a stateful sampler, mixed
-        resolutions, a request with fewer than k steps)."""
+        the sharded step (eager, no step graphs), the dense step's or
+        (``mixed``) the mixed one's; False where JAX refuses a chunk
+        (``sp_mode="displaced"``, JAX base.py:525-747 and :2010-2334; a
+        stateful sampler; a request with fewer than k steps; the adaptive
+        refresh or ``deep_predict``; on the dense path mixed resolutions;
+        on the patch path a resolution that does not divide into
+        patches)."""
         ordered = [r for res in sorted(reqs_by_res) for r in reqs_by_res[res]]
+        cc = self.config.cache
         if (not ordered or k <= 1 or self._displaced_requested()
                 or self.sampler.needs_state
-                or len({r.resolution for r in ordered}) != 1
-                or any(r.remain_steps < k for r in ordered)):
+                or any(r.remain_steps < k for r in ordered)
+                or (cc.enabled and cc.mode == "deep"
+                    and (cc.deep_adaptive or cc.deep_predict))):
             return False
+        if not mixed and len({r.resolution for r in ordered}) != 1:
+            return False
+        cells = self.config.scheduler.patch_size // self.vae_scale
+        if mixed and any(r.latent_hw(self.vae_scale) % cells
+                         for r in ordered):
+            return False
+        step = self.denoise_step_mixed if mixed else self.denoise_step
         for _ in range(k):
-            self.denoise_step(reqs_by_res)
+            step(reqs_by_res)
         return True
 
     # -- the compact cache on the dense path (CacheConfig.mode "compact") ---
@@ -872,18 +894,26 @@ class BasePipeline:
                 idx[j] = i
                 idx[bb + j] = old_bb + i
         parent_entry = self._comp_state.pop(parent)
-        gather = torch.from_numpy(np.maximum(idx, 0)).to(self.device)
-        fresh_rows = torch.from_numpy(idx < 0).to(self.device)
+        gather = torch.from_numpy(np.maximum(idx, 0))
+        fresh_rows = torch.from_numpy(idx < 0)
         maxh = int(self.config.cache.max_hits)
         old, state = parent_entry["state"], {}
+
+        # on every shard's part under sp (rows are batch rows there too)
+        def carry(v):
+            g, f = gather.to(v.device), fresh_rows.to(v.device)
+            return v[g].masked_fill_(f.reshape((-1,) + (1,) * (v.dim() - 1)),
+                                     0)
+
+        def carry_hits(h):
+            g, f = gather.to(h.device), fresh_rows.to(h.device)
+            return torch.where(f, maxh, h[g].clamp(max=maxh - 1)).to(
+                torch.int32)
+
         for k in list(old):
             st = old.pop(k)  # the parent's rows go as the new ones come
-            new = {k2: v[gather].masked_fill_(
-                fresh_rows.reshape((-1,) + (1,) * (v.dim() - 1)), 0)
-                for k2, v in st.items()}
-            new["hits"] = torch.where(
-                fresh_rows, maxh, st["hits"][gather].clamp(max=maxh - 1)
-            ).to(torch.int32)
+            new = {k2: tmap(carry, v) for k2, v in st.items()}
+            new["hits"] = tmap(carry_hits, st["hits"])
             state[k] = new  # a fresh row's "seen" is False by the fill
         entry = {"state": state, "anchored": parent_entry["anchored"]}
         self._comp_state[key] = entry
@@ -898,8 +928,9 @@ class BasePipeline:
         nb = bucket_for(len(live), self.config.scheduler.batch_buckets)
         pos = {rid: i for i, rid in enumerate(ids)}
         idx = [pos[live[min(j, len(live) - 1)]] for j in range(nb)]
-        g = torch.tensor(idx + [i + bb for i in idx], device=self.device)
-        state = {k: {k2: v[g] for k2, v in st.items()}
+        g = torch.tensor(idx + [i + bb for i in idx])
+        state = {k: {k2: tmap(lambda v: v[g.to(v.device)], v)
+                     for k2, v in st.items()}
                  for k, st in entry["state"].items()}
         store[(kind, res, nb, tuple(live), sig)] = {"state": state,
                                                     "anchored": True}
@@ -944,6 +975,7 @@ class BasePipeline:
         self._comp_state.clear()
         self._deep_carry.clear()
         self._disp_state.clear()
+        self._batch_rows.clear()
         self.graphs.drop_rows()
 
     def evict_finished_state(self, req_ids) -> None:
@@ -960,6 +992,7 @@ class BasePipeline:
             del self._deep_carry[k]
         for k in [k for k in self._disp_state if ids.intersection(k[2])]:
             del self._disp_state[k]
+        self._release_batch_rows(ids, finished=True)
         store = self._comp_state
         for k in [k for k in store if ids.intersection(k[3])]:
             entry = store.pop(k)
@@ -1061,6 +1094,11 @@ class BasePipeline:
                                               new_state)
         elif cache is None:
             new_x = self._mixed_fn(x, t, coeffs, guidance, cond, ctx1, ctx2)
+        elif self._sp() > 1:
+            state = self._batch_cache_rows(ordered, grids, meta, cells)
+            new_x, _ = self._mixed_fn(x, t, coeffs, guidance, cond, ctx1,
+                                      ctx2, deep=dict(cache=cache,
+                                                      cache_state=state))
         else:
             state = self._gather_cache_state(ordered, grids, meta, cells)
             new_x, _ = self._mixed_fn(x, t, coeffs, guidance, cond, ctx1,
@@ -1175,6 +1213,54 @@ class BasePipeline:
             state[key] = {k: torch.cat([p[k] for p in parts])
                           for k in parts[0]}
         return state
+
+    def _batch_cache_rows(self, ordered, grids, meta, cells) -> dict:
+        """The patch batch's rows under sp: they stay on the shards (the
+        sharded route splits them at their first forward) in one
+        :class:`_BatchRows` of the store ``_batch_rows``.  A stable
+        composition reuses it as it is; any other first gives the requests
+        of every stored batch it shares a request with their rows back
+        (:meth:`_release_batch_rows`), then lays out the new batch as
+        :meth:`_gather_cache_state` does."""
+        ids = tuple(r.request_id for r in ordered)
+        rows = self._batch_rows.get(ids)
+        if rows is not None and rows.meta is meta:
+            return rows.state
+        self._release_batch_rows(set(ids))
+        rows = _BatchRows(list(ordered), meta,
+                          self._gather_cache_state(ordered, grids, meta,
+                                                   cells))
+        for r in ordered:
+            r.cache_rows = None
+        self._batch_rows[ids] = rows
+        return rows.state
+
+    def _release_batch_rows(self, ids, finished: bool = False) -> None:
+        """Drop every stored batch of rows that holds one of ``ids``, and
+        give its requests their rows back, ``2 g^2`` a pair, whole on the
+        lead device; with ``finished`` (``ids`` have finished) only the
+        others take theirs."""
+        def whole(v):
+            if not isinstance(v, ShardedTensor):
+                return v
+            return torch.cat([v.parts[q].to(self.device)
+                              for q in self.group.lead_ranks()])
+
+        for key in [k for k in self._batch_rows if ids.intersection(k)]:
+            rows = self._batch_rows.pop(key)
+            if finished and ids.issuperset(key):
+                continue
+            state = {name: {k: whole(v) for k, v in entry.items()}
+                     for name, entry in rows.state.items()}
+            off = 0
+            for r, g in zip(rows.reqs, rows.meta.grids):
+                n, c = g * g, rows.meta.p_pad + off
+                off += n
+                if not (finished and r.request_id in ids):
+                    r.cache_rows = {
+                        name: {k: torch.cat([a[off - n:off], a[c:c + n]])
+                               for k, a in entry.items()}
+                        for name, entry in state.items()}
 
     def _scatter_cache_state(self, ordered, grids, meta, state) -> None:
         """The batch's updated rows back to each request (inverse of
@@ -1628,7 +1714,10 @@ class BasePipeline:
         step j is full when ``(j + off) % itv == 0``, ``off = (a0 + 1) %
         itv``, with ``a0 = itv - 1`` when a batch-wide full is due now
         (the carry starts as zeros, written before any read) and the
-        requests' common age otherwise."""
+        requests' common age otherwise.  Under sp > 1 the chunk's steps run
+        eagerly through the sharded step (:meth:`_sp_chunk`)."""
+        if self._sp() > 1:
+            return self._sp_chunk(reqs_by_res, k, mixed=True)
         ordered: List[Request] = []
         for res in sorted(reqs_by_res):
             ordered.extend(reqs_by_res[res])
@@ -1872,13 +1961,39 @@ class BasePipeline:
                                  self.bundle.dtype, meta)
             for key, (s, c_in, c_out) in layout.items()})
 
-    def _state_trees(self) -> list:
+    def _store_trees(self) -> list:
         """The device state of the composition stores, the sp step's K/V
         and deep features included (every shard's full-sequence K/V count,
         as the row caches do)."""
         return ([e["state"] for e in list(self._comp_state.values())]
                 + [{"kv": e["kv"], "deep": e["deep"]}
                    for e in list(self._disp_state.values())])
+
+    def _state_trees(self) -> list:
+        """The stores' state and, under sp, the patch batch's rows, which
+        one device keeps on its requests."""
+        return (self._store_trees()
+                + [b.state for b in list(self._batch_rows.values())])
+
+    def shard_state_bytes(self) -> List[int]:
+        """Bytes of the composition stores' state on each shard, rank order
+        (a whole tensor on the lead device counts to rank 0)."""
+        out = [0] * (1 if self.group is None else self.group.size)
+
+        def walk(tree):
+            if isinstance(tree, torch.Tensor):
+                out[0] += tree.numel() * tree.element_size()
+            elif isinstance(tree, ShardedTensor):
+                for r, p in enumerate(tree.parts):
+                    if p is not None:
+                        out[r] += p.numel() * p.element_size()
+            elif isinstance(tree, dict):
+                for v in tree.values():
+                    walk(v)
+
+        for tree in self._state_trees():
+            walk(tree)
+        return out
 
     def _live_state_bytes(self) -> int:
         """Bytes of the composition stores and of the step graphs' buffers,
@@ -1888,8 +2003,9 @@ class BasePipeline:
     def _row_state_bytes(self) -> int:
         """Bytes of the row state ``comp_state_bytes`` bounds: the
         composition stores and the step sets' row buffers, each tensor
-        once."""
-        return unique_nbytes(self._state_trees() + self.graphs.row_states())
+        once (a request's rows, or under sp its batch's, are not
+        bounded)."""
+        return unique_nbytes(self._store_trees() + self.graphs.row_states())
 
     def post_overlap_ok(self, reqs_by_res) -> bool:
         """May this postprocess run on the background thread while the

@@ -65,6 +65,7 @@ from sduss_tpu_torch.ops.flash import (flash_cross_short, flash_mha,
                                        flash_mha_fused, flash_mha_masked)
 from sduss_tpu_torch.ops.gn_halo import gn_silu_halo
 from sduss_tpu_torch.parallel.replica import on_device
+from sduss_tpu_torch.parallel.sharding import parts_of
 
 # The wrappers whose ``launches`` counters chip_smoke reads.
 COUNTED = (flash_mha_fused, flash_mha, flash_mha_masked, flash_cross_short,
@@ -126,9 +127,10 @@ def same_shapes(a, b) -> bool:
 
 
 def unique_nbytes(trees) -> int:
-    """Bytes of the tensors of ``trees``, each storage counted once."""
-    seen = {t.data_ptr(): t.numel() * t.element_size()
-            for tree in trees for _, t in _leaves(tree)}
+    """Bytes of the tensors of ``trees`` (every shard's part of a sharded
+    leaf included), each storage counted once."""
+    seen = {(t.device, t.data_ptr()): t.numel() * t.element_size()
+            for tree in trees for t in parts_of(tree)}
     return sum(seen.values())
 
 

@@ -41,7 +41,7 @@ import torch
 
 from sduss_tpu_torch.cache.manager import BlockCache
 from sduss_tpu_torch.config import bucket_for
-from sduss_tpu_torch.parallel.displaced import MMDiTShardContext
+from sduss_tpu_torch.parallel.sharding import ShardedTensor, tmap
 from sduss_tpu_torch.pipelines.base import (_PAD, BasePipeline, _split_tc,
                                             _state_nbytes)
 from sduss_tpu_torch.pipelines.graphs import clone_tree, keep_leaves, store
@@ -119,9 +119,6 @@ class StableDiffusion3Pipeline(BasePipeline):
         pooled = torch.cat([cond["neg_pooled"], cond["pooled"]], dim=0)
         return self.denoiser(latents_in, t, ehs.to(dtype), pooled.to(dtype),
                              ctx=ctx)
-
-    def _displaced_ctx_cls(self):
-        return MMDiTShardContext
 
     def _row_multiple(self) -> int:
         """A shard's latent rows must tile into 2x2 patches."""
@@ -531,8 +528,8 @@ class StableDiffusion3Pipeline(BasePipeline):
         for k in [k for k in list(self._sd3_state) if ids.intersection(k[2])]:
             self._sd3_state.pop(k, None)
 
-    def _state_trees(self) -> list:
-        return super()._state_trees() + list(self._sd3_state.values())
+    def _store_trees(self) -> list:
+        return super()._store_trees() + list(self._sd3_state.values())
 
     def _live_entries(self) -> list:
         return super()._live_entries() + list(self._sd3_state.values())
@@ -551,8 +548,9 @@ class StableDiffusion3Pipeline(BasePipeline):
         if not m or sl is None:
             return dp
         k = float(entry["deep_age"] + 1)
-        return {n: (d.float() + m * k * sl[n].float()).to(d.dtype)
-                for n, d in dp.items()}
+        # on every shard's part under sp
+        return tmap(lambda d, s: (d.float() + m * k * s.float()).to(d.dtype),
+                    dp, sl)
 
     def _sd3_deep_update_slope(self, entry, new) -> None:
         """On a full pass with ``deep_predict``: the per-step velocity
@@ -562,12 +560,20 @@ class StableDiffusion3Pipeline(BasePipeline):
             return
         old = entry["deep"]
         if (old is None or set(old) != set(new)
-                or any(old[n].shape != new[n].shape for n in new)):
+                or any(_shape(old[n]) != _shape(new[n]) for n in new)):
             entry["deep_slope"] = None
             return
         g = float(entry["deep_age"] + 1)
-        entry["deep_slope"] = {n: ((new[n].float() - old[n].float()) / g).to(
-            new[n].dtype) for n in new}
+        entry["deep_slope"] = tmap(
+            lambda n_, o: ((n_.float() - o.float()) / g).to(n_.dtype),
+            new, old)
+
+
+def _shape(t):
+    """A tensor's shape, or the shapes of a sharded tensor's parts."""
+    if isinstance(t, ShardedTensor):
+        return tuple(None if p is None else tuple(p.shape) for p in t.parts)
+    return tuple(t.shape)
 
 
 def _groups(ordered):

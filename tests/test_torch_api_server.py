@@ -188,7 +188,7 @@ def test_http_surface_matches_jax(servers):
     # a device row per replica names the platform and the replica's load
     assert port_call(servers, "GET", "/stats", None)[1]["devices"] == [
         {"platform": "cpu", "dp_rank": 0, "pending_pixels": 0,
-         "unfinished": 0}]
+         "unfinished": 0, "state_bytes": 0}]
 
 
 def test_latents_match_jax(servers):
@@ -437,19 +437,18 @@ def test_cli_config_matches_jax(argv):
     ["--prewarm"], ["--model-path", "/nonexistent/snapshot"],
 ])
 def test_unported_flags_raise(flags):
-    """What the port does not serve raises (``--sp 2`` on the default
-    mixed patch path, ROADMAP item 13), and so does a snapshot that is not
-    there; ``--use-cache`` in modes "block" and "compact" serves (one mixed
-    step of finite latents through the cache), and so do ``--prewarm``
-    (the engine it configures serves the same step), ``--dp 2`` (two
-    replicas, one request each) and ``--tp 2`` (one replica over two
-    shards)."""
+    """A snapshot that is not there raises; ``--use-cache`` in modes
+    "block" and "compact" serves (one mixed step of finite latents through
+    the cache), and so do ``--prewarm`` (the engine it configures serves
+    the same step), ``--dp 2`` (two replicas, one request each), ``--tp
+    2`` and ``--sp 2`` (one replica over two shards, the patch batch split
+    over them under sp)."""
     p = argparse.ArgumentParser()
     add_engine_args(p)
     config = config_from_args(p.parse_args(
         ["--test-tiny", "--dtype", "float32"] + flags))
     if ("--use-cache" in flags or "--prewarm" in flags or "--dp" in flags
-            or "--tp" in flags):
+            or "--tp" in flags or "--sp" in flags):
         assert config.engine.prewarm == ("--prewarm" in flags)
         config.scheduler.patch_size = 64
         engine = Engine(config, "cpu")
@@ -466,6 +465,8 @@ def test_unported_flags_raise(flags):
             assert [w.iteration > 0 for w in engine.workers] == [True] * 2
         if "--tp" in flags:
             assert engine.workers[0].pipeline.group.tp == 2
+        if "--sp" in flags:
+            assert engine.workers[0].pipeline.group.sp == 2
         assert all(o.finished and np.isfinite(o.image).all() for o in outs)
         return
     error = FileNotFoundError if "--model-path" in flags \

@@ -307,10 +307,10 @@ def _refused(family="sdxl", **changes) -> Config:
     # the tiny MMDiT's 2 blocks
     (_refused("sd3", scheduler__steps_per_dispatch=4,
               cache__sd3_deep_span=(1, 2)), None),
-    # dp replicas are served; sp above 1 with SD3's span cache, with the
-    # mixed-resolution paths or with a gated cache is not (item 13)
+    # dp replicas are served, and so is sp above 1 with SD3's span cache,
+    # with the mixed-resolution paths and with a gated cache
     (_refused("sd3", parallel__dp=2, cache__sd3_deep_span=(1, 2)), None),
-    (_refused("sd3", parallel__sp=2), "item 13"),
+    (_refused("sd3", parallel__sp=2, cache__sd3_deep_span=(1, 2)), None),
     # the UNet families' modes "block" and "compact" are served (item None)
     (_refused(cache__mode="block"), None),
     (_refused(cache__mode="compact"), None),
@@ -321,9 +321,9 @@ def _refused(family="sdxl", **changes) -> Config:
     (_refused(parallel__sp=2, cache__deep_adaptive=False,
               cache__deep_predict=0.0, cache__deep_compact_fraction=None),
      None),
-    (_refused(parallel__sp=2), "item 13"),
+    (_refused(parallel__sp=2), None),
     (_refused(parallel__sp=2, scheduler__use_mixed_resolution=True,
-              cache__enabled=False), "item 13"),
+              cache__enabled=False), None),
     (_refused(parallel__pp=2), "MMDiTStagePipeline"),
 ], ids=["sd3", "sd3-span", "sd3-sp", "block", "compact", "multi-step",
         "tp", "sp-plain-deep", "sp-gated", "sp-mixed", "pp"])

@@ -264,4 +264,4 @@ def test_async_engine_serves_replicas_and_stats_rows(bundle):
     assert [w.iteration > 0 for w in engine.workers] == [True, True]
     assert engine.stats.summary("sd15")["finished"] == 2
     assert rows == [{"platform": "cpu", "dp_rank": r, "pending_pixels": 0,
-                     "unfinished": 0} for r in (0, 1)]
+                     "unfinished": 0, "state_bytes": 0} for r in (0, 1)]

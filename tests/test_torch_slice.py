@@ -203,18 +203,13 @@ def test_cuda_device_required_by_default():
     ("scheduler", "steps_per_dispatch", 4),
 ])
 def test_unported_configs_raise(section, field, value):
-    """What the port does not serve (sp above 1 on the default mixed patch
-    path, ROADMAP item 13) raises when the pipeline is built; the block
-    cache (``cache.enabled``,
-    mode "block" by default) serves one mixed step of finite latents
-    through the cache, ``steps_per_dispatch=4`` one mixed 4-step chunk,
-    and ``dp=2`` one step on each of two replicas."""
+    """Each configuration serves on the default mixed patch path: the
+    block cache (``cache.enabled``, mode "block" by default) one mixed
+    step of finite latents through the cache, ``steps_per_dispatch=4`` one
+    mixed 4-step chunk, ``dp=2`` one step on each of two replicas, and
+    ``sp=2`` one mixed step on the patch batch split over two shards."""
     config = default_config("sdxl", dtype="float32", test_tiny=True)
     setattr(getattr(config, section), field, value)
-    if (section, field) == ("parallel", "sp"):
-        with pytest.raises(NotImplementedError):
-            DiffusionPipeline(config=config, device="cpu")
-        return
     config.scheduler.patch_size = 64
     pipe = DiffusionPipeline(config=config, device="cpu")
     inner = pipe.engine.workers[0].pipeline
@@ -229,6 +224,8 @@ def test_unported_configs_raise(section, field, value):
         assert inner._cache_obj is not None
     elif section == "scheduler":
         assert chunks == [4]
+    elif field == "sp":
+        assert inner.group.sp == 2 and len(inner.devices) == 2
     else:  # greedy dispatch: one request on each replica
         assert [w.iteration > 0 for w in pipe.engine.workers] == [True] * 2
     assert all(o.finished and np.isfinite(o.image).all() for o in outs)
