@@ -3524,7 +3524,6 @@ def serve_chunked(card: str, bundle: ModelBundle, label: str, config,
             rec["graph_bytes"] = torch.cuda.memory_reserved() - r0
             rec["buffer_bytes"] = unique_nbytes(pipe.graphs.buffers())
             rec["captures"] = pipe.graphs.captures
-            rec["capture_s"] = pipe.graphs.capture_s
             rec["row_bytes"] = check_row_budget(pipe, cfg, label, "prewarm")
             pipe.graphs.events = []
         pipe.step_modes = []
@@ -3614,7 +3613,7 @@ def serve_chunked(card: str, bundle: ModelBundle, label: str, config,
           f"{chunked['launches']}; end to end {chunked['wall_s']:.3f} s "
           f"chunked, {stepped['wall_s']:.3f} s per-step; prewarm "
           f"{chunked['prewarm_s']:.1f} s, {chunked['captures']} graphs "
-          f"captured in {chunked['capture_s']:.2f} s, "
+          "captured, "
           f"graph memory {chunked['graph_bytes'] / 2**20:.1f} MiB (step-set "
           f"buffers {chunked['buffer_bytes'] / 2**20:.1f} MiB, row state "
           f"after prewarm {chunked['row_bytes'] / 2**20:.1f} MiB) against the "

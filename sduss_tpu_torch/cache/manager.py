@@ -57,6 +57,7 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
+from sduss_tpu_torch import tracing
 from sduss_tpu_torch.config import CacheConfig
 
 
@@ -292,6 +293,12 @@ class BlockCache:
         y = self._compact_splice(state_k, x_c, compute_fn(x_c, idx), idx)
         return y, state_k, {"idx": idx, "scores": scores}
 
+    @staticmethod
+    def pair_cap(pairs: int, fraction: float) -> int:
+        """The CFG pairs that :meth:`gate_compact_pairs` recomputes in a
+        batch of ``pairs`` at ``fraction`` (at least one)."""
+        return max(1, round(pairs * fraction))
+
     def gate_compact_pairs(self, key: str, x, t_norm, state_k: dict,
                            compute_fn: Callable, n_pairs: int,
                            row_valid=None, reducer=None):
@@ -299,15 +306,18 @@ class BlockCache:
         ``[uncond | cond]`` halves of the same images, a pair scores the sum
         of its halves, and both rows of a selected pair recompute
         together.  ``row_valid`` marks real rows in both halves."""
-        n = x.shape[0] // 2
-        scores = self._scores(key, x, state_k, t_norm, reducer)
-        if row_valid is not None:
-            scores = torch.where(row_valid, scores, -torch.inf)
-        pidx = top_k_stable(scores[:n] + scores[n:], n_pairs)
-        idx = torch.cat([pidx, pidx + n])
-        x_c = x[idx]
-        y = self._compact_splice(state_k, x_c, compute_fn(x_c, idx), idx)
-        return y, state_k, {"idx": idx, "scores": scores}
+        with tracing.span("cache.gate") as sp:
+            if sp:
+                sp.set(key=key, cap=n_pairs)
+            n = x.shape[0] // 2
+            scores = self._scores(key, x, state_k, t_norm, reducer)
+            if row_valid is not None:
+                scores = torch.where(row_valid, scores, -torch.inf)
+            pidx = top_k_stable(scores[:n] + scores[n:], n_pairs)
+            idx = torch.cat([pidx, pidx + n])
+            x_c = x[idx]
+            y = self._compact_splice(state_k, x_c, compute_fn(x_c, idx), idx)
+            return y, state_k, {"idx": idx, "scores": scores}
 
     def gate_compact_images(self, key: str, x, t_norm, state_k: dict,
                             compute_fn: Callable, ctx, caps,
@@ -350,66 +360,69 @@ class BlockCache:
 
         Returns ``(y, state_k, stats)``, ``y`` the updated ``out`` rows.
         """
-        # rows are patches, each whole on one shard: the scores are local,
-        # and a shard ranks every shard's (``ctx.rows_all``)
-        scores = ctx.rows_all(self._scores(key, x, state_k, t_norm))
-        view = ctx.gate_view()
-        valid = view.patch_valid
-        num = view.image_onehot @ torch.where(valid, scores, 0.0)
-        den = view.image_onehot @ valid.float()
-        img_scores = num / den.clamp(min=1.0)
-        if cfg_pair_offset is not None:
-            h = cfg_pair_offset
-            sym = 0.5 * (img_scores[:h] + img_scores[h:2 * h])
-            img_scores = torch.cat([sym, sym])
-        gathers, images = [], []
-        for ci in range(len(view.meta.class_info)):
-            slots = view.class_slots[ci]         # (ipc, g*g), -1 = pad slot
-            slot_valid = view.class_kv[ci][:, 0]
-            img_ids = view.image_id[slots[:, 0].clamp(min=0)]
-            s_c = torch.where(slot_valid, img_scores[img_ids], -torch.inf)
-            sel = top_k_stable(s_c, caps[ci])
-            gathers.append(slots[sel].reshape(-1))
-            images.append(img_ids[sel])
-        gidx = torch.cat(gathers)
-        sel_imgs = torch.cat(images)
-        src = gidx.clamp(min=0)
-        stats = {"gather": gidx, "images": sel_imgs}
-        # real slots score finite, pads -inf, so a class's selection holds
-        # its real images first: the rows to write are known on the host
-        rows = view.real_rows(caps)
-        # the sub-batch's rows; this context computes its range of them
-        x_sel = ctx.rows_all(x)[src]
-        lo, hi = sub_range or (0, None)
-        mine = src[lo:hi]
-        if two_level and self.config.patch_fraction < 1.0:
-            p_sub = gidx.shape[0]
-            k_q = max(1, int(round(p_sub * self.config.patch_fraction)))
-            scores_sub = scores[src]
-            if rows is not None:
-                ok = torch.zeros(p_sub, dtype=torch.bool, device=x.device)
-                scores_sub = torch.where(ok.index_fill_(0, rows, True),
-                                         scores_sub, -torch.inf)
-            tok_sel = top_k_stable(scores_sub, k_q)
-            y_w = compute_fn(x_sel[lo:hi], mine, sel_imgs, tok_sel)
-            # the real rows outrank the -inf pads: the first ones selected
-            n_real = k_q if rows is None else min(k_q, len(rows))
-            tok_w = tok_sel[:n_real]
-            sidx, x_w, y_w = gidx[tok_w], x_sel[tok_w], y_w[:n_real]
-            stats["tok_sel"] = tok_sel
-        else:
-            y_w = ctx.rows_all(compute_fn(x_sel[lo:hi], mine, sel_imgs))
-            sidx, x_w = gidx, x_sel
-            if rows is not None:
-                sidx, x_w, y_w = gidx[rows], x_sel[rows], y_w[rows]
-        out, hits = state_k["out"], state_k["hits"]
-        ctx.write_rows(state_k["inp"], sidx, x_w)
-        ctx.write_rows(out, sidx, y_w)
-        hits.add_(1)
-        ctx.write_rows(hits, sidx, hits.new_zeros(sidx.shape))
-        state_k.pop("slope", None)
-        state_k.pop("seen", None)
-        return out.to(y_w.dtype), state_k, stats
+        with tracing.span("cache.gate") as sp:
+            if sp:
+                sp.set(key=key, caps=list(caps))
+            # rows are patches, each whole on one shard: the scores are local,
+            # and a shard ranks every shard's (``ctx.rows_all``)
+            scores = ctx.rows_all(self._scores(key, x, state_k, t_norm))
+            view = ctx.gate_view()
+            valid = view.patch_valid
+            num = view.image_onehot @ torch.where(valid, scores, 0.0)
+            den = view.image_onehot @ valid.float()
+            img_scores = num / den.clamp(min=1.0)
+            if cfg_pair_offset is not None:
+                h = cfg_pair_offset
+                sym = 0.5 * (img_scores[:h] + img_scores[h:2 * h])
+                img_scores = torch.cat([sym, sym])
+            gathers, images = [], []
+            for ci in range(len(view.meta.class_info)):
+                slots = view.class_slots[ci]         # (ipc, g*g), -1 = pad slot
+                slot_valid = view.class_kv[ci][:, 0]
+                img_ids = view.image_id[slots[:, 0].clamp(min=0)]
+                s_c = torch.where(slot_valid, img_scores[img_ids], -torch.inf)
+                sel = top_k_stable(s_c, caps[ci])
+                gathers.append(slots[sel].reshape(-1))
+                images.append(img_ids[sel])
+            gidx = torch.cat(gathers)
+            sel_imgs = torch.cat(images)
+            src = gidx.clamp(min=0)
+            stats = {"gather": gidx, "images": sel_imgs}
+            # real slots score finite, pads -inf, so a class's selection holds
+            # its real images first: the rows to write are known on the host
+            rows = view.real_rows(caps)
+            # the sub-batch's rows; this context computes its range of them
+            x_sel = ctx.rows_all(x)[src]
+            lo, hi = sub_range or (0, None)
+            mine = src[lo:hi]
+            if two_level and self.config.patch_fraction < 1.0:
+                p_sub = gidx.shape[0]
+                k_q = max(1, int(round(p_sub * self.config.patch_fraction)))
+                scores_sub = scores[src]
+                if rows is not None:
+                    ok = torch.zeros(p_sub, dtype=torch.bool, device=x.device)
+                    scores_sub = torch.where(ok.index_fill_(0, rows, True),
+                                             scores_sub, -torch.inf)
+                tok_sel = top_k_stable(scores_sub, k_q)
+                y_w = compute_fn(x_sel[lo:hi], mine, sel_imgs, tok_sel)
+                # the real rows outrank the -inf pads: the first ones selected
+                n_real = k_q if rows is None else min(k_q, len(rows))
+                tok_w = tok_sel[:n_real]
+                sidx, x_w, y_w = gidx[tok_w], x_sel[tok_w], y_w[:n_real]
+                stats["tok_sel"] = tok_sel
+            else:
+                y_w = ctx.rows_all(compute_fn(x_sel[lo:hi], mine, sel_imgs))
+                sidx, x_w = gidx, x_sel
+                if rows is not None:
+                    sidx, x_w, y_w = gidx[rows], x_sel[rows], y_w[rows]
+            out, hits = state_k["out"], state_k["hits"]
+            ctx.write_rows(state_k["inp"], sidx, x_w)
+            ctx.write_rows(out, sidx, y_w)
+            hits.add_(1)
+            ctx.write_rows(hits, sidx, hits.new_zeros(sidx.shape))
+            state_k.pop("slope", None)
+            state_k.pop("seen", None)
+            return out.to(y_w.dtype), state_k, stats
 
     def _compact_splice(self, state_k: dict, x_c, y_c, idx):
         """Scatter the fresh rows into the cached outputs and the state.

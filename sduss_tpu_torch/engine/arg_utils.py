@@ -75,7 +75,10 @@ def add_engine_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
 
     g = parser.add_argument_group("engine")
     g.add_argument("--dispatcher-policy", type=str, default="greedy")
-    g.add_argument("--collect-data", action="store_true")
+    g.add_argument("--collect-data", action="store_true",
+                   help="record the schedule log, spans and counters, and "
+                        "write them to engine.collect_dir when the engine "
+                        "stops (README)")
     g.add_argument("--prewarm", action="store_true",
                    help="build the kernels and capture the step graphs "
                         "before serving (Engine.prewarm)")

@@ -18,6 +18,7 @@ from typing import Dict, Optional
 
 import torch
 
+from sduss_tpu_torch import tracing
 from sduss_tpu_torch.config import Config
 from sduss_tpu_torch.engine.engine import Engine
 from sduss_tpu_torch.logger import init_logger
@@ -95,6 +96,8 @@ class AsyncEngine:
         self._executor.shutdown(wait=False)
         if self.config.engine.collect_data:
             self.engine.dump_data()
+        # the recorder follows the engine's lifetime; what it holds stays
+        tracing.enable(False)
 
     @property
     def is_running(self) -> bool:

@@ -37,7 +37,7 @@ from sduss_tpu_torch.dispatcher import get_dispatch_policy
 from sduss_tpu_torch.logger import init_logger
 from sduss_tpu_torch.metrics import EngineStats
 from sduss_tpu_torch.request import Request, RequestOutput, SamplingParams, Stage
-from sduss_tpu_torch import configure_numerics
+from sduss_tpu_torch import configure_numerics, tracing
 from sduss_tpu_torch.engine.worker import Worker
 from sduss_tpu_torch.models.registry import ModelBundle
 from sduss_tpu_torch.parallel.replica import (build_placements, canonical,
@@ -88,6 +88,7 @@ class Engine:
                                "explicitly to run on the CPU")
         check_supported(config)
         configure_numerics()
+        tracing.enable(config.engine.collect_data)
         self.config = config
         par = config.parallel
         placements = build_placements(par.dp, par.sp, par.tp, par.devices,
@@ -113,12 +114,13 @@ class Engine:
     # -- request API ---------------------------------------------------------
 
     def add_requests(self, reqs: Sequence[Request]) -> None:
-        for req in reqs:
-            if req.request_id in self._known:
-                raise ValueError(f"duplicate request id {req.request_id}")
-            self._known[req.request_id] = -1
-            self._waiting.append(req)
-            self.stats.on_arrival(req)
+        with tracing.span("engine.add", reqs):
+            for req in reqs:
+                if req.request_id in self._known:
+                    raise ValueError(f"duplicate request id {req.request_id}")
+                self._known[req.request_id] = -1
+                self._waiting.append(req)
+                self.stats.on_arrival(req)
 
     def add_request(self, request_id: str, params: SamplingParams,
                     deadline: Optional[float] = None) -> Request:
@@ -128,7 +130,11 @@ class Engine:
 
     def abort_requests(self, request_ids: Sequence[str]) -> List[RequestOutput]:
         outs: List[RequestOutput] = []
-        ids = set(request_ids)
+        with tracing.span("engine.abort", outs):
+            self._abort(set(request_ids), outs)
+        return outs
+
+    def _abort(self, ids: set, outs: List[RequestOutput]) -> None:
         still_waiting = []
         for req in self._waiting:
             if req.request_id in ids:
@@ -147,7 +153,6 @@ class Engine:
                 ids.discard(req.request_id)
         for out in outs:
             self.stats.on_finish(out)
-        return outs
 
     def has_unfinished_requests(self) -> bool:
         return bool(self._waiting) or any(w.has_unfinished()
@@ -159,6 +164,10 @@ class Engine:
         """Dispatch the waiting requests over the replicas (each request's
         ``dp_rank``), run one iteration on each replica, collect finished
         outputs (JAX engine.py:118-139)."""
+        with tracing.span("engine.step"):
+            return self._step()
+
+    def _step(self) -> List[RequestOutput]:
         if self._waiting:
             loads = [w.pending_pixels() for w in self.workers]
             ranks = self.dispatch_policy.assign(self._waiting, loads)
@@ -418,12 +427,15 @@ class Engine:
     # -- data collection -----------------------------------------------------
 
     def dump_data(self, out_dir: Optional[str] = None) -> None:
-        """Write ``request_data.csv`` and ``schedule_rank{r}.csv`` (each
-        worker's per-iteration schedule log) to ``out_dir``, by default
-        ``engine.collect_dir``."""
+        """Write ``request_data.csv``, ``schedule_rank{r}.csv`` (each
+        worker's per-iteration schedule log), ``spans.csv`` and
+        ``counters.json`` (the process's recorder, ``tracing.py``) to
+        ``out_dir``, by default ``engine.collect_dir``."""
         out_dir = out_dir or self.config.engine.collect_dir
         os.makedirs(out_dir, exist_ok=True)
         self.stats.dump_csv(os.path.join(out_dir, "request_data.csv"))
+        tracing.dump(os.path.join(out_dir, "spans.csv"),
+                     os.path.join(out_dir, "counters.json"))
         for worker in self.workers:
             log = worker.schedule_log
             if not log:

@@ -56,6 +56,7 @@ from typing import Dict, List
 
 import torch
 
+from sduss_tpu_torch import tracing
 from sduss_tpu_torch.config import Config
 from sduss_tpu_torch.request import Request, Stage
 from sduss_tpu_torch.scheduler import WorkerScheduler
@@ -135,16 +136,19 @@ class Worker:
             return self._step()
 
     def _step(self) -> List[Request]:
-        self._poll_prepared(block=False)
-        done_async = self._poll_posted(block=False)
+        with tracing.span("worker.advance"):
+            self._poll_prepared(block=False)
+            done_async = self._poll_posted(block=False)
         batch = self.scheduler.schedule()
         if batch is None or batch.empty:
             # nothing schedulable but a prepare or decode in flight: block
             # briefly on the oldest so the engine loop does not spin
             if self._preparing:
-                self._poll_prepared(block=True)
+                with tracing.span("worker.wait"):
+                    self._poll_prepared(block=True)
             elif self._posting:
-                done_async += self._poll_posted(block=True)
+                with tracing.span("worker.wait"):
+                    done_async += self._poll_posted(block=True)
             return done_async
         self.iteration += 1
         now = time.time()
@@ -163,6 +167,10 @@ class Worker:
                 "predicted_step_ms": batch.requests[0].predicted_step_ms
                 if batch.requests else 0.0,
             })
+        with tracing.span("worker.advance"):
+            return done_async + self._advance(batch, parked)
+
+    def _advance(self, batch: ScheduledBatch, parked: bool) -> List[Request]:
         if parked:
             # _execute submitted the stage to a pool thread: park the
             # requests until its future completes.  The batch's policy
@@ -179,7 +187,7 @@ class Worker:
                     self.scheduler.pool.remove(req.request_id)
                 self.pipeline.evict_finished_state(
                     [r.request_id for r in aborted])
-            return done_async + aborted
+            return aborted
         finished = self.scheduler.advance(batch)
         for req in finished:
             req.finish_time = time.time()
@@ -188,7 +196,7 @@ class Worker:
             # finished or aborted request are unreachable; free them now
             self.pipeline.evict_finished_state(
                 [r.request_id for r in finished])
-        return done_async + finished
+        return finished
 
     def _poll_posted(self, block: bool) -> List[Request]:
         """Finish the requests whose background decode completed; with
@@ -240,53 +248,74 @@ class Worker:
         for r in batch.requests:
             by_res.setdefault(r.resolution, []).append(r)
         if batch.stage is Stage.PREPARE:
+            reqs = list(batch.requests)
             if self._prepare_pool is not None:
-                fut = self._prepare_pool.submit(pipe.prepare,
-                                                list(batch.requests))
-                self._preparing.append((fut, list(batch.requests)))
+                fut = self._prepare_pool.submit(_staged, "stage.prepare",
+                                                reqs, pipe.prepare, reqs)
+                self._preparing.append((fut, reqs))
                 return True
-            pipe.prepare(batch.requests)
+            with tracing.span("stage.prepare", reqs):
+                pipe.prepare(reqs)
         elif batch.stage is Stage.DENOISING:
             t0 = time.perf_counter()
-            mixed = batch.mixed and self.config.scheduler.use_mixed_resolution
-            k = min(self.config.scheduler.steps_per_dispatch,
-                    min(r.remain_steps for r in batch.requests))
-            steps_run = 1
-            # fused multi-step dispatch: k steps in one dispatch, tables and
-            # latents advanced by k, scheduling at chunk boundaries; an
-            # ineligible configuration returns False and steps once
-            if k > 1 and (pipe.denoise_chunk_mixed(by_res, k) if mixed
-                          else not batch.mixed
-                          and pipe.denoise_chunk(by_res, k)):
-                steps_run = k
-            elif mixed:
-                pipe.denoise_step_mixed(by_res)
-            else:
-                pipe.denoise_step(by_res)
-            for r in batch.requests:
-                if r.start_denoising_time is None:
-                    r.start_denoising_time = time.time()
-            if self._throttle(batch.requests[0].latents):
+            with tracing.span("stage.denoise", batch.requests) as sp:
+                if sp:
+                    sp.set(rows=len(batch.requests), res=sorted(by_res))
+                steps_run = self._denoise(batch, by_res)
+            with tracing.span("worker.throttle"):
+                saturated = self._throttle(batch.requests[0].latents)
+            if saturated:
                 # saturated: wall time per iteration tracks device time,
                 # so feed the realized step time back to the policy
                 self.scheduler.policy.observe_step_time(
                     batch.requests,
                     (time.perf_counter() - t0) * 1e3 / steps_run)
         elif batch.stage is Stage.POSTPROCESSING:
-            self._drain_inflight()
+            with tracing.span("worker.throttle"):
+                self._drain_inflight()
+            reqs = list(batch.requests)
             # Background the decode only when no other decode group is in
             # flight (one overlapped decode at a time) and the pipeline's
             # estimate fits its transient next to a running denoise step;
-            # otherwise decode on the loop.
-            if (self._post_pool is not None and not self._posting
-                    and pipe.post_overlap_ok(by_res)):
-                fut = self._post_pool.submit(pipe.plan_postprocess(by_res))
-                self._posting.append((fut, list(batch.requests)))
+            # otherwise decode on the loop.  The plan runs here either way.
+            with tracing.span("stage.decode", reqs):
+                background = (self._post_pool is not None
+                              and not self._posting
+                              and pipe.post_overlap_ok(by_res))
+                decode = pipe.plan_postprocess(by_res)
+                if not background:
+                    decode()
+            if background:
+                fut = self._post_pool.submit(_staged, "stage.decode", reqs,
+                                             decode)
+                self._posting.append((fut, reqs))
                 return True
-            pipe.postprocess(by_res)
         else:  # pragma: no cover
             raise ValueError(batch.stage)
         return False
+
+    def _denoise(self, batch: ScheduledBatch, by_res) -> int:
+        """One DENOISING dispatch; returns the steps it ran."""
+        pipe = self.pipeline
+        mixed = batch.mixed and self.config.scheduler.use_mixed_resolution
+        k = min(self.config.scheduler.steps_per_dispatch,
+                min(r.remain_steps for r in batch.requests))
+        steps_run = 1
+        # fused multi-step dispatch: k steps in one dispatch, tables and
+        # latents advanced by k, scheduling at chunk boundaries; an
+        # ineligible configuration returns False and steps once
+        if k > 1 and (pipe.denoise_chunk_mixed(by_res, k) if mixed
+                      else not batch.mixed
+                      and pipe.denoise_chunk(by_res, k)):
+            steps_run = k
+        elif mixed:
+            pipe.denoise_step_mixed(by_res)
+        else:
+            pipe.denoise_step(by_res)
+        for r in batch.requests:
+            if r.start_denoising_time is None:
+                r.start_denoising_time = time.time()
+        return steps_run
 
     def _throttle(self, latents) -> bool:
         """Bound the host's lead to engine.max_inflight_steps; True when a
@@ -304,3 +333,10 @@ class Worker:
     def _drain_inflight(self) -> None:
         while self._inflight:
             self._inflight.popleft().item()
+
+
+def _staged(name: str, reqs, fn, *args):
+    """``fn(*args)`` under the stage span ``name`` of ``reqs``, on a pool
+    thread."""
+    with tracing.span(name, reqs):
+        return fn(*args)

@@ -8,6 +8,7 @@ stats object the API server and benchmark harness read directly.
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Dict, List, Optional
 
@@ -59,6 +60,12 @@ class EngineStats:
     # -- aggregate metrics (reference get_metric.py:62-120) -------------------
 
     def summary(self, family: str = "sdxl", slo_scale: float = 5.0) -> Dict[str, float]:
+        """Counts, rates over the span from the first arrival to the last
+        finish, and latency over the finished requests: the mean and the
+        nearest-rank p50 and p99 (the ``ceil(p * n)``-th smallest, as
+        ``perfbench/lib/window.py`` takes them; 0.0 with none).
+        ``slo_attainment`` is over every request that ended, an aborted
+        one counting as a missed deadline."""
         done = [r for r in self.records if not r.aborted]
         total_span = max(
             (max((r.finish_time for r in self.records), default=self.started)
@@ -73,7 +80,7 @@ class EngineStats:
         def pct(p: float) -> float:
             if not lat:
                 return 0.0
-            return lat[min(int(p * len(lat)), len(lat) - 1)]
+            return lat[min(max(math.ceil(p * len(lat)) - 1, 0), len(lat) - 1)]
 
         return {
             "arrived": self.arrived,
@@ -81,7 +88,8 @@ class EngineStats:
             "aborted": self.aborted,
             "throughput_rps": len(done) / total_span,
             "goodput_rps": len(slo_met) / total_span,
-            "slo_attainment": (len(slo_met) / len(done)) if done else 0.0,
+            "slo_attainment": (len(slo_met) / len(self.records)
+                               if self.records else 0.0),
             "avg_latency_s": (sum(lat) / len(lat)) if lat else 0.0,
             "p50_latency_s": pct(0.50),
             "p99_latency_s": pct(0.99),

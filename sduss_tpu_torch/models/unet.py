@@ -665,7 +665,7 @@ class UNet2DConditionModel(nn.Module):
             if hybrid and cc.deep_compact_pairwise:
                 y, _, _ = cache.gate_compact_pairs(
                     key, x, t_norm, st, fn,
-                    max(1, round(x.shape[0] // 2 * frac)), row_valid=row_valid,
+                    cache.pair_cap(x.shape[0] // 2, frac), row_valid=row_valid,
                     reducer=reducer)
             else:
                 y, _, _ = cache.gate_compact(key, x, t_norm, st, fn, n_active,

@@ -25,6 +25,8 @@ import time
 from pathlib import Path
 from typing import NamedTuple
 
+from sduss_tpu_torch import tracing
+
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "sduss_tpu_torch"
@@ -93,7 +95,8 @@ def build() -> Build:
         return Build(path, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+    with tracing.span("kernel.build"), \
+            tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
         nvcc = _nvcc()
         objs = [os.path.join(tmpdir, src.stem + ".o") for src in _sources()]
         log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]

@@ -42,8 +42,9 @@ from sduss_tpu_torch.models.layers import conv_apply
 from sduss_tpu_torch.ops.attention import masked_attention
 from sduss_tpu_torch.ops.gn_halo import (gn_silu_halo, gn_silu_haloed,
                                          group_sums)
-from sduss_tpu_torch.ops.patching import (PatchMeta, compact_submeta, haloed,
-                                          shard_meta, shard_ranges)
+from sduss_tpu_torch.ops.patching import (PatchMeta, compact_submeta,
+                                          gate_images, haloed, shard_meta,
+                                          shard_ranges)
 
 
 class PatchContext:
@@ -128,10 +129,9 @@ class PatchContext:
         sub-batch is class-major, ``caps[ci] * g*g`` rows a class."""
         if caps not in self._real_rows:
             rows, off = [], 0
-            for (g, _), kv, cap in zip(self.meta.class_info,
-                                       self.meta.class_kv, caps):
-                n = min(cap, int(kv[:, 0].sum())) * g * g
-                rows.append(np.arange(off, off + n))
+            for (g, _), n_img, cap in zip(self.meta.class_info,
+                                          gate_images(self.meta, caps), caps):
+                rows.append(np.arange(off, off + n_img * g * g))
                 off += cap * g * g
             rows = np.concatenate(rows)
             self._real_rows[caps] = (

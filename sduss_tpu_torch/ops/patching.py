@@ -36,7 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -212,6 +212,14 @@ def compact_submeta(patch_cells: int,
     n_p = sum(g * g for g in grids)
     sub = build_meta(tuple(grids), patch_cells, (n_p,), (len(grids),))
     return sub, tuple(caps)
+
+
+def gate_images(meta: PatchMeta, caps: Sequence[int]) -> List[int]:
+    """Per class of ``meta``, the real images that an image gate of
+    capacities ``caps`` recomputes: ``min(caps[ci], real images)``, since
+    real slots outrank the pads."""
+    return [min(cap, int(kv[:, 0].sum()))
+            for kv, cap in zip(meta.class_kv, caps)]
 
 
 @functools.lru_cache(maxsize=256)

@@ -63,6 +63,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from sduss_tpu_torch import tracing
 from sduss_tpu_torch.cache.manager import BlockCache
 from sduss_tpu_torch.config import Config, bucket_for
 from sduss_tpu_torch.logger import init_logger
@@ -237,7 +238,9 @@ class BasePipeline:
         prompts = [r.params.prompt for r in requests]
         negatives = [r.params.negative_prompt for r in requests]
         resolutions = [r.resolution for r in requests]
+        tracing.phase("prepare.encode")
         conds = self.encode_conditioning(prompts, negatives, resolutions)
+        tracing.phase("prepare.latents")
         for req, cond in zip(requests, conds):
             req.conditioning = cond
             req.sampler_table = self.sampler.make_table(req.params.num_inference_steps)
@@ -275,6 +278,7 @@ class BasePipeline:
         return latents, guidance, cond
 
     def _denoise_group(self, reqs: List[Request]) -> None:
+        tracing.phase("denoise.batch")
         tables = [r.sampler_table for r in reqs]
         dev = self.device
         latents, guidance, cond = self._group_batch(reqs)
@@ -297,11 +301,13 @@ class BasePipeline:
             new_latents = self._denoise_group_displaced(reqs, latents, t,
                                                         coeffs, guidance, cond)
         elif self.sampler.needs_state:
+            tracing.phase("denoise.forward")
             self._init_sampler_state(reqs)
             state = {key: torch.cat([r.sampler_state[key] for r in reqs])
                      for key in reqs[0].sampler_state}
             new_latents, new_state = self._denoise_fn_stateful(
                 latents, t, coeffs, guidance, cond, state)
+            tracing.phase("denoise.update")
             for i, r in enumerate(reqs):
                 r.sampler_state = {key: a[i:i + 1]
                                    for key, a in new_state.items()}
@@ -312,7 +318,9 @@ class BasePipeline:
             new_latents = self._denoise_group_compact(reqs, latents, t,
                                                       coeffs, guidance, cond)
         else:
+            tracing.phase("denoise.forward")
             new_latents = self._denoise_fn(latents, t, coeffs, guidance, cond)
+        tracing.phase("denoise.update")
         for i, req in enumerate(reqs):
             req.latents = new_latents[i:i + 1]
             req.sampler_table.advance()
@@ -416,6 +424,7 @@ class BasePipeline:
         mode is chosen as on the dense deep path, the deep feature is
         composition state (rows sharded like the latents), full steps
         always run sync and each mode keeps its own K/V dict."""
+        tracing.phase("denoise.decide")
         res = reqs[0].resolution
         bb = bucket_for(len(reqs), self.config.scheduler.batch_buckets)
         key = (res, bb, tuple(r.request_id for r in reqs))
@@ -443,7 +452,7 @@ class BasePipeline:
                          or st["deep_age"] >= interval - 1
                          or steps_done < warmup_deep)
             mode = "full" if need_full else "shallow"
-            self._record_mode(mode)
+            self._record_mode(mode, len(reqs))
         kv = st["kv"].get(mode or "dense", {})
         stale = (displaced and not stateful and mode != "full"
                  and st["warm"] >= self.config.parallel.displaced_warmup
@@ -452,6 +461,7 @@ class BasePipeline:
         kw = {} if mode is None else {"deep_mode": mode}
         if mode == "shallow":
             kw["deep_state"] = st["deep"]
+        tracing.phase("denoise.forward")
         eps, c0, c1, deep_out = self._cfg_step(
             latents, t, coeffs, guidance,
             lambda lat_in, t2: self.denoiser_forward(lat_in, t2, cond,
@@ -532,6 +542,7 @@ class BasePipeline:
         latents, t, coeffs, guidance = (_pad_batch(a, bb) for a in
                                         (latents, t, coeffs, guidance))
         cond = {key: _pad_batch(a, bb) for key, a in cond.items()}
+        tracing.phase("denoise.decide")
         cache = self._block_cache()
         cc = self.config.cache
         layout = self.bundle.denoiser.cache_layout(res // self.vae_scale,
@@ -545,6 +556,7 @@ class BasePipeline:
         sig = (type(cache).__name__, cc.min_level, cc.compact_fraction)
         entry = self._comp_state_entry("unet_compact", res, reqs, bb, sig,
                                        mk_state)
+        tracing.phase("denoise.forward")
         out = self._compact_step(latents, t, coeffs, guidance, cond,
                                  entry["state"], self._row_valid(len(reqs), bb),
                                  sync=not entry["anchored"])
@@ -611,6 +623,7 @@ class BasePipeline:
         latents, t, coeffs, guidance = (_pad_batch(a, bb) for a in
                                         (latents, t, coeffs, guidance))
         cond = {key: _pad_batch(a, bb) for key, a in cond.items()}
+        tracing.phase("denoise.decide")
         interval, warmup, adaptive = self._deep_policy()
         cc = self.config.cache
         want = self._deep_state_shape(res)
@@ -635,12 +648,8 @@ class BasePipeline:
                 # only when the fresh pairs exceed the gate's capacity
                 entry, fresh_pairs = self._hybrid_entry_carry(
                     res, reqs, bb, self._hybrid_sig(), mk_state)
-                frac = cc.deep_compact_fraction
-                if cc.deep_compact_pairwise:
-                    cap = max(1, round(bb * frac))
-                else:
-                    cap = max(1, round(2 * bb * frac)) // 2
-                if fresh_pairs > cap or not entry["anchored"]:
+                if (fresh_pairs > self._hybrid_pair_cap(bb)
+                        or not entry["anchored"]):
                     expiry = True
             else:
                 entry = self._comp_state_entry("unet_hybrid", res, reqs, bb,
@@ -689,15 +698,20 @@ class BasePipeline:
             sel = np.full((kb,), need[0], np.int64)
             sel[:len(need)] = need
             sel = torch.from_numpy(sel).to(self.device)
-        self._record_mode(mode)
+        self._record_mode(mode, len(reqs),
+                          len(need) if mode == "partial" else 0)
         if entry is not None:
             # an un-anchored entry forces mode "full" above, whose
             # write-through anchors every gated pair's rows
             assert entry["anchored"] or mode == "full"
+            if mode != "full":
+                self._count_pairs(len(entry["state"]), len(reqs), bb)
+        tracing.phase("denoise.forward")
         new_latents, deep_out = self._deep_step(
             mode, self._row_valid(len(reqs), bb), latents, t, coeffs,
             guidance, cond, deep, None if entry is None else entry["state"],
             sel)
+        tracing.phase("denoise.update")
         if entry is not None and mode == "full":
             entry["anchored"] = True
         refreshed = (set(range(len(reqs))) if mode == "full"
@@ -827,6 +841,15 @@ class BasePipeline:
         layout or the gating resets the state."""
         cc = self.config.cache
         return ("hybrid", cc.deep_compact_fraction, cc.deep_boundary)
+
+    def _hybrid_pair_cap(self, bb: int) -> int:
+        """The CFG pairs of a ``bb``-pair bucket that the hybrid's gates
+        recompute in a dense shallow or partial step (the row gate's rows
+        in pairs when ``deep_compact_pairwise`` is off)."""
+        cc = self.config.cache
+        if cc.deep_compact_pairwise:
+            return BlockCache.pair_cap(bb, cc.deep_compact_fraction)
+        return max(1, round(2 * bb * cc.deep_compact_fraction)) // 2
 
     def _hybrid_state_factory(self, cells: int, n_rows=None):
         """``mk_state(n)``: zero row caches for every pair a shallow step
@@ -1027,6 +1050,7 @@ class BasePipeline:
         """
         if self.sampler.needs_state and self.config.cache.enabled:
             return self.denoise_step(reqs_by_res)
+        tracing.phase("denoise.decide")
         ordered: List[Request] = []
         for res in sorted(reqs_by_res):
             ordered.extend(reqs_by_res[res])
@@ -1056,6 +1080,7 @@ class BasePipeline:
             if not entry["anchored"]:
                 deep_mode = "full"  # the write-through anchors fresh rows
 
+        tracing.phase("denoise.batch")
         x, guidance, cond = self._patch_batch(ordered, meta, cells)
 
         # per-image rows padded to i_pad (coefficients with 1.0, so the pad
@@ -1073,10 +1098,13 @@ class BasePipeline:
         # the JAX branch order: the deep cache (with or without the
         # hybrid), a stateful sampler, cache-off, then the block cache
         cache = self._block_cache()
+        tracing.phase("denoise.forward")
         if deep_mode is not None:
-            self._record_mode(deep_mode)
+            self._record_mode(deep_mode, len(ordered))
             if entry is not None:
                 assert entry["anchored"] or deep_mode == "full"
+                if deep_mode != "full":
+                    self._count_image_pairs(len(entry["state"]), meta2)
             new_x, deep_out = self._deep_step_mixed(
                 deep_mode, x, t, coeffs, guidance, cond, ctx1, ctx2,
                 self._gather_deep_mixed(ordered, grids, meta, deep_mode),
@@ -1105,6 +1133,7 @@ class BasePipeline:
                                       ctx2, deep=dict(cache=cache,
                                                       cache_state=state))
             self._scatter_cache_state(ordered, grids, meta, state)
+        tracing.phase("denoise.update")
         adaptive = deep_mode is not None and self.config.cache.deep_adaptive
         off = 0
         for r, g in zip(ordered, grids):
@@ -1395,9 +1424,43 @@ class BasePipeline:
 
     # -- fused multi-step dispatch (SchedulerConfig.steps_per_dispatch) -----
 
-    def _record_mode(self, mode) -> None:
+    def _record_mode(self, mode, rows: int, refreshed: int = 0) -> None:
+        """The cache mode of one step of ``rows`` requests, ``refreshed``
+        of them recomputing their deep feature in a partial step: appended
+        to ``step_modes`` when a caller set it to a list, and counted on
+        the stage span (the request-steps ``mode.<mode>``, ``refreshed``)."""
         if self.step_modes is not None:
             self.step_modes.append(mode)
+        if tracing.enabled():
+            tracing.count(f"mode.{mode}", rows)
+            if refreshed:
+                tracing.count("refreshed", refreshed)
+            tracing.stage_set(mode=mode)
+
+    def _count_pairs(self, gated: int, rows: int, bb: int) -> None:
+        """Count on the stage span the real CFG pairs that the hybrid's
+        ``gated`` pair gates score in a dense shallow or partial step of
+        ``rows`` requests padded to ``bb`` (``pairs``), and those they
+        recompute (``pairs_fresh``): each gate takes its cap's most drifted
+        pairs, and the pad pairs rank last.  The row gate
+        (``deep_compact_pairwise`` off) scores rows, not pairs: uncounted."""
+        if tracing.enabled() and self.config.cache.deep_compact_pairwise:
+            tracing.count("pairs", gated * rows)
+            tracing.count("pairs_fresh",
+                          gated * min(self._hybrid_pair_cap(bb), rows))
+
+    def _count_image_pairs(self, gated: int, meta2) -> None:
+        """:meth:`_count_pairs` on the patch path: the hybrid's ``gated``
+        image gates on the CFG-doubled composition ``meta2`` score its real
+        images' pairs and recompute the real images of their capacities,
+        both halves of an image together (``patching.gate_images``)."""
+        if tracing.enabled():
+            _, caps = patching.compact_submeta(
+                meta2.patch_cells, meta2.class_info,
+                self.config.cache.deep_compact_fraction, True)
+            tracing.count("pairs", gated * (meta2.n_images // 2))
+            tracing.count("pairs_fresh", gated
+                          * sum(patching.gate_images(meta2, caps)) // 2)
 
     def _run_chunk(self, sset, per_step: dict, kinds, make_step) -> None:
         """A chunk's steps on the step set ``sset``: before step j each
@@ -1499,10 +1562,7 @@ class BasePipeline:
                     entry, fresh = self._hybrid_entry_carry(
                         res, ordered, bb, self._hybrid_sig(),
                         self._hybrid_state_factory(res // self.vae_scale))
-                    frac = cc.deep_compact_fraction
-                    cap = (max(1, round(bb * frac)) if cc.deep_compact_pairwise
-                           else max(1, round(2 * bb * frac)) // 2)
-                    if fresh > cap:
+                    if fresh > self._hybrid_pair_cap(bb):
                         entry["anchored"] = False
                     if not entry["anchored"]:
                         return False  # the per-step anchoring full first
@@ -1620,10 +1680,17 @@ class BasePipeline:
                 store(bufs["deep"], deep)
             return step
 
+        tracing.phase("denoise.forward")
         self._run_chunk(sset, per_step, kinds, make_step)
+        tracing.phase("denoise.update")
         if deep_modes:
-            for kind in kinds:
-                self._record_mode(kind if isinstance(kind, str) else kind[0])
+            for j, kind in enumerate(kinds):
+                if isinstance(kind, str):
+                    self._record_mode(kind, b)
+                else:  # a partial step refreshes the planned rows sel[j]
+                    self._record_mode(kind[0], b, len(set(plan[0][j])))
+                if entry is not None and kind != "full":
+                    self._count_pairs(len(entry["state"]), b, bb)
         if entry is not None:
             entry["anchored"] = True
         lat = sset.bufs["lat"]
@@ -1844,11 +1911,15 @@ class BasePipeline:
                     store(bufs["deep"], deep)
             return step
 
+        tracing.phase("denoise.forward")
         self._run_chunk(sset, per_step, kinds, make_step)
+        tracing.phase("denoise.update")
         new_x = sset.bufs["x"]
         if deep_modes:
             for kind in kinds:
-                self._record_mode(kind)
+                self._record_mode(kind, len(ordered))
+                if entry is not None and kind != "full":
+                    self._count_image_pairs(len(entry["state"]), meta2)
             fulls = [j for j, kind in enumerate(kinds) if kind == "full"]
             final_age = (k - 1 - fulls[-1]) if fulls else a0 + k
             if entry is not None and fulls:
@@ -1880,6 +1951,7 @@ class BasePipeline:
         groups on the calling thread, the only one that touches the
         composition store; return the decode, which may run on any thread
         (the worker's background decode)."""
+        tracing.phase("decode.plan")
         # these requests' composition-state entries can never be used
         # again: free them before the decode, the pipeline's memory peak
         self.evict_finished_state(
@@ -1904,6 +1976,8 @@ class BasePipeline:
     def _decode_groups(self, latent: List[Request],
                        groups: List[List[Request]]) -> None:
         # the latent output type skips the VAE decode entirely
+        if latent:
+            tracing.phase("decode.readback")
         for r in latent:
             r.output = r.latents[0].float().cpu().numpy()
         for reqs in groups:
@@ -2046,10 +2120,14 @@ class BasePipeline:
             return max(self.config.scheduler.decode_batch, 1)
 
     def _decode_group(self, reqs: List[Request]) -> None:
+        tracing.phase("decode.vae")
         latents = torch.cat([r.latents for r in reqs], dim=0)
-        images = self._decode_fn(latents).cpu().numpy()
+        images = self._decode_fn(latents)
+        tracing.phase("decode.readback")
+        images = images.cpu().numpy()
         checker = self._safety_checker()
         if checker is not None:
+            tracing.phase("decode.safety")
             images, flags = checker.check(images)
             for req, flagged in zip(reqs, flags):
                 req.nsfw_flagged = flagged

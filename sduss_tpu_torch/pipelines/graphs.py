@@ -56,11 +56,11 @@ the CPU, there is nothing to capture.
 from __future__ import annotations
 
 import collections
-import time
 from typing import Callable, Dict, Optional
 
 import torch
 
+from sduss_tpu_torch import tracing
 from sduss_tpu_torch.ops.flash import (flash_cross_short, flash_mha,
                                        flash_mha_fused, flash_mha_masked)
 from sduss_tpu_torch.ops.gn_halo import gn_silu_halo
@@ -229,7 +229,8 @@ class StepSet:
         got = self._captured.get(kind)
         if got is not None:
             graph, delta = got
-            graph.replay()
+            with tracing.span("graph.replay"):
+                graph.replay()
             for fn, n in zip(COUNTED, delta):
                 fn.launches += n
             g.replays += 1
@@ -257,7 +258,6 @@ class StepGraphs:
         self.before_capture: Optional[Callable[[], None]] = None
         self.captures = 0
         self.replays = 0
-        self.capture_s = 0.0
         # when a caller sets it to a list: (kind, start, end) CUDA events
         # around every step run on the card
         self.events = None
@@ -314,17 +314,16 @@ class StepGraphs:
             # the first capture, and a dp replica on another card cannot
             # capture on it
             self._stream = torch.cuda.Stream(device=self.device)
-        t0 = time.perf_counter()
         counts = [f.launches for f in COUNTED]
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
-                                  capture_error_mode="thread_local"):
+            with tracing.span("graph.capture"), torch.cuda.graph(
+                    graph, pool=self._pool, stream=self._stream,
+                    capture_error_mode="thread_local"):
                 fn()
         finally:
             delta = tuple(f.launches - n for f, n in zip(COUNTED, counts))
             for f, n in zip(COUNTED, counts):
                 f.launches = n
         self.captures += 1
-        self.capture_s += time.perf_counter() - t0
         return graph, delta

@@ -39,6 +39,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from sduss_tpu_torch import tracing
 from sduss_tpu_torch.cache.manager import BlockCache
 from sduss_tpu_torch.config import bucket_for
 from sduss_tpu_torch.parallel.sharding import ShardedTensor, tmap
@@ -157,6 +158,7 @@ class StableDiffusion3Pipeline(BasePipeline):
         if (len({r.resolution for r in ordered}) <= 1 and cache is None
                 and span is None):
             return self.denoise_step(reqs_by_res)
+        tracing.phase("denoise.batch")
         tr = self.bundle.models["transformer"]
         ps = tr.cfg.patch_size
         dev = self.device
@@ -198,15 +200,17 @@ class StableDiffusion3Pipeline(BasePipeline):
                                     and not entry["anchored"]))
         if span is not None:
             deep_mode = self._sd3_deep_mode(entry, ordered)
-            self._record_mode(deep_mode)
+            self._record_mode(deep_mode, len(ordered))
             kw.update(deep_mode=deep_mode, deep_span=span,
                       deep_state=(self._sd3_deep_predicted(entry)
                                   if deep_mode == "shallow" else None))
+        tracing.phase("denoise.forward")
         new_lats, deep_out = self._token_step(
             [torch.cat([r.latents for r in ordered[i:j]]) for i, j in groups],
             [ordered[i].latent_hw(self.vae_scale) // ps for i, _ in groups],
             coeffs, s_pad, bb, torch.from_numpy(mask).to(dev),
             torch.from_numpy(t).to(dev), guidance, cond, kw)
+        tracing.phase("denoise.update")
         if cache is not None:
             entry["anchored"] = True
             entry["kv_ok"] = fine and cc.fine_stale_kv
@@ -357,12 +361,14 @@ class StableDiffusion3Pipeline(BasePipeline):
                     store(bufs["deep"], deep)
             return step
 
+        tracing.phase("denoise.forward")
         self._run_chunk(sset, per_step, kinds, make_step)
+        tracing.phase("denoise.update")
         if cache is not None:
             entry["anchored"] = True
         if span is not None:
             for kind in kinds:
-                self._record_mode(kind)
+                self._record_mode(kind, len(ordered))
             entry["deep"] = clone_tree(sset.bufs["deep"])
             # the per-step recurrence's age: the last full at j* leaves
             # k - 1 - j*; none ages the delta by k

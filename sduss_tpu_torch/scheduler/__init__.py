@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import List, Optional
 
+from sduss_tpu_torch import tracing
 from sduss_tpu_torch.config import SchedulerConfig
 from sduss_tpu_torch.request import Request, Stage
 from sduss_tpu_torch.scheduler.policies import ScheduledBatch, get_policy
@@ -46,10 +47,13 @@ class WorkerScheduler:
         return self.pool.unfinished() > 0
 
     def schedule(self) -> Optional[ScheduledBatch]:
-        batch = self.policy.schedule(self.pool)
-        if batch is not None:
-            for req in batch.aborts:
-                self.pool.move(req, Stage.ABORTED)
+        with tracing.span("worker.schedule") as sp:
+            batch = self.policy.schedule(self.pool)
+            if batch is not None:
+                for req in batch.aborts:
+                    self.pool.move(req, Stage.ABORTED)
+            if sp and batch is not None:
+                sp.set(stage=batch.stage.value, rows=len(batch.requests))
         return batch
 
     # -- asynchronous prepare (engine/worker.py _submit_prepare) -------------
