@@ -21,7 +21,14 @@ Phases (any failure propagates and the script exits non-zero):
      repeat bit for bit) and K5
      (flash_cross_short: the text cross-attention of the dense and patch
      paths, also timed beside the plain route it replaced; negative and
-     zero scale);
+     zero scale) and K6 (gn_dense, the dense GroupNorm + SiLU: SDXL's and
+     SD-1.5's UNet shapes and the VAE decoder's at 512^2 and 1024^2, bf16
+     and float32, with and without the fused add; it must repeat bit for
+     bit; timed beside ``F.group_norm``); with the SDXL bundle, K6's exact
+     launches for one full, one shallow forward and one decode (every
+     serving phase after it also counts K6, one call a GroupNorm of each
+     dense UNet forward by its deep mode, none on the patch batch or under
+     sp, and one a GroupNorm of each VAE decoder forward);
      hold one full-width SDXL transformer block (through K1), SD3.5-medium's
      dual block 0 (through flash_mha) and an SD-1.5 conv-projection
      transformer (through K1 at hd 40) on the card in bf16 against the same
@@ -63,7 +70,7 @@ Phases (any failure propagates and the script exits non-zero):
      random bf16 weights): the full-width UNet patched against dense on a
      256^2 + 512^2 + 768^2 batch, then four serving runs, each checking
      images, latents, the DENOISING batches and the exact launches of K1,
-     the masked kernel, K4 and K5 that SD15_UNET gives: dense
+     the masked kernel, K4, K5 and K6 that SD15_UNET gives: dense
      [512, 512, 768] with Euler, 8 steps; mixed [256, 512, 768] in the
      default configuration, Euler, 8 steps; the same mixed batch with PNDM
      (4 steps, 5 evaluations) and the dense one with DDIM (4 steps);
@@ -206,6 +213,7 @@ import contextlib
 import copy
 import dataclasses
 import gc
+import itertools
 import json
 import os
 import shutil
@@ -241,6 +249,7 @@ from sduss_tpu_torch.models.safety_checker import SafetyChecker
 from sduss_tpu_torch.models import unet as unet_mod
 from sduss_tpu_torch.models.unet import BasicTransformerBlock
 from sduss_tpu_torch.models import layers
+from sduss_tpu_torch.models import vae as vae_mod
 from sduss_tpu_torch.ops import attention as attention_mod
 from sduss_tpu_torch.ops.attention import FLASH_MIN_KV
 from sduss_tpu_torch.ops import _build, patching
@@ -251,6 +260,8 @@ from sduss_tpu_torch.ops.flash import (flash_cross_short,
                                        flash_mha_masked,
                                        flash_mha_masked_reference,
                                        flash_mha_reference)
+from sduss_tpu_torch.ops.gn_dense import (gn_dense, group_norm_reference,
+                                          plan_cluster)
 from sduss_tpu_torch.ops.gn_halo import (gn_silu_halo, gn_silu_halo_reference,
                                          gn_silu_haloed, moments)
 from sduss_tpu_torch.ops.patch_ctx import PatchContext, compact_context
@@ -545,6 +556,24 @@ MOVED_MAX_REL = 3e-2
 TP_FLOAT32_MAX_REL = 1e-4
 # K4 at a tp=2 shard's norm2: SDXL's C / 2 channels over 16 groups
 K4_TP2_SHAPES = [(32, 160), (16, 320), (8, 640)]
+# K6 (dense GroupNorm + SiLU) at the main path's (N, C, H, W): SDXL's
+# levels 0-2 and the 960-channel level-0 up-block input at the shallow
+# steps' 8 rows and the full steps' 24, SD-1.5's levels 0-3 and the
+# 2560-channel up-block input at 32 rows, the VAE decoder's at 512^2 and
+# 1024^2 (one image).  Against group_norm_reference, relative to the
+# output's scale: bf16 within 2^-7 of max |plain| (one bf16 ulp at the
+# largest output: both compute in float32 and round once; the sums are
+# taken in another order and the kernel's x * a + b is one FMA), float32
+# within 1e-5 (the same float32 math in another order).
+K6_UNET_SHAPES = [(8, 320, 128, 128), (8, 640, 64, 64), (8, 1280, 32, 32),
+                  (8, 960, 128, 128), (24, 320, 128, 128), (24, 640, 64, 64),
+                  (24, 1280, 32, 32), (24, 960, 128, 128),
+                  (32, 320, 64, 64), (32, 640, 32, 32), (32, 1280, 16, 16),
+                  (32, 1280, 8, 8), (32, 2560, 8, 8)]
+K6_VAE_SHAPES = [(1, 512, 64, 64), (1, 512, 128, 128), (1, 512, 256, 256),
+                 (1, 256, 512, 512), (1, 128, 512, 512), (1, 512, 512, 512),
+                 (1, 256, 1024, 1024), (1, 128, 1024, 1024)]
+K6_MAX_REL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
@@ -881,6 +910,157 @@ def check_k4(card: str, meta=None, shapes=K4_SHAPES, seed: int = 2,
     return {"max_abs_err": worst, "times": times}
 
 
+def rotating_ms(fn, xs, iters: int) -> float:
+    """:func:`cuda_ms` of ``fn`` over the inputs ``xs`` in turn: enough
+    copies that each call reads its input from device memory, not L2."""
+    inputs = itertools.cycle(xs)
+    return cuda_ms(lambda: fn(next(inputs)), iters)
+
+
+def check_k6(card: str) -> dict:
+    """K6 (gn_dense) against its plain version at the main path's shapes:
+    bf16 and (the VAE's) float32, act none and SiLU, with and without the
+    time-embedding add (the UNet's norm2); two calls give the same bits.
+    Times the kernel, its bound (one read and one write), the plain
+    version and ``F.group_norm`` (PyTorch's own, the library yardstick;
+    the port never calls it), each over inputs that do not fit L2."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    worst, times = 0.0, {}
+    cases = [(s, torch.bfloat16, "unet") for s in K6_UNET_SHAPES]
+    cases += [(s, dt, "vae") for s in K6_VAE_SHAPES
+              for dt in (torch.bfloat16, torch.float32)]
+    for shape, dtype, kind in cases:
+        n, c = shape[:2]
+        eps = 1e-5 if kind == "unet" else 1e-6
+        x = (1.5 * torch.randn(*shape, generator=gen, device="cuda")
+             + 0.2).to(dtype)
+        w, b = (torch.randn(c, generator=gen, device="cuda").to(dtype)
+                for _ in range(2))
+        add = (torch.randn(n, c, generator=gen, device="cuda").to(dtype)
+               if kind == "unet" else None)
+        variants = [("silu", None), (None, None)]
+        if add is not None:
+            variants += [("silu", add), (None, add)]
+        shape_abs = shape_rel = 0.0
+        for act, a in variants:
+            args = (x, w, b, 32, eps, act, a)
+            out = gn_dense(*args)
+            again = gn_dense(*args)
+            ref = group_norm_reference(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(out, again):
+                raise AssertionError(f"K6 differs between two calls at "
+                                     f"{shape} {dtype} act {act} add "
+                                     f"{a is not None}")
+            err = (out.float() - ref.float()).abs().max().item()
+            max_rel = err / ref.float().abs().max().item()
+            if not (torch.isfinite(out).all() and max_rel <= K6_MAX_REL[dtype]):
+                raise AssertionError(f"K6 disagrees with its plain version at "
+                                     f"{shape} {dtype} act {act} add "
+                                     f"{a is not None}: {max_rel}")
+            worst = max(worst, err)
+            shape_abs, shape_rel = max(shape_abs, err), max(shape_rel, max_rel)
+        print(f"K6 gn_dense {shape} {str(dtype)[6:]}: max_abs_err "
+              f"{shape_abs:.3e}, / max|plain| {shape_rel:.3e} (bound "
+              f"{K6_MAX_REL[dtype]:.1e}) for act silu/none"
+              f"{', with add' if add is not None else ''}; repeats bit for "
+              f"bit")
+        if kind == "unet" and shape[2] < 64 and n != 8:
+            continue  # timed: the 8-row shapes, 64^2 and 128^2, the decodes
+        nbytes = 2.0 * x.numel() * x.element_size()
+        xs = [x] + [x.clone() for _ in range(
+            max(0, min(int(-(-2.5 * 50e6 // nbytes)), 16) - 1))]
+        k1 = rotating_ms(lambda t: gn_dense(t, w, b, 32, eps, "silu"), xs, 20)
+        p1 = rotating_ms(lambda t: group_norm_reference(t, w, b, 32, eps,
+                                                        "silu"), xs, 5)
+        lib = rotating_ms(lambda t: F.group_norm(t, 32, w, b, eps), xs, 20)
+        k2 = rotating_ms(lambda t: gn_dense(t, w, b, 32, eps, "silu"), xs, 20)
+        p2 = rotating_ms(lambda t: group_norm_reference(t, w, b, 32, eps,
+                                                        "silu"), xs, 5)
+        kms, pms = (k1 + k2) / 2, (p1 + p2) / 2
+        bms, by = bound(10.0 * x.numel(), nbytes)
+        cs = plan_cluster(n, c, x.numel() // (n * c), 32, x.element_size())
+        design = f"single read, {cs} blocks a group" if cs else "two passes"
+        print(f"K6 time {shape} {str(dtype)[6:]} act silu ({design}): "
+              f"kernel {kms:.4f} "
+              f"ms ({nbytes / kms / 1e6:.1f} GB/s, {kms / bms:.2f}x the "
+              f"bound), plain {pms:.4f} ms ({pms / kms:.1f}x), F.group_norm "
+              f"{lib:.4f} ms, bound {bms:.4f} ms ({by}) [{card}]")
+        times[(shape, str(dtype)[6:])] = {
+            "ms": kms, "plain_ms": pms, "library_ms": lib, "bound_ms": bms,
+            "bound_by": by, "design": design}
+        del xs
+    return {"max_abs_err": worst, "times": times}
+
+
+def norms_of(*modules) -> int:
+    """The dense GroupNorms in ``modules``."""
+    return sum(isinstance(m, layers.GroupNorm) for mod in modules
+               for m in mod.modules())
+
+
+def check_k6_launches(card: str, bundle: ModelBundle) -> dict:
+    """Every dense GroupNorm goes through K6 (one launch or two): one full
+    SDXL UNet forward at 8 x 1024^2 rows (the plain forward, deep mode
+    "full" at boundary 1), one shallow forward (the levels below the
+    boundary and conv_norm_out) and one 1024^2 decode, each exactly one
+    call a GroupNorm (``gn_dense.launches`` counts calls)."""
+    unet = bundle.denoiser
+    vae = bundle.models["vae"]
+    gen = torch.Generator(device="cuda").manual_seed(13)
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    rows = 8
+    x = rand(rows, 128, 128, 4)
+    t = torch.tensor([700.0, 300.0] * (rows // 2), device="cuda")
+    ehs = rand(rows, 77, unet.cfg.cross_attention_dim)
+    added = {"text_embeds": rand(rows, unet.cfg.addition_embed[1]),
+             "time_ids": torch.tensor([[1024.0, 1024, 0, 0, 1024, 1024]]
+                                      * rows, device="cuda")}
+    n_up = len(unet.up_blocks)
+    want = {"full": norms_of(unet),
+            "shallow": norms_of(unet.down_blocks[0], unet.up_blocks[n_up - 1],
+                                unet.conv_norm_out),
+            "decode": norms_of(vae.decoder)}
+    # the count the serving phases expect, from the config, is the module's
+    if (dense_norms(unet.cfg), dense_norms(unet.cfg, 1)) != (
+            want["full"], want["shallow"]):
+        raise AssertionError(f"dense_norms {dense_norms(unet.cfg)} / "
+                             f"{dense_norms(unet.cfg, 1)} != the UNet's "
+                             f"{want['full']} / {want['shallow']}")
+    got = {}
+    with torch.inference_mode():
+        before = gn_dense.launches
+        unet(x, t, ehs, added_cond=added)
+        got["plain"] = gn_dense.launches - before
+        before = gn_dense.launches
+        _, feat = unet(x, t, ehs, added_cond=added, deep_mode="full",
+                       deep_boundary=1)
+        got["full"] = gn_dense.launches - before
+        before = gn_dense.launches
+        unet(x, t, ehs, added_cond=added, deep_mode="shallow",
+             deep_state=feat, deep_boundary=1)
+        got["shallow"] = gn_dense.launches - before
+        lat = rand(1, 128, 128, vae.cfg.latent_channels,
+                   dtype=next(vae.parameters()).dtype)
+        before = gn_dense.launches
+        vae.decode(lat)
+        got["decode"] = gn_dense.launches - before
+    torch.cuda.synchronize()
+    expect = {"plain": want["full"], "full": want["full"],
+              "shallow": want["shallow"], "decode": want["decode"]}
+    print(f"K6 launches: SDXL forward at {rows} x 1024^2 {got['plain']}, "
+          f"deep full {got['full']}, shallow {got['shallow']}, 1024^2 decode "
+          f"{got['decode']} (expected {expect}: one a GroupNorm, "
+          f"{want['full']} / {want['shallow']} / {want['decode']} GroupNorms) "
+          f"[{card}]")
+    if got != expect:
+        raise AssertionError(f"K6 launches {got} != {expect}")
+    return got
+
+
 def check_k5(card: str) -> dict:
     """K5 (flash_cross_short) against its plain version at the text
     cross-attention shapes of the bench and of the serving paths and at the
@@ -1186,11 +1366,16 @@ def serve(card: str, bundle: ModelBundle) -> dict:
     # two single-resolution groups (1024 pair, then 768), STEPS steps each;
     # every transformer block has one self- and one text cross-attention
     expected = n_self * STEPS * len(set(REQUESTS))
+    # K6: one a GroupNorm of each group's forward a step, and of each decode
+    want_k6 = (dense_norms(unet.cfg) * STEPS * len(set(REQUESTS))
+               + decode_launches()["k6"])
     print(f"serving: {len(outs)} requests in {wall:.3f} s, launches {got} "
           f"(K1 and K5 expected >= {expected} each: {n_self} self- and "
-          f"cross-attentions x {STEPS} steps x {len(set(REQUESTS))} groups)")
-    if got["k1"] < expected or got["k5"] < expected:
-        raise AssertionError("the serving path did not go through K1 and K5")
+          f"cross-attentions x {STEPS} steps x {len(set(REQUESTS))} groups; "
+          f"K6 >= {want_k6})")
+    if got["k1"] < expected or got["k5"] < expected or got["k6"] < want_k6:
+        raise AssertionError("the serving path did not go through K1, K5 "
+                             "and K6")
 
     # final latents are finite (the uint8 cast would hide NaN)
     lat = pipe.generate(prompts[:1], resolution=768, num_inference_steps=2,
@@ -1253,6 +1438,7 @@ def serve_mixed(card: str, bundle: ModelBundle) -> dict:
           f"{STEPS} steps), all {got}")
     if masked < want_masked or k4 < want_k4 or got["k5"] != want_k5:
         raise AssertionError("the mixed path did not go through its kernels")
+    check_decode_k6(got, "mixed serving")  # the patch batch runs no K6
 
     meta = mixed_meta()
     step_gaps(log, key, f"mixed {key} patch batch (CFG: {meta.p_pad} "
@@ -1354,6 +1540,7 @@ def serve_sd3(card: str, bundle: ModelBundle) -> int:
           f"attentions x {STEPS} steps x {groups} groups), all {got}")
     if launches < expected:
         raise AssertionError("the SD3 dense path did not go through flash_mha")
+    check_decode_k6(got, "SD3 dense serving")
     res, n = SD3_REQUESTS[0], SD3_REQUESTS.count(SD3_REQUESTS[0])
     step_gaps(pipe.engine.workers[0].schedule_log, f"{res}x{n}",
               f"SD3 batch {n} x {res}^2 (CFG {2 * n} rows)", card)
@@ -1410,6 +1597,7 @@ def serve_sd3_mixed(card: str, bundle: ModelBundle) -> int:
     if masked < want:
         raise AssertionError("the SD3 mixed path did not go through the "
                              "masked kernel")
+    check_decode_k6(got, "SD3 mixed serving")
     ctx = sd3_mixed_ctx(pipe.engine.workers[0].pipeline.device)
     step_gaps(log, key, f"SD3 mixed {key} token batch (CFG {ctx.token_mask.shape[0]} "
               f"rows of {ctx.token_mask.shape[1]} + {SD3_CTX} tokens)", card)
@@ -1484,19 +1672,31 @@ def sd3_step_ms(steps, key, label: str, card: str) -> dict:
     return {k: float(np.mean(ms)) for k, ms in by.items()}
 
 
-def check_sd3_launches(steps, bundle: ModelBundle, label: str,
+def check_sd3_launches(steps, bundle: ModelBundle, label: str, got: dict,
                        span=(0, 0)) -> None:
     """Every token-path step launches only the masked kernel, once per
     attention of the blocks it runs: all 37 on a full or gated step, those
     outside ``span`` (block 0's joint and dual attention under the
-    preset's 1:24) on a shallow one."""
+    preset's 1:24) on a shallow one.  The MMDiT has no GroupNorm: K6 runs
+    only in the decodes, ``got`` (the run's launches) holding exactly
+    theirs (a step's window is not checked for K6, since a decode on the
+    decode thread may run inside it)."""
     for i, rec in enumerate(steps):
         want = {"k1": 0, "flash_mha": 0, "k4": 0, "k5": 0,
                 "masked": sd3_attentions(bundle, span if rec["mode"] ==
                                          "shallow" else (0, 0))}
-        if rec["launches"] != want:
+        if {k: rec["launches"][k] for k in want} != want:
             raise AssertionError(f"{label} step {i} ({rec['mode']}) launched "
                                  f"{rec['launches']}, not {want}")
+    check_decode_k6(got, label)
+
+
+def check_decode_k6(got: dict, label: str) -> None:
+    """A run whose denoiser has no dense GroupNorm (the MMDiT, the patch
+    batch) launched K6 exactly for its decodes."""
+    if got["k6"] != decode_launches()["k6"]:
+        raise AssertionError(f"{label}: K6 launches {got['k6']}, not the "
+                             f"decodes' {decode_launches()['k6']}")
 
 
 def check_sd3_deep_invariant(bundle: ModelBundle, card: str) -> None:
@@ -1611,7 +1811,7 @@ def serve_sd3_span(card: str, bundle: ModelBundle) -> list:
             SD3_SPAN_STEPS - cache.deep_warmup)
         if modes != want:
             raise AssertionError(f"SD3 span modes {modes} != {want}")
-        check_sd3_launches(steps, bundle, "SD3 span offline",
+        check_sd3_launches(steps, bundle, "SD3 span offline", got,
                            cache.sd3_deep_span)
         ms = sd3_step_ms(steps, lambda r: r["mode"], "4 x 1024^2 span 1:24",
                          card)
@@ -1696,7 +1896,8 @@ def serve_sd3_span_serving(card: str, bundle: ModelBundle) -> dict:
     if pipe._sd3_state:
         raise AssertionError(f"SD3 state left after serving: "
                              f"{list(pipe._sd3_state)}")
-    check_sd3_launches(steps, bundle, "SD3 span serving", cc.sd3_deep_span)
+    check_sd3_launches(steps, bundle, "SD3 span serving", got,
+                       cc.sd3_deep_span)
     sd3_step_ms(steps, lambda r: (len(r["ids"]), r["mode"]),
                 "serving (batch size, mode)", card)
     print(f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f}"
@@ -1732,7 +1933,7 @@ def serve_sd3_token_caches(card: str, bundle: ModelBundle) -> list:
         rest = "stale" if config.cache.fine_stale_kv else "gated"
         if flags != [first] + [rest] * (SD3_TOKEN_STEPS - 1):
             raise AssertionError(f"SD3 {name} steps {flags}")
-        check_sd3_launches(steps, bundle, f"SD3 {name}")
+        check_sd3_launches(steps, bundle, f"SD3 {name}", got)
         ms = sd3_step_ms(steps, lambda r: "sync" if r["sync"] else
                          "stale" if r["stale"] else "gated",
                          f"2 x 1024^2 {name}", card)
@@ -1826,12 +2027,27 @@ def sd15_self_attention_keys(cfg, res: int) -> list:
     return keys + [((res // 8) >> (n_levels - 1)) ** 2] * mid
 
 
+def dense_norms(cfg, boundary=None) -> int:
+    """The GroupNorms of one dense UNet forward, from the config: two a
+    resnet and one a transformer (its ``norm``) on every level's down and
+    up blocks (``layers_per_block`` and one more resnets), the mid block's
+    two resnets and transformer, and ``conv_norm_out``; ``boundary``: a
+    shallow forward, the levels below it and ``conv_norm_out`` only."""
+    lpb = cfg.layers_per_block
+    levels = range(len(cfg.block_out_channels) if boundary is None
+                   else boundary)
+    n = sum((2 * lpb + 1) * (2 + cfg.down_block_has_attn[lvl])
+            for lvl in levels) + 1
+    return n if boundary is not None else n + 2 * 2 + 1
+
+
 def deep_launches(cfg, res: int, boundary: int = 1) -> dict:
-    """K1 and K5 launches of one dense deep step per mode at ``res``^2: a
-    full or partial step runs every transformer (each self-attention over
-    >= FLASH_MIN_KV keys on K1, a shorter one on K5, each text
-    cross-attention on K5); a shallow step the levels < boundary (the
-    gated pairs' one call each on the gathered rows)."""
+    """K1, K5 and K6 launches of one dense deep step per mode at
+    ``res``^2: a full or partial step runs every transformer (each
+    self-attention over >= FLASH_MIN_KV keys on K1, a shorter one on K5,
+    each text cross-attention on K5) and every GroupNorm (one K6 call
+    each); a shallow step the levels < boundary (the gated pairs' one call
+    each on the gathered rows) and ``conv_norm_out``."""
     keys = sd15_self_attention_keys(cfg, res)
     spine = []
     for lvl in range(boundary):
@@ -1839,12 +2055,14 @@ def deep_launches(cfg, res: int, boundary: int = 1) -> dict:
             spine += [((res // 8) >> lvl) ** 2] * (
                 (2 * cfg.layers_per_block + 1) * cfg.transformer_layers[lvl])
 
-    def count(ks):
+    def count(ks, norms):
         return {"k1": sum(k >= FLASH_MIN_KV for k in ks),
-                "k5": len(ks) + sum(k < FLASH_MIN_KV for k in ks)}
+                "k5": len(ks) + sum(k < FLASH_MIN_KV for k in ks),
+                "k6": norms}
 
-    return {"full": count(keys), "partial": count(keys),
-            "shallow": count(spine)}
+    full = count(keys, dense_norms(cfg))
+    return {"full": full, "partial": full,
+            "shallow": count(spine, dense_norms(cfg, boundary))}
 
 
 def spy_deep(pipe) -> list:
@@ -1910,7 +2128,8 @@ def mixed_launches(cfg, n_classes: int, boundary: int = 1) -> dict:
     conv_out) and every transformer (one masked self-attention per class,
     one K5 text cross-attention); a shallow step the levels < boundary, the
     gated pairs once each on the sub-composition, whose classes are the
-    batch's (each keeps at least one image)."""
+    batch's (each keeps at least one image).  No K6: the patch batch
+    normalises through K4 and its context's per-image moments."""
     n_levels, lpb = len(cfg.block_out_channels), cfg.layers_per_block
 
     def count(levels, mid):
@@ -1919,7 +2138,7 @@ def mixed_launches(cfg, n_classes: int, boundary: int = 1) -> dict:
                  if cfg.down_block_has_attn[lvl])
         tr += mid * max(cfg.transformer_layers[-1], 1)
         return {"k1": 0, "flash_mha": 0, "masked": tr * n_classes,
-                "k4": 2 * res + 1, "k5": tr}
+                "k4": 2 * res + 1, "k5": tr, "k6": 0}
 
     full = count(range(n_levels), 1)
     return {"full": full, "off": full, "shallow": count(range(boundary), 0)}
@@ -1927,8 +2146,8 @@ def mixed_launches(cfg, n_classes: int, boundary: int = 1) -> dict:
 
 def expected_launches(steps, cfg) -> dict:
     """The launches of every recorded deep step (``spy_deep``), each by its
-    path and mode."""
-    want = {"k1": 0, "flash_mha": 0, "masked": 0, "k4": 0, "k5": 0}
+    path and mode, and of the VAE decodes since :func:`reset_counts`."""
+    want = decode_launches()
     for rec in steps:
         per = (mixed_launches(cfg, rec["classes"]) if rec["path"] == "mixed"
                else deep_launches(cfg, rec["res"]))[rec["mode"]]
@@ -2042,14 +2261,15 @@ def serve_sdxl_deep(card: str, bundle: ModelBundle) -> list:
               f"[{card}]")
         per = deep_launches(bundle.denoiser.cfg, DEEP_REQUESTS[0])
         want = {k: sum(per[m][k] * n for m, n in modes.items())
-                for k in ("k1", "k5")}
-        print(f"deep modes {modes}; K1/K5 expected {want}")
+                for k in ("k1", "k5", "k6")}
+        want["k6"] += decode_launches()["k6"]
+        print(f"deep modes {modes}; K1/K5/K6 expected {want}")
         if (modes.get("full", 0) < 1 or modes.get("shallow", 0) < 1
                 or sum(modes.values()) != DEEP_STEPS):
             raise AssertionError(f"deep modes {modes}")
         if bundle.denoiser.cfg == unet_mod.SDXL_UNET and (
-                per["full"] != {"k1": 70, "k5": 70}
-                or per["shallow"] != {"k1": 0, "k5": 0}):
+                per["full"] != {"k1": 70, "k5": 70, "k6": 46}
+                or per["shallow"] != {"k1": 0, "k5": 0, "k6": 11}):
             raise AssertionError(f"SDXL launches per deep step {per}")
         if {k: got[k] for k in want} != want \
                 or got["masked"] or got["k4"] or got["flash_mha"]:
@@ -2094,9 +2314,9 @@ def serve_sd15_rowwarm(card: str, bundle: ModelBundle) -> dict:
     check_outputs(outs, [DEEP_SD15_RES] * 3, card)
     modes = report_deep(steps, f"SD-1.5 {DEEP_SD15_RES}^2 row warmup", card)
     per = deep_launches(bundle.denoiser.cfg, DEEP_SD15_RES)
-    want = {"k1": 0, "flash_mha": 0, "masked": 0, "k4": 0, "k5": 0}
+    want = decode_launches()
     for mode, n in modes.items():
-        for k in ("k1", "k5"):
+        for k in ("k1", "k5", "k6"):
             want[k] += per[mode][k] * n
     print(f"SD-1.5 row warmup: 3 requests in {wall:.3f} s; deep modes "
           f"{modes} (per step {per}); launches {got} (expected {want}); "
@@ -2394,8 +2614,9 @@ def serve_cache_run(card: str, bundle: ModelBundle, cache: CacheConfig,
 
 def cache_launches(rec, cfg) -> dict:
     """The launches the recorded steps make, each as a cache-off step of
-    its path: a gated pair runs its body once, on whatever rows."""
-    want = {"k1": 0, "flash_mha": 0, "masked": 0, "k4": 0, "k5": 0}
+    its path (a gated pair runs its body once, on whatever rows), and the
+    VAE decodes' since :func:`reset_counts`."""
+    want = decode_launches()
     for r in rec:
         per = (mixed_launches(cfg, r["classes"])["off"] if r["path"] == "mixed"
                else deep_launches(cfg, r["res"])["full"])
@@ -2839,7 +3060,9 @@ def serve_http(card: str, bundle: ModelBundle) -> dict:
     them under FCFS; and /abort for E once it denoises.  Checks the
     answers, PNGs, /health, /stats and /clear; that a decode group ran on
     the decode thread while DENOISING iterations went on, that no hand
-    kernel launched off the engine's thread, and the launches per realized
+    kernel launched off the engine's thread but the decoder's K6 on the
+    decode thread (one call a GroupNorm of each group it decoded), and the
+    launches per realized
     mode.  Prints the latencies, the decode thread's ms per group, the
     gate's decisions, the observed step times with and without a decode
     in flight, the measured decode bytes per pixel and the peak memory."""
@@ -2876,7 +3099,7 @@ def serve_http(card: str, bundle: ModelBundle) -> dict:
     check = _build.check
 
     def spy_check(lib, err, what):
-        launch_threads[threading.current_thread().name] += 1
+        launch_threads[threading.current_thread().name, what] += 1
         return check(lib, err, what)
 
     pipe._decode_group = spy_decode_group
@@ -2995,11 +3218,19 @@ def serve_http(card: str, bundle: ModelBundle) -> dict:
     if not overlapped:
         raise AssertionError(f"no decode group overlapped a DENOISING "
                              f"iteration: {decodes}")
-    off_loop = {name: n for name, n in launch_threads.items()
-                if not name.startswith("engine-step")}
-    if off_loop:
+    # the decode thread's only hand kernel is K6, once per GroupNorm of
+    # each decode group it ran
+    off_loop = {key: n for key, n in launch_threads.items()
+                if not key[0].startswith("engine-step")}
+    n_post = sum(d["thread"].startswith("post-") for d in decodes)
+    want_post = norms_of(pipe.bundle.models["vae"].decoder) * n_post
+    got_post = sum(n for (name, what), n in off_loop.items()
+                   if name.startswith("post-") and what == "gn_dense launch")
+    if got_post != sum(off_loop.values()) or got_post != want_post:
         raise AssertionError(f"hand kernels launched off the engine's "
-                             f"thread: {dict(launch_threads)}")
+                             f"thread: {dict(launch_threads)} (expected "
+                             f"only K6 on the decode thread, {want_post} "
+                             f"calls for {n_post} decode groups)")
 
     # the wall time of each DENOISING iteration (to the next logged
     # iteration) and the step times fed to the policy, with and without a
@@ -3130,7 +3361,8 @@ def serve_sd15_snapshot(card: str, bundle: ModelBundle) -> dict:
     so the round trip is exact) and served from it through
     ``DiffusionPipeline(model_path=...)``: 2 x 512^2, 8 Euler steps, the
     images bitwise equal to the same requests served from the in-memory
-    bundle, and the launches of K1 and K5 one dense forward's a step.  Then
+    bundle, and the launches of K1, K5 and K6 one dense forward's a step
+    (and K6's of each decode).  Then
     served again with ``safety_checker_path="random"`` (ViT-L/14, float32):
     the checker's image embeddings on the card within CHECKER_REL of the
     same checker on the CPU; no flag with the random concepts, so the
@@ -3142,15 +3374,16 @@ def serve_sd15_snapshot(card: str, bundle: ModelBundle) -> dict:
     kw = dict(resolution=SNAPSHOT_REQUESTS, num_inference_steps=STEPS,
               seed=1234)
     per_forward = deep_launches(bundle.denoiser.cfg, 512)["full"]
-    want = {"k1": per_forward["k1"] * STEPS, "flash_mha": 0, "masked": 0,
-            "k4": 0, "k5": per_forward["k5"] * STEPS}
-    total = dict.fromkeys(want, 0)
+    total = dict.fromkeys(COUNTED_WRAPPERS, 0)
 
     def serve(pipe, label, flagged_ok=False):
         reset_counts()
         outs = pipe.generate(prompts, **kw)
         torch.cuda.synchronize()
         got = read_counts()
+        want = decode_launches()
+        for k in ("k1", "k5", "k6"):
+            want[k] += per_forward[k] * STEPS
         # a flagged image is all zero: check_outputs takes the others
         check_outputs([o for o in outs if not (flagged_ok and o.nsfw_flagged)],
                       [r for o, r in zip(outs, SNAPSHOT_REQUESTS)
@@ -3184,7 +3417,7 @@ def serve_sd15_snapshot(card: str, bundle: ModelBundle) -> dict:
               f"{t_write:.1f} s, loaded in {t_load:.1f} s; {len(outs)} x "
               f"512^2 x {STEPS} "
               f"steps bitwise equal to the in-memory bundle's: {same}; "
-              f"launches {want} a run [{card}]")
+              f"launches {read_counts()} a run [{card}]")
         if not all(same):
             raise AssertionError("the snapshot's images differ from the "
                                  "in-memory bundle's")
@@ -3599,7 +3832,7 @@ def serve_chunked(card: str, bundle: ModelBundle, label: str, config,
     if chunked["modes"] != stepped["modes"]:
         raise AssertionError(f"{label}: modes {chunked['modes']} != "
                              f"per-step {stepped['modes']}")
-    want = {"k1": 0, "flash_mha": 0, "masked": 0, "k4": 0, "k5": 0}
+    want = dict.fromkeys(COUNTED_WRAPPERS, 0)  # latents only: no decode
     for mode in stepped["modes"] or ["off"] * stepped["steps"]:
         for key, n in per_step(mode).items():
             want[key] += n
@@ -3687,7 +3920,7 @@ def serve_sd3_chunked(card: str, bundle: ModelBundle) -> list:
         prewarm=dict(resolutions=(1024,), buckets=(4,), steps=4),
         full={1024: 4},
         per_step=lambda mode: {
-            "k1": 0, "flash_mha": 0, "k4": 0, "k5": 0,
+            "k1": 0, "flash_mha": 0, "k4": 0, "k5": 0, "k6": 0,
             "masked": sd3_attentions(bundle, span if mode == "shallow"
                                      else (0, 0))})
 
@@ -3695,15 +3928,38 @@ def serve_sd3_chunked(card: str, bundle: ModelBundle) -> list:
 # the wrappers chip_smoke counts, by the key the launch dicts use
 COUNTED_WRAPPERS = {"k1": flash_mha_fused, "flash_mha": flash_mha,
                     "masked": flash_mha_masked, "k4": gn_silu_halo,
-                    "k5": flash_cross_short}
+                    "k5": flash_cross_short, "k6": gn_dense}
+# the GroupNorms of each VAE decoder forward since reset_counts
+# (spy_decoders)
+DECODER_NORMS: list = []
 
 
 def reset_counts() -> None:
-    flash_mha_fused.launches = flash_mha.launches = 0
-    flash_mha_masked.launches = gn_silu_halo.launches = 0
-    flash_cross_short.launches = 0
     for fn in COUNTED_WRAPPERS.values():
+        fn.launches = 0
         fn.__dict__.pop("by_thread", None)
+    DECODER_NORMS.clear()
+
+
+def spy_decoders() -> None:
+    """Record the GroupNorms of every VAE decoder forward, on any thread
+    (the decode thread too), in DECODER_NORMS."""
+    real = vae_mod.Decoder.forward
+
+    def forward(self, z):
+        DECODER_NORMS.append(norms_of(self))
+        return real(self, z)
+
+    vae_mod.Decoder.forward = forward
+
+
+def decode_launches() -> dict:
+    """The launches of the VAE decodes since :func:`reset_counts`: one K6
+    call a GroupNorm of each decoder forward (every GroupNorm of the
+    decoder is dense), no other kernel."""
+    out = dict.fromkeys(COUNTED_WRAPPERS, 0)
+    out["k6"] = sum(DECODER_NORMS)
+    return out
 
 
 def shard_counts(n: int) -> list:
@@ -3795,9 +4051,7 @@ def equal_picks(one: list, group: list) -> tuple:
 
 
 def read_counts() -> dict:
-    return {"k1": flash_mha_fused.launches, "flash_mha": flash_mha.launches,
-            "masked": flash_mha_masked.launches, "k4": gn_silu_halo.launches,
-            "k5": flash_cross_short.launches}
+    return {key: fn.launches for key, fn in COUNTED_WRAPPERS.items()}
 
 
 def serve_sd15(card: str, bundle: ModelBundle, mixed: bool, sampler: str,
@@ -3806,7 +4060,8 @@ def serve_sd15(card: str, bundle: ModelBundle, mixed: bool, sampler: str,
     (mixed batches off, one UNet forward per resolution group) or the
     default configuration (one patched forward per step).  Asserts the
     images, the DENOISING batches and the launches of K1, the masked kernel,
-    K4 and K5 that SD15_UNET gives for these requests.  ``async_prepare``:
+    K4, K5 and K6 that SD15_UNET gives for these requests (K6: each dense
+    forward's GroupNorms and each decode's).  ``async_prepare``:
     also asserts that every prepare ran on the worker's prepare thread."""
     torch.cuda.reset_peak_memory_stats()
     config = default_config("sd15", dtype="bfloat16", seed=0, sampler=sampler)
@@ -3858,7 +4113,7 @@ def serve_sd15(card: str, bundle: ModelBundle, mixed: bool, sampler: str,
     # self-attention with >= FLASH_MIN_KV keys on K1, each shorter one and
     # each cross-attention on K5
     n_self = len(sd15_self_attention_keys(cfg, requests[0]))
-    want = {"k1": 0, "flash_mha": 0, "masked": 0, "k4": 0, "k5": 0}
+    want = decode_launches()
     for entry in batches:
         res = [int(part.split("x")[0]) for part in entry.split(";")]
         if mixed:
@@ -3869,6 +4124,7 @@ def serve_sd15(card: str, bundle: ModelBundle, mixed: bool, sampler: str,
             keys = [k for r in res for k in sd15_self_attention_keys(cfg, r)]
             want["k1"] += sum(k >= FLASH_MIN_KV for k in keys)
             want["k5"] += len(keys) + sum(k < FLASH_MIN_KV for k in keys)
+            want["k6"] += dense_norms(cfg) * len(res)
     key = batches[0]
     path = "mixed" if mixed else "dense"
     print(f"SD-1.5 {path} serving ({sampler}, {steps} steps = {evals} "
@@ -4021,9 +4277,9 @@ def replay_sdxl(card: str, bundle: ModelBundle, devices=None,
     want = compute_metrics(micro, "sdxl", slo=REPLAY_SLO)
     if json.dumps(want) != json.dumps(back):  # NaN equal to NaN
         raise AssertionError(f"metrics {want} != CSV round trip {back}")
-    if got["k5"] == 0:
+    if got["k5"] == 0 or got["k6"] == 0:
         raise AssertionError(f"the replay launched no text cross-attention "
-                             f"kernel: {got}")
+                             f"or dense GroupNorm kernel: {got}")
     print(f"replay_sdxl metrics ({REPLAY_N} rows of {REPLAY_TRACE}, slo "
           f"{REPLAY_SLO}, ESyMReD, production('sdxl'), dp "
           f"{len(engine.workers)}, requests per replica "
@@ -4102,7 +4358,7 @@ def serve_dp(card: str, bundle: ModelBundle, devices: list,
     want = greedy_ranks(resolutions, len(devices))
     if ranks != want or set(ranks) != set(range(len(devices))):
         raise AssertionError(f"dispatch {ranks}, host greedy {want}")
-    if got["k1"] == 0 or got["k5"] == 0:
+    if got["k1"] == 0 or got["k5"] == 0 or got["k6"] == 0:
         raise AssertionError(f"dp launches {got}")
     for rank, dev in enumerate(devices):
         mine = [r for r, k in zip(reqs, ranks) if k == rank]
@@ -4234,11 +4490,12 @@ def group_err(got, want) -> list:
 
 
 def check_group_run(label: str, got, want, bound_rel: float, card: str,
-                    launch_ratio=None) -> None:
+                    launch_ratio=None, k6=None) -> None:
     """Print and check a group run against its single-device run: the
     latents within ``bound_rel``, finite, and (``launch_ratio``) every
     kernel launched that many times as often, each shard's forward
-    launching what one device's does."""
+    launching what one device's does; ``k6``: K6's launches instead (a
+    group over sp normalises through its shard context's moments: 0)."""
     errs = group_err(got, want)
     same = all(np.array_equal(g, w) for g, w in
                zip(got["latents"], want["latents"]))
@@ -4255,6 +4512,8 @@ def check_group_run(label: str, got, want, bound_rel: float, card: str,
         raise AssertionError(f"{label} disagrees with one device: {errs}")
     if launch_ratio is not None:
         want_n = {k: launch_ratio * v for k, v in want["counts"].items()}
+        if k6 is not None:
+            want_n["k6"] = k6
         if got["counts"] != want_n:
             raise AssertionError(f"{label}: launches {got['counts']}, want "
                                  f"{launch_ratio} x one device's {want_n}")
@@ -4417,7 +4676,7 @@ def serve_sp2(card: str, bundle: ModelBundle, ref_dense: dict) -> list:
                        "cache-off", sp=2)
     check_group_run(f"serve_sp2 SDXL {GROUP_DENSE} x {GROUP_STEPS} steps, "
                     f"sp=2 gspmd on {GROUP_DEVICES}", sync, ref_dense,
-                    GROUP_MAX_REL, card, launch_ratio=2)
+                    GROUP_MAX_REL, card, launch_ratio=2, k6=0)
     runs.append(sync["counts"])
     for label, cache, interval in (
             ("cache-off", None, None),
@@ -4706,6 +4965,7 @@ def main() -> None:
     configure_numerics()
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+    spy_decoders()
 
     t0 = time.perf_counter()
     built = _build.build()
@@ -4743,10 +5003,12 @@ def main() -> None:
                             k4_compact["max_abs_err"],
                             k4_tp2["max_abs_err"])
     k5 = check_k5(card)
+    k6 = check_k6(card)
     check_block()
     check_sd3_block()
     check_sd15_block()
     bundle = build_bundle()
+    check_k6_launches(card, bundle)
     check_patched(bundle)
     runs = [serve(card, bundle), serve_mixed(card, bundle)]
     check_deep_invariant(bundle, card)
@@ -4820,6 +5082,9 @@ def main() -> None:
          (mixed_meta().p_pad,) + K4_SHAPES[0]),
         ("flash_cross_short", "sduss_tpu_torch/csrc/flash_cross.cu",
          "sduss_tpu/ops/flash.py:421", launches["k5"], k5, K5_SHAPES[2]),
+        ("gn_dense", "sduss_tpu_torch/csrc/gn_dense.cu",
+         "none (XLA fuses sduss_tpu/models/layers.py group_norm)",
+         launches["k6"], k6, (K6_UNET_SHAPES[0], "bfloat16")),
     ]
     print(card)
     print(json.dumps({"kernels": [

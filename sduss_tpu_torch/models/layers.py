@@ -20,6 +20,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from sduss_tpu_torch.ops.gn_dense import gn_dense
+
 
 def linear(x, weight, bias=None):
     """``x @ weight.T + bias`` in x's dtype (weight is torch ``(out, in)``)."""
@@ -52,27 +54,18 @@ def conv_apply(conv, x, stride: int = 1, padding=0):
 
 
 def group_norm(x, weight, bias, num_groups: int, eps: float = 1e-5,
-               act: Optional[str] = None):
+               act: Optional[str] = None, add=None):
     """GroupNorm over an ``(N, C, ...)`` tensor with float32 moments.
 
     The moments are E[x] and E[x^2] - E[x]^2, clamped at 0, exactly as the
     JAX group_norm and the fused patch kernel compute them (layers.py:90-119),
-    not torch's two-pass variance; ``act="silu"`` fuses the activation.
+    not torch's two-pass variance; ``act="silu"`` fuses the activation and
+    ``add`` (N, C) is added to x first, in x's dtype.  On the card kernel
+    K6 (``ops/gn_dense.py``), on the CPU its plain version.
     """
-    n, c = x.shape[:2]
-    g = num_groups
-    xg = x.reshape(n, g, c // g, -1).float()
-    mean = xg.mean(dim=(2, 3), keepdim=True)
-    var = torch.clamp((xg * xg).mean(dim=(2, 3), keepdim=True) - mean * mean,
-                      min=0.0)
-    a = torch.rsqrt(var + eps) * weight.float().reshape(1, g, c // g, 1)
-    b = bias.float().reshape(1, g, c // g, 1) - mean * a
-    y = xg * a + b
-    if act == "silu":
-        y = F.silu(y)
-    elif act is not None:
-        raise ValueError(act)
-    return y.reshape(x.shape).to(x.dtype)
+    # a UNet transformer's residual add returns channels-last strides;
+    # K6 takes NCHW
+    return gn_dense(x.contiguous(), weight, bias, num_groups, eps, act, add)
 
 
 def layer_norm(x, weight, bias, eps: float = 1e-5):
@@ -196,9 +189,9 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x, act: Optional[str] = None):
+    def forward(self, x, act: Optional[str] = None, add=None):
         return group_norm(x, self.weight, self.bias, self.num_groups,
-                          self.eps, act)
+                          self.eps, act, add)
 
 
 class LayerNorm(nn.LayerNorm):

@@ -149,14 +149,14 @@ class ResnetBlock2D(nn.Module):
                               if in_ch != out_ch else None)
 
     def forward(self, x, temb, ctx=None):
+        t = self.time_emb_proj(_silu(temb))
         if ctx is None:
+            # the time-embedding add runs inside norm2 (K6 on the card)
             h = self.conv1(self.norm1(x, act="silu"))
+            h = self.conv2(self.norm2(h, act="silu", add=t))
         else:
             h = ctx.gn_silu_conv(self.norm1, self.conv1, x)
-        h = h + self.time_emb_proj(_silu(temb))[:, :, None, None].to(h.dtype)
-        if ctx is None:
-            h = self.conv2(self.norm2(h, act="silu"))
-        else:
+            h = h + t[:, :, None, None].to(h.dtype)
             h = ctx.gn_silu_conv(self.norm2, self.conv2, h)
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)

@@ -12,6 +12,7 @@ CUDA tensor; the CPU path never calls into this module.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -24,6 +25,8 @@ import threading
 import time
 from pathlib import Path
 from typing import NamedTuple
+
+import torch
 
 from sduss_tpu_torch import tracing
 
@@ -171,6 +174,23 @@ def count(fn, n: int = 1) -> None:
         by[name] = by.get(name, 0) + n
 
 
+@contextlib.contextmanager
+def stream_for(device):
+    """Yield the raw handle of ``device``'s current CUDA stream, with
+    ``device`` the current device while the block runs: a launch and a
+    kernel's shared-memory attribute act on the current device (a replica
+    on another card).  On the current device the handle is read directly,
+    without building a ``torch.cuda.Stream`` (about 11 us less a launch,
+    measured on an H100)."""
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        yield torch._C._cuda_getCurrentRawStream(index)
+    else:
+        with torch.cuda.device(index):
+            yield torch._C._cuda_getCurrentRawStream(index)
+
+
 def load_library() -> ctypes.CDLL:
     """Build if needed, load once (whichever thread asks first), and
     declare every entry point's types."""
@@ -197,6 +217,13 @@ def _load() -> ctypes.CDLL:
     lib.sduss_gn_silu_halo.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i,
                                        p]
     lib.sduss_gn_silu_halo.restype = ctypes.c_int
+    lib.sduss_gn_dense.argtypes = [p, p, p, p, i, p, p, i, i, i, i, i, i, i,
+                                   i, i, ctypes.c_float, ctypes.c_uint, i, p]
+    lib.sduss_gn_dense.restype = ctypes.c_int
+    lib.sduss_gn_dense_cluster.argtypes = [p, p, p, p, i, p, i, i, i, i, i,
+                                           i, i, ctypes.c_float,
+                                           ctypes.c_uint, i, p]
+    lib.sduss_gn_dense_cluster.restype = ctypes.c_int
     lib.sduss_cuda_error_string.argtypes = [ctypes.c_int]
     lib.sduss_cuda_error_string.restype = ctypes.c_char_p
     return lib

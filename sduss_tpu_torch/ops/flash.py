@@ -140,10 +140,7 @@ def flash_mha_fused(q, k, v, num_heads: int, scale: float):
     lib = _build.load_library()
     b, lq, d = q.shape
     out = torch.empty_like(q)
-    # the launch and its shared-memory attribute act on the current
-    # device: make it the tensors' (a replica on another card)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    with _build.stream_for(q.device) as stream:
         err = lib.sduss_flash_mha_fused(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, lq, k.shape[1], d, num_heads, float(scale) * _LOG2E, stream)
@@ -189,10 +186,7 @@ def flash_mha(q, k, v, num_heads: int, scale: float, kv_mask=None,
     lib = _build.load_library()
     b, lq, d = q.shape
     out = torch.empty_like(q)
-    # the launch and its shared-memory attribute act on the current
-    # device: make it the tensors' (a replica on another card)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    with _build.stream_for(q.device) as stream:
         err = lib.sduss_flash_mha(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, lq, k.shape[1], n, d, num_heads, float(scale) * _LOG2E, stream)
@@ -234,10 +228,7 @@ def flash_mha_masked(q, k, v, kv_mask, num_heads: int, scale: float):
     lib = _build.load_library()
     b, lq, d = q.shape
     out = torch.empty_like(q)
-    # the launch and its shared-memory attribute act on the current
-    # device: make it the tensors' (a replica on another card)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    with _build.stream_for(q.device) as stream:
         err = lib.sduss_flash_mha_masked(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(),
             out.data_ptr(), b, lq, k.shape[1], d, num_heads,
@@ -278,10 +269,7 @@ def flash_cross_short(q, k, v, num_heads: int, scale: float):
     lib = _build.load_library()
     b, lq, d = q.shape
     out = torch.empty_like(q)
-    # the launch and its shared-memory attribute act on the current
-    # device: make it the tensors' (a replica on another card)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    with _build.stream_for(q.device) as stream:
         err = lib.sduss_flash_cross_short(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, lq, k.shape[1], d, num_heads, float(scale) * _LOG2E, stream)

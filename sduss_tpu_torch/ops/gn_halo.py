@@ -141,10 +141,7 @@ def gn_silu_halo(x, image_id, neighbors, mean, rstd, weight, bias,
     pp, c, s, _ = x.shape
     lib = _build.load_library()
     out = torch.empty((pp, c, s + 2, s + 2), dtype=x.dtype, device=x.device)
-    # the launch and its shared-memory attribute act on the current
-    # device: make it the tensors' (a replica on another card)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    with _build.stream_for(x.device) as stream:
         err = lib.sduss_gn_silu_halo(
             x.data_ptr(), image_id.data_ptr(), neighbors.data_ptr(),
             mean.data_ptr(), rstd.data_ptr(), weight.data_ptr(), bias.data_ptr(),

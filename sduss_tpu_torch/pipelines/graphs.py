@@ -63,13 +63,14 @@ import torch
 from sduss_tpu_torch import tracing
 from sduss_tpu_torch.ops.flash import (flash_cross_short, flash_mha,
                                        flash_mha_fused, flash_mha_masked)
+from sduss_tpu_torch.ops.gn_dense import gn_dense
 from sduss_tpu_torch.ops.gn_halo import gn_silu_halo
 from sduss_tpu_torch.parallel.replica import on_device
 from sduss_tpu_torch.parallel.sharding import parts_of
 
 # The wrappers whose ``launches`` counters chip_smoke reads.
 COUNTED = (flash_mha_fused, flash_mha, flash_mha_masked, flash_cross_short,
-           gn_silu_halo)
+           gn_silu_halo, gn_dense)
 
 # Step sets kept per pipeline, least recently used first out.  A set holds
 # its graphs and its buffers (its row state, if any, is bounded by bytes

@@ -34,7 +34,11 @@ the same chunks stepped eagerly, and the launch counters count the
 replayed kernels.  K4 at a tensor-parallel shard's C / 2 channels matches
 its plain version, and a small UNet on sp x tp shards of card 0 matches
 its one-device forward (the tp shards bitwise equal, each shard
-launching one device's kernels).
+launching one device's kernels).  K6 (gn_dense, the dense GroupNorm) matches
+its plain version within 2^-7 of max |plain| in bf16 (one bf16 ulp at the
+output scale) and 1e-5 in float32, in its single-read (cluster) and
+two-pass designs and on the scalar path, with and without the fused add,
+and repeats bit for bit.
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from sduss_tpu_torch.entrypoints.offline import default_config
 from sduss_tpu_torch.models.registry import ModelBundle
 from sduss_tpu_torch.ops import attention as tattn
 from sduss_tpu_torch.ops import flash as tflash
+from sduss_tpu_torch.ops import gn_dense as tgd
 from sduss_tpu_torch.ops import gn_halo as tgn
 from sduss_tpu_torch.ops import patching as tpatching
 from sduss_tpu_torch.pipelines.base import _DriftScalar
@@ -862,3 +867,108 @@ def test_group_forward_on_one_card(cuda, sp, tp):
     assert [b - a for a, b in zip(c1, c2)] == [group.size * (b - a)
                                                for a, b in zip(c0, c1)]
     group.close()
+
+
+K6_MAX_REL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
+
+
+def _k6_case(cuda, shape, dtype, seed=14):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = (1.5 * torch.randn(*shape, generator=gen, device=cuda) + 0.2).to(dtype)
+    c = shape[1]
+    w, b = (torch.randn(c, generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    add = torch.randn(shape[0], c, generator=gen, device=cuda)
+    return x, w, b, add
+
+
+def _k6_close(out, ref, dtype):
+    err = (out.float() - ref.float()).abs().max().item()
+    assert torch.isfinite(out).all()
+    assert err <= K6_MAX_REL[dtype] * ref.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,groups", [
+    ((2, 320, 64, 64), 32), ((8, 1280, 8, 8), 32), ((1, 128, 256, 256), 32),
+    ((3, 96, 5, 6), 32),   # H * W not a multiple of a vector: scalar path
+    ((2, 64, 1, 1), 8), ((1, 48, 7, 3), 1),
+    ((2, 64, 512, 512), 32),   # single read, 64 KB chunks of 16 blocks
+    ((1, 128, 512, 512), 32),  # a 2 MB group: two passes, vector path
+])
+@pytest.mark.parametrize("act", ["silu", None])
+def test_k6_matches_plain(cuda, shape, groups, dtype, act):
+    x, w, b, add = _k6_case(cuda, shape, dtype)
+    for a in (None, add):
+        before = tgd.gn_dense.launches
+        out = tgd.gn_dense(x, w, b, groups, 1e-5, act, a)
+        torch.cuda.synchronize()
+        assert tgd.gn_dense.launches == before + 1
+        assert out.dtype == dtype and out.shape == x.shape
+        _k6_close(out, tgd.group_norm_reference(x, w, b, groups, 1e-5, act,
+                                                a), dtype)
+
+
+@pytest.mark.cuda
+def test_k6_unaligned_input_and_float32_affine(cuda):
+    """A contiguous view that starts off 16 bytes takes the scalar path;
+    a float32 affine on bf16 x reads as float32."""
+    shape = (2, 64, 16, 16)
+    x, w, b, add = _k6_case(cuda, shape, torch.bfloat16)
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    xu = flat[1:].view(shape)
+    xu.copy_(x)
+    assert xu.data_ptr() % 16 != 0
+    got = tgd.gn_dense(xu, w, b, 32, 1e-5, "silu", add)
+    _k6_close(got, tgd.group_norm_reference(x, w, b, 32, 1e-5, "silu", add),
+              torch.bfloat16)
+    got = tgd.gn_dense(x, w.float(), b.float(), 32, 1e-5, "silu")
+    _k6_close(got, tgd.group_norm_reference(x, w.float(), b.float(), 32,
+                                            1e-5, "silu"), torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_k6_repeats_bitwise(cuda):
+    """No atomics: two calls at a shape cut into many spans a group give
+    the same bits."""
+    x, w, b, add = _k6_case(cuda, (1, 256, 512, 512), torch.bfloat16)
+    args = (x, w, b, 32, 1e-6, "silu", add)
+    assert torch.equal(tgd.gn_dense(*args), tgd.gn_dense(*args))
+
+
+@pytest.mark.cuda
+def test_k6_single_read_repeats_bitwise(cuda):
+    """The single read sums its cluster's partials in rank order: two
+    calls at SDXL's level-0 shape (eight blocks a group) give the same
+    bits."""
+    shape = (8, 320, 128, 128)
+    assert tgd.plan_cluster(8, 320, 128 * 128, 32, 2) == 8
+    x, w, b, add = _k6_case(cuda, shape, torch.bfloat16)
+    args = (x, w, b, 32, 1e-5, "silu", add.to(torch.bfloat16))
+    assert torch.equal(tgd.gn_dense(*args), tgd.gn_dense(*args))
+
+
+@pytest.mark.cuda
+def test_k6_largest_group_with_add(cuda):
+    """MAX_GROUP_CHANNELS channels in one group, with the add: the apply
+    kernel's shared tables at their largest still launch."""
+    top = tgd.MAX_GROUP_CHANNELS
+    x, w, b, add = _k6_case(cuda, (2, top, 4, 4), torch.bfloat16)
+    _k6_close(tgd.gn_dense(x, w, b, 1, 1e-5, "silu", add),
+              tgd.group_norm_reference(x, w, b, 1, 1e-5, "silu", add),
+              torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_stream_for_reads_the_current_stream(cuda):
+    """The launches' stream is the device's current one, a side stream
+    too."""
+    from sduss_tpu_torch.ops import _build
+
+    with _build.stream_for(torch.device(cuda)) as handle:
+        assert handle == torch.cuda.current_stream(cuda).cuda_stream
+    side = torch.cuda.Stream(device=cuda)
+    with torch.cuda.stream(side), \
+            _build.stream_for(torch.device(cuda)) as handle:
+        assert handle == side.cuda_stream
